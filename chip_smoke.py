@@ -6,11 +6,14 @@
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
 1. Build every CUDA kernel of the port from ``raydp_tpu_torch/csrc``
-   (nvcc, sm_90a), then hold the flash-attention forward kernel against
+   (nvcc, sm_90a, one process per source), then hold each kernel against
    its plain PyTorch version on the card: f32 and bf16, causal and not,
-   at the main path's shapes; ``out`` and ``lse`` both checked. Times the
-   kernel, the plain version and ``scaled_dot_product_attention`` (the
-   library yardstick, which the port never calls) at the BERT-GLUE shape.
+   at the main path's shapes. The forward's ``out`` and ``lse``; the
+   backward's delta, dq, dk and dv under a random cotangent. Times each
+   kernel and its plain version at the BERT shape (B 32, S 128), the
+   forward against ``scaled_dot_product_attention`` and the whole
+   backward against SDPA's backward (the library yardsticks, which the
+   port never calls).
 2. BERT-GLUE forward: ``SequenceClassifier`` at bert_base width, bf16,
    ``attention_impl="flash"``, batch 32 x seq 128; logits held against
    the same weights with dense attention (bf16 and f32).
@@ -18,10 +21,17 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``DecodeLoop``, 8 ragged prompts (3 to 200 tokens), 16 new tokens
    each; every stream must equal ``reference_decode``, which runs the
    flash kernel.
+4. BERT-GLUE fine-tune: (a) one batch's parameter gradients with flash
+   against dense attention (bf16 and f32); (b) ``Estimator.fit`` of the
+   bf16 flash ``SequenceClassifier`` at bert_base width and depth,
+   dropout 0.1, AdamW, ``softmax_ce``, batch 32 x seq 128, a few epochs
+   of 10 steps on learnable data, then ``evaluate`` and ``predict``, with
+   a profile of one train step; (c) a short self-supervised ``lm_ce`` fit
+   of a bert_base-width ``CausalLM`` (causal flash backward).
 
-Kernel launch counts are set to 0 just before each main-path phase (2
-and 3) and read just after. The last lines are a ``kernels`` JSON line,
-the card's name and power limit, and ``{"ok": true, "device": ...}``.
+Kernel launch counts are set to 0 just before each main-path phase (2,
+3, 4b and 4c) and read just after. The last lines are a ``kernels`` JSON
+line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -40,6 +50,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# Backward kernels vs plain: the JAX package's gradient bounds; the slack
+# over the forward's comes from summation order, which can move a bf16
+# rounding of p or ds by one ulp. delta is one f32 row sum.
+GRAD_TOL = {"float32": dict(rtol=1e-3, atol=1e-4),
+            "bfloat16": dict(rtol=6e-2, atol=6e-2)}
+DELTA_TOL = dict(rtol=1e-4, atol=1e-4)
 # bf16 logits after 12 layers: two bf16 paths differ by ~1e-2 at logits
 # of ~3 (bf16 rounds every layer), so 2e-2 relative plus 5e-2 absolute.
 LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
@@ -51,6 +67,22 @@ KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
 GLUE_BATCH, GLUE_SEQ = 32, 128
 DECODE_PROMPT_LENS = [3, 17, 40, 64, 90, 128, 161, 200]
 DECODE_MAX_NEW = 16
+# Fine-tune: 10 steps an epoch; the causal LM fit: batch 8 x seq 256.
+FIT_EPOCHS, FIT_STEPS = 4, 10
+LM_BATCH, LM_SEQ, LM_EPOCHS, LM_STEPS = 8, 256, 2, 3
+# Per-parameter relative L2 error of flash against dense gradients over
+# 12 bf16 layers: the two paths round at different places (bf16 P, the
+# kernels' summation order) and the differences grow through depth; a
+# wrong kernel output gives errors of order 1.
+GRAD_REL_BOUND = 0.1
+
+
+def flash_module():
+    """The module ``raydp_tpu_torch.ops.flash_attention`` (the package
+    re-exports a function of the same name)."""
+    import importlib
+
+    return importlib.import_module("raydp_tpu_torch.ops.flash_attention")
 
 
 def log(msg: str) -> None:
@@ -101,9 +133,12 @@ def device_profile(torch, label, fn, top=5):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # Device events only; user annotations (``Optimizer.step#...``) span
+    # kernels already counted and are left out.
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
-                   if str(e.device_type).endswith("CUDA"))
+                   if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         log(f"[profile] {label}: the profiler saw no device activity "
             "(not measured)")
@@ -205,6 +240,126 @@ def phase_kernel(torch, P):
         f"{entry['bound_ms']:.4f} by {entry['bound_by']} "
         f"({n_bytes} B, {flops} FLOP)")
     return entry
+
+
+def _bound(n_bytes, flops, dtype="bfloat16"):
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def phase_backward_kernels(torch, P):
+    """Each backward kernel against its plain version on the same inputs
+    (the kernels' own delta feeds both dq versions and both dk/dv
+    versions), then times and bounds at the BERT shape."""
+    fa = flash_module()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {"flash_bwd_delta": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
+    for shape in KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                name = str(dtype).split(".")[-1]
+                q, k, v = fused_qkv(torch, shape, dtype, gen)
+                out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                delta = fa.flash_bwd_delta(out, g)
+                dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+                want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, g, lse,
+                                                          delta, causal)
+                checks = [  # (kernel, output, kernel's, plain's, tolerance)
+                    ("flash_bwd_delta", "delta", delta,
+                     fa.flash_bwd_delta_plain(out, g), DELTA_TOL),
+                    ("flash_bwd_dq", "dq", dq,
+                     fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal),
+                     GRAD_TOL[name]),
+                    ("flash_bwd_dkv", "dk", dk, want_dk, GRAD_TOL[name]),
+                    ("flash_bwd_dkv", "dv", dv, want_dv, GRAD_TOL[name]),
+                ]
+                torch.cuda.synchronize()
+                report = []
+                for kname, label, got, want, tol in checks:
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = (torch.allclose(got.float(), want.float(), **tol)
+                          and bool(torch.isfinite(got).all()))
+                    report.append(f"{label} {err:.3e}")
+                    check(ok, f"{kname} {label} disagrees with plain at "
+                              f"{shape} {name} causal={causal} (err "
+                              f"{err:.3e}, tol {tol})")
+                    worst[kname] = max(worst[kname], err)
+                log(f"[1] backward {shape} {name} causal={causal}: "
+                    f"{', '.join(report)} ok")
+
+    b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
+    q, k, v = fused_qkv(torch, (b, s, h, d), torch.bfloat16, gen)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    g = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+    delta = fa.flash_bwd_delta(out, g)
+    el, row = b * s * h * d * 2, b * h * s * 4  # one bf16 tensor, one row stat
+    work = {  # bytes each input read once and output written once; FLOPs
+        "flash_bwd_delta": (2 * el + row, 2 * b * s * h * d),
+        "flash_bwd_dq": (5 * el + 2 * row, 6 * b * h * s * s * d),
+        "flash_bwd_dkv": (6 * el + 2 * row, 8 * b * h * s * s * d),
+    }
+    calls = {
+        "flash_bwd_delta": (lambda: fa.flash_bwd_delta(out, g),
+                            lambda: fa.flash_bwd_delta_plain(out, g)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, delta)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)),
+    }
+    entries = []
+    for kname, (kernel, plain) in calls.items():
+        kernel_ms = time_ms(torch, kernel, iters=50)
+        plain_ms = time_ms(torch, plain, iters=10)
+        kernel_ms_2 = time_ms(torch, kernel, iters=50)
+        n_bytes, flops = work[kname]
+        bound_ms, bound_by = _bound(n_bytes, flops)
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "raydp_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": {
+                "flash_bwd_delta": "raydp_tpu/ops/flash_attention.py:229",
+                "flash_bwd_dq": "raydp_tpu/ops/flash_attention.py:109",
+                "flash_bwd_dkv": "raydp_tpu/ops/flash_attention.py:144",
+            }[kname],
+            "launches": 0,
+            "max_abs_err": worst[kname],
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes it alone
+        })
+        log(f"[1] {kname} at (B {b}, S {s}, H {h}, D {d}) bf16: kernel_ms "
+            f"{kernel_ms:.4f} (again {kernel_ms_2:.4f}), plain_ms "
+            f"{plain_ms:.4f}, bound_ms {bound_ms:.4f} by {bound_by} "
+            f"({n_bytes} B, {flops} FLOP)")
+
+    # The whole backward against SDPA's: (fwd + bwd) - fwd on [B,H,S,D].
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qt, kt, vt), (qt, kt, vt), gt)
+
+    ours_ms = time_ms(torch, lambda: fa.flash_attention_backward(
+        q, k, v, out, lse, g), iters=50)
+    sdpa_fwd_ms = time_ms(torch, lambda: sdpa(qt, kt, vt), iters=50)
+    sdpa_both_ms = time_ms(torch, sdpa_fwd_bwd, iters=50)
+    log(f"[1] whole backward (delta + dq + dkv) {ours_ms:.4f} ms; SDPA "
+        f"backward (fwd+bwd {sdpa_both_ms:.4f} - fwd {sdpa_fwd_ms:.4f}) "
+        f"{sdpa_both_ms - sdpa_fwd_ms:.4f} ms")
+    return entries
 
 
 def phase_glue(torch, P):
@@ -352,6 +507,173 @@ def phase_decode(torch, P):
     return launches
 
 
+def _counts():
+    fa = flash_module()
+
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd_delta": fa.flash_bwd_delta.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _reset_counts():
+    fa = flash_module()
+
+    for fn in (fa.flash_attention, fa.flash_bwd_delta, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv):
+        fn.launches = 0
+
+
+def glue_columns(np, n, seq, vocab, seed):
+    """Learnable stand-in for a tokenized GLUE task (as
+    examples/bert_glue.py): the label is whether marker token 7 appears."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(10, vocab, size=(n, seq)).astype(np.int32)
+    pos = rng.random(n) < 0.5
+    ids[pos, rng.integers(0, seq, pos.sum())] = 7
+    cols = {f"t{i}": ids[:, i] for i in range(seq)}
+    cols["label"] = pos.astype(np.int32)
+    return ids, cols
+
+
+def phase_grad_check(torch, P):
+    """4a: one batch's parameter gradients, flash bf16 against dense bf16
+    and dense f32 with the same weights."""
+    import torch.nn.functional as F
+
+    grads = {}
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(10, 30522, (GLUE_BATCH, GLUE_SEQ), generator=gen)
+    labels = torch.randint(0, 2, (GLUE_BATCH,), generator=gen)
+    ids, labels = ids.cuda(), labels.cuda()
+    state = None
+    for impl, dtype in (("flash", torch.bfloat16), ("dense", torch.bfloat16),
+                        ("dense", torch.float32)):
+        model = P.SequenceClassifier(
+            P.bert_base(attention_impl=impl, dtype=dtype, dropout_rate=0.0),
+            device="cuda", generator=torch.Generator().manual_seed(4))
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        F.cross_entropy(model(ids), labels).backward()
+        grads[(impl, dtype)] = {n: p.grad.float() for n, p in
+                                model.named_parameters() if p.grad is not None}
+        del model
+    torch.cuda.empty_cache()
+    flash = grads[("flash", torch.bfloat16)]
+    for ref_key in (("dense", torch.bfloat16), ("dense", torch.float32)):
+        ref = grads[ref_key]
+        check(flash.keys() == ref.keys(), "gradient sets differ")
+        errs = {n: ((flash[n] - ref[n]).norm()
+                    / ref[n].norm().clamp_min(1e-30)).item() for n in ref}
+        worst = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(g).all()) for g in flash.values())
+        log(f"[4a] flash bf16 vs {ref_key[0]} {str(ref_key[1])[6:]} "
+            f"gradients: {len(errs)} parameters, median rel L2 "
+            f"{sorted(errs.values())[len(errs) // 2]:.3e}, worst "
+            f"{errs[worst]:.3e} ({worst}); bound {GRAD_REL_BOUND}")
+        check(finite, "non-finite flash gradients")
+        check(errs[worst] < GRAD_REL_BOUND,
+              f"flash gradient {worst} off by {errs[worst]:.3e} against "
+              f"{ref_key}")
+
+
+def phase_finetune(torch, P):
+    """4b: Estimator.fit of the bf16 flash classifier at bert_base."""
+    import numpy as np
+
+    n_rows = GLUE_BATCH * FIT_STEPS
+    ids, cols = glue_columns(np, n_rows, GLUE_SEQ, 30522, seed=5)
+    _, eval_cols = glue_columns(np, 2 * GLUE_BATCH, GLUE_SEQ, 30522, seed=6)
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      dropout_rate=0.1, max_len=GLUE_SEQ)
+    est = P.Estimator(
+        model=P.SequenceClassifier(cfg, device="cuda",
+                                   generator=torch.Generator().manual_seed(7)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4, weight_decay=1e-2),
+        loss="softmax_ce", metrics=["categorical_accuracy"],
+        num_epochs=FIT_EPOCHS, batch_size=GLUE_BATCH,
+        feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
+        seed=0, device="cuda",
+    )
+    torch.cuda.synchronize()
+    _reset_counts()
+    history = est.fit(P.MLDataset([cols], num_shards=1))
+    torch.cuda.synchronize()
+    counts = _counts()
+    steps = FIT_EPOCHS * FIT_STEPS
+    losses = [h["train_loss"] for h in history]
+    for h in history:
+        log(f"[4b] epoch {h['epoch']}: train_loss {h['train_loss']:.4f}, "
+            f"{h['samples']} samples in {h['time_s']:.3f} s -> "
+            f"{h['samples_per_sec']:.1f} samples/s, "
+            f"{h['time_s'] / FIT_STEPS * 1e3:.2f} ms/step")
+    log(f"[4b] launches over {steps} steps: {counts}")
+    evals = est.evaluate(P.MLDataset([eval_cols], num_shards=1))
+    preds = est.predict(ids[:GLUE_BATCH + 5])
+    log(f"[4b] evaluate: {evals}; predict {preds.shape}")
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(all(counts[k] == 12 * steps for k in counts),
+          f"expected {12 * steps} launches of each kernel, saw {counts}")
+    check(np.isfinite(evals["loss"]), "non-finite eval loss")
+    check(preds.shape == (GLUE_BATCH + 5, 2) and np.isfinite(preds).all(),
+          "predict output")
+
+    model, opt = est.get_model().train(), est.optimizer
+    x = torch.from_numpy(ids[:GLUE_BATCH]).cuda()
+    y = torch.from_numpy(cols["label"][:GLUE_BATCH]).cuda()
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(model(x), y.long()).backward()
+        opt.step()
+
+    step_ms = time_ms(torch, train_step, iters=10)
+    log(f"[4b] one train step (CUDA events, 10 steps): {step_ms:.3f} ms -> "
+        f"{GLUE_BATCH / step_ms * 1e3:.1f} samples/s")
+    device_profile(torch, "bert_base fine-tune, one train step", train_step,
+                   top=8)
+    del est, model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_causal_lm(torch, P):
+    """4c: a short self-supervised lm_ce fit of a bert_base-width
+    CausalLM, which runs the causal flash backward."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 30522, size=(LM_BATCH * LM_STEPS, LM_SEQ))
+    cols = {f"t{i}": ids[:, i].astype(np.int32) for i in range(LM_SEQ)}
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      causal=True, dropout_rate=0.1, max_len=LM_SEQ)
+    est = P.Estimator(
+        model=P.CausalLM(cfg, device="cuda"),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4),
+        loss="lm_ce", num_epochs=LM_EPOCHS, batch_size=LM_BATCH,
+        feature_columns=[f"t{i}" for i in range(LM_SEQ)],
+        self_supervised=True, feature_dtype=np.int32, device="cuda")
+    torch.cuda.synchronize()
+    _reset_counts()
+    history = est.fit(P.MLDataset([cols], num_shards=1))
+    torch.cuda.synchronize()
+    counts = _counts()
+    steps = LM_EPOCHS * LM_STEPS
+    losses = [h["train_loss"] for h in history]
+    log(f"[4c] CausalLM bert_base width, batch {LM_BATCH} x seq {LM_SEQ}, "
+        f"{steps} steps: losses {losses}, last epoch "
+        f"{history[-1]['samples_per_sec']:.1f} samples/s; launches {counts}")
+    check(all(np.isfinite(losses)), f"non-finite LM losses {losses}")
+    check(all(counts[k] == 12 * steps for k in counts),
+          f"expected {12 * steps} launches of each kernel, saw {counts}")
+    del est
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -372,15 +694,25 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
         f"{gpu_line()}")
 
-    entry = phase_kernel(torch, P)
+    entries = [phase_kernel(torch, P)]
+    entries += phase_backward_kernels(torch, P)
     glue_launches = phase_glue(torch, P)
     decode_launches = phase_decode(torch, P)
-    entry["launches"] = glue_launches + decode_launches
+    phase_grad_check(torch, P)
+    fit_counts = phase_finetune(torch, P)
+    lm_counts = phase_causal_lm(torch, P)
+    for e in entries:
+        name = e["name"]
+        e["launches"] = fit_counts[name] + lm_counts[name]
+        if name == "flash_fwd":
+            e["launches"] += glue_launches + decode_launches
+        check(e["launches"] > 0, f"the main path launched no {name}")
     log(f"[main path] flash_fwd launches: GLUE forward {glue_launches}, "
-        f"decode server and its reference {decode_launches}")
-    check(entry["launches"] > 0, "the main path launched no flash kernel")
+        f"decode server and its reference {decode_launches}, fine-tune "
+        f"{fit_counts['flash_fwd']}, causal LM fit {lm_counts['flash_fwd']}; "
+        f"backward kernels: fine-tune {fit_counts}, causal LM {lm_counts}")
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

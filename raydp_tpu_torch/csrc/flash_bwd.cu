@@ -1,0 +1,508 @@
+// Flash-attention backward for Hopper (sm_90a): the delta pre-pass and
+// the dq and dk/dv kernels.
+//
+// Replaces the TPU kernels of raydp_tpu/ops/flash_attention.py launched by
+// `_flash_bwd_rule`:
+//   flash_bwd_delta_kernel <- the delta einsum, delta = rowsum(dO * O) in
+//                             f32 (an XLA op there, a pre-pass here);
+//   flash_bwd_dq_kernel    <- `_bwd_dq_kernel`;
+//   flash_bwd_dkv_kernel   <- `_bwd_dkv_kernel`.
+// Same function as the TPU kernels: p = exp(s - lse) from the forward's row
+// logsumexp with s = (q . k) * scale in f32 and causal entries at -1e30;
+// dp = dO . v in f32; ds = p * (dp - delta);
+// dq = scale * sum over kv tiles of (ds rounded to k's dtype) . k;
+// dv = sum over q tiles of (p rounded to dO's dtype)^T . dO;
+// dk = scale * sum over q tiles of (ds rounded to q's dtype)^T . q;
+// f32 accumulators cast to the output dtype at the end. As in the JAX
+// package, dq and dk/dv are two kernels that each recompute p: no atomics,
+// so every result is deterministic.
+//
+// Layout: q, k, v, dO, dq, dk, dv are [B, S, H, D] read and written
+// through their element strides (the last dimension contiguous), so views
+// of a fused qkv projection need no copies. lse and delta are f32
+// [B, H, S].
+//
+// Grids: dq runs one CTA per (q tile, head, batch) and loops over kv tiles
+// inside the CTA (the TPU's sequential kv grid axis); dk/dv runs one CTA
+// per (kv tile, head, batch) and loops over q tiles, causal loops starting
+// at the first live q tile. Four threads share a tile row: each computes a
+// quarter of the row's scores and owns a quarter of its D output columns,
+// with its accumulators in registers (at D 128 the dk/dv pair is 64 floats
+// a thread). Operand tiles are staged in shared memory as f32, padded by
+// one column against bank conflicts; the rounded p and ds tiles go through
+// shared memory to the second product. Rows past S are staged as zeros,
+// their lse and delta are never read, and their p is forced to 0, so they
+// add nothing to dk and dv; columns past S are masked the same way.
+//
+// What bounds it: at the BERT-base training shape (B 32, S 128, H 12,
+// D 64, bf16) dq moves 31.9 MB and dk/dv 38.1 MB, 9.5 and 11.4 us at the
+// data-sheet 3.35 TB/s, while their 2.4 and 3.2 GFLOP take 2.4 and 3.3 us
+// at 989 TFLOP/s bf16: memory-bound on the H100. These first kernels are
+// simpler than that: every product is a scalar f32 FMA on the CUDA cores
+// with operands from shared memory, so the FP32 pipe and shared-memory
+// bandwidth bound them, not HBM. Tensor-core MMA (mma.sync, then wgmma),
+// TMA staging and pipelined tiles are the later work toward the HBM bound.
+// The delta pass is a plain streaming reduction and reads O and dO once.
+//
+// Build (plain C interface, loaded with ctypes; flash_common.cuh sits
+// beside it):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
+
+#include <math.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace raydp_flash;
+
+constexpr int DELTA_TPR = 8;  // threads per row in the delta pass
+
+// ------------------------------------------------------------------ delta
+
+// delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d] in f32. Rows are
+// walked in [B, S, H] order so neighbouring thread groups read
+// neighbouring rows of a contiguous tensor.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
+                           float* __restrict__ delta, int S, int H, int D,
+                           long long rows, Strides os, Strides gs) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long r = gid / DELTA_TPR;
+  const int lane = (int)(gid % DELTA_TPR);
+  float sum = 0.f;
+  int b = 0, s = 0, h = 0;
+  if (r < rows) {
+    h = (int)(r % H);
+    s = (int)((r / H) % S);
+    b = (int)(r / ((long long)H * S));
+    const T* orow = o + b * os.b + s * os.s + h * os.h;
+    const T* grow = g + b * gs.b + s * gs.s + h * gs.h;
+    for (int d = lane; d < D; d += DELTA_TPR) {
+      sum = fmaf(to_f32(grow[d]), to_f32(orow[d]), sum);
+    }
+  }
+  // The eight lanes of a row are adjacent in one warp; every lane of the
+  // warp reaches the shuffles.
+  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (r < rows && lane == 0) {
+    delta[((long long)b * H + h) * S + s] = sum;
+  }
+}
+
+// --------------------------------------------------------------------- dq
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // q_s, g_s [BQ][D+1]; k_s, v_s [BKV][D+1]; ds_s [BQ][BKV+1]; all f32.
+  return sizeof(float) *
+         (size_t)(2 * BQ * (D + 1) + 2 * BKV * (D + 1) + BQ * (BKV + 1));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int S, int H, int causal, float scale, Strides qs,
+                        Strides ks, Strides vs, Strides gs, Strides dqs) {
+  static_assert(D % TPR == 0 && BKV % TPR == 0, "tile shape");
+  constexpr int DP = D + 1;
+  constexpr int KP = BKV + 1;
+  constexpr int NJ = BKV / TPR;  // scores per thread per kv tile
+  constexpr int ND = D / TPR;    // dq columns per thread
+
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* g_s = q_s + BQ * DP;
+  float* k_s = g_s + BQ * DP;
+  float* v_s = k_s + BKV * DP;
+  float* ds_s = v_s + BKV * DP;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int lane = tid % TPR;
+  const int qpos = q0 + row;
+
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const T* gb = g + b * gs.b + h * gs.h;
+
+  for (int i = tid; i < BQ * D; i += THREADS) {
+    const int r = i / D, d = i % D, s = q0 + r;
+    float qq = 0.f, gg = 0.f;
+    if (s < S) {
+      qq = to_f32(qb[s * qs.s + d]);
+      gg = to_f32(gb[s * gs.s + d]);
+    }
+    q_s[r * DP + d] = qq;
+    g_s[r * DP + d] = gg;
+  }
+  // lse and delta are defined only for rows inside the sequence.
+  const long long row_base = ((long long)b * H + h) * S;
+  const float lse_r = qpos < S ? lse[row_base + qpos] : 0.f;
+  const float delta_r = qpos < S ? delta[row_base + qpos] : 0.f;
+
+  float acc[ND];
+#pragma unroll
+  for (int t = 0; t < ND; ++t) acc[t] = 0.f;
+
+  // Causal: kv tiles that start past the CTA's last query row are skipped.
+  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+    __syncthreads();  // the previous tile's readers are done (Q is staged)
+    for (int i = tid; i < BKV * D; i += THREADS) {
+      const int r = i / D, d = i % D, s = kv0 + r;
+      float kk = 0.f, vv = 0.f;
+      if (s < S) {
+        kk = to_f32(kb[s * ks.s + d]);
+        vv = to_f32(vb[s * vs.s + d]);
+      }
+      k_s[r * DP + d] = kk;
+      v_s[r * DP + d] = vv;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int j = lane + jj * TPR;
+      const int kpos = kv0 + j;
+      float sdot = 0.f, dpdot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) {
+        sdot = fmaf(q_s[row * DP + d], k_s[j * DP + d], sdot);
+        dpdot = fmaf(g_s[row * DP + d], v_s[j * DP + d], dpdot);
+      }
+      float sc = sdot * scale;
+      if (causal && qpos < kpos) sc = NEG_INF;
+      const float p = kpos < S ? expf(sc - lse_r) : 0.f;
+      // ds.astype(k.dtype) before ds . k, as the TPU kernel feeds its MXU.
+      ds_s[row * KP + j] = round_to<T>(p * (dpdot - delta_r));
+    }
+    __syncwarp();  // a row's ds is written and read by its own four lanes
+
+#pragma unroll
+    for (int t = 0; t < ND; ++t) {
+      const int d = lane + t * TPR;
+      float a = 0.f;
+#pragma unroll 16
+      for (int j = 0; j < BKV; ++j) {
+        a = fmaf(ds_s[row * KP + j], k_s[j * DP + d], a);
+      }
+      acc[t] += a * scale;  // scaled per tile product, as the TPU kernel
+    }
+  }
+
+  if (qpos < S) {
+    T* out = dq + b * dqs.b + qpos * dqs.s + h * dqs.h;
+#pragma unroll
+    for (int t = 0; t < ND; ++t) out[lane + t * TPR] = from_f32<T>(acc[t]);
+  }
+}
+
+// ------------------------------------------------------------------ dk/dv
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // k_s, v_s [BKV][D+1]; q_s, g_s [BQ][D+1]; p_s, ds_s [BKV][BQ+1];
+  // lse_s, delta_s [BQ]; all f32.
+  return sizeof(float) * (size_t)(2 * BKV * (D + 1) + 2 * BQ * (D + 1) +
+                                  2 * BKV * (BQ + 1) + 2 * BQ);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int S, int H,
+                         int causal, float scale, Strides qs, Strides ks,
+                         Strides vs, Strides gs, Strides dks, Strides dvs) {
+  static_assert(D % TPR == 0 && BQ % TPR == 0, "tile shape");
+  static_assert(THREADS == BKV * TPR, "one thread group per kv row");
+  constexpr int DP = D + 1;
+  constexpr int QP = BQ + 1;
+  constexpr int NI = BQ / TPR;  // scores per thread per q tile
+  constexpr int ND = D / TPR;   // dk and dv columns per thread
+
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + BKV * DP;
+  float* q_s = v_s + BKV * DP;
+  float* g_s = q_s + BQ * DP;
+  float* p_s = g_s + BQ * DP;
+  float* ds_s = p_s + BKV * QP;
+  float* lse_s = ds_s + BKV * QP;
+  float* delta_s = lse_s + BQ;
+
+  const int kv0 = blockIdx.x * BKV;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;  // this thread group's kv row
+  const int lane = tid % TPR;
+  const int kpos = kv0 + row;
+
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const T* gb = g + b * gs.b + h * gs.h;
+  const long long row_base = ((long long)b * H + h) * S;
+
+  for (int i = tid; i < BKV * D; i += THREADS) {
+    const int r = i / D, d = i % D, s = kv0 + r;
+    float kk = 0.f, vv = 0.f;
+    if (s < S) {
+      kk = to_f32(kb[s * ks.s + d]);
+      vv = to_f32(vb[s * vs.s + d]);
+    }
+    k_s[r * DP + d] = kk;
+    v_s[r * DP + d] = vv;
+  }
+
+  float dk_acc[ND], dv_acc[ND];
+#pragma unroll
+  for (int t = 0; t < ND; ++t) {
+    dk_acc[t] = 0.f;
+    dv_acc[t] = 0.f;
+  }
+
+  // Causal: q tiles that end before this kv tile starts are skipped.
+  const int q_start = causal ? (kv0 / BQ) * BQ : 0;
+  for (int q0 = q_start; q0 < S; q0 += BQ) {
+    __syncthreads();  // the previous q tile's readers are done
+    for (int i = tid; i < BQ * D; i += THREADS) {
+      const int r = i / D, d = i % D, s = q0 + r;
+      float qq = 0.f, gg = 0.f;
+      if (s < S) {
+        qq = to_f32(qb[s * qs.s + d]);
+        gg = to_f32(gb[s * gs.s + d]);
+      }
+      q_s[r * DP + d] = qq;
+      g_s[r * DP + d] = gg;
+    }
+    for (int i = tid; i < BQ; i += THREADS) {
+      const int s = q0 + i;
+      lse_s[i] = s < S ? lse[row_base + s] : 0.f;
+      delta_s[i] = s < S ? delta[row_base + s] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int ii = 0; ii < NI; ++ii) {
+      const int i = lane + ii * TPR;
+      const int qpos = q0 + i;
+      float sdot = 0.f, dpdot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) {
+        sdot = fmaf(q_s[i * DP + d], k_s[row * DP + d], sdot);
+        dpdot = fmaf(g_s[i * DP + d], v_s[row * DP + d], dpdot);
+      }
+      float sc = sdot * scale;
+      if (causal && qpos < kpos) sc = NEG_INF;
+      const float p = qpos < S ? expf(sc - lse_s[i]) : 0.f;
+      const float ds = p * (dpdot - delta_s[i]);
+      // p.astype(dO.dtype) and ds.astype(q.dtype) before the products.
+      p_s[row * QP + i] = round_to<T>(p);
+      ds_s[row * QP + i] = round_to<T>(ds);
+    }
+    __syncwarp();  // a row's p and ds are written and read by its own lanes
+
+#pragma unroll
+    for (int t = 0; t < ND; ++t) {
+      const int d = lane + t * TPR;
+      float av = 0.f, ak = 0.f;
+#pragma unroll 16
+      for (int i = 0; i < BQ; ++i) {
+        av = fmaf(p_s[row * QP + i], g_s[i * DP + d], av);
+        ak = fmaf(ds_s[row * QP + i], q_s[i * DP + d], ak);
+      }
+      dv_acc[t] += av;
+      dk_acc[t] += ak * scale;  // scaled per tile product, as the TPU kernel
+    }
+  }
+
+  if (kpos < S) {
+    T* dk_row = dk + b * dks.b + kpos * dks.s + h * dks.h;
+    T* dv_row = dv + b * dvs.b + kpos * dvs.s + h * dvs.h;
+#pragma unroll
+    for (int t = 0; t < ND; ++t) {
+      dk_row[lane + t * TPR] = from_f32<T>(dk_acc[t]);
+      dv_row[lane + t * TPR] = from_f32<T>(dv_acc[t]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launch
+
+struct BwdArgs {
+  const void *q, *k, *v, *g;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, S, H, causal;
+  float scale;
+  Strides qs, ks, vs, gs, dqs, dks, dvs;
+};
+
+template <typename T, int D>
+int launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
+  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
+      static_cast<T*>(a.dq), a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs,
+      a.gs, a.dqs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.S + BKV - 1) / BKV, a.H, a.B);
+  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.causal,
+      a.scale, a.qs, a.ks, a.vs, a.gs, a.dks, a.dvs);
+  return (int)cudaGetLastError();
+}
+
+// which: 0 = dq, 1 = dk/dv.
+template <typename T, int D>
+int launch_one(int which, const BwdArgs& a, cudaStream_t stream) {
+  return which == 0 ? launch_dq<T, D>(a, stream) : launch_dkv<T, D>(a, stream);
+}
+
+template <typename T>
+int dispatch_d(int which, int D, const BwdArgs& a, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch_one<T, 16>(which, a, stream);
+    case 32:
+      return launch_one<T, 32>(which, a, stream);
+    case 64:
+      return launch_one<T, 64>(which, a, stream);
+    case 128:
+      return launch_one<T, 128>(which, a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int which, int dtype, int D, const BwdArgs& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_d<float>(which, D, a, st);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Each entry returns a cudaError_t (0 on
+// success). Strides are element strides of [B, S, H, D] tensors: (b, s, h).
+
+extern "C" int raydp_flash_bwd_delta(
+    const void* o, const void* g, float* delta, int dtype, int B, int S,
+    int H, int D, long long o_sb, long long o_ss, long long o_sh,
+    long long g_sb, long long g_ss, long long g_sh, void* stream) {
+  const Strides os{o_sb, o_ss, o_sh}, gs{g_sb, g_ss, g_sh};
+  const long long rows = (long long)B * S * H;
+  if (rows == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (rows * DELTA_TPR + threads - 1) / threads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    flash_bwd_delta_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(g), delta, S,
+        H, D, rows, os, gs);
+  } else if (dtype == 1) {
+    flash_bwd_delta_kernel<__nv_bfloat16>
+        <<<(unsigned)blocks, threads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(o),
+            static_cast<const __nv_bfloat16*>(g), delta, S, H, D, rows, os,
+            gs);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int raydp_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* g,
+    const float* lse, const float* delta, void* dq, int dtype, int B, int S,
+    int H, int D, int causal, float scale, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long g_sb,
+    long long g_ss, long long g_sh, long long dq_sb, long long dq_ss,
+    long long dq_sh, void* stream) {
+  BwdArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.g = g;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq;
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.causal = causal;
+  a.scale = scale;
+  a.qs = Strides{q_sb, q_ss, q_sh};
+  a.ks = Strides{k_sb, k_ss, k_sh};
+  a.vs = Strides{v_sb, v_ss, v_sh};
+  a.gs = Strides{g_sb, g_ss, g_sh};
+  a.dqs = Strides{dq_sb, dq_ss, dq_sh};
+  return dispatch(0, dtype, D, a, stream);
+}
+
+extern "C" int raydp_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* g,
+    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    int B, int S, int H, int D, int causal, float scale, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long g_sb, long long g_ss, long long g_sh, long long dk_sb,
+    long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
+    long long dv_sh, void* stream) {
+  BwdArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.g = g;
+  a.lse = lse;
+  a.delta = delta;
+  a.dk = dk;
+  a.dv = dv;
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.causal = causal;
+  a.scale = scale;
+  a.qs = Strides{q_sb, q_ss, q_sh};
+  a.ks = Strides{k_sb, k_ss, k_sh};
+  a.vs = Strides{v_sb, v_ss, v_sh};
+  a.gs = Strides{g_sb, g_ss, g_sh};
+  a.dks = Strides{dk_sb, dk_ss, dk_sh};
+  a.dvs = Strides{dv_sb, dv_ss, dv_sh};
+  return dispatch(1, dtype, D, a, stream);
+}

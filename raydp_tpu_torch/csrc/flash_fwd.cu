@@ -30,41 +30,18 @@
 // wgmma), TMA staging and pipelined tiles are the later work that moves it
 // toward the HBM bound.
 //
-// Build (plain C interface, loaded with ctypes):
+// Build (plain C interface, loaded with ctypes; flash_common.cuh sits
+// beside it):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libflash_fwd.so flash_fwd.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per CTA
-constexpr int BKV = 64;            // key/value rows per shared-memory tile
-constexpr int TPR = 4;             // threads per query row
-constexpr int THREADS = BQ * TPR;  // 256
-constexpr float NEG_INF = -1e30f;  // the TPU kernel's causal mask value
-
-struct Strides {
-  long long b, s, h;  // element strides; the D dimension is contiguous
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
+using namespace raydp_flash;
 
 template <typename T, int D>
 constexpr size_t smem_bytes() {

@@ -1,20 +1,20 @@
 """Carry the JAX package's flax parameters into the port's modules.
 
 ``params_from_flax`` takes the flax ``params`` tree of a
-``SequenceClassifier`` or ``CausalLM`` (from ``raydp_tpu``) with its
-leaves already turned into numpy arrays, and returns a ``state_dict`` for
-the port's module of the same name. It imports no JAX.
+``SequenceClassifier``, ``CausalLM`` or ``MLP`` (from ``raydp_tpu``) with
+its leaves already turned into numpy arrays, and returns a ``state_dict``
+for the port's module of the same name. It imports no JAX.
 
 * Dense kernel ``[in, out]`` → Linear weight ``[out, in]``.
 * qkv DenseGeneral kernel ``[E, 3, H, D]`` / bias ``[3, H, D]`` → Linear
   ``[3·H·D, E]`` / ``[3·H·D]`` (row order q, k, v, then head, then dim).
 * out DenseGeneral kernel ``[H, D, E]`` → Linear ``[E, H·D]``.
 * Embed ``embedding`` → ``weight``; LayerNorm ``scale`` → ``weight``.
-* ``block_<i>`` → ``blocks.<i>``.
+* ``block_<i>`` → ``blocks.<i>``; the MLP's ``Dense_<i>`` → ``layers.<i>``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -33,7 +33,7 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
 
 
 def _convert(path: tuple, arr: np.ndarray,
-             cfg: TransformerConfig) -> np.ndarray:
+             cfg: Optional[TransformerConfig]) -> np.ndarray:
     module, leaf = path[-2], path[-1]
     if leaf == "kernel":
         if module == "qkv":
@@ -61,6 +61,8 @@ def _torch_name(path: tuple) -> str:
     for p in path[:-1]:
         if p.startswith("block_"):
             parts += ["blocks", p[len("block_"):]]
+        elif p.startswith("Dense_"):
+            parts += ["layers", p[len("Dense_"):]]
         else:
             parts.append(p)
     parts.append(_LEAF_NAMES[path[-1]])
@@ -68,9 +70,11 @@ def _torch_name(path: tuple) -> str:
 
 
 def params_from_flax(tree: Mapping[str, Any],
-                     cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+                     cfg: Optional[TransformerConfig] = None
+                     ) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for the port's module from a flax params tree of
-    numpy arrays (unboxed, without the outer ``{"params": ...}``)."""
+    numpy arrays (unboxed, without the outer ``{"params": ...}``).
+    ``cfg`` is the transformer's config; an MLP needs none."""
     return {
         _torch_name(path): torch.from_numpy(
             np.array(_convert(path, arr, cfg), order="C")

@@ -6,6 +6,8 @@ module names and parameter tree (``params_from_flax`` in
 parameters are kept in ``param_dtype`` and every layer computes in
 ``cfg.dtype``; the classifier head and the LM head compute in float32.
 LayerNorm epsilon is flax's 1e-6 and gelu is the tanh approximation.
+Dropout sits where flax puts it and draws from the generator that
+``set_dropout_generator`` hands the model (``models/dropout.py``).
 
 Attention is ``dense`` (plain softmax attention) or ``flash`` (the
 hand-written kernel on CUDA, its plain version on the CPU). Ring and
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raydp_tpu_torch.models.dropout import Dropout
 from raydp_tpu_torch.ops.attention import (
     cached_decode_attention,
     reference_attention,
@@ -135,7 +138,7 @@ class MultiHeadAttention(nn.Module):
         # flattened to a Linear of 3·H·D outputs.
         self.qkv = Dense(cfg.d_model, 3 * hd, cfg.dtype, cfg.param_dtype)
         self.out = Dense(hd, cfg.d_model, cfg.dtype, cfg.param_dtype)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(
         self,
@@ -194,7 +197,7 @@ class TransformerBlock(nn.Module):
         self.mlp_up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, cfg.param_dtype)
         self.mlp_down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype,
                               cfg.param_dtype)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor, **cache_kw) -> torch.Tensor:
         x = x + self.attn(self.ln_attn(x), **cache_kw)
@@ -220,7 +223,7 @@ class TransformerEncoder(nn.Module):
         self.seg_embed = (
             Embed(cfg.n_segments, cfg.d_model, dt, pdt) if segments else None
         )
-        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.dropout = Dropout(cfg.dropout_rate)
         self.blocks = nn.ModuleList(
             TransformerBlock(cfg) for _ in range(cfg.n_layers)
         )

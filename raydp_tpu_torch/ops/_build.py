@@ -3,8 +3,9 @@
 Each source under ``raydp_tpu_torch/csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. The build runs at first use, into ``raydp_tpu_torch/_build/``
-(git-ignored), keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. A failed build raises.
+(git-ignored), keyed by a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. A failed build raises.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -28,7 +29,7 @@ NVCC_FLAGS = (
 )
 
 # Every kernel source of the port; ``build_all`` compiles them together.
-SOURCES = ("flash_fwd.cu",)
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 
 _mu = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

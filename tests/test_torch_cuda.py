@@ -1,15 +1,18 @@
-"""The port's CUDA paths on a card: the flash forward kernel against its
-plain version over every head dim, ragged sequence lengths and strided
-inputs, and the tiny models on the card against the CPU.
+"""The port's CUDA paths on a card: the flash forward and backward
+kernels against their plain versions over every head dim, ragged
+sequence lengths and strided inputs, the tiny models (outputs and
+gradients) on the card against the CPU, and an estimator fit on the card.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
+from raydp_tpu_torch.data import MLDataset
 from raydp_tpu_torch.models.transformer import (
     CausalLM,
     SequenceClassifier,
@@ -19,7 +22,14 @@ from raydp_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_forward,
     flash_attention_plain,
+    flash_bwd_delta,
+    flash_bwd_delta_plain,
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
 )
+from raydp_tpu_torch.train import Estimator
 from raydp_tpu_torch.utils.device import set_exact_float32
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +39,13 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 LSE_TOL = dict(rtol=2e-4, atol=2e-5)
+# Backward kernels vs plain: the JAX package's own gradient bounds (f32
+# 1e-3/1e-4; bf16 6e-2), the slack over the forward's from summation
+# order, which can move a bf16 rounding of p or ds by one ulp.
+GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4),
+            torch.bfloat16: dict(rtol=6e-2, atol=6e-2)}
+# delta is one f32 row sum in another order.
+DELTA_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture
@@ -85,11 +102,101 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q, k, v)
 
 
-def test_kernel_backward_raises(cuda):
+BWD_SHAPES = [
+    (2, 16, 3, 16), (1, 48, 2, 32), (2, 96, 4, 64), (1, 256, 2, 128),
+    (3, 128, 5, 16), (1, 512, 1, 64), (2, 384, 2, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernels_match_plain(cuda, shape, causal, dtype):
+    q, k, v = _qkv(shape, dtype, seed=3)
+    out, lse = flash_attention_forward(q, k, v, causal=causal)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    counts = (flash_bwd_delta.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    delta = flash_bwd_delta(out, g)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    assert (flash_bwd_delta.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    want_delta = flash_bwd_delta_plain(out, g)
+    want_dq = flash_bwd_dq_plain(q, k, v, g, lse, want_delta, causal)
+    want_dk, want_dv = flash_bwd_dkv_plain(q, k, v, g, lse, want_delta,
+                                           causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, want_delta, **DELTA_TOL)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **GRAD_TOL[dtype])
+
+
+def test_backward_reads_contiguous_and_strided_alike(cuda):
+    q, k, v = _qkv((2, 64, 4, 32), torch.bfloat16, seed=5)
+    grads = []
+    for args in ((q, k, v), tuple(x.contiguous() for x in (q, k, v))):
+        leaves = [x.detach().requires_grad_(True) for x in args]
+        flash_attention(*leaves, causal=True).float().pow(2).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
     q, k, v = _qkv((1, 32, 2, 64), torch.float32)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v).sum().backward()
+    out, lse = flash_attention_forward(q, k, v)
+    g = torch.randn((1, 32, 64, 2), device="cuda").transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous head dimension"):
+        flash_bwd_delta(out, g)
+    delta = flash_bwd_delta(out, torch.ones_like(out))
+    with pytest.raises(ValueError, match="row statistics"):
+        flash_bwd_dq(q, k, v, torch.ones_like(out), lse[..., 0], delta)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_bwd_dkv(q, k, v, torch.ones_like(out).bfloat16(), lse, delta)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tiny_model_gradients_on_card_match_cpu(cuda, dtype):
+    """Parameter gradients of one batch through the flash backward
+    kernels on the card against the plain backward on the CPU."""
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 1024, (2, 32), generator=gen)
+    labels = torch.randint(0, 2, (2,), generator=gen)
+    # Relative L2 error per parameter: f32 is the same arithmetic in
+    # another order; bf16 rounds at other places in cuBLAS and on the CPU.
+    bound = 1e-3 if dtype == torch.float32 else 5e-2
+    for causal in (False, True):
+        cfg = tiny_transformer(attention_impl="flash", dtype=dtype,
+                               causal=causal)
+        make = (lambda dev: CausalLM(cfg, device=dev)) if causal else \
+            (lambda dev: SequenceClassifier(cfg, device=dev))
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            model = make(dev)
+            x = ids.to(dev)
+            out = model(x)
+            if causal:
+                loss = torch.nn.functional.cross_entropy(
+                    out[:, :-1].reshape(-1, out.shape[-1]),
+                    x[:, 1:].reshape(-1))
+            else:
+                loss = torch.nn.functional.cross_entropy(out, labels.to(dev))
+            loss.backward()
+            grads[dev] = {n: p.grad.float().cpu()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None}
+        assert grads["cuda"].keys() == grads["cpu"].keys()
+        for name, want in grads["cpu"].items():
+            got = grads["cuda"][name]
+            err = (got - want).norm() / want.norm().clamp_min(1e-12)
+            assert err < bound, (name, causal, float(err))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -116,3 +223,62 @@ def test_tiny_models_on_card_match_cpu(cuda, dtype):
     assert flash_attention.launches == before + 2 * cfg.n_layers
     torch.testing.assert_close(got, want, **tol)
     torch.testing.assert_close(got_lm, want_lm, **tol)
+
+
+def _token_cols(n, seq, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(10, vocab, size=(n, seq)).astype(np.int32)
+    pos = rng.random(n) < 0.5
+    ids[pos, rng.integers(0, seq, pos.sum())] = 7
+    cols = {f"t{i}": ids[:, i] for i in range(seq)}
+    cols["label"] = pos.astype(np.int32)
+    return cols
+
+
+def test_pinned_loader_delivers_the_cpu_batches(cuda):
+    ds = MLDataset([_token_cols(70, 16, 64)], 1)
+    for coalesce in (1, 3, None):
+        kw = dict(feature_columns=[f"t{i}" for i in range(16)],
+                  label_column="label", batch_size=8, shuffle=True, seed=2,
+                  feature_dtype=np.int32, label_dtype=np.int32, prefetch=2,
+                  transfer_coalesce=coalesce)
+        on_card, on_cpu = (ds.to_torch(device=d, **kw) for d in ("cuda",
+                                                                  "cpu"))
+        for _ in range(2):  # two epochs: the pinned ring is reused
+            got = [(x.cpu(), y.cpu()) for x, y in on_card]
+            want = list(on_cpu)
+            assert len(got) == len(want) == 9
+            for (x, y), (wx, wy) in zip(got, want):
+                assert x.device.type == "cpu"
+                torch.testing.assert_close(x, wx, rtol=0, atol=0)
+                torch.testing.assert_close(y, wy, rtol=0, atol=0)
+
+
+def test_estimator_fit_on_card_matches_cpu(cuda):
+    """A tiny flash classifier fitted on the card (kernels forward and
+    backward) against the same fit on the CPU (plain versions): per-epoch
+    losses within 1e-3 (f32, summation order), and every launch counted."""
+    cols = _token_cols(64, 16, 64, seed=1)
+    cfg = tiny_transformer(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                           d_ff=64, max_len=16, attention_impl="flash",
+                           dtype=torch.float32, dropout_rate=0.0)
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        est = Estimator(
+            model=SequenceClassifier(cfg, device=dev), loss="softmax_ce",
+            num_epochs=2, batch_size=16,
+            feature_columns=[f"t{i}" for i in range(16)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, device=dev,
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3))
+        before = (flash_attention.launches, flash_bwd_dq.launches,
+                  flash_bwd_dkv.launches, flash_bwd_delta.launches)
+        hist[dev] = est.fit(MLDataset([cols], 1))
+        after = (flash_attention.launches, flash_bwd_dq.launches,
+                 flash_bwd_dkv.launches, flash_bwd_delta.launches)
+        steps = 2 * 4
+        want = cfg.n_layers * steps if dev == "cuda" else 0
+        assert [a - b for a, b in zip(after, before)] == [want] * 4
+    for g, c in zip(hist["cuda"], hist["cpu"]):
+        np.testing.assert_allclose(g["train_loss"], c["train_loss"],
+                                   rtol=1e-3)

@@ -96,14 +96,6 @@ def test_rejects_indivisible_seq():
         flash_attention_plain(q, k, v, block_q=32, block_kv=32)
 
 
-def test_backward_raises_not_implemented():
-    _, (q, k, v) = _both(_qkv(1, 16, 2, 16), "float32")
-    q.requires_grad_(True)
-    out = flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        out.sum().backward()
-
-
 def test_cpu_path_launches_no_kernel():
     _, (q, k, v) = _both(_qkv(1, 16, 2, 16), "float32")
     before = flash_attention.launches

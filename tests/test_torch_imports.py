@@ -38,7 +38,14 @@ def _imported_roots(path):
 
 def test_port_files_exist():
     for rel in ("chip_smoke.py", "raydp_tpu_torch/__init__.py",
-                "raydp_tpu_torch/ops/flash_attention.py"):
+                "raydp_tpu_torch/ops/flash_attention.py",
+                "raydp_tpu_torch/models/dropout.py",
+                "raydp_tpu_torch/models/mlp.py",
+                "raydp_tpu_torch/train/estimator.py",
+                "raydp_tpu_torch/train/losses.py",
+                "raydp_tpu_torch/data/ml_dataset.py",
+                "raydp_tpu_torch/data/loader.py",
+                "raydp_tpu_torch/utils/sharding.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
 
