@@ -6,14 +6,18 @@
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
 1. Build every CUDA kernel of the port from ``raydp_tpu_torch/csrc``
-   (nvcc, sm_90a, one process per source), then hold each kernel against
-   its plain PyTorch version on the card: f32 and bf16, causal and not,
-   at the main path's shapes. The forward's ``out`` and ``lse``; the
-   backward's delta, dq, dk and dv under a random cotangent. Times each
-   kernel and its plain version at the BERT shape (B 32, S 128), the
-   forward against ``scaled_dot_product_attention`` and the whole
-   backward against SDPA's backward (the library yardsticks, which the
-   port never calls).
+   (nvcc, sm_90a, one process per source), report each instance's
+   registers, shared memory, resident CTAs per SM and spills (failing on
+   a spill in a wgmma kernel), then hold each kernel against its plain
+   PyTorch version on the card: f32 and bf16, causal and not, at the main
+   path's shapes, and bf16 also at D 16/32/128 and S 48/96. The forward's
+   ``out`` and ``lse``; the backward's delta, dq, dk and dv under a random
+   cotangent. Times each kernel at the BERT shape (B 32, S 128) as a CUDA
+   graph of calls, warm (inputs in L2) and cold (rotating over input
+   sets larger than the 50 MB L2), beside its plain version, the forward
+   against ``scaled_dot_product_attention`` and the whole backward
+   against SDPA's backward (the library yardsticks, which the port never
+   calls).
 2. BERT-GLUE forward: ``SequenceClassifier`` at bert_base width, bf16,
    ``attention_impl="flash"``, batch 32 x seq 128; logits held against
    the same weights with dense attention (bf16 and f32).
@@ -64,6 +68,14 @@ LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
 # BERT-GLUE (32, 128), and longer sequences.
 KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
                  (4, 512, 12, 64)]
+# The bf16 wgmma kernels (forward, dk/dv) also at every other head dim and
+# at S that is not a multiple of their 64-row tiles.
+BF16_EXTRA_SHAPES = [(2, 128, 4, 16), (2, 128, 4, 32), (2, 128, 4, 128),
+                     (2, 48, 12, 64), (2, 96, 12, 64)]
+# Cold-L2 timing rotates over this many input sets at the BERT shape:
+# 25 MB (forward) to 38 MB (dk/dv) each, so 4 exceed the 50 MB L2.
+COLD_SETS = 4
+GRAPH_REPS = 10
 GLUE_BATCH, GLUE_SEQ = 32, 128
 DECODE_PROMPT_LENS = [3, 17, 40, 64, 90, 128, 161, 200]
 DECODE_MAX_NEW = 16
@@ -119,6 +131,77 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, calls, reps: int = GRAPH_REPS) -> float:
+    """Device ms per call with host launch gaps removed: ``calls`` (one
+    per input set, run in turn) captured ``reps`` times into one CUDA
+    graph and replayed. With one input set the inputs stay in the 50 MB
+    L2 between calls (warm); rotating over sets that together exceed it
+    reads them from HBM (cold)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps * len(calls))
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def warm_cold_ms(torch, make_call, n_sets: int = COLD_SETS):
+    """(warm, cold) graph-timed ms of ``make_call(i)``, the call on input
+    set i."""
+    calls = [make_call(i) for i in range(n_sets)]
+    return graph_ms(torch, calls[:1]), graph_ms(torch, calls)
+
+
+def report_build(torch):
+    """Each bf16 and f32 kernel instance's registers, shared memory,
+    resident CTAs per SM and spills (from the CUDA runtime), and the ptxas
+    report of the bf16 instances (``-Xptxas=-v``). Fails on a spill in a
+    wgmma kernel."""
+    import re
+
+    from raydp_tpu_torch.ops import _build
+
+    fa = flash_module()
+    for src in _build.SOURCES:
+        name = None
+        for line in _build.build_log(src).splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"\d(flash_[a-z0-9_]+?kernel)I"
+                              r"(13__nv_bfloat16|f)?Li(\d+)E", line)
+                kind = m and ("f32" if m.group(2) == "f" else "bf16")
+                name = m and f"{m.group(1)}<{kind}, {m.group(3)}>"
+            elif name and "bf16" in name and ("Used" in line
+                                              or "spill" in line):
+                log(f"[1] ptxas {name}: {line.strip()}")
+    for kernel in ("fwd", "dq", "dkv"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in (16, 32, 64, 128):
+                res = fa.kernel_resources(kernel, dtype, d)
+                log(f"[1] resources {kernel} {str(dtype)[6:]} D {d}: {res}")
+                if dtype == torch.bfloat16 and kernel != "dq":
+                    check(res["spill_bytes"] == 0,
+                          f"{kernel} bf16 D {d} spills: {res}")
 
 
 def device_profile(torch, label, fn, top=5):
@@ -180,47 +263,56 @@ def phase_kernel(torch, P):
     libs = _build.build_all()
     log(f"[1] built {libs} in {time.perf_counter() - t0:.2f} s")
 
+    report_build(torch)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    for shape in KERNEL_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (False, True):
-                q, k, v = fused_qkv(torch, shape, dtype, gen)
-                out, lse = flash_attention_forward(q, k, v, causal=causal)
-                ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
-                torch.cuda.synchronize()
-                name = str(dtype).split(".")[-1]
-                tol = TOL[name]
-                err_o = (out.float() - ref_out.float()).abs().max().item()
-                err_l = (lse - ref_lse).abs().max().item()
-                ok = (torch.allclose(out.float(), ref_out.float(), **tol)
-                      and torch.allclose(lse, ref_lse, **TOL["float32"])
-                      and bool(torch.isfinite(out).all()))
-                log(f"[1] flash_fwd {shape} {name} causal={causal}: "
-                    f"out err {err_o:.3e} lse err {err_l:.3e} "
-                    f"(tol out {tol}, lse {TOL['float32']}) "
-                    f"{'ok' if ok else 'MISMATCH'}")
-                check(ok, f"flash_fwd disagrees with plain at {shape} "
-                          f"{name} causal={causal}")
-                worst = max(worst, err_o)
+    cases = [(shape, dtype) for shape in KERNEL_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in BF16_EXTRA_SHAPES]
+    for shape, dtype in cases:
+        for causal in (False, True):
+            q, k, v = fused_qkv(torch, shape, dtype, gen)
+            out, lse = flash_attention_forward(q, k, v, causal=causal)
+            ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            tol = TOL[name]
+            err_o = (out.float() - ref_out.float()).abs().max().item()
+            err_l = (lse - ref_lse).abs().max().item()
+            ok = (torch.allclose(out.float(), ref_out.float(), **tol)
+                  and torch.allclose(lse, ref_lse, **TOL["float32"])
+                  and bool(torch.isfinite(out).all()))
+            log(f"[1] flash_fwd {shape} {name} causal={causal}: "
+                f"out err {err_o:.3e} lse err {err_l:.3e} "
+                f"(tol out {tol}, lse {TOL['float32']}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            check(ok, f"flash_fwd disagrees with plain at {shape} "
+                      f"{name} causal={causal}")
+            worst = max(worst, err_o)
 
     # Timing at the BERT-GLUE shape (bf16, not causal): the classifier's
-    # call. The 25 MB of q/k/v/o stay in the 50 MB L2 between calls.
+    # call. Kernel and SDPA by CUDA graph, warm (the 25 MB of q/k/v/o stay
+    # in the 50 MB L2) and cold (rotating over COLD_SETS input sets); the
+    # wrapper-paced loop as earlier runs measured it; the plain version.
     b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
-    q, k, v = fused_qkv(torch, (b, s, h, d), torch.bfloat16, gen)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sets = [fused_qkv(torch, (b, s, h, d), torch.bfloat16, gen)
+            for _ in range(COLD_SETS)]
+    q, k, v = sets[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    kernel_ms = time_ms(torch, lambda: flash_attention_forward(q, k, v),
-                        iters=50)
+    kernel_ms, kernel_cold = warm_cold_ms(
+        torch, lambda i: lambda: flash_attention_forward(*sets[i]))
+    paced_ms = time_ms(torch, lambda: flash_attention_forward(q, k, v),
+                       iters=50)
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v),
                        iters=10)
-    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt), iters=50)
-    kernel_ms_2 = time_ms(torch, lambda: flash_attention_forward(q, k, v),
-                          iters=50)
+    heads_first = [[x.transpose(1, 2) for x in st] for st in sets]
+    library_ms, library_cold = warm_cold_ms(
+        torch, lambda i: lambda: sdpa(*heads_first[i]))
+    kernel_ms_2 = graph_ms(torch, [lambda: flash_attention_forward(q, k, v)])
     n_bytes = 4 * b * s * h * d * 2 + b * h * s * 4
     flops = 4 * b * h * s * s * d
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bound_ms, bound_by = _bound(n_bytes, flops)
     entry = {
         "name": "flash_fwd",
         "route": "cuda",
@@ -229,16 +321,19 @@ def phase_kernel(torch, P):
         "launches": 0,
         "max_abs_err": worst,
         "ms": kernel_ms,
+        "ms_cold": kernel_cold,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
     log(f"[1] flash_fwd at (B {b}, S {s}, H {h}, D {d}) bf16: kernel_ms "
-        f"{kernel_ms:.4f} (again {kernel_ms_2:.4f}), plain_ms "
-        f"{plain_ms:.4f}, library_ms (sdpa) {library_ms:.4f}, bound_ms "
-        f"{entry['bound_ms']:.4f} by {entry['bound_by']} "
-        f"({n_bytes} B, {flops} FLOP)")
+        f"warm {kernel_ms:.4f} (again {kernel_ms_2:.4f}) cold "
+        f"{kernel_cold:.4f}, wrapper-paced {paced_ms:.4f}; plain_ms "
+        f"{plain_ms:.4f}; library_ms (sdpa) warm {library_ms:.4f} cold "
+        f"{library_cold:.4f}; bound_ms {bound_ms:.4f} by {bound_by} "
+        f"({n_bytes} B, {flops} FLOP); cold / bound "
+        f"{kernel_cold / bound_ms:.1f}x")
     return entry
 
 
@@ -258,67 +353,80 @@ def phase_backward_kernels(torch, P):
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {"flash_bwd_delta": 0.0, "flash_bwd_dq": 0.0,
              "flash_bwd_dkv": 0.0}
-    for shape in KERNEL_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (False, True):
-                name = str(dtype).split(".")[-1]
-                q, k, v = fused_qkv(torch, shape, dtype, gen)
-                out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
-                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                delta = fa.flash_bwd_delta(out, g)
-                dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal)
-                dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
-                want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, g, lse,
-                                                          delta, causal)
-                checks = [  # (kernel, output, kernel's, plain's, tolerance)
-                    ("flash_bwd_delta", "delta", delta,
-                     fa.flash_bwd_delta_plain(out, g), DELTA_TOL),
-                    ("flash_bwd_dq", "dq", dq,
-                     fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal),
-                     GRAD_TOL[name]),
-                    ("flash_bwd_dkv", "dk", dk, want_dk, GRAD_TOL[name]),
-                    ("flash_bwd_dkv", "dv", dv, want_dv, GRAD_TOL[name]),
-                ]
-                torch.cuda.synchronize()
-                report = []
-                for kname, label, got, want, tol in checks:
-                    err = (got.float() - want.float()).abs().max().item()
-                    ok = (torch.allclose(got.float(), want.float(), **tol)
-                          and bool(torch.isfinite(got).all()))
-                    report.append(f"{label} {err:.3e}")
-                    check(ok, f"{kname} {label} disagrees with plain at "
-                              f"{shape} {name} causal={causal} (err "
-                              f"{err:.3e}, tol {tol})")
-                    worst[kname] = max(worst[kname], err)
-                log(f"[1] backward {shape} {name} causal={causal}: "
-                    f"{', '.join(report)} ok")
+    cases = [(shape, dtype) for shape in KERNEL_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in BF16_EXTRA_SHAPES]
+    for shape, dtype in cases:
+        for causal in (False, True):
+            name = str(dtype).split(".")[-1]
+            q, k, v = fused_qkv(torch, shape, dtype, gen)
+            out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            delta = fa.flash_bwd_delta(out, g)
+            dq = fa.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+            want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, g, lse,
+                                                      delta, causal)
+            checks = [  # (kernel, output, kernel's, plain's, tolerance)
+                ("flash_bwd_delta", "delta", delta,
+                 fa.flash_bwd_delta_plain(out, g), DELTA_TOL),
+                ("flash_bwd_dq", "dq", dq,
+                 fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal),
+                 GRAD_TOL[name]),
+                ("flash_bwd_dkv", "dk", dk, want_dk, GRAD_TOL[name]),
+                ("flash_bwd_dkv", "dv", dv, want_dv, GRAD_TOL[name]),
+            ]
+            torch.cuda.synchronize()
+            report = []
+            for kname, label, got, want, tol in checks:
+                err = (got.float() - want.float()).abs().max().item()
+                ok = (torch.allclose(got.float(), want.float(), **tol)
+                      and bool(torch.isfinite(got).all()))
+                report.append(f"{label} {err:.3e}")
+                check(ok, f"{kname} {label} disagrees with plain at "
+                          f"{shape} {name} causal={causal} (err "
+                          f"{err:.3e}, tol {tol})")
+                worst[kname] = max(worst[kname], err)
+            log(f"[1] backward {shape} {name} causal={causal}: "
+                f"{', '.join(report)} ok")
 
+    # Timing at the BERT shape, bf16: graph-timed warm and cold (as the
+    # forward), the wrapper-paced loop, the plain version.
     b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
-    q, k, v = fused_qkv(torch, (b, s, h, d), torch.bfloat16, gen)
-    out, lse = fa.flash_attention_forward(q, k, v)
-    g = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
-    delta = fa.flash_bwd_delta(out, g)
+    sets = []
+    for _ in range(COLD_SETS):
+        q, k, v = fused_qkv(torch, (b, s, h, d), torch.bfloat16, gen)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        g = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+        sets.append((q, k, v, out, lse, g, fa.flash_bwd_delta(out, g)))
+    q, k, v, out, lse, g, delta = sets[0]
     el, row = b * s * h * d * 2, b * h * s * 4  # one bf16 tensor, one row stat
     work = {  # bytes each input read once and output written once; FLOPs
         "flash_bwd_delta": (2 * el + row, 2 * b * s * h * d),
         "flash_bwd_dq": (5 * el + 2 * row, 6 * b * h * s * s * d),
         "flash_bwd_dkv": (6 * el + 2 * row, 8 * b * h * s * s * d),
     }
-    calls = {
-        "flash_bwd_delta": (lambda: fa.flash_bwd_delta(out, g),
-                            lambda: fa.flash_bwd_delta_plain(out, g)),
+    def args(i):  # (q, k, v, dO, lse, delta) of input set i
+        q_, k_, v_, _, lse_, g_, delta_ = sets[i]
+        return q_, k_, v_, g_, lse_, delta_
+
+    calls = {  # kernel on input set i; plain on set 0
+        "flash_bwd_delta": (
+            lambda i: lambda: fa.flash_bwd_delta(sets[i][3], sets[i][5]),
+            lambda: fa.flash_bwd_delta_plain(out, g)),
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta),
-            lambda: fa.flash_bwd_dq_plain(q, k, v, g, lse, delta)),
+            lambda i: lambda: fa.flash_bwd_dq(*args(i)),
+            lambda: fa.flash_bwd_dq_plain(*args(0))),
         "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta),
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)),
+            lambda i: lambda: fa.flash_bwd_dkv(*args(i)),
+            lambda: fa.flash_bwd_dkv_plain(*args(0))),
     }
     entries = []
     for kname, (kernel, plain) in calls.items():
-        kernel_ms = time_ms(torch, kernel, iters=50)
+        kernel_ms, kernel_cold = warm_cold_ms(torch, kernel)
+        paced_ms = time_ms(torch, kernel(0), iters=50)
         plain_ms = time_ms(torch, plain, iters=10)
-        kernel_ms_2 = time_ms(torch, kernel, iters=50)
+        kernel_ms_2 = graph_ms(torch, [kernel(0)])
         n_bytes, flops = work[kname]
         bound_ms, bound_by = _bound(n_bytes, flops)
         entries.append({
@@ -333,17 +441,21 @@ def phase_backward_kernels(torch, P):
             "launches": 0,
             "max_abs_err": worst[kname],
             "ms": kernel_ms,
+            "ms_cold": kernel_cold,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes it alone
         })
         log(f"[1] {kname} at (B {b}, S {s}, H {h}, D {d}) bf16: kernel_ms "
-            f"{kernel_ms:.4f} (again {kernel_ms_2:.4f}), plain_ms "
-            f"{plain_ms:.4f}, bound_ms {bound_ms:.4f} by {bound_by} "
-            f"({n_bytes} B, {flops} FLOP)")
+            f"warm {kernel_ms:.4f} (again {kernel_ms_2:.4f}) cold "
+            f"{kernel_cold:.4f}, wrapper-paced {paced_ms:.4f}; plain_ms "
+            f"{plain_ms:.4f}; bound_ms {bound_ms:.4f} by {bound_by} "
+            f"({n_bytes} B, {flops} FLOP); cold / bound "
+            f"{kernel_cold / bound_ms:.1f}x")
 
-    # The whole backward against SDPA's: (fwd + bwd) - fwd on [B,H,S,D].
+    # The whole backward against SDPA's: (fwd + bwd) - fwd on [B,H,S,D],
+    # wrapper-paced both (autograd is not captured), and ours graph-timed.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
@@ -352,12 +464,16 @@ def phase_backward_kernels(torch, P):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(qt, kt, vt), (qt, kt, vt), gt)
 
-    ours_ms = time_ms(torch, lambda: fa.flash_attention_backward(
-        q, k, v, out, lse, g), iters=50)
+    def ours():
+        fa.flash_attention_backward(q, k, v, out, lse, g)
+
+    ours_ms = time_ms(torch, ours, iters=50)
+    ours_graph_ms = graph_ms(torch, [ours])
     sdpa_fwd_ms = time_ms(torch, lambda: sdpa(qt, kt, vt), iters=50)
     sdpa_both_ms = time_ms(torch, sdpa_fwd_bwd, iters=50)
-    log(f"[1] whole backward (delta + dq + dkv) {ours_ms:.4f} ms; SDPA "
-        f"backward (fwd+bwd {sdpa_both_ms:.4f} - fwd {sdpa_fwd_ms:.4f}) "
+    log(f"[1] whole backward (delta + dq + dkv) {ours_ms:.4f} ms "
+        f"(graph-timed {ours_graph_ms:.4f}); SDPA backward (fwd+bwd "
+        f"{sdpa_both_ms:.4f} - fwd {sdpa_fwd_ms:.4f}) "
         f"{sdpa_both_ms - sdpa_fwd_ms:.4f} ms")
     return entries
 

@@ -25,33 +25,44 @@
 // Grids: dq runs one CTA per (q tile, head, batch) and loops over kv tiles
 // inside the CTA (the TPU's sequential kv grid axis); dk/dv runs one CTA
 // per (kv tile, head, batch) and loops over q tiles, causal loops starting
-// at the first live q tile. Four threads share a tile row: each computes a
-// quarter of the row's scores and owns a quarter of its D output columns,
-// with its accumulators in registers (at D 128 the dk/dv pair is 64 floats
-// a thread). Operand tiles are staged in shared memory as f32, padded by
-// one column against bank conflicts; the rounded p and ds tiles go through
-// shared memory to the second product. Rows past S are staged as zeros,
-// their lse and delta are never read, and their p is forced to 0, so they
-// add nothing to dk and dv; columns past S are masked the same way.
+// at the first live q tile. Rows past S arrive as zeros and their p is
+// forced to 0, so they add nothing to dk and dv; columns past S are masked
+// the same way.
 //
 // What bounds it: at the BERT-base training shape (B 32, S 128, H 12,
 // D 64, bf16) dq moves 31.9 MB and dk/dv 38.1 MB, 9.5 and 11.4 us at the
 // data-sheet 3.35 TB/s, while their 2.4 and 3.2 GFLOP take 2.4 and 3.3 us
-// at 989 TFLOP/s bf16: memory-bound on the H100. These first kernels are
-// simpler than that: every product is a scalar f32 FMA on the CUDA cores
-// with operands from shared memory, so the FP32 pipe and shared-memory
-// bandwidth bound them, not HBM. Tensor-core MMA (mma.sync, then wgmma),
-// TMA staging and pipelined tiles are the later work toward the HBM bound.
-// The delta pass is a plain streaming reduction and reads O and dO once.
+// at 989 TFLOP/s bf16: memory-bound on the H100.
 //
-// Build (plain C interface, loaded with ctypes; flash_common.cuh sits
-// beside it):
+// dk/dv in bf16, flash_bwd_dkv_bf16_kernel: one warpgroup per 64 kv rows.
+// K and V are copied into shared memory once; Q, dO, lse and delta of
+// each q tile (64 rows, 32 at D 128) arrive by cp.async, double-buffered,
+// the next tile's copy under the current tile's products. It works in the
+// transposed frame so that P and dS never leave registers: S^T = K.Q^T
+// and dP^T = V.dO^T are wgmma products with both operands K-major in
+// shared memory; P^T and dS^T are formed on the f32 fragments; dV +=
+// bf16(P^T).dO and dK += bf16(dS^T).Q take them as register A operands,
+// with dO and Q as MN-major B operands. dK's scale is applied once in the
+// epilogue. dK and dV leave through shared memory with 16-byte stores.
+//
+// dq, and dk/dv in f32: the first, scalar design. Four threads share a
+// tile row; operand tiles are staged in shared memory as f32, padded by
+// one column against bank conflicts; the rounded p and ds tiles go through
+// shared memory to the second product; every product is a scalar f32 FMA,
+// so the FP32 pipe and shared-memory bandwidth bound them, not HBM. The
+// f32 path keeps it because TF32 cannot meet its bound; bf16 dq is the
+// next kernel to move to wgmma. The delta pass is a plain streaming
+// reduction and reads O and dO once.
+//
+// Build (plain C interface, loaded with ctypes; flash_common.cuh and
+// hopper_mma.cuh sit beside it):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libflash_bwd.so flash_bwd.cu
+//        -Xcompiler -fPIC -Xptxas=-v -o libflash_bwd.so flash_bwd.cu
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -343,6 +354,176 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ------------------------------------------------------------- dk/dv bf16
+
+constexpr int DKV_ROWS = 64;  // kv rows per CTA
+
+// q rows per tile: 32 at D 128 keeps dK, dV (64 registers each), S^T and
+// dP^T in registers without spills.
+template <int D>
+__host__ __device__ constexpr int dkv_bq() {
+  return D == 128 ? 32 : 64;
+}
+
+template <int D>
+constexpr size_t dkv_bf16_smem() {
+  using L = TileLayout<D>;
+  // k, v (then the dk, dv staging); q[2], dO[2]; lse and delta [2]; slack.
+  return 2 * (size_t)L::template bytes<DKV_ROWS>() +
+         4 * (size_t)L::template bytes<dkv_bq<D>()>() +
+         4 * dkv_bq<D>() * sizeof(float) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dkv_bf16_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+        __nv_bfloat16* __restrict__ dv, int S, int H, int causal,
+        float scale, Strides qs, Strides ks, Strides vs, Strides gs,
+        Strides dks, Strides dvs) {
+  constexpr int R = DKV_ROWS;
+  constexpr int BQ_ = dkv_bq<D>();
+  constexpr uint32_t KT = TileLayout<D>::template bytes<R>();
+  constexpr uint32_t QT = TileLayout<D>::template bytes<BQ_>();
+  constexpr uint32_t STATS = 2 * BQ_ * sizeof(float);  // lse, delta a stage
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t k_s = aligned_smem(smem_raw, &smem);
+  const uint32_t v_s = k_s + KT;
+  const uint32_t q_s = k_s + 2 * KT;           // stage st at + st * QT
+  const uint32_t g_s = q_s + 2 * QT;           // stage st at + st * QT
+  const uint32_t stats_s = g_s + 2 * QT;       // stage st at + st * STATS
+  const float* stats = reinterpret_cast<const float*>(smem + (stats_s - k_s));
+
+  const int kv0 = blockIdx.x * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  const __nv_bfloat16* gb = g + b * gs.b + h * gs.h;
+  const long long row_base = ((long long)b * H + h) * S;
+  // This thread's two kv rows in the accumulator fragments.
+  const int kpos[2] = {kv0 + frag_row(tid, 0), kv0 + frag_row(tid, 2)};
+
+  // Causal: q tiles that end before this kv tile starts are skipped.
+  const int q_start = causal ? (kv0 / BQ_) * BQ_ : 0;
+  const int n_tiles = (S - q_start + BQ_ - 1) / BQ_;
+
+  // Q, dO, lse and delta of q tile t into stage st (0 or 1).
+  auto load_q_tile = [&](int t, uint32_t st) {
+    const int q0 = q_start + t * BQ_;
+    load_tile<D, BQ_>(q_s + st * QT, qb, qs.s, q0, S, tid);
+    load_tile<D, BQ_>(g_s + st * QT, gb, gs.s, q0, S, tid);
+    if (tid < 2 * BQ_) {
+      const int j = tid % BQ_, which = tid / BQ_;
+      const bool live = q0 + j < S;
+      const float* src = (which ? delta : lse) + row_base + (live ? q0 + j : 0);
+      cp_async_4(stats_s + st * STATS + (which * BQ_ + j) * 4, src,
+                 live ? 4 : 0);
+    }
+  };
+
+  load_tile<D, R>(k_s, kb, ks.s, kv0, S, tid);
+  load_tile<D, R>(v_s, vb, vs.s, kv0, S, tid);
+  load_q_tile(0, 0);
+  cp_async_commit();
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const uint32_t st = (uint32_t)(t & 1);
+    if (t + 1 < n_tiles) load_q_tile(t + 1, st ^ 1u);  // under this tile
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+
+    const int q0 = q_start + t * BQ_;
+    const uint32_t qt = q_s + st * QT, gt = g_s + st * QT;
+    // S^T = K.Q^T and dP^T = V.dO^T: kv rows by q columns, both operands
+    // K-major in shared memory.
+    float s[BQ_ / 2], dp[BQ_ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ_ / 2; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<BQ_>(s, desc_k_major<D, R>(k_s, 0, kk * 16),
+                    desc_k_major<D, BQ_>(qt, 0, kk * 16), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<BQ_>(dp, desc_k_major<D, R>(v_s, 0, kk * 16),
+                    desc_k_major<D, BQ_>(gt, 0, kk * 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(scale S^T - lse[q]) and dS^T = P^T (dP^T - delta[q]) in
+    // f32 on the fragments. Columns past S get p = 0.
+    const float* lse_t = stats + st * 2 * BQ_;
+    const float* delta_t = lse_t + BQ_;
+#pragma unroll
+    for (int i = 0; i < BQ_ / 2; ++i) {
+      const int j = frag_col(tid, i);
+      const int qpos = q0 + j;
+      float x = s[i] * scale;
+      if (causal && qpos < kpos[(i / 2) % 2]) x = NEG_INF;
+      const float p = qpos < S ? exp2f((x - lse_t[j]) * LOG2E) : 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - delta_t[j]);
+    }
+
+    // dV += bf16(P^T).dO and dK += bf16(dS^T).Q: A from registers (p
+    // rounded to dO's dtype, ds to q's, as the TPU kernel casts), dO and
+    // Q as MN-major B operands.
+    uint32_t pa[BQ_ / 16][4], da[BQ_ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ_ / 16; ++kk) {
+      frag_to_a(s, kk, pa[kk]);
+      frag_to_a(dp, kk, da[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ_ / 16; ++kk) {
+      wgmma_rs<D>(dv_acc, pa[kk], desc_mn_major<D, BQ_>(gt, kk * 16), 1);
+      wgmma_rs<D>(dk_acc, da[kk], desc_mn_major<D, BQ_>(qt, kk * 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // stage st is free for tile t + 2
+  }
+
+  // dK's scale is applied once here, not per tile product as in the TPU
+  // kernel: the two differ by f32 rounding only.
+  const float dk_mul[2] = {scale, scale}, dv_mul[2] = {1.f, 1.f};
+  stage_frag<D>(smem, dk_acc, dk_mul, tid);       // into k's tile
+  stage_frag<D>(smem + KT, dv_acc, dv_mul, tid);  // into v's tile
+  __syncthreads();
+  store_tile<D, R>(dk + b * dks.b + h * dks.h, dks.s, smem, kv0, S, tid);
+  store_tile<D, R>(dv + b * dvs.b + h * dvs.h, dvs.s, smem + KT, kv0, S,
+                   tid);
+}
+
 // ----------------------------------------------------------------- launch
 
 struct BwdArgs {
@@ -356,63 +537,52 @@ struct BwdArgs {
 
 template <typename T, int D>
 int launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
-      static_cast<T*>(a.dq), a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs,
-      a.gs, a.dqs);
-  return (int)cudaGetLastError();
+  return launch_kernel(
+      flash_bwd_dq_kernel<T, D>, dim3((a.S + BQ - 1) / BQ, a.H, a.B),
+      THREADS, dq_smem_bytes<D>(), stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dq),
+      a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs, a.gs, a.dqs);
 }
 
-template <typename T, int D>
-int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + BKV - 1) / BKV, a.H, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.causal,
-      a.scale, a.qs, a.ks, a.vs, a.gs, a.dks, a.dvs);
-  return (int)cudaGetLastError();
+template <int D>
+int launch_dkv_f32(const BwdArgs& a, cudaStream_t stream) {
+  using T = float;
+  return launch_kernel(
+      flash_bwd_dkv_kernel<T, D>, dim3((a.S + BKV - 1) / BKV, a.H, a.B),
+      THREADS, dkv_smem_bytes<D>(), stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs,
+      a.gs, a.dks, a.dvs);
+}
+
+template <int D>
+int launch_dkv_bf16(const BwdArgs& a, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  return launch_kernel(
+      flash_bwd_dkv_bf16_kernel<D>,
+      dim3((a.S + DKV_ROWS - 1) / DKV_ROWS, a.H, a.B), WG_THREADS,
+      dkv_bf16_smem<D>(), stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs,
+      a.gs, a.dks, a.dvs);
 }
 
 // which: 0 = dq, 1 = dk/dv.
-template <typename T, int D>
-int launch_one(int which, const BwdArgs& a, cudaStream_t stream) {
-  return which == 0 ? launch_dq<T, D>(a, stream) : launch_dkv<T, D>(a, stream);
-}
-
-template <typename T>
-int dispatch_d(int which, int D, const BwdArgs& a, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch_one<T, 16>(which, a, stream);
-    case 32:
-      return launch_one<T, 32>(which, a, stream);
-    case 64:
-      return launch_one<T, 64>(which, a, stream);
-    case 128:
-      return launch_one<T, 128>(which, a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 int dispatch(int which, int dtype, int D, const BwdArgs& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(which, D, a, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, a, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    if (which == 0) {
+      return dtype == 1 ? launch_dq<__nv_bfloat16, DD>(a, st)
+                        : launch_dq<float, DD>(a, st);
+    }
+    return dtype == 1 ? launch_dkv_bf16<DD>(a, st)
+                      : launch_dkv_f32<DD>(a, st);
+  });
 }
 
 }  // namespace
@@ -505,4 +675,27 @@ extern "C" int raydp_flash_bwd_dkv(
   a.dks = Strides{dk_sb, dk_ss, dk_sh};
   a.dvs = Strides{dv_sb, dv_ss, dv_sh};
   return dispatch(1, dtype, D, a, stream);
+}
+
+// The resources (see kernel_resources) of the dq (which 0) or dk/dv
+// (which 1) kernel for dtype and D.
+extern "C" int raydp_flash_bwd_resources(int* out, int which, int dtype,
+                                         int D, void* stream) {
+  (void)stream;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    if (which == 0) {
+      return dtype == 1
+                 ? kernel_resources(flash_bwd_dq_kernel<__nv_bfloat16, DD>,
+                                    THREADS, dq_smem_bytes<DD>(), out)
+                 : kernel_resources(flash_bwd_dq_kernel<float, DD>, THREADS,
+                                    dq_smem_bytes<DD>(), out);
+    }
+    return dtype == 1
+               ? kernel_resources(flash_bwd_dkv_bf16_kernel<DD>, WG_THREADS,
+                                  dkv_bf16_smem<DD>(), out)
+               : kernel_resources(flash_bwd_dkv_kernel<float, DD>, THREADS,
+                                  dkv_smem_bytes<DD>(), out);
+  });
 }

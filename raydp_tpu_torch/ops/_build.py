@@ -26,6 +26,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # ptxas reports each kernel's registers, shared memory and spills;
+    # the report is kept beside the library (``build_log``).
+    "-Xptxas=-v",
 )
 
 # Every kernel source of the port; ``build_all`` compiles them together.
@@ -78,6 +81,8 @@ def _finish(source: str, target: str, tmp: str,
         raise RuntimeError(
             f"nvcc failed on {source} (exit {proc.returncode}):\n{out}"
         )
+    with open(f"{target}.log", "w") as f:
+        f.write(out)
     os.replace(tmp, target)  # atomic: a reader never sees half a library
 
 
@@ -97,6 +102,16 @@ def build_all(sources: Iterable[str] = SOURCES) -> List[str]:
                 proc.kill()
                 proc.wait()
     return [_target(src) for src in sources]
+
+
+def build_log(source: str) -> str:
+    """What nvcc and ptxas printed when ``source``'s current library was
+    built (empty if it was built before the log was kept)."""
+    path = f"{_target(source)}.log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -13,7 +13,9 @@ Dispatch goes by the tensors' device: CUDA tensors launch the kernels in
 take the plain versions, which compute the same tile-by-tile function
 with the JAX package's block sizes and casts. Each kernel wrapper counts
 its launches in an integer ``launches`` attribute: ``flash_attention``,
-``flash_bwd_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
+``flash_bwd_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. The bf16
+kernels read their inputs with 16-byte copies; a bf16 CUDA tensor that
+:func:`async_copy_aligned` refuses raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -176,28 +178,43 @@ def flash_attention_backward_plain(q, k, v, out, lse, grad_out,
 # ------------------------------------------------------------ CUDA launches
 
 # ctypes signatures: (pointers, ints, has a float scale, [B,S,H,D] tensors
-# whose (b, s, h) strides follow).
+# whose (b, s, h) strides follow). Every entry ends with a stream pointer.
 _SIGNATURES = {
     "raydp_flash_fwd": ("flash_fwd.cu", 5, 6, True, 4),
+    "raydp_flash_fwd_resources": ("flash_fwd.cu", 1, 2, False, 0),
     "raydp_flash_bwd_delta": ("flash_bwd.cu", 3, 5, False, 2),
     "raydp_flash_bwd_dq": ("flash_bwd.cu", 7, 6, True, 5),
     "raydp_flash_bwd_dkv": ("flash_bwd.cu", 8, 6, True, 6),
+    "raydp_flash_bwd_resources": ("flash_bwd.cu", 1, 3, False, 0),
 }
+
+_FNS = {}  # symbol -> its ctypes function, configured once
+
+
+def _kernel_fn(symbol: str):
+    """The C entry ``symbol``, loaded and given its ctypes signature on
+    first use and reused after, so a launch adds no per-call setup."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        from raydp_tpu_torch.ops import _build
+
+        source, n_ptrs, n_ints, has_scale, n_strided = _SIGNATURES[symbol]
+        fn = getattr(_build.load(source), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float] * has_scale
+            + [ctypes.c_longlong] * (3 * n_strided) + [ctypes.c_void_p]
+        )
+        _FNS[symbol] = fn
+    return fn
 
 
 def _launch(symbol: str, ptrs, ints, scale, strided, device) -> None:
     """Call a kernel's C entry on ``device``'s current stream and raise on
     the ``cudaError_t`` it returns."""
-    from raydp_tpu_torch.ops import _build
-
-    source, n_ptrs, n_ints, has_scale, n_strided = _SIGNATURES[symbol]
-    fn = getattr(_build.load(source), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-        + [ctypes.c_float] * has_scale + [ctypes.c_longlong] * (3 * n_strided)
-        + [ctypes.c_void_p]
-    )
+    fn = _kernel_fn(symbol)
+    has_scale = _SIGNATURES[symbol][3]
     strides = []
     for x in strided:
         strides += [x.stride(0), x.stride(1), x.stride(2)]
@@ -227,6 +244,44 @@ def _check_kernel_inputs(name: str, *xs: torch.Tensor) -> None:
         raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
     if any(x.stride(-1) != 1 for x in xs):
         raise ValueError(f"{name} needs a contiguous head dimension")
+    if q.dtype == torch.bfloat16:
+        for x in xs:
+            if not async_copy_aligned(x.data_ptr(), x.shape, x.stride(),
+                                      x.element_size()):
+                raise ValueError(
+                    f"{name}: bf16 tensors are read with 16-byte copies and "
+                    f"need a 16-byte aligned base and (b, s, h) strides of "
+                    f"16 bytes' multiples; got address {x.data_ptr()} and "
+                    f"strides {tuple(x.stride())}")
+
+
+def async_copy_aligned(address: int, shape, strides, itemsize: int) -> bool:
+    """Whether a ``[B, S, H, D]`` tensor with a contiguous last dimension
+    can be read in 16-byte chunks: a 16-byte aligned base and, for every
+    leading dimension of size above 1, a stride of a multiple of 16 bytes.
+    The fused-qkv views of ``models/transformer.py`` pass (strides
+    3·H·D, H·D and D elements of a D that divides by 8)."""
+    if address % 16:
+        return False
+    return all(size <= 1 or (stride * itemsize) % 16 == 0
+               for size, stride in zip(shape[:3], strides[:3]))
+
+
+def kernel_resources(kernel: str, dtype: torch.dtype, head_dim: int) -> dict:
+    """What one CTA of a kernel holds on the card: ``registers`` a thread,
+    ``smem_bytes`` a CTA, ``ctas_per_sm`` resident on one SM and
+    ``spill_bytes`` of local memory a thread. ``kernel`` is ``"fwd"``,
+    ``"dq"`` or ``"dkv"``. Needs the card."""
+    out = torch.zeros(4, dtype=torch.int32)  # filled by the C entry
+    ints = (_KERNEL_DTYPES[dtype], head_dim)
+    if kernel == "fwd":
+        symbol = "raydp_flash_fwd_resources"
+    else:
+        symbol = "raydp_flash_bwd_resources"
+        ints = ({"dq": 0, "dkv": 1}[kernel],) + ints
+    _launch(symbol, (out,), ints, None, (), torch.device("cuda"))
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm",
+                     "spill_bytes"), out.tolist()))
 
 
 def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:

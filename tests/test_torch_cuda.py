@@ -137,6 +137,65 @@ def test_backward_kernels_match_plain(cuda, shape, causal, dtype):
                                    **GRAD_TOL[dtype])
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [16, 48, 96, 128, 384])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_wgmma_kernels_match_plain(cuda, d, s, causal):
+    """The bf16 forward and dk/dv (the wgmma kernels) at every head dim
+    and at S on and off their 64-row tiles: out, lse, dk and dv against
+    the plain versions on the same inputs."""
+    shape = (2, s, 3, d)
+    q, k, v = _qkv(shape, torch.bfloat16, seed=d + s)
+    out, lse = flash_attention_forward(q, k, v, causal=causal)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    delta = flash_bwd_delta(out, g)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    want_dk, want_dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_dkv_kernel_is_deterministic(cuda, d):
+    shape = (2, 384, 4, d)
+    q, k, v = _qkv(shape, torch.bfloat16, seed=11)
+    out, lse = flash_attention_forward(q, k, v, causal=True)
+    g = torch.randn(shape, device="cuda").bfloat16()
+    delta = flash_bwd_delta(out, g)
+    first = flash_bwd_dkv(q, k, v, g, lse, delta, True)
+    second = flash_bwd_dkv(q, k, v, g, lse, delta, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_kernels_reject_misaligned_views(cuda):
+    """16-byte copies need a 16-byte aligned base and (b, s, h) strides
+    of 16 bytes' multiples: a bf16 tensor without them raises, never
+    falling back to another path."""
+    n = 2 * 32 * 4 * 64
+    flat = torch.randn(n + 8, device="cuda").bfloat16()
+    shifted = flat[1:1 + n].view(2, 32, 4, 64)
+    wide = torch.randn((2, 32, 4, 68), device="cuda").bfloat16()[..., :64]
+    q, k, v = _qkv((2, 32, 4, 64), torch.bfloat16)
+    before = flash_attention.launches
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(bad, k, v)
+        out, lse = flash_attention_forward(q, k, v)
+        delta = flash_bwd_delta(out, out)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_bwd_dkv(q, k, v, bad, lse, delta)
+    assert flash_attention.launches == before + 2
+
+
 def test_backward_reads_contiguous_and_strided_alike(cuda):
     q, k, v = _qkv((2, 64, 4, 32), torch.bfloat16, seed=5)
     grads = []

@@ -1,0 +1,132 @@
+"""The CPU side of the port's kernel interface: the ctypes signatures
+against the C entries in ``raydp_tpu_torch/csrc/*.cu``, the alignment rule
+of the bf16 kernels' 16-byte copies, and the once-per-symbol ctypes setup.
+No card and no nvcc needed: the sources are parsed, not built.
+"""
+import ctypes
+import importlib
+import os
+import re
+
+import pytest
+import torch
+
+fa = importlib.import_module("raydp_tpu_torch.ops.flash_attention")
+from raydp_tpu_torch.ops import _build  # noqa: E402
+
+_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)\s*\{', re.S)
+
+
+def _entries():
+    """{symbol: (source, [parameter declarations])} of every C entry."""
+    found = {}
+    for name in sorted(os.listdir(_build.CSRC_DIR)):
+        if not name.endswith(".cu"):
+            continue
+        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+            text = f.read()
+        for symbol, params in _ENTRY.findall(text):
+            found[symbol] = (name, [p.strip() for p in params.split(",")])
+    return found
+
+
+def _kind(param: str) -> str:
+    if "*" in param:
+        return "pointer"
+    if param.startswith("long long"):
+        return "stride"
+    if param.startswith("float"):
+        return "float"
+    if param.startswith("int"):
+        return "int"
+    raise AssertionError(f"unexpected parameter {param!r}")
+
+
+def test_every_c_entry_has_a_signature():
+    assert set(_entries()) == set(fa._SIGNATURES)
+
+
+@pytest.mark.parametrize("symbol", sorted(fa._SIGNATURES))
+def test_signature_matches_the_c_entry(symbol):
+    """Pointers, then ints, then the float scale, then (b, s, h) strides,
+    then the stream: counted from the source as ctypes will pass them."""
+    source, params = _entries()[symbol]
+    kinds = [_kind(p) for p in params]
+    assert params[-1].replace(" ", "") == "void*stream"
+    kinds = kinds[:-1]
+    order = ["pointer", "int", "float", "stride"]
+    assert kinds == sorted(kinds, key=order.index), kinds
+    want = (source, kinds.count("pointer"), kinds.count("int"),
+            kinds.count("float") == 1, kinds.count("stride") // 3)
+    assert kinds.count("float") <= 1 and kinds.count("stride") % 3 == 0
+    assert fa._SIGNATURES[symbol] == want
+
+
+def _fused_qkv(b, s, h, d, dtype=torch.bfloat16):
+    return torch.zeros((b, s, 3, h, d), dtype=dtype).unbind(dim=2)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 12, 64), (1, 48, 3, 16),
+                                   (3, 96, 5, 32), (2, 16, 2, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_qkv_views_are_aligned(shape):
+    for x in _fused_qkv(*shape):
+        assert fa.async_copy_aligned(x.data_ptr(), x.shape, x.stride(),
+                                     x.element_size())
+
+
+@pytest.mark.parametrize("address, shape, strides, itemsize, want", [
+    (0, (2, 16, 4, 64), (4096, 256, 64, 1), 2, True),
+    (8, (2, 16, 4, 64), (4096, 256, 64, 1), 2, False),     # base
+    (0, (2, 16, 4, 64), (4096, 260, 64, 1), 2, False),     # s stride
+    (0, (2, 16, 4, 64), (4100, 256, 64, 1), 2, False),     # b stride
+    (0, (2, 16, 4, 64), (4096, 256, 68, 1), 2, False),     # h stride
+    (0, (1, 16, 1, 64), (7, 256, 3, 1), 2, True),          # size-1 dims
+    (0, (2, 16, 4, 64), (4096, 256, 4, 1), 4, True),       # 16-byte stride
+    (16, (2, 16, 4, 64), (4096, 256, 68, 1), 4, True),
+])
+def test_async_copy_alignment_rule(address, shape, strides, itemsize, want):
+    assert fa.async_copy_aligned(address, shape, strides, itemsize) is want
+
+
+def test_misaligned_bf16_views_raise_and_f32_ones_pass():
+    flat = torch.zeros(2 * 16 * 4 * 64 + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + 2 * 16 * 4 * 64].view(2, 16, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_kernel_inputs("flash kernel", shifted, shifted, shifted)
+    odd = torch.zeros((2, 16, 4, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_kernel_inputs("flash kernel", odd, odd, odd)
+    q, k, v = _fused_qkv(2, 16, 4, 64)
+    fa._check_kernel_inputs("flash kernel", q, k, v)  # fused views pass
+    f32 = torch.zeros(2 * 16 * 4 * 64 + 1)[1:].view(2, 16, 4, 64)
+    fa._check_kernel_inputs("flash kernel", f32, f32, f32)  # scalar path
+
+
+class _FakeLib:
+    """Stands in for a loaded library: a new function object per lookup,
+    as ``getattr`` on a ``ctypes.CDLL`` would not guarantee either way."""
+
+    def __getattr__(self, name):
+        fn = type("Fn", (), {})()
+        fn.name = name
+        return fn
+
+
+def test_ctypes_function_is_configured_once_per_symbol(monkeypatch):
+    loads = []
+
+    def fake_load(source):
+        loads.append(source)
+        return _FakeLib()
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(fa, "_FNS", {})
+    for symbol, (source, n_ptrs, n_ints, has_scale, n_strided) in \
+            fa._SIGNATURES.items():
+        first = fa._kernel_fn(symbol)
+        assert fa._kernel_fn(symbol) is first
+        assert first.name == symbol and first.restype is ctypes.c_int
+        assert len(first.argtypes) == (n_ptrs + n_ints + has_scale
+                                       + 3 * n_strided + 1)
+    assert sorted(loads) == sorted(s for s, *_ in fa._SIGNATURES.values())
