@@ -16,8 +16,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    graph of calls, warm (inputs in L2) and cold (rotating over input
    sets larger than the 50 MB L2), beside its plain version, the forward
    against ``scaled_dot_product_attention`` and the whole backward
-   against SDPA's backward (the library yardsticks, which the port never
-   calls).
+   against SDPA's backward, both as CUDA graphs (the library yardsticks,
+   which the port never calls); then the f32 kernels the same way.
 2. BERT-GLUE forward: ``SequenceClassifier`` at bert_base width, bf16,
    ``attention_impl="flash"``, batch 32 x seq 128; logits held against
    the same weights with dense attention (bf16 and f32).
@@ -68,12 +68,12 @@ LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
 # BERT-GLUE (32, 128), and longer sequences.
 KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
                  (4, 512, 12, 64)]
-# The bf16 wgmma kernels (forward, dk/dv) also at every other head dim and
-# at S that is not a multiple of their 64-row tiles.
+# The bf16 wgmma kernels (forward, dq, dk/dv) also at every other head dim
+# and at S that is not a multiple of their 64-row tiles.
 BF16_EXTRA_SHAPES = [(2, 128, 4, 16), (2, 128, 4, 32), (2, 128, 4, 128),
                      (2, 48, 12, 64), (2, 96, 12, 64)]
 # Cold-L2 timing rotates over this many input sets at the BERT shape:
-# 25 MB (forward) to 38 MB (dk/dv) each, so 4 exceed the 50 MB L2.
+# 25 MB (bf16 forward) to 76 MB (f32 dk/dv) each, so 4 exceed the 50 MB L2.
 COLD_SETS = 4
 GRAPH_REPS = 10
 GLUE_BATCH, GLUE_SEQ = 32, 128
@@ -177,7 +177,7 @@ def report_build(torch):
     """Each bf16 and f32 kernel instance's registers, shared memory,
     resident CTAs per SM and spills (from the CUDA runtime), and the ptxas
     report of the bf16 instances (``-Xptxas=-v``). Fails on a spill in a
-    wgmma kernel."""
+    bf16 (wgmma) kernel."""
     import re
 
     from raydp_tpu_torch.ops import _build
@@ -199,7 +199,7 @@ def report_build(torch):
             for d in (16, 32, 64, 128):
                 res = fa.kernel_resources(kernel, dtype, d)
                 log(f"[1] resources {kernel} {str(dtype)[6:]} D {d}: {res}")
-                if dtype == torch.bfloat16 and kernel != "dq":
+                if dtype == torch.bfloat16:
                     check(res["spill_bytes"] == 0,
                           f"{kernel} bf16 D {d} spills: {res}")
 
@@ -454,28 +454,89 @@ def phase_backward_kernels(torch, P):
             f"({n_bytes} B, {flops} FLOP); cold / bound "
             f"{kernel_cold / bound_ms:.1f}x")
 
-    # The whole backward against SDPA's: (fwd + bwd) - fwd on [B,H,S,D],
-    # wrapper-paced both (autograd is not captured), and ours graph-timed.
+    # The whole backward (delta + dq + dk/dv) against SDPA's backward, both
+    # device-only: ours as a CUDA graph of backward calls; SDPA's as a
+    # CUDA graph of captured forward + torch.autograd.grad less one of the
+    # forward alone, on [B, H, S, D] leaves. Warm and cold as above. The
+    # wrapper-paced loops are kept beside them.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    gt = g.transpose(1, 2)
+    leaves = [[x.transpose(1, 2).detach().requires_grad_(True)
+               for x in st[:3]] for st in sets]
+    cots = [st[5].transpose(1, 2) for st in sets]
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(qt, kt, vt), (qt, kt, vt), gt)
+    def sdpa_fwd(i):
+        return lambda: sdpa(*leaves[i])
 
-    def ours():
-        fa.flash_attention_backward(q, k, v, out, lse, g)
+    def sdpa_fwd_bwd(i):
+        return lambda: torch.autograd.grad(sdpa(*leaves[i]), leaves[i],
+                                           cots[i])
 
-    ours_ms = time_ms(torch, ours, iters=50)
-    ours_graph_ms = graph_ms(torch, [ours])
-    sdpa_fwd_ms = time_ms(torch, lambda: sdpa(qt, kt, vt), iters=50)
-    sdpa_both_ms = time_ms(torch, sdpa_fwd_bwd, iters=50)
-    log(f"[1] whole backward (delta + dq + dkv) {ours_ms:.4f} ms "
-        f"(graph-timed {ours_graph_ms:.4f}); SDPA backward (fwd+bwd "
-        f"{sdpa_both_ms:.4f} - fwd {sdpa_fwd_ms:.4f}) "
-        f"{sdpa_both_ms - sdpa_fwd_ms:.4f} ms")
+    def ours(i):
+        q_, k_, v_, out_, lse_, g_, _ = sets[i]
+        return lambda: fa.flash_attention_backward(q_, k_, v_, out_, lse_,
+                                                   g_)
+
+    ours_warm, ours_cold = warm_cold_ms(torch, ours)
+    fwd_warm, fwd_cold = warm_cold_ms(torch, sdpa_fwd)
+    both_warm, both_cold = warm_cold_ms(torch, sdpa_fwd_bwd)
+    ours_paced = time_ms(torch, ours(0), iters=50)
+    sdpa_paced = (time_ms(torch, sdpa_fwd_bwd(0), iters=50)
+                  - time_ms(torch, sdpa_fwd(0), iters=50))
+    log(f"[1] whole backward (delta + dq + dkv) at (B {b}, S {s}, H {h}, "
+        f"D {d}) bf16: graph warm {ours_warm:.4f} cold {ours_cold:.4f} ms, "
+        f"wrapper-paced {ours_paced:.4f}; SDPA backward, graph (fwd+bwd "
+        f"{both_warm:.4f} - fwd {fwd_warm:.4f}) warm "
+        f"{both_warm - fwd_warm:.4f} cold {both_cold - fwd_cold:.4f} ms, "
+        f"paced {sdpa_paced:.4f}; ours / SDPA warm "
+        f"{ours_warm / (both_warm - fwd_warm):.2f}x")
     return entries
+
+
+def time_f32_kernels(torch):
+    """The f32 kernels (the scalar design, kept for f32: the decode
+    oracle's forward and the f32 backward) at the BERT shape: graph-timed
+    warm and cold, plain, bound against the f32 peak, and SDPA's f32
+    forward. Logged for the kernel table; the kernels line holds bf16."""
+    fa = flash_module()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
+    sets = []  # (q, k, v, dO, lse, delta)
+    for _ in range(COLD_SETS):
+        q, k, v = fused_qkv(torch, (b, s, h, d), torch.float32, gen)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        g = torch.randn((b, s, h, d), generator=gen, device="cuda")
+        sets.append((q, k, v, g, lse, fa.flash_bwd_delta(out, g)))
+    el, row, sq = b * s * h * d * 4, b * h * s * 4, b * h * s * s * d
+    rows = {  # kernel on set i, plain on set 0, bytes, FLOPs
+        "flash_fwd": (
+            lambda i: lambda: fa.flash_attention_forward(*sets[i][:3]),
+            lambda: fa.flash_attention_plain(*sets[0][:3]),
+            4 * el + row, 4 * sq),
+        "flash_bwd_dq": (
+            lambda i: lambda: fa.flash_bwd_dq(*sets[i]),
+            lambda: fa.flash_bwd_dq_plain(*sets[0]), 5 * el + 2 * row,
+            6 * sq),
+        "flash_bwd_dkv": (
+            lambda i: lambda: fa.flash_bwd_dkv(*sets[i]),
+            lambda: fa.flash_bwd_dkv_plain(*sets[0]), 6 * el + 2 * row,
+            8 * sq),
+    }
+    for name, (kernel, plain, n_bytes, flops) in rows.items():
+        warm, cold = warm_cold_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, iters=10)
+        bound_ms, bound_by = _bound(n_bytes, flops, "float32")
+        log(f"[1] {name} at (B {b}, S {s}, H {h}, D {d}) f32 (scalar): "
+            f"kernel_ms warm {warm:.4f} cold {cold:.4f}; plain_ms "
+            f"{plain_ms:.4f}; bound_ms {bound_ms:.4f} by {bound_by} "
+            f"({n_bytes} B, {flops} FLOP at "
+            f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); cold / bound "
+            f"{cold / bound_ms:.1f}x")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads_first = [[x.transpose(1, 2) for x in st[:3]] for st in sets]
+    lib_warm, lib_cold = warm_cold_ms(
+        torch, lambda i: lambda: sdpa(*heads_first[i]))
+    log(f"[1] SDPA forward f32 at (B {b}, S {s}, H {h}, D {d}): graph warm "
+        f"{lib_warm:.4f} cold {lib_cold:.4f} ms")
 
 
 def phase_glue(torch, P):
@@ -812,6 +873,7 @@ def main() -> int:
 
     entries = [phase_kernel(torch, P)]
     entries += phase_backward_kernels(torch, P)
+    time_f32_kernels(torch)
     glue_launches = phase_glue(torch, P)
     decode_launches = phase_decode(torch, P)
     phase_grad_check(torch, P)
@@ -824,7 +886,8 @@ def main() -> int:
             e["launches"] += glue_launches + decode_launches
         check(e["launches"] > 0, f"the main path launched no {name}")
     log(f"[main path] flash_fwd launches: GLUE forward {glue_launches}, "
-        f"decode server and its reference {decode_launches}, fine-tune "
+        f"decode server and its reference {decode_launches} (the f32 "
+        f"ones; no f32 backward runs on the main path), fine-tune "
         f"{fit_counts['flash_fwd']}, causal LM fit {lm_counts['flash_fwd']}; "
         f"backward kernels: fine-tune {fit_counts}, causal LM {lm_counts}")
     log(f"total {time.perf_counter() - t0:.1f} s")

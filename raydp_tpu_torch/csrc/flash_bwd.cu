@@ -3,10 +3,12 @@
 //
 // Replaces the TPU kernels of raydp_tpu/ops/flash_attention.py launched by
 // `_flash_bwd_rule`:
-//   flash_bwd_delta_kernel <- the delta einsum, delta = rowsum(dO * O) in
-//                             f32 (an XLA op there, a pre-pass here);
-//   flash_bwd_dq_kernel    <- `_bwd_dq_kernel`;
-//   flash_bwd_dkv_kernel   <- `_bwd_dkv_kernel`.
+//   flash_bwd_delta_kernel   <- the delta einsum, delta = rowsum(dO * O)
+//                               in f32 (an XLA op there, a pre-pass here);
+//   flash_bwd_dq_bf16_kernel,
+//   flash_bwd_dq_kernel      <- `_bwd_dq_kernel` (bf16, f32);
+//   flash_bwd_dkv_bf16_kernel,
+//   flash_bwd_dkv_kernel     <- `_bwd_dkv_kernel` (bf16, f32).
 // Same function as the TPU kernels: p = exp(s - lse) from the forward's row
 // logsumexp with s = (q . k) * scale in f32 and causal entries at -1e30;
 // dp = dO . v in f32; ds = p * (dp - delta);
@@ -23,35 +25,47 @@
 // [B, H, S].
 //
 // Grids: dq runs one CTA per (q tile, head, batch) and loops over kv tiles
-// inside the CTA (the TPU's sequential kv grid axis); dk/dv runs one CTA
-// per (kv tile, head, batch) and loops over q tiles, causal loops starting
-// at the first live q tile. Rows past S arrive as zeros and their p is
-// forced to 0, so they add nothing to dk and dv; columns past S are masked
-// the same way.
+// inside the CTA (the TPU's sequential kv grid axis), causal loops ending
+// at the last live kv tile; dk/dv runs one CTA per (kv tile, head, batch)
+// and loops over q tiles, causal loops starting at the first live q tile.
+// Rows past S arrive as zeros and their p is forced to 0, so they add
+// nothing; columns past S are masked the same way.
 //
 // What bounds it: at the BERT-base training shape (B 32, S 128, H 12,
 // D 64, bf16) dq moves 31.9 MB and dk/dv 38.1 MB, 9.5 and 11.4 us at the
 // data-sheet 3.35 TB/s, while their 2.4 and 3.2 GFLOP take 2.4 and 3.3 us
 // at 989 TFLOP/s bf16: memory-bound on the H100.
 //
-// dk/dv in bf16, flash_bwd_dkv_bf16_kernel: one warpgroup per 64 kv rows.
-// K and V are copied into shared memory once; Q, dO, lse and delta of
-// each q tile (64 rows, 32 at D 128) arrive by cp.async, double-buffered,
-// the next tile's copy under the current tile's products. It works in the
-// transposed frame so that P and dS never leave registers: S^T = K.Q^T
-// and dP^T = V.dO^T are wgmma products with both operands K-major in
-// shared memory; P^T and dS^T are formed on the f32 fragments; dV +=
-// bf16(P^T).dO and dK += bf16(dS^T).Q take them as register A operands,
-// with dO and Q as MN-major B operands. dK's scale is applied once in the
-// epilogue. dK and dV leave through shared memory with 16-byte stores.
+// The bf16 kernels are one warpgroup (128 threads) per 64-row tile, with
+// wgmma products on the tensor cores, tiles copied by 16-byte cp.async in
+// the swizzled layout of hopper_mma.cuh, and the rounded P and dS kept in
+// registers as the A operand of the second product:
 //
-// dq, and dk/dv in f32: the first, scalar design. Four threads share a
-// tile row; operand tiles are staged in shared memory as f32, padded by
-// one column against bank conflicts; the rounded p and ds tiles go through
-// shared memory to the second product; every product is a scalar f32 FMA,
-// so the FP32 pipe and shared-memory bandwidth bound them, not HBM. The
-// f32 path keeps it because TF32 cannot meet its bound; bf16 dq is the
-// next kernel to move to wgmma. The delta pass is a plain streaming
+// dq, flash_bwd_dq_bf16_kernel: one CTA per 64 q rows. Q and dO are copied
+// into shared memory once, lse and delta of the thread's two fragment rows
+// into registers; K and V tiles of 64 rows stream through a two-stage
+// cp.async ring, the next tile's copy under the current tile's products.
+// S = Q.K^T and dP = dO.V^T are wgmma products with all four operands
+// K-major in shared memory; P and dS are formed on the f32 fragments; dQ +=
+// bf16(dS).K takes dS as the register A operand and K's tile, the same
+// bytes, as an MN-major B operand. dQ's scale is applied once in the
+// epilogue, and dQ leaves through shared memory with 16-byte stores.
+//
+// dk/dv, flash_bwd_dkv_bf16_kernel: one CTA per 64 kv rows. K and V are
+// copied into shared memory once; Q, dO, lse and delta of each q tile (64
+// rows, 32 at D 128) arrive by cp.async, double-buffered. It works in the
+// transposed frame so that P and dS never leave registers: S^T = K.Q^T
+// and dP^T = V.dO^T are wgmma products with both operands K-major; dV +=
+// bf16(P^T).dO and dK += bf16(dS^T).Q take P^T and dS^T as register A
+// operands, with dO and Q as MN-major B operands. dK's scale is applied
+// once in the epilogue.
+//
+// dq and dk/dv in f32: the first, scalar design, kept because TF32 cannot
+// meet the f32 bound. Four threads share a tile row; operand tiles are
+// staged in shared memory as f32, padded by one column against bank
+// conflicts; p and ds go through shared memory to the second product;
+// every product is a scalar f32 FMA, so the FP32 pipe and shared-memory
+// bandwidth bound them, not HBM. The delta pass is a plain streaming
 // reduction and reads O and dO once.
 //
 // Build (plain C interface, loaded with ctypes; flash_common.cuh and
@@ -218,6 +232,145 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int t = 0; t < ND; ++t) out[lane + t * TPR] = from_f32<T>(acc[t]);
   }
+}
+
+// ---------------------------------------------------------------- dq bf16
+
+constexpr int DQ_ROWS = 64;  // q rows per CTA, kv rows per tile
+
+template <int D>
+constexpr size_t dq_bf16_smem() {
+  // q (then the dq staging), dO, k[2], v[2]; plus the alignment slack.
+  return 6 * (size_t)TileLayout<D>::template bytes<DQ_ROWS>() + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dq_bf16_kernel(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+        int S, int H, int causal, float scale, Strides qs, Strides ks,
+        Strides vs, Strides gs, Strides dqs) {
+  constexpr int R = DQ_ROWS;
+  constexpr uint32_t TILE = TileLayout<D>::template bytes<R>();
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t q_s = aligned_smem(smem_raw, &smem);
+  const uint32_t g_s = q_s + TILE;
+  const uint32_t k_s = q_s + 2 * TILE;  // stage st at k_s + st * TILE
+  const uint32_t v_s = q_s + 4 * TILE;  // stage st at v_s + st * TILE
+
+  const int q0 = blockIdx.x * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  const __nv_bfloat16* gb = g + b * gs.b + h * gs.h;
+  const long long row_base = ((long long)b * H + h) * S;
+  // This thread's two query rows in the accumulator fragments, and their
+  // lse and delta (defined only inside the sequence; a row past S has
+  // zero Q and dO, so its ds is 0 whatever these are).
+  const int qpos[2] = {q0 + frag_row(tid, 0), q0 + frag_row(tid, 2)};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = qpos[r] < S ? lse[row_base + qpos[r]] : 0.f;
+    delta_r[r] = qpos[r] < S ? delta[row_base + qpos[r]] : 0.f;
+  }
+
+  // Causal: kv tiles that start past the CTA's last query row are skipped.
+  const int kv_end = causal ? min(S, q0 + R) : S;
+  const int n_tiles = (kv_end + R - 1) / R;
+
+  load_tile<D, R>(q_s, qb, qs.s, q0, S, tid);
+  load_tile<D, R>(g_s, gb, gs.s, q0, S, tid);
+  load_tile<D, R>(k_s, kb, ks.s, 0, S, tid);
+  load_tile<D, R>(v_s, vb, vs.s, 0, S, tid);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const uint32_t st = (uint32_t)(t & 1) * TILE;
+    if (t + 1 < n_tiles) {  // the next tile's copy runs under this tile
+      const uint32_t nx = TILE - st;
+      load_tile<D, R>(k_s + nx, kb, ks.s, (t + 1) * R, S, tid);
+      load_tile<D, R>(v_s + nx, vb, vs.s, (t + 1) * R, S, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile t have landed
+    fence_proxy_async();
+    __syncthreads();     // and everyone's
+
+    // S = Q.K^T and dP = dO.V^T: q rows by kv columns, all four operands
+    // K-major in shared memory; one commit, one wait.
+    float s[R / 2], dp[R / 2];
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<R>(s, desc_k_major<D, R>(q_s, 0, kk * 16),
+                  desc_k_major<D, R>(k_s + st, 0, kk * 16), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<R>(dp, desc_k_major<D, R>(g_s, 0, kk * 16),
+                  desc_k_major<D, R>(v_s + st, 0, kk * 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(scale S - lse) and dS = P (dP - delta) in f32 on the
+    // fragments; dS overwrites S. Columns past S get p = 0.
+    const int kv0 = t * R;
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int kpos = kv0 + frag_col(tid, i);
+      const int r = (i / 2) % 2;
+      float x = s[i] * scale;
+      if (causal && qpos[r] < kpos) x = NEG_INF;
+      const float p = kpos < S ? exp2f((x - lse_r[r]) * LOG2E) : 0.f;
+      s[i] = p * (dp[i] - delta_r[r]);
+    }
+
+    // dQ += bf16(dS).K: dS rounded to k's dtype, as the TPU kernel casts,
+    // is the register A operand; K's tile, the same bytes the S product
+    // read K-major, is the MN-major B operand. dS never touches shared
+    // memory.
+    uint32_t a[R / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk) frag_to_a(s, kk, a[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk) {
+      wgmma_rs<D>(acc, a[kk], desc_mn_major<D, R>(k_s + st, kk * 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // stage st is free for tile t + 2
+  }
+
+  // dQ's scale is applied once here, not per kv tile product as in the TPU
+  // kernel: the two differ by f32 rounding only.
+  const float mul[2] = {scale, scale};
+  stage_frag<D>(smem, acc, mul, tid);  // into q's tile, no longer read
+  __syncthreads();
+  store_tile<D, R>(dq + b * dqs.b + h * dqs.h, dqs.s, smem, q0, S, tid);
 }
 
 // ------------------------------------------------------------------ dk/dv
@@ -535,11 +688,24 @@ struct BwdArgs {
   Strides qs, ks, vs, gs, dqs, dks, dvs;
 };
 
-template <typename T, int D>
-int launch_dq(const BwdArgs& a, cudaStream_t stream) {
+template <int D>
+int launch_dq_f32(const BwdArgs& a, cudaStream_t stream) {
+  using T = float;
   return launch_kernel(
       flash_bwd_dq_kernel<T, D>, dim3((a.S + BQ - 1) / BQ, a.H, a.B),
       THREADS, dq_smem_bytes<D>(), stream, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dq),
+      a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs, a.gs, a.dqs);
+}
+
+template <int D>
+int launch_dq_bf16(const BwdArgs& a, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  return launch_kernel(
+      flash_bwd_dq_bf16_kernel<D>,
+      dim3((a.S + DQ_ROWS - 1) / DQ_ROWS, a.H, a.B), WG_THREADS,
+      dq_bf16_smem<D>(), stream, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dq),
       a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs, a.gs, a.dqs);
@@ -577,8 +743,8 @@ int dispatch(int which, int dtype, int D, const BwdArgs& a, void* stream) {
   return by_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
     if (which == 0) {
-      return dtype == 1 ? launch_dq<__nv_bfloat16, DD>(a, st)
-                        : launch_dq<float, DD>(a, st);
+      return dtype == 1 ? launch_dq_bf16<DD>(a, st)
+                        : launch_dq_f32<DD>(a, st);
     }
     return dtype == 1 ? launch_dkv_bf16<DD>(a, st)
                       : launch_dkv_f32<DD>(a, st);
@@ -687,8 +853,8 @@ extern "C" int raydp_flash_bwd_resources(int* out, int which, int dtype,
     constexpr int DD = decltype(d)::value;
     if (which == 0) {
       return dtype == 1
-                 ? kernel_resources(flash_bwd_dq_kernel<__nv_bfloat16, DD>,
-                                    THREADS, dq_smem_bytes<DD>(), out)
+                 ? kernel_resources(flash_bwd_dq_bf16_kernel<DD>, WG_THREADS,
+                                    dq_bf16_smem<DD>(), out)
                  : kernel_resources(flash_bwd_dq_kernel<float, DD>, THREADS,
                                     dq_smem_bytes<DD>(), out);
     }

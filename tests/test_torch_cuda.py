@@ -141,9 +141,9 @@ def test_backward_kernels_match_plain(cuda, shape, causal, dtype):
 @pytest.mark.parametrize("s", [16, 48, 96, 128, 384])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_bf16_wgmma_kernels_match_plain(cuda, d, s, causal):
-    """The bf16 forward and dk/dv (the wgmma kernels) at every head dim
-    and at S on and off their 64-row tiles: out, lse, dk and dv against
-    the plain versions on the same inputs."""
+    """The bf16 forward, dq and dk/dv (the wgmma kernels) at every head
+    dim and at S on and off their 64-row tiles: out, lse, dq, dk and dv
+    against the plain versions on the same inputs."""
     shape = (2, s, 3, d)
     q, k, v = _qkv(shape, torch.bfloat16, seed=d + s)
     out, lse = flash_attention_forward(q, k, v, causal=causal)
@@ -151,27 +151,34 @@ def test_bf16_wgmma_kernels_match_plain(cuda, d, s, causal):
     gen = torch.Generator(device="cuda").manual_seed(7)
     g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
     delta = flash_bwd_delta(out, g)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    want_dq = flash_bwd_dq_plain(q, k, v, g, lse, delta, causal)
     want_dk, want_dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref_out.float(),
                                **TOL[torch.bfloat16])
     torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
-    for got, want in ((dk, want_dk), (dv, want_dv)):
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got.float(), want.float(),
                                    **GRAD_TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_dkv_kernel_is_deterministic(cuda, d):
+def test_bwd_kernels_are_deterministic(cuda, d, kernel):
+    """dq and dk/dv sum without atomics: two runs are bit-identical."""
     shape = (2, 384, 4, d)
     q, k, v = _qkv(shape, torch.bfloat16, seed=11)
     out, lse = flash_attention_forward(q, k, v, causal=True)
     g = torch.randn(shape, device="cuda").bfloat16()
     delta = flash_bwd_delta(out, g)
-    first = flash_bwd_dkv(q, k, v, g, lse, delta, True)
-    second = flash_bwd_dkv(q, k, v, g, lse, delta, True)
+    fn = flash_bwd_dq if kernel == "dq" else flash_bwd_dkv
+    first = fn(q, k, v, g, lse, delta, True)
+    second = fn(q, k, v, g, lse, delta, True)
+    if kernel == "dq":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -191,6 +198,8 @@ def test_bf16_kernels_reject_misaligned_views(cuda):
             flash_attention(bad, k, v)
         out, lse = flash_attention_forward(q, k, v)
         delta = flash_bwd_delta(out, out)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_bwd_dq(q, k, v, bad, lse, delta)
         with pytest.raises(ValueError, match="16-byte"):
             flash_bwd_dkv(q, k, v, bad, lse, delta)
     assert flash_attention.launches == before + 2
