@@ -9,15 +9,19 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (nvcc, sm_90a, one process per source), report each instance's
    registers, shared memory, resident CTAs per SM and spills (failing on
    a spill in a wgmma kernel), then hold each kernel against its plain
-   PyTorch version on the card: f32 and bf16, causal and not, at the main
-   path's shapes, and bf16 also at D 16/32/128 and S 48/96. The forward's
-   ``out`` and ``lse``; the backward's delta, dq, dk and dv under a random
+   PyTorch version on the card (exact f32 matmuls for the plain side):
+   f32 and bf16, causal and not, at the main path's shapes, and both
+   dtypes also at D 16/32/128 and S 48/96. The forward's ``out`` and
+   ``lse``; the backward's delta, dq, dk and dv under a random
    cotangent. Times each kernel at the BERT shape (B 32, S 128) as a CUDA
    graph of calls, warm (inputs in L2) and cold (rotating over input
    sets larger than the 50 MB L2), beside its plain version, the forward
    against ``scaled_dot_product_attention`` and the whole backward
    against SDPA's backward, both as CUDA graphs (the library yardsticks,
-   which the port never calls); then the f32 kernels the same way.
+   which the port never calls); then the f32 kernels the same way, with
+   their bounds on the CUDA cores and in TF32 x3 on the tensor cores,
+   the f32 forward at the decode oracle's shapes and the whole f32
+   backward against SDPA's f32 backward.
 2. BERT-GLUE forward: ``SequenceClassifier`` at bert_base width, bf16,
    ``attention_impl="flash"``, batch 32 x seq 128; logits held against
    the same weights with dense attention (bf16 and f32).
@@ -48,9 +52,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and FLOP/s by input type
-# (bf16 on the tensor cores, f32 on the CUDA cores).
+# (bf16 and tf32 on the tensor cores, f32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -68,10 +72,14 @@ LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
 # BERT-GLUE (32, 128), and longer sequences.
 KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
                  (4, 512, 12, 64)]
-# The bf16 wgmma kernels (forward, dq, dk/dv) also at every other head dim
-# and at S that is not a multiple of their 64-row tiles.
-BF16_EXTRA_SHAPES = [(2, 128, 4, 16), (2, 128, 4, 32), (2, 128, 4, 128),
-                     (2, 48, 12, 64), (2, 96, 12, 64)]
+# Every kernel has a wgmma instance in each dtype (f32: TF32 x3), except
+# the f32 dq; each is also checked at every other head dim and at S that
+# is not a multiple of its 64-row tiles.
+EXTRA_SHAPES = [(2, 128, 4, 16), (2, 128, 4, 32), (2, 128, 4, 128),
+                (2, 48, 12, 64), (2, 96, 12, 64)]
+# The decode oracle's forward: B 1, H 12, D 64, causal, S in the prompt
+# buckets of the phase-3 engine (page 16, max_len 512, prompts <= 216).
+DECODE_ORACLE_SEQS = [16, 32, 64, 128, 256]
 # Cold-L2 timing rotates over this many input sets at the BERT shape:
 # 25 MB (bf16 forward) to 76 MB (f32 dk/dv) each, so 4 exceed the 50 MB L2.
 COLD_SETS = 4
@@ -176,32 +184,38 @@ def warm_cold_ms(torch, make_call, n_sets: int = COLD_SETS):
 def report_build(torch):
     """Each bf16 and f32 kernel instance's registers, shared memory,
     resident CTAs per SM and spills (from the CUDA runtime), and the ptxas
-    report of the bf16 instances (``-Xptxas=-v``). Fails on a spill in a
-    bf16 (wgmma) kernel."""
+    report of the wgmma instances (``-Xptxas=-v``): every bf16 kernel and
+    the f32 forward and dk/dv. Fails on a spill in a wgmma kernel.
+    Returns the names (``flash_fwd_f32_kernel<64>``, ...) of the wgmma
+    instances that the build compiled."""
     import re
 
     from raydp_tpu_torch.ops import _build
 
     fa = flash_module()
+    compiled = set()
     for src in _build.SOURCES:
         name = None
         for line in _build.build_log(src).splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"\d(flash_[a-z0-9_]+?kernel)I"
                               r"(13__nv_bfloat16|f)?Li(\d+)E", line)
-                kind = m and ("f32" if m.group(2) == "f" else "bf16")
-                name = m and f"{m.group(1)}<{kind}, {m.group(3)}>"
-            elif name and "bf16" in name and ("Used" in line
-                                              or "spill" in line):
+                wgmma = m and ("_bf16_" in m.group(1)
+                               or "_f32_" in m.group(1))
+                name = wgmma and f"{m.group(1)}<{m.group(3)}>"
+                if name:
+                    compiled.add(name)
+            elif name and ("Used" in line or "spill" in line):
                 log(f"[1] ptxas {name}: {line.strip()}")
     for kernel in ("fwd", "dq", "dkv"):
         for dtype in (torch.bfloat16, torch.float32):
             for d in (16, 32, 64, 128):
                 res = fa.kernel_resources(kernel, dtype, d)
                 log(f"[1] resources {kernel} {str(dtype)[6:]} D {d}: {res}")
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 or kernel != "dq":  # wgmma
                     check(res["spill_bytes"] == 0,
-                          f"{kernel} bf16 D {d} spills: {res}")
+                          f"{kernel} {str(dtype)[6:]} D {d} spills: {res}")
+    return compiled
 
 
 def device_profile(torch, label, fn, top=5):
@@ -253,6 +267,12 @@ def fused_qkv(torch, shape, dtype, gen):
     return qkv.to(dtype).unbind(dim=2)
 
 
+def _kernel_cases(torch):
+    """(shape, dtype) of every kernel-vs-plain check of phase 1."""
+    return [(shape, dtype) for shape in KERNEL_SHAPES + EXTRA_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
 def phase_kernel(torch, P):
     from raydp_tpu_torch.ops import _build
     from raydp_tpu_torch.ops.flash_attention import (
@@ -263,13 +283,12 @@ def phase_kernel(torch, P):
     libs = _build.build_all()
     log(f"[1] built {libs} in {time.perf_counter() - t0:.2f} s")
 
-    report_build(torch)
+    wgmma = report_build(torch)
+    P.set_exact_float32()  # the plain versions' f32 matmuls stay exact
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    cases = [(shape, dtype) for shape in KERNEL_SHAPES
-             for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(shape, torch.bfloat16) for shape in BF16_EXTRA_SHAPES]
+    cases = _kernel_cases(torch)
     for shape, dtype in cases:
         for causal in (False, True):
             q, k, v = fused_qkv(torch, shape, dtype, gen)
@@ -334,7 +353,7 @@ def phase_kernel(torch, P):
         f"{library_cold:.4f}; bound_ms {bound_ms:.4f} by {bound_by} "
         f"({n_bytes} B, {flops} FLOP); cold / bound "
         f"{kernel_cold / bound_ms:.1f}x")
-    return entry
+    return entry, wgmma
 
 
 def _bound(n_bytes, flops, dtype="bfloat16"):
@@ -342,6 +361,54 @@ def _bound(n_bytes, flops, dtype="bfloat16"):
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
         "operations"
+
+
+def backward_set(torch, fa, shape, dtype, gen):
+    """(q, k, v, out, lse, dO, delta): fused-qkv inputs, the forward
+    kernel's out and lse, a random cotangent and the delta kernel's rows."""
+    q, k, v = fused_qkv(torch, shape, dtype, gen)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, out, lse, g, fa.flash_bwd_delta(out, g)
+
+
+def whole_backward_vs_sdpa(torch, fa, sets, label):
+    """The whole backward (delta + dq + dk/dv) against SDPA's backward,
+    both device-only: ours as a CUDA graph of backward calls; SDPA's as a
+    CUDA graph of captured forward + torch.autograd.grad less one of the
+    forward alone, on [B, H, S, D] leaves. Warm and cold as the kernels;
+    the wrapper-paced loops beside them. ``sets`` are backward_set's."""
+    b, s, h, d = sets[0][0].shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [[x.transpose(1, 2).detach().requires_grad_(True)
+               for x in st[:3]] for st in sets]
+    cots = [st[5].transpose(1, 2) for st in sets]
+
+    def sdpa_fwd(i):
+        return lambda: sdpa(*leaves[i])
+
+    def sdpa_fwd_bwd(i):
+        return lambda: torch.autograd.grad(sdpa(*leaves[i]), leaves[i],
+                                           cots[i])
+
+    def ours(i):
+        q_, k_, v_, out_, lse_, g_, _ = sets[i]
+        return lambda: fa.flash_attention_backward(q_, k_, v_, out_, lse_,
+                                                   g_)
+
+    ours_warm, ours_cold = warm_cold_ms(torch, ours)
+    fwd_warm, fwd_cold = warm_cold_ms(torch, sdpa_fwd)
+    both_warm, both_cold = warm_cold_ms(torch, sdpa_fwd_bwd)
+    ours_paced = time_ms(torch, ours(0), iters=50)
+    sdpa_paced = (time_ms(torch, sdpa_fwd_bwd(0), iters=50)
+                  - time_ms(torch, sdpa_fwd(0), iters=50))
+    log(f"[1] whole backward (delta + dq + dkv) at (B {b}, S {s}, H {h}, "
+        f"D {d}) {label}: graph warm {ours_warm:.4f} cold {ours_cold:.4f} "
+        f"ms, wrapper-paced {ours_paced:.4f}; SDPA backward, graph "
+        f"(fwd+bwd {both_warm:.4f} - fwd {fwd_warm:.4f}) warm "
+        f"{both_warm - fwd_warm:.4f} cold {both_cold - fwd_cold:.4f} ms, "
+        f"paced {sdpa_paced:.4f}; ours / SDPA warm "
+        f"{ours_warm / (both_warm - fwd_warm):.2f}x")
 
 
 def phase_backward_kernels(torch, P):
@@ -353,9 +420,7 @@ def phase_backward_kernels(torch, P):
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {"flash_bwd_delta": 0.0, "flash_bwd_dq": 0.0,
              "flash_bwd_dkv": 0.0}
-    cases = [(shape, dtype) for shape in KERNEL_SHAPES
-             for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(shape, torch.bfloat16) for shape in BF16_EXTRA_SHAPES]
+    cases = _kernel_cases(torch)
     for shape, dtype in cases:
         for causal in (False, True):
             name = str(dtype).split(".")[-1]
@@ -393,12 +458,8 @@ def phase_backward_kernels(torch, P):
     # Timing at the BERT shape, bf16: graph-timed warm and cold (as the
     # forward), the wrapper-paced loop, the plain version.
     b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
-    sets = []
-    for _ in range(COLD_SETS):
-        q, k, v = fused_qkv(torch, (b, s, h, d), torch.bfloat16, gen)
-        out, lse = fa.flash_attention_forward(q, k, v)
-        g = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
-        sets.append((q, k, v, out, lse, g, fa.flash_bwd_delta(out, g)))
+    sets = [backward_set(torch, fa, (b, s, h, d), torch.bfloat16, gen)
+            for _ in range(COLD_SETS)]
     q, k, v, out, lse, g, delta = sets[0]
     el, row = b * s * h * d * 2, b * h * s * 4  # one bf16 tensor, one row stat
     work = {  # bytes each input read once and output written once; FLOPs
@@ -454,58 +515,37 @@ def phase_backward_kernels(torch, P):
             f"({n_bytes} B, {flops} FLOP); cold / bound "
             f"{kernel_cold / bound_ms:.1f}x")
 
-    # The whole backward (delta + dq + dk/dv) against SDPA's backward, both
-    # device-only: ours as a CUDA graph of backward calls; SDPA's as a
-    # CUDA graph of captured forward + torch.autograd.grad less one of the
-    # forward alone, on [B, H, S, D] leaves. Warm and cold as above. The
-    # wrapper-paced loops are kept beside them.
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    leaves = [[x.transpose(1, 2).detach().requires_grad_(True)
-               for x in st[:3]] for st in sets]
-    cots = [st[5].transpose(1, 2) for st in sets]
-
-    def sdpa_fwd(i):
-        return lambda: sdpa(*leaves[i])
-
-    def sdpa_fwd_bwd(i):
-        return lambda: torch.autograd.grad(sdpa(*leaves[i]), leaves[i],
-                                           cots[i])
-
-    def ours(i):
-        q_, k_, v_, out_, lse_, g_, _ = sets[i]
-        return lambda: fa.flash_attention_backward(q_, k_, v_, out_, lse_,
-                                                   g_)
-
-    ours_warm, ours_cold = warm_cold_ms(torch, ours)
-    fwd_warm, fwd_cold = warm_cold_ms(torch, sdpa_fwd)
-    both_warm, both_cold = warm_cold_ms(torch, sdpa_fwd_bwd)
-    ours_paced = time_ms(torch, ours(0), iters=50)
-    sdpa_paced = (time_ms(torch, sdpa_fwd_bwd(0), iters=50)
-                  - time_ms(torch, sdpa_fwd(0), iters=50))
-    log(f"[1] whole backward (delta + dq + dkv) at (B {b}, S {s}, H {h}, "
-        f"D {d}) bf16: graph warm {ours_warm:.4f} cold {ours_cold:.4f} ms, "
-        f"wrapper-paced {ours_paced:.4f}; SDPA backward, graph (fwd+bwd "
-        f"{both_warm:.4f} - fwd {fwd_warm:.4f}) warm "
-        f"{both_warm - fwd_warm:.4f} cold {both_cold - fwd_cold:.4f} ms, "
-        f"paced {sdpa_paced:.4f}; ours / SDPA warm "
-        f"{ours_warm / (both_warm - fwd_warm):.2f}x")
+    whole_backward_vs_sdpa(torch, fa, sets, "bf16")
     return entries
 
 
-def time_f32_kernels(torch):
-    """The f32 kernels (the scalar design, kept for f32: the decode
-    oracle's forward and the f32 backward) at the BERT shape: graph-timed
-    warm and cold, plain, bound against the f32 peak, and SDPA's f32
-    forward. Logged for the kernel table; the kernels line holds bf16."""
+def time_f32_kernels(torch, wgmma):
+    """The f32 kernels at the BERT shape: the forward and dk/dv (wgmma,
+    TF32 x3) and dq (scalar), graph-timed warm and cold, their plain
+    versions, and each bound both ways against the HBM bytes: f32 FMAs on
+    the CUDA cores (67 TFLOP/s) and TF32 x3 on the tensor cores (three
+    products at 495 TFLOP/s). Then SDPA's f32 forward, the forward at the
+    decode oracle's shapes beside SDPA's, and the whole f32 backward
+    against SDPA's f32 backward. A kernel's design in the log is wgmma
+    where the build compiled an f32 wgmma instance of it (``wgmma``, from
+    ``report_build``). Returns the ``f32`` object of the forward's and
+    dk/dv's entries in the kernels line."""
     fa = flash_module()
     gen = torch.Generator(device="cuda").manual_seed(9)
     b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
-    sets = []  # (q, k, v, dO, lse, delta)
-    for _ in range(COLD_SETS):
-        q, k, v = fused_qkv(torch, (b, s, h, d), torch.float32, gen)
-        out, lse = fa.flash_attention_forward(q, k, v)
-        g = torch.randn((b, s, h, d), generator=gen, device="cuda")
-        sets.append((q, k, v, g, lse, fa.flash_bwd_delta(out, g)))
+    sets = [backward_set(torch, fa, (b, s, h, d), torch.float32, gen)
+            for _ in range(COLD_SETS)]
+
+    def args(i):  # (q, k, v, dO, lse, delta) of input set i
+        q_, k_, v_, _, lse_, g_, delta_ = sets[i]
+        return q_, k_, v_, g_, lse_, delta_
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads_first = [[x.transpose(1, 2) for x in st[:3]] for st in sets]
+    lib_warm, lib_cold = warm_cold_ms(
+        torch, lambda i: lambda: sdpa(*heads_first[i]))
+    log(f"[1] SDPA forward f32 at (B {b}, S {s}, H {h}, D {d}): graph warm "
+        f"{lib_warm:.4f} cold {lib_cold:.4f} ms")
     el, row, sq = b * s * h * d * 4, b * h * s * 4, b * h * s * s * d
     rows = {  # kernel on set i, plain on set 0, bytes, FLOPs
         "flash_fwd": (
@@ -513,30 +553,51 @@ def time_f32_kernels(torch):
             lambda: fa.flash_attention_plain(*sets[0][:3]),
             4 * el + row, 4 * sq),
         "flash_bwd_dq": (
-            lambda i: lambda: fa.flash_bwd_dq(*sets[i]),
-            lambda: fa.flash_bwd_dq_plain(*sets[0]), 5 * el + 2 * row,
+            lambda i: lambda: fa.flash_bwd_dq(*args(i)),
+            lambda: fa.flash_bwd_dq_plain(*args(0)), 5 * el + 2 * row,
             6 * sq),
         "flash_bwd_dkv": (
-            lambda i: lambda: fa.flash_bwd_dkv(*sets[i]),
-            lambda: fa.flash_bwd_dkv_plain(*sets[0]), 6 * el + 2 * row,
+            lambda i: lambda: fa.flash_bwd_dkv(*args(i)),
+            lambda: fa.flash_bwd_dkv_plain(*args(0)), 6 * el + 2 * row,
             8 * sq),
     }
+    f32 = {}
     for name, (kernel, plain, n_bytes, flops) in rows.items():
         warm, cold = warm_cold_ms(torch, kernel)
         plain_ms = time_ms(torch, plain, iters=10)
-        bound_ms, bound_by = _bound(n_bytes, flops, "float32")
-        log(f"[1] {name} at (B {b}, S {s}, H {h}, D {d}) f32 (scalar): "
+        fma_ms, fma_by = _bound(n_bytes, flops, "float32")
+        tc_ms, tc_by = _bound(n_bytes, 3 * flops, "tf32")
+        design = ("wgmma TF32 x3" if f"{name}_f32_kernel<{d}>" in wgmma
+                  else "scalar")
+        if name != "flash_bwd_dq":
+            f32[name] = {"ms": warm, "ms_cold": cold, "bound_ms": tc_ms,
+                         "library_ms":
+                             lib_warm if name == "flash_fwd" else None}
+        log(f"[1] {name} at (B {b}, S {s}, H {h}, D {d}) f32 ({design}): "
             f"kernel_ms warm {warm:.4f} cold {cold:.4f}; plain_ms "
-            f"{plain_ms:.4f}; bound_ms {bound_ms:.4f} by {bound_by} "
-            f"({n_bytes} B, {flops} FLOP at "
-            f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); cold / bound "
-            f"{cold / bound_ms:.1f}x")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    heads_first = [[x.transpose(1, 2) for x in st[:3]] for st in sets]
-    lib_warm, lib_cold = warm_cold_ms(
-        torch, lambda i: lambda: sdpa(*heads_first[i]))
-    log(f"[1] SDPA forward f32 at (B {b}, S {s}, H {h}, D {d}): graph warm "
-        f"{lib_warm:.4f} cold {lib_cold:.4f} ms")
+            f"{plain_ms:.4f}; bound_ms TF32 x3 {tc_ms:.4f} by {tc_by} "
+            f"(3 x {flops} FLOP at {PEAK_FLOPS['tf32'] / 1e12:.0f} TFLOP/s), "
+            f"f32 FMA {fma_ms:.4f} by {fma_by} (at "
+            f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); {n_bytes} B; "
+            f"cold / TF32 x3 bound {cold / tc_ms:.1f}x")
+
+    # The decode oracle's launches: B 1, causal, one prompt bucket each;
+    # the causal work counts the live half of the scores.
+    for s_ in DECODE_ORACLE_SEQS:
+        q, k, v = fused_qkv(torch, (1, s_, h, d), torch.float32, gen)
+        ms = graph_ms(torch, [lambda: fa.flash_attention_forward(
+            q, k, v, causal=True)])
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        lib = graph_ms(torch, [lambda: sdpa(qh, kh, vh, is_causal=True)])
+        n_bytes = 4 * s_ * h * d * 4 + h * s_ * 4
+        flops = 4 * h * d * s_ * (s_ + 1) // 2
+        bound, by = _bound(n_bytes, 3 * flops, "tf32")
+        log(f"[1] flash_fwd f32 at the decode oracle's (B 1, S {s_}, H {h}, "
+            f"D {d}, causal; {(s_ + 63) // 64 * h} CTAs): graph warm "
+            f"{ms:.4f} ms; SDPA f32 causal {lib:.4f} ms; bound_ms TF32 x3 "
+            f"{bound:.5f} by {by}")
+    whole_backward_vs_sdpa(torch, fa, sets, "f32")
+    return f32
 
 
 def phase_glue(torch, P):
@@ -871,9 +932,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
         f"{gpu_line()}")
 
-    entries = [phase_kernel(torch, P)]
-    entries += phase_backward_kernels(torch, P)
-    time_f32_kernels(torch)
+    fwd_entry, wgmma = phase_kernel(torch, P)
+    entries = [fwd_entry] + phase_backward_kernels(torch, P)
+    f32 = time_f32_kernels(torch, wgmma)
+    for e in entries:
+        if e["name"] in f32:
+            e["f32"] = f32[e["name"]]
     glue_launches = phase_glue(torch, P)
     decode_launches = phase_decode(torch, P)
     phase_grad_check(torch, P)

@@ -8,7 +8,7 @@
 //   flash_bwd_dq_bf16_kernel,
 //   flash_bwd_dq_kernel      <- `_bwd_dq_kernel` (bf16, f32);
 //   flash_bwd_dkv_bf16_kernel,
-//   flash_bwd_dkv_kernel     <- `_bwd_dkv_kernel` (bf16, f32).
+//   flash_bwd_dkv_f32_kernel <- `_bwd_dkv_kernel` (bf16, f32).
 // Same function as the TPU kernels: p = exp(s - lse) from the forward's row
 // logsumexp with s = (q . k) * scale in f32 and causal entries at -1e30;
 // dp = dO . v in f32; ds = p * (dp - delta);
@@ -34,12 +34,15 @@
 // What bounds it: at the BERT-base training shape (B 32, S 128, H 12,
 // D 64, bf16) dq moves 31.9 MB and dk/dv 38.1 MB, 9.5 and 11.4 us at the
 // data-sheet 3.35 TB/s, while their 2.4 and 3.2 GFLOP take 2.4 and 3.3 us
-// at 989 TFLOP/s bf16: memory-bound on the H100.
+// at 989 TFLOP/s bf16: memory-bound on the H100. In f32 dk/dv moves 75.9
+// MB (22.7 us); its 3.2 GFLOP as three TF32 products each take 19.5 us at
+// 495 TFLOP/s, so it stays memory-bound, where f32 FMAs on the CUDA cores
+// (48 us at 67 TFLOP/s) would bound it by operations.
 //
-// The bf16 kernels are one warpgroup (128 threads) per 64-row tile, with
-// wgmma products on the tensor cores, tiles copied by 16-byte cp.async in
-// the swizzled layout of hopper_mma.cuh, and the rounded P and dS kept in
-// registers as the A operand of the second product:
+// The wgmma kernels are one warpgroup (128 threads) per 64-row tile, with
+// products on the tensor cores, tiles in the swizzled layout of
+// hopper_mma.cuh, and P and dS kept in registers as the A operand of the
+// second product:
 //
 // dq, flash_bwd_dq_bf16_kernel: one CTA per 64 q rows. Q and dO are copied
 // into shared memory once, lse and delta of the thread's two fragment rows
@@ -60,13 +63,29 @@
 // operands, with dO and Q as MN-major B operands. dK's scale is applied
 // once in the epilogue.
 //
-// dq and dk/dv in f32: the first, scalar design, kept because TF32 cannot
-// meet the f32 bound. Four threads share a tile row; operand tiles are
-// staged in shared memory as f32, padded by one column against bank
-// conflicts; p and ds go through shared memory to the second product;
-// every product is a scalar f32 FMA, so the FP32 pipe and shared-memory
-// bandwidth bound them, not HBM. The delta pass is a plain streaming
-// reduction and reads O and dO once.
+// dk/dv in f32, flash_bwd_dkv_f32_kernel: the bf16 plan with every product
+// a tf32 wgmma taken three times (TF32 x3, hopper_mma.cuh): one TF32
+// product keeps ~11 bits of each operand and misses the f32 bound;
+// big.big + big.small + small.big, x split into a TF32 big part and its
+// exact f32 remainder, is off by ~2^-21. Two warpgroups share a CTA of 64
+// kv rows: one accumulates dV (S^T, then P^T.dO), the other dK (S^T and
+// dP^T, then dS^T.Q), so each holds one D-wide accumulator and S^T is
+// computed twice; held together with the split P^T and dS^T, both spill at
+// D 128. K and V arrive by cp.async and are split in place. tf32 operands
+// must be K-major, so the B operands of the second products are dO^T and
+// Q^T: each q tile of Q and dO (with its lse and delta) lands raw by
+// cp.async a tile ahead, then is split and stored both as is (for S^T and
+// dP^T) and transposed with the q positions in the A fragment's order
+// (tf32_slot), so P^T and dS^T stay in registers. 32-row q tiles in a
+// two-stage ring up to D 64 (210 KB of shared memory, 1 CTA per SM);
+// 16-row tiles in one stage at D 128.
+//
+// dq in f32, flash_bwd_dq_kernel: the first, scalar design. Four threads
+// share a tile row; operand tiles are staged in shared memory as f32,
+// padded by one column against bank conflicts; ds goes through shared
+// memory to the second product; every product is a scalar f32 FMA, so
+// the FP32 pipe and shared-memory bandwidth bound it, not HBM. The delta
+// pass is a plain streaming reduction and reads O and dO once.
 //
 // Build (plain C interface, loaded with ctypes; flash_common.cuh and
 // hopper_mma.cuh sit beside it):
@@ -373,140 +392,6 @@ __global__ void __launch_bounds__(WG_THREADS)
   store_tile<D, R>(dq + b * dqs.b + h * dqs.h, dqs.s, smem, q0, S, tid);
 }
 
-// ------------------------------------------------------------------ dk/dv
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // k_s, v_s [BKV][D+1]; q_s, g_s [BQ][D+1]; p_s, ds_s [BKV][BQ+1];
-  // lse_s, delta_s [BQ]; all f32.
-  return sizeof(float) * (size_t)(2 * BKV * (D + 1) + 2 * BQ * (D + 1) +
-                                  2 * BKV * (BQ + 1) + 2 * BQ);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int S, int H,
-                         int causal, float scale, Strides qs, Strides ks,
-                         Strides vs, Strides gs, Strides dks, Strides dvs) {
-  static_assert(D % TPR == 0 && BQ % TPR == 0, "tile shape");
-  static_assert(THREADS == BKV * TPR, "one thread group per kv row");
-  constexpr int DP = D + 1;
-  constexpr int QP = BQ + 1;
-  constexpr int NI = BQ / TPR;  // scores per thread per q tile
-  constexpr int ND = D / TPR;   // dk and dv columns per thread
-
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + BKV * DP;
-  float* q_s = v_s + BKV * DP;
-  float* g_s = q_s + BQ * DP;
-  float* p_s = g_s + BQ * DP;
-  float* ds_s = p_s + BKV * QP;
-  float* lse_s = ds_s + BKV * QP;
-  float* delta_s = lse_s + BQ;
-
-  const int kv0 = blockIdx.x * BKV;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;  // this thread group's kv row
-  const int lane = tid % TPR;
-  const int kpos = kv0 + row;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* gb = g + b * gs.b + h * gs.h;
-  const long long row_base = ((long long)b * H + h) * S;
-
-  for (int i = tid; i < BKV * D; i += THREADS) {
-    const int r = i / D, d = i % D, s = kv0 + r;
-    float kk = 0.f, vv = 0.f;
-    if (s < S) {
-      kk = to_f32(kb[s * ks.s + d]);
-      vv = to_f32(vb[s * vs.s + d]);
-    }
-    k_s[r * DP + d] = kk;
-    v_s[r * DP + d] = vv;
-  }
-
-  float dk_acc[ND], dv_acc[ND];
-#pragma unroll
-  for (int t = 0; t < ND; ++t) {
-    dk_acc[t] = 0.f;
-    dv_acc[t] = 0.f;
-  }
-
-  // Causal: q tiles that end before this kv tile starts are skipped.
-  const int q_start = causal ? (kv0 / BQ) * BQ : 0;
-  for (int q0 = q_start; q0 < S; q0 += BQ) {
-    __syncthreads();  // the previous q tile's readers are done
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = i / D, d = i % D, s = q0 + r;
-      float qq = 0.f, gg = 0.f;
-      if (s < S) {
-        qq = to_f32(qb[s * qs.s + d]);
-        gg = to_f32(gb[s * gs.s + d]);
-      }
-      q_s[r * DP + d] = qq;
-      g_s[r * DP + d] = gg;
-    }
-    for (int i = tid; i < BQ; i += THREADS) {
-      const int s = q0 + i;
-      lse_s[i] = s < S ? lse[row_base + s] : 0.f;
-      delta_s[i] = s < S ? delta[row_base + s] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int ii = 0; ii < NI; ++ii) {
-      const int i = lane + ii * TPR;
-      const int qpos = q0 + i;
-      float sdot = 0.f, dpdot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        sdot = fmaf(q_s[i * DP + d], k_s[row * DP + d], sdot);
-        dpdot = fmaf(g_s[i * DP + d], v_s[row * DP + d], dpdot);
-      }
-      float sc = sdot * scale;
-      if (causal && qpos < kpos) sc = NEG_INF;
-      const float p = qpos < S ? expf(sc - lse_s[i]) : 0.f;
-      const float ds = p * (dpdot - delta_s[i]);
-      // p.astype(dO.dtype) and ds.astype(q.dtype) before the products.
-      p_s[row * QP + i] = round_to<T>(p);
-      ds_s[row * QP + i] = round_to<T>(ds);
-    }
-    __syncwarp();  // a row's p and ds are written and read by its own lanes
-
-#pragma unroll
-    for (int t = 0; t < ND; ++t) {
-      const int d = lane + t * TPR;
-      float av = 0.f, ak = 0.f;
-#pragma unroll 16
-      for (int i = 0; i < BQ; ++i) {
-        av = fmaf(p_s[row * QP + i], g_s[i * DP + d], av);
-        ak = fmaf(ds_s[row * QP + i], q_s[i * DP + d], ak);
-      }
-      dv_acc[t] += av;
-      dk_acc[t] += ak * scale;  // scaled per tile product, as the TPU kernel
-    }
-  }
-
-  if (kpos < S) {
-    T* dk_row = dk + b * dks.b + kpos * dks.s + h * dks.h;
-    T* dv_row = dv + b * dvs.b + kpos * dvs.s + h * dvs.h;
-#pragma unroll
-    for (int t = 0; t < ND; ++t) {
-      dk_row[lane + t * TPR] = from_f32<T>(dk_acc[t]);
-      dv_row[lane + t * TPR] = from_f32<T>(dv_acc[t]);
-    }
-  }
-}
-
 // ------------------------------------------------------------- dk/dv bf16
 
 constexpr int DKV_ROWS = 64;  // kv rows per CTA
@@ -677,6 +562,257 @@ __global__ void __launch_bounds__(WG_THREADS)
                    tid);
 }
 
+// -------------------------------------------------------------- dk/dv f32
+
+// q rows per tile and stages of the f32 dk/dv: 32-row tiles in a two-stage
+// ring up to D 64; at D 128, where the tiles are twice as wide, 16-row
+// tiles in one stage.
+template <int D>
+__host__ __device__ constexpr int dkv_f32_bq() {
+  return D == 128 ? 16 : 32;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_f32_stages() {
+  return D == 128 ? 1 : 2;
+}
+
+constexpr int DKV_F32_THREADS = 2 * WG_THREADS;  // the dV and dK warpgroups
+
+template <int D>
+__host__ __device__ constexpr size_t dkv_f32_smem() {
+  using L = TileLayout<D, 4>;
+  constexpr int BQ_ = dkv_f32_bq<D>();
+  constexpr int STAGES = dkv_f32_stages<D>();
+  // k and v big and small (k big and v big then the dv, dk staging); per
+  // stage q, dO, q^T and dO^T big and small; the next q and dO tiles as
+  // they land; lse and delta per stage and as they land; slack.
+  return 4 * (size_t)L::template bytes<DKV_ROWS>() +
+         (8 * STAGES + 2) * (size_t)L::template bytes<BQ_>() +
+         (STAGES + 1) * 2 * BQ_ * sizeof(float) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(DKV_F32_THREADS)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int S, int H, int causal, float scale,
+                             Strides qs, Strides ks, Strides vs, Strides gs,
+                             Strides dks, Strides dvs) {
+  constexpr int R = DKV_ROWS;
+  constexpr int BQ_ = dkv_f32_bq<D>();
+  constexpr int STAGES = dkv_f32_stages<D>();
+  using L = TileLayout<D, 4>;
+  constexpr uint32_t KT = L::template bytes<R>();
+  constexpr uint32_t QT = L::template bytes<BQ_>();  // and q^T's D x BQ_
+  static_assert(dkv_f32_smem<D>() <= 232448, "shared memory budget");
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t base = aligned_smem(smem_raw, &smem);
+  // Byte offsets: k big, k small, v big, v small at 0, KT, 2 KT, 3 KT;
+  // stage st's q big, q small, dO big, dO small, q^T big, q^T small,
+  // dO^T big and dO^T small at q_tile(st, 0..7); the raw q and dO tiles
+  // at Q_RAW and Q_RAW + QT; lse and delta of stage st at stats + 2 st BQ_
+  // and as they land at stats + 2 STAGES BQ_.
+  auto q_tile = [](int st, int j) -> uint32_t {
+    return 4 * KT + (8 * st + j) * QT;
+  };
+  constexpr uint32_t Q_RAW = 4 * KT + 8 * STAGES * QT;
+  constexpr uint32_t STATS = Q_RAW + 2 * QT;
+  using QRaw = RawTile<D, BQ_>;
+  float* stats = reinterpret_cast<float*>(smem + STATS);
+  const float* stats_raw = stats + 2 * STAGES * BQ_;
+
+  // Warpgroup 0 accumulates dV: it needs S^T, P^T and dO^T. Warpgroup 1
+  // accumulates dK: S^T, dP^T, dS^T and Q^T. Each holds one D-wide
+  // accumulator; S^T is computed by both. Warpgroup 0 copies K, Q and lse,
+  // warpgroup 1 V, dO and delta.
+  const int wg = threadIdx.x / WG_THREADS;
+  const int tid = threadIdx.x % WG_THREADS;
+  const int kv0 = blockIdx.x * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float* kvb = wg ? v + b * vs.b + h * vs.h : k + b * ks.b + h * ks.h;
+  const float* qgb = wg ? g + b * gs.b + h * gs.h : q + b * qs.b + h * qs.h;
+  const long long qg_stride = wg ? gs.s : qs.s;
+  const long long row_base = ((long long)b * H + h) * S;
+  // This thread's two kv rows in the accumulator fragments.
+  const int kpos[2] = {kv0 + frag_row(tid, 0), kv0 + frag_row(tid, 2)};
+
+  // Causal: q tiles that end before this kv tile starts are skipped.
+  const int q_start = causal ? (kv0 / BQ_) * BQ_ : 0;
+  const int n_tiles = (S - q_start + BQ_ - 1) / BQ_;
+
+  // Q or dO, and lse or delta, of a q tile land raw by cp.async a tile
+  // ahead; each thread then splits the chunks it copied into a stage, as
+  // they are (tiles 0-1: Q, 2-3: dO) and transposed (4-5: Q^T, 6-7: dO^T).
+  auto load_q_tile = [&](int t) {
+    const int q0 = q_start + t * BQ_;
+    QRaw::load(base + Q_RAW + wg * QT, qgb, qg_stride, q0, S, tid);
+    if (tid < BQ_) {
+      const bool live = q0 + tid < S;
+      cp_async_4(base + STATS + (2 * STAGES * BQ_ + wg * BQ_ + tid) * 4,
+                 (wg ? delta : lse) + row_base + (live ? q0 + tid : 0),
+                 live ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  auto store_q_tile = [&](int st) {  // after this thread's copies landed
+    const uint8_t* raw = smem + Q_RAW + wg * QT;
+    QRaw::store(raw, smem + q_tile(st, 2 * wg), smem + q_tile(st, 2 * wg + 1),
+                tid);
+    QRaw::store_t(raw, smem + q_tile(st, 4 + 2 * wg),
+                  smem + q_tile(st, 5 + 2 * wg), tid);
+    if (tid < BQ_) {
+      stats[2 * st * BQ_ + wg * BQ_ + tid] = stats_raw[wg * BQ_ + tid];
+    }
+  };
+
+  // K (warpgroup 0) or V (warpgroup 1) once, split in place.
+  load_tile<D, R>(base + 2 * wg * KT, kvb, wg ? vs.s : ks.s, kv0, S, tid);
+  load_q_tile(0);
+  cp_async_wait<0>();
+  split_tile<D, R>(smem + 2 * wg * KT, smem + (2 * wg + 1) * KT, tid);
+  store_q_tile(0);
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = STAGES == 2 ? (t & 1) : 0;
+    const bool more = t + 1 < n_tiles;
+    if (more) load_q_tile(t + 1);  // lands under this tile's products
+
+    // S^T = K.Q^T (both warpgroups) and dP^T = V.dO^T (warpgroup 1) in
+    // TF32 x3: kv rows by q columns, all operands K-major in shared
+    // memory; the small products first.
+    float s[BQ_ / 2], dp[BQ_ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ_ / 2; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_ss_tf32<BQ_>(
+          s, desc_k_major<D, R, 4>(base, 0, k0),
+          desc_k_major<D, BQ_, 4>(base + q_tile(st, 1), 0, k0), 1);
+      wgmma_ss_tf32<BQ_>(
+          s, desc_k_major<D, R, 4>(base + KT, 0, k0),
+          desc_k_major<D, BQ_, 4>(base + q_tile(st, 0), 0, k0), 1);
+      if (wg) {
+        wgmma_ss_tf32<BQ_>(
+            dp, desc_k_major<D, R, 4>(base + 2 * KT, 0, k0),
+            desc_k_major<D, BQ_, 4>(base + q_tile(st, 3), 0, k0), 1);
+        wgmma_ss_tf32<BQ_>(
+            dp, desc_k_major<D, R, 4>(base + 3 * KT, 0, k0),
+            desc_k_major<D, BQ_, 4>(base + q_tile(st, 2), 0, k0), 1);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_ss_tf32<BQ_>(
+          s, desc_k_major<D, R, 4>(base, 0, k0),
+          desc_k_major<D, BQ_, 4>(base + q_tile(st, 0), 0, k0), 1);
+      if (wg) {
+        wgmma_ss_tf32<BQ_>(
+            dp, desc_k_major<D, R, 4>(base + 2 * KT, 0, k0),
+            desc_k_major<D, BQ_, 4>(base + q_tile(st, 2), 0, k0), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(scale S^T - lse[q]) (warpgroup 0 keeps it) and
+    // dS^T = P^T (dP^T - delta[q]) (warpgroup 1) on the fragments, as the
+    // bf16 kernel. Columns past S get p = 0.
+    const int q0 = q_start + t * BQ_;
+    const float* lse_t = stats + 2 * st * BQ_;
+    const float* delta_t = lse_t + BQ_;
+#pragma unroll
+    for (int i = 0; i < BQ_ / 2; ++i) {
+      const int j = frag_col(tid, i);
+      const int qpos = q0 + j;
+      float x = s[i] * scale;
+      if (causal && qpos < kpos[(i / 2) % 2]) x = NEG_INF;
+      const float p = qpos < S ? exp2f((x - lse_t[j]) * LOG2E) : 0.f;
+      s[i] = wg ? p * (dp[i] - delta_t[j]) : p;
+    }
+
+    // dV += P^T.dO (B: dO^T, tiles 6-7) or dK += dS^T.Q (B: Q^T, tiles
+    // 4-5) in TF32 x3, the A operand split in registers (no rounding: dO
+    // and q are f32).
+    const int bt = wg ? 4 : 6;
+    uint32_t a_big[BQ_ / 8][4], a_small[BQ_ / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ_ / 8; ++kk) {
+      frag_to_a_tf32(s, kk, a_big[kk], a_small[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ_ / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_rs_tf32<D>(
+          acc, a_small[kk],
+          desc_k_major<BQ_, D, 4>(base + q_tile(st, bt), 0, k0), 1);
+      wgmma_rs_tf32<D>(
+          acc, a_big[kk],
+          desc_k_major<BQ_, D, 4>(base + q_tile(st, bt + 1), 0, k0), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ_ / 8; ++kk) {
+      wgmma_rs_tf32<D>(
+          acc, a_big[kk],
+          desc_k_major<BQ_, D, 4>(base + q_tile(st, bt), 0, kk * 8), 1);
+    }
+    wgmma_commit();
+    if (STAGES == 2 && more) {  // the next tile into the other stage
+      cp_async_wait<0>();
+      store_q_tile(st ^ 1);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BQ_ / 8; ++kk) {
+      fence_regs(a_big[kk]);
+      fence_regs(a_small[kk]);
+    }
+    __syncthreads();  // stage st is free
+    if (STAGES == 1 && more) {  // one stage: the next tile after the wait
+      cp_async_wait<0>();
+      store_q_tile(0);
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+
+  // dK's scale is applied once here, as in the bf16 kernel. Warpgroup 0
+  // stages dV in k's big tile, warpgroup 1 dK in v's.
+  const float mul[2] = {wg ? scale : 1.f, wg ? scale : 1.f};
+  stage_frag_f32<D>(smem + 2 * wg * KT, acc, mul, tid);
+  __syncthreads();
+  if (wg) {
+    store_tile<D, R>(dk + b * dks.b + h * dks.h, dks.s, smem + 2 * KT, kv0, S,
+                     tid);
+  } else {
+    store_tile<D, R>(dv + b * dvs.b + h * dvs.h, dvs.s, smem, kv0, S, tid);
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 struct BwdArgs {
@@ -715,8 +851,9 @@ template <int D>
 int launch_dkv_f32(const BwdArgs& a, cudaStream_t stream) {
   using T = float;
   return launch_kernel(
-      flash_bwd_dkv_kernel<T, D>, dim3((a.S + BKV - 1) / BKV, a.H, a.B),
-      THREADS, dkv_smem_bytes<D>(), stream, static_cast<const T*>(a.q),
+      flash_bwd_dkv_f32_kernel<D>,
+      dim3((a.S + DKV_ROWS - 1) / DKV_ROWS, a.H, a.B), DKV_F32_THREADS,
+      dkv_f32_smem<D>(), stream, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs,
@@ -861,7 +998,7 @@ extern "C" int raydp_flash_bwd_resources(int* out, int which, int dtype,
     return dtype == 1
                ? kernel_resources(flash_bwd_dkv_bf16_kernel<DD>, WG_THREADS,
                                   dkv_bf16_smem<DD>(), out)
-               : kernel_resources(flash_bwd_dkv_kernel<float, DD>, THREADS,
-                                  dkv_smem_bytes<DD>(), out);
+               : kernel_resources(flash_bwd_dkv_f32_kernel<DD>,
+                                  DKV_F32_THREADS, dkv_f32_smem<DD>(), out);
   });
 }

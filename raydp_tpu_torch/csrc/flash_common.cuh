@@ -1,7 +1,7 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): the scalar kernels' tile shape, the TPU kernels' mask
-// value, element strides, the f32 <-> element-type conversions, and the
-// host side's head-dim dispatch, launch and resource query.
+// flash_bwd.cu): the scalar f32 dq kernel's tile shape, the TPU kernels'
+// mask value, element strides, the f32 <-> element-type conversions, and
+// the host side's head-dim dispatch, launch and resource query.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -12,15 +12,17 @@
 // of a fused qkv projection need no transpose copies. lse is f32
 // [B, H, S] (the caller views it as [B, H, S, 1]).
 //
-// What bounds it: at the BERT-GLUE shape (B 32, S 128, H 12, D 64, bf16)
-// q, k, v and o are 25.2 MB per launch, 7.5 us at the data-sheet 3.35 TB/s,
-// and the 1.61 GFLOP are 1.6 us at 989 TFLOP/s bf16, so the function is
-// memory-bound on the H100. Two kernels compute it:
+// What bounds it: at the BERT-GLUE shape (B 32, S 128, H 12, D 64) q, k,
+// v and o are 25.2 MB per launch in bf16 and 50.5 MB in f32, 7.5 and 15.1
+// us at the data-sheet 3.35 TB/s. The 1.61 GFLOP take 1.6 us at 989
+// TFLOP/s bf16, and 9.8 us as three TF32 products each at 495 TFLOP/s,
+// so the function is memory-bound on the H100 in both types. Two kernels
+// compute it, one warpgroup (128 threads) per (64 query rows, head,
+// batch):
 //
-// bf16, flash_fwd_bf16_kernel: one warpgroup (128 threads) per (64 query
-// rows, head, batch). Q is copied into shared memory once; K and V tiles
-// of 64 rows arrive by 16-byte cp.async into a two-stage ring, so tile
-// t + 1 is in flight while tile t is multiplied. S = Q.K^T is a wgmma
+// bf16, flash_fwd_bf16_kernel: Q is copied into shared memory once; K and
+// V tiles of 64 rows arrive by 16-byte cp.async into a two-stage ring, so
+// tile t + 1 is in flight while tile t is multiplied. S = Q.K^T is a wgmma
 // m64n64k16 with both operands in shared memory (both K-major, swizzled
 // as hopper_mma.cuh lays tiles out); the online softmax runs on the f32
 // accumulator fragment in registers (row max and sum over the four
@@ -32,10 +34,20 @@
 // and writes it with 16-byte stores. Many CTAs per SM hide the latency
 // that the two-stage ring cannot at S 128 (two kv tiles).
 //
-// f32, flash_fwd_kernel: the first, scalar design, kept for the f32 path
-// (the decode oracle), whose bound (rtol 2e-4) TF32 cannot meet: one CTA
-// per (64 query rows, head, batch), four threads per query row, K/V tiles
-// staged in shared memory as f32 and every product a scalar f32 FMA.
+// f32, flash_fwd_f32_kernel: the same plan with every product a tf32
+// wgmma taken three times (TF32 x3, hopper_mma.cuh). One TF32 product
+// keeps ~11 bits of each operand and misses the f32 bound (rtol 2e-4);
+// big.big + big.small + small.big, with x split into a TF32 big part and
+// its exact f32 remainder, is off by ~2^-21 of each product, and at 495/3
+// TFLOP/s it still takes less time than the bytes (f32 FMAs on the CUDA
+// cores would take 24 us). tf32 operands must be K-major, so V is kept
+// transposed: each V tile lands raw by cp.async a tile ahead, then is
+// split and written as V^T with the kv positions in the A fragment's
+// order (tf32_slot), and P stays in registers as the A operand of
+// O += P.V. Q and K arrive by cp.async and are split in place. kv tiles
+// are 32 rows in a two-stage ring: 105 KB of shared memory at D 64 (2 CTAs
+// per SM), 209 KB at D 128.
+//
 // Causal: both skip kv tiles that start past the CTA's last query row.
 //
 // Build (plain C interface, loaded with ctypes; flash_common.cuh and
@@ -51,130 +63,6 @@
 namespace {
 
 using namespace raydp_flash;
-
-template <typename T, int D>
-constexpr size_t smem_bytes() {
-  // q_s [BQ][D+1], k_s [BKV][D+1], v_s [BKV][D], p_s [BQ][BKV+1], all f32.
-  return sizeof(float) *
-         (size_t)(BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int causal,
-                     float scale, Strides qs, Strides ks, Strides vs,
-                     Strides os) {
-  static_assert(D % TPR == 0 && BKV % TPR == 0, "tile shape");
-  constexpr int DP = D + 1;    // padded rows: conflict-free column reads
-  constexpr int KP = BKV + 1;
-  constexpr int NJ = BKV / TPR;  // scores per thread per tile
-  constexpr int ND = D / TPR;    // output columns per thread
-
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + BQ * DP;
-  float* v_s = k_s + BKV * DP;
-  float* p_s = v_s + BKV * D;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int lane = tid % TPR;
-  const int qpos = q0 + row;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    q_s[r * DP + d] = s < S ? to_f32(qb[s * qs.s + d]) : 0.f;
-  }
-
-  float m = NEG_INF, l = 0.f;
-  float acc[ND];
-#pragma unroll
-  for (int t = 0; t < ND; ++t) acc[t] = 0.f;
-
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();  // the previous tile's readers are done (Q is staged)
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, d = i % D, s = kv0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (s < S) {
-        kk = to_f32(kb[s * ks.s + d]);
-        vv = to_f32(vb[s * vs.s + d]);
-      }
-      k_s[r * DP + d] = kk;
-      v_s[r * D + d] = vv;
-    }
-    __syncthreads();
-
-    float sc[NJ];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int j = lane + jj * TPR;
-      const int kpos = kv0 + j;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        dot = fmaf(q_s[row * DP + d], k_s[j * DP + d], dot);
-      }
-      float s = dot * scale;
-      if (causal && qpos < kpos) s = NEG_INF;
-      if (kpos >= S) s = -INFINITY;  // past the sequence: no weight at all
-      sc[jj] = s;
-      tile_max = fmaxf(tile_max, s);
-    }
-    // The four lanes of a row are adjacent in one warp.
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const float p = expf(sc[jj] - m_new);
-      psum += p;
-      // P.V takes P in V's dtype, as the TPU kernel feeds its MXU.
-      p_s[row * KP + lane + jj * TPR] = to_f32(from_f32<T>(p));
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();  // a row's P is written and read by its own four lanes
-
-#pragma unroll
-    for (int t = 0; t < ND; ++t) {
-      const int d = lane + t * TPR;
-      float a = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < BKV; ++j) {
-        a = fmaf(p_s[row * KP + j], v_s[j * D + d], a);
-      }
-      acc[t] = acc[t] * corr + a;
-    }
-  }
-
-  if (qpos < S) {
-    const float ls = fmaxf(l, 1e-30f);
-    T* orow = o + b * os.b + qpos * os.s + h * os.h;
-#pragma unroll
-    for (int t = 0; t < ND; ++t) {
-      orow[lane + t * TPR] = from_f32<T>(acc[t] / ls);
-    }
-    if (lane == 0) {
-      lse[((long long)b * H + h) * S + qpos] = m + logf(ls);
-    }
-  }
-}
 
 // ------------------------------------------------------------------- bf16
 
@@ -325,6 +213,208 @@ __global__ void __launch_bounds__(WG_THREADS)
   store_tile<D, R>(o + b * os.b + h * os.h, os.s, smem, q0, S, tid);
 }
 
+// -------------------------------------------------------------------- f32
+
+constexpr int F32_KV = 32;  // kv rows per tile of the f32 kernel
+
+template <int D>
+__host__ __device__ constexpr size_t fwd_f32_smem() {
+  // q big and small (q big then the output staging); k big and small and
+  // v^T (D x 32) big and small, two stages each; the next v tile as it
+  // lands; the alignment slack.
+  using L = TileLayout<D, 4>;
+  return 2 * (size_t)L::template bytes<FWD_ROWS>() +
+         9 * (size_t)L::template bytes<F32_KV>() + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int causal,
+                         float scale, Strides qs, Strides ks, Strides vs,
+                         Strides os) {
+  constexpr int R = FWD_ROWS, KV = F32_KV;
+  using L = TileLayout<D, 4>;
+  constexpr uint32_t QT = L::template bytes<R>();
+  constexpr uint32_t KT = L::template bytes<KV>();  // and v^T's D x KV
+  static_assert(fwd_f32_smem<D>() <= 232448, "shared memory budget");
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t base = aligned_smem(smem_raw, &smem);
+  // Byte offsets: q big at 0, q small at QT; stage st's k big, k small,
+  // v^T big and v^T small from kv_tile(st, 0) on; the raw v tile at V_RAW.
+  auto kv_tile = [](int st, int j) -> uint32_t {
+    return 2 * QT + (4 * st + j) * KT;
+  };
+  constexpr uint32_t V_RAW = 2 * QT + 8 * KT;
+  using VRaw = RawTile<D, KV>;
+
+  const int q0 = blockIdx.x * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  // This thread's two query rows in the accumulator fragment.
+  const int qpos[2] = {q0 + frag_row(tid, 0), q0 + frag_row(tid, 2)};
+
+  const int kv_end = causal ? min(S, q0 + R) : S;
+  const int n_tiles = (kv_end + KV - 1) / KV;
+
+  load_tile<D, R>(base, qb, qs.s, q0, S, tid);
+  load_tile<D, KV>(base + kv_tile(0, 0), kb, ks.s, 0, S, tid);
+  VRaw::load(base + V_RAW, vb, vs.s, 0, S, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  split_tile<D, R>(smem, smem + QT, tid);
+  split_tile<D, KV>(smem + kv_tile(0, 0), smem + kv_tile(0, 1), tid);
+  VRaw::store_t(smem + V_RAW, smem + kv_tile(0, 2), smem + kv_tile(0, 3),
+                tid);
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, nx = st ^ 1;
+    const bool more = t + 1 < n_tiles;
+    if (more) {  // the next tile's copies run under this tile's products
+      load_tile<D, KV>(base + kv_tile(nx, 0), kb, ks.s, (t + 1) * KV, S,
+                       tid);
+      VRaw::load(base + V_RAW, vb, vs.s, (t + 1) * KV, S, tid);
+      cp_async_commit();
+    }
+
+    // S = Q.K^T in TF32 x3, both operands K-major in shared memory: the
+    // two small products, then big.big, into one accumulator.
+    float sc[KV / 2];
+#pragma unroll
+    for (int i = 0; i < KV / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_ss_tf32<KV>(
+          sc, desc_k_major<D, R, 4>(base, 0, k0),
+          desc_k_major<D, KV, 4>(base + kv_tile(st, 1), 0, k0), 1);
+      wgmma_ss_tf32<KV>(
+          sc, desc_k_major<D, R, 4>(base + QT, 0, k0),
+          desc_k_major<D, KV, 4>(base + kv_tile(st, 0), 0, k0), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_ss_tf32<KV>(
+          sc, desc_k_major<D, R, 4>(base, 0, k0),
+          desc_k_major<D, KV, 4>(base + kv_tile(st, 0), 0, k0), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // Online softmax on the fragment, as the bf16 kernel.
+    const int kv0 = t * KV;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < KV / 2; ++i) {
+      const int kpos = kv0 + frag_col(tid, i);
+      const int r = (i / 2) % 2;
+      float s = sc[i] * scale;
+      if (causal && qpos[r] < kpos) s = NEG_INF;
+      if (kpos >= S) s = -INFINITY;  // past the sequence: no weight at all
+      sc[i] = s;
+      mx[r] = fmaxf(mx[r], s);
+    }
+    float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < KV / 2; ++i) {
+      const int r = (i / 2) % 2;
+      sc[i] = exp2f((sc[i] - m[r]) * LOG2E);
+      psum[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l[r] = l[r] * corr[r] + psum[r];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+
+    // O += P.V in TF32 x3: P split in registers is the A operand (P in
+    // V's dtype, f32, so no rounding), V^T big and small the B operands.
+    uint32_t pb[KV / 8][4], ps[KV / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      frag_to_a_tf32(sc, kk, pb[kk], ps[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_rs_tf32<D>(acc, ps[kk],
+                       desc_k_major<KV, D, 4>(base + kv_tile(st, 2), 0, k0), 1);
+      wgmma_rs_tf32<D>(acc, pb[kk],
+                       desc_k_major<KV, D, 4>(base + kv_tile(st, 3), 0, k0), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      wgmma_rs_tf32<D>(
+          acc, pb[kk],
+          desc_k_major<KV, D, 4>(base + kv_tile(st, 2), 0, kk * 8), 1);
+    }
+    wgmma_commit();
+    if (more) {  // split the next tile into the other stage meanwhile
+      cp_async_wait<0>();
+      split_tile<D, KV>(smem + kv_tile(nx, 0), smem + kv_tile(nx, 1), tid);
+      VRaw::store_t(smem + V_RAW, smem + kv_tile(nx, 2),
+                    smem + kv_tile(nx, 3), tid);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      fence_regs(pb[kk]);
+      fence_regs(ps[kk]);
+    }
+    __syncthreads();  // stage st is free, stage nx is ready
+  }
+
+  float inv[2], ls[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ls[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / ls[r];
+  }
+  stage_frag_f32<D>(smem, acc, inv, tid);  // into q's big tile
+  if (tid % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] < S) {
+        lse[((long long)b * H + h) * S + qpos[r]] = m[r] + logf(ls[r]);
+      }
+    }
+  }
+  __syncthreads();
+  store_tile<D, R>(o + b * os.b + h * os.h, os.s, smem, q0, S, tid);
+}
+
 struct FwdArgs {
   const void *q, *k, *v;
   void* o;
@@ -349,12 +439,13 @@ int launch_bf16(const FwdArgs& a, cudaStream_t stream) {
 template <int D>
 int launch_f32(const FwdArgs& a, cudaStream_t stream) {
   using T = float;
-  return launch_kernel(flash_fwd_kernel<T, D>,
-                       dim3((a.S + BQ - 1) / BQ, a.H, a.B), THREADS,
-                       smem_bytes<T, D>(), stream, static_cast<const T*>(a.q),
-                       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                       static_cast<T*>(a.o), a.lse, a.S, a.H, a.causal,
-                       a.scale, a.qs, a.ks, a.vs, a.os);
+  return launch_kernel(flash_fwd_f32_kernel<D>,
+                       dim3((a.S + FWD_ROWS - 1) / FWD_ROWS, a.H, a.B),
+                       WG_THREADS, fwd_f32_smem<D>(), stream,
+                       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                       static_cast<const T*>(a.v), static_cast<T*>(a.o),
+                       a.lse, a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs,
+                       a.os);
 }
 
 }  // namespace
@@ -388,7 +479,7 @@ extern "C" int raydp_flash_fwd_resources(int* out, int dtype, int D,
     return dtype == 1
                ? kernel_resources(flash_fwd_bf16_kernel<DD>, WG_THREADS,
                                   fwd_bf16_smem<DD>(), out)
-               : kernel_resources(flash_fwd_kernel<float, DD>, THREADS,
-                                  smem_bytes<float, DD>(), out);
+               : kernel_resources(flash_fwd_f32_kernel<DD>, WG_THREADS,
+                                  fwd_f32_smem<DD>(), out);
   });
 }

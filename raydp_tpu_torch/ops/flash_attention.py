@@ -13,8 +13,9 @@ Dispatch goes by the tensors' device: CUDA tensors launch the kernels in
 take the plain versions, which compute the same tile-by-tile function
 with the JAX package's block sizes and casts. Each kernel wrapper counts
 its launches in an integer ``launches`` attribute: ``flash_attention``,
-``flash_bwd_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. The bf16
-kernels read their inputs with 16-byte copies; a bf16 CUDA tensor that
+``flash_bwd_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. The wgmma
+kernels (bf16, and the f32 forward and dk/dv) read their inputs with
+16-byte copies, so a CUDA tensor of either dtype that
 :func:`async_copy_aligned` refuses raises ``ValueError``.
 """
 from __future__ import annotations
@@ -244,23 +245,23 @@ def _check_kernel_inputs(name: str, *xs: torch.Tensor) -> None:
         raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
     if any(x.stride(-1) != 1 for x in xs):
         raise ValueError(f"{name} needs a contiguous head dimension")
-    if q.dtype == torch.bfloat16:
-        for x in xs:
-            if not async_copy_aligned(x.data_ptr(), x.shape, x.stride(),
-                                      x.element_size()):
-                raise ValueError(
-                    f"{name}: bf16 tensors are read with 16-byte copies and "
-                    f"need a 16-byte aligned base and (b, s, h) strides of "
-                    f"16 bytes' multiples; got address {x.data_ptr()} and "
-                    f"strides {tuple(x.stride())}")
+    for x in xs:
+        if not async_copy_aligned(x.data_ptr(), x.shape, x.stride(),
+                                  x.element_size()):
+            raise ValueError(
+                f"{name}: tensors are read with 16-byte copies and need a "
+                f"16-byte aligned base and (b, s, h) strides of 16 bytes' "
+                f"multiples; got address {x.data_ptr()} and strides "
+                f"{tuple(x.stride())}")
 
 
 def async_copy_aligned(address: int, shape, strides, itemsize: int) -> bool:
     """Whether a ``[B, S, H, D]`` tensor with a contiguous last dimension
     can be read in 16-byte chunks: a 16-byte aligned base and, for every
-    leading dimension of size above 1, a stride of a multiple of 16 bytes.
-    The fused-qkv views of ``models/transformer.py`` pass (strides
-    3·H·D, H·D and D elements of a D that divides by 8)."""
+    leading dimension of size above 1, a stride of a multiple of 16 bytes
+    (8 bf16 or 4 f32 elements). The fused-qkv views of
+    ``models/transformer.py`` pass in both dtypes (strides 3·H·D, H·D and
+    D elements of a D in ``KERNEL_HEAD_DIMS``)."""
     if address % 16:
         return False
     return all(size <= 1 or (stride * itemsize) % 16 == 0

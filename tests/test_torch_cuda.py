@@ -165,14 +165,41 @@ def test_bf16_wgmma_kernels_match_plain(cuda, d, s, causal):
                                    **GRAD_TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [16, 48, 96, 128, 384])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_f32_wgmma_kernels_match_plain(cuda, d, s, causal):
+    """The f32 forward and dk/dv (the TF32 x3 wgmma kernels) at every head
+    dim and at S on and off their tiles (32 kv rows forward; 32 q rows,
+    16 at D 128, in dk/dv), S 16 being a single kv tile: out, lse, dk and
+    dv against the plain versions in exact f32 at the f32 bounds."""
+    shape = (2, s, 3, d)
+    q, k, v = _qkv(shape, torch.float32, seed=d + s)
+    out, lse = flash_attention_forward(q, k, v, causal=causal)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    g = torch.randn(shape, generator=gen, device="cuda")
+    delta = flash_bwd_delta(out, g)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    want_dk, want_dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, **TOL[torch.float32])
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, **GRAD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("kernel, dtype", [
+    ("dq", torch.bfloat16), ("dkv", torch.bfloat16), ("dkv", torch.float32),
+], ids=["dq-bf16", "dkv-bf16", "dkv-f32"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_bwd_kernels_are_deterministic(cuda, d, kernel):
+def test_bwd_kernels_are_deterministic(cuda, d, kernel, dtype):
     """dq and dk/dv sum without atomics: two runs are bit-identical."""
     shape = (2, 384, 4, d)
-    q, k, v = _qkv(shape, torch.bfloat16, seed=11)
+    q, k, v = _qkv(shape, dtype, seed=11)
     out, lse = flash_attention_forward(q, k, v, causal=True)
-    g = torch.randn(shape, device="cuda").bfloat16()
+    g = torch.randn(shape, device="cuda").to(dtype)
     delta = flash_bwd_delta(out, g)
     fn = flash_bwd_dq if kernel == "dq" else flash_bwd_dkv
     first = fn(q, k, v, g, lse, delta, True)
@@ -183,15 +210,15 @@ def test_bwd_kernels_are_deterministic(cuda, d, kernel):
         assert torch.equal(a, b)
 
 
-def test_bf16_kernels_reject_misaligned_views(cuda):
+def _assert_misaligned_views_raise(dtype):
     """16-byte copies need a 16-byte aligned base and (b, s, h) strides
-    of 16 bytes' multiples: a bf16 tensor without them raises, never
-    falling back to another path."""
+    of 16 bytes' multiples: a tensor without them raises, never falling
+    back to another path."""
     n = 2 * 32 * 4 * 64
-    flat = torch.randn(n + 8, device="cuda").bfloat16()
+    flat = torch.randn(n + 8, device="cuda").to(dtype)
     shifted = flat[1:1 + n].view(2, 32, 4, 64)
-    wide = torch.randn((2, 32, 4, 68), device="cuda").bfloat16()[..., :64]
-    q, k, v = _qkv((2, 32, 4, 64), torch.bfloat16)
+    wide = torch.randn((2, 32, 4, 66), device="cuda").to(dtype)[..., :64]
+    q, k, v = _qkv((2, 32, 4, 64), dtype)
     before = flash_attention.launches
     for bad in (shifted, wide):
         with pytest.raises(ValueError, match="16-byte"):
@@ -203,6 +230,14 @@ def test_bf16_kernels_reject_misaligned_views(cuda):
         with pytest.raises(ValueError, match="16-byte"):
             flash_bwd_dkv(q, k, v, bad, lse, delta)
     assert flash_attention.launches == before + 2
+
+
+def test_bf16_kernels_reject_misaligned_views(cuda):
+    _assert_misaligned_views_raise(torch.bfloat16)
+
+
+def test_f32_kernels_reject_misaligned_views(cuda):
+    _assert_misaligned_views_raise(torch.float32)
 
 
 def test_backward_reads_contiguous_and_strided_alike(cuda):

@@ -1,7 +1,8 @@
 """The CPU side of the port's kernel interface: the ctypes signatures
 against the C entries in ``raydp_tpu_torch/csrc/*.cu``, the alignment rule
-of the bf16 kernels' 16-byte copies, and the once-per-symbol ctypes setup.
-No card and no nvcc needed: the sources are parsed, not built.
+of the wgmma kernels' 16-byte copies (bf16 and f32), and the
+once-per-symbol ctypes setup. No card and no nvcc needed: the sources are
+parsed, not built.
 """
 import ctypes
 import importlib
@@ -89,18 +90,50 @@ def test_async_copy_alignment_rule(address, shape, strides, itemsize, want):
     assert fa.async_copy_aligned(address, shape, strides, itemsize) is want
 
 
-def test_misaligned_bf16_views_raise_and_f32_ones_pass():
-    flat = torch.zeros(2 * 16 * 4 * 64 + 8, dtype=torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_misaligned_views_raise_and_fused_ones_pass(dtype):
+    """bf16 and f32 inputs are both read with 16-byte copies: a base one
+    element off and an h stride of 66 elements raise in either dtype;
+    the fused-qkv views pass."""
+    flat = torch.zeros(2 * 16 * 4 * 64 + 8, dtype=dtype)
     shifted = flat[1:1 + 2 * 16 * 4 * 64].view(2, 16, 4, 64)
     with pytest.raises(ValueError, match="16-byte"):
         fa._check_kernel_inputs("flash kernel", shifted, shifted, shifted)
-    odd = torch.zeros((2, 16, 4, 68), dtype=torch.bfloat16)[..., :64]
+    odd = torch.zeros((2, 16, 4, 66), dtype=dtype)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         fa._check_kernel_inputs("flash kernel", odd, odd, odd)
-    q, k, v = _fused_qkv(2, 16, 4, 64)
-    fa._check_kernel_inputs("flash kernel", q, k, v)  # fused views pass
-    f32 = torch.zeros(2 * 16 * 4 * 64 + 1)[1:].view(2, 16, 4, 64)
-    fa._check_kernel_inputs("flash kernel", f32, f32, f32)  # scalar path
+    for d in fa.KERNEL_HEAD_DIMS:
+        q, k, v = _fused_qkv(2, 16, 4, d, dtype)
+        fa._check_kernel_inputs("flash kernel", q, k, v)  # fused views pass
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_model_and_decode_engine_views_pass_the_kernel_checks(monkeypatch,
+                                                              dtype):
+    """The q, k and v that the classifier and the decode engine's
+    ``reference_decode`` hand the flash wrapper would pass every check
+    of the CUDA path, the 16-byte rule included."""
+    from raydp_tpu_torch.models import transformer as tt
+    from raydp_tpu_torch.serve.decode import build_transformer_engine
+
+    calls = []
+    real = tt.flash_attention
+
+    def checked(q, k, v, causal=False):
+        fa._check_kernel_inputs("flash kernel", q, k, v)
+        calls.append(q.shape)
+        return real(q, k, v, causal=causal)
+
+    monkeypatch.setattr(tt, "flash_attention", checked)
+    cfg = tt.tiny_transformer(attention_impl="flash", dtype=dtype)
+    tt.SequenceClassifier(cfg, device="cpu")(torch.zeros((2, 32),
+                                                         dtype=torch.long))
+    engine = build_transformer_engine(device="cpu", attention_impl="flash",
+                                      dtype=dtype, n_layers=1)
+    engine.reference_decode([5, 6, 7], 2)
+    assert len(calls) == cfg.n_layers + 2
 
 
 class _FakeLib:
