@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 1. Build every CUDA kernel of the port from ``raydp_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source), report each instance's
    registers, shared memory, resident CTAs per SM and spills (failing on
-   a spill in a wgmma kernel), then hold each kernel against its plain
-   PyTorch version on the card (exact f32 matmuls for the plain side):
+   a spill in any kernel, by the CUDA runtime's count or ptxas's), then
+   hold each kernel against its plain PyTorch version on the card (exact
+   f32 matmuls for the plain side):
    f32 and bf16, causal and not, at the main path's shapes, and both
    dtypes also at D 16/32/128 and S 48/96. The forward's ``out`` and
    ``lse``; the backward's delta, dq, dk and dv under a random
@@ -18,10 +19,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    sets larger than the 50 MB L2), beside its plain version, the forward
    against ``scaled_dot_product_attention`` and the whole backward
    against SDPA's backward, both as CUDA graphs (the library yardsticks,
-   which the port never calls); then the f32 kernels the same way, with
-   their bounds on the CUDA cores and in TF32 x3 on the tensor cores,
-   the f32 forward at the decode oracle's shapes and the whole f32
-   backward against SDPA's f32 backward.
+   which the port never calls), SDPA's backward also as a torch.profiler
+   sum of its kernels; then the f32 kernels the same way (the forward,
+   delta, dq and dk/dv), with their bounds on the CUDA cores and in TF32
+   x3 on the tensor cores, the f32 forward at the decode oracle's shapes
+   and the whole f32 backward against SDPA's f32 backward.
 2. BERT-GLUE forward: ``SequenceClassifier`` at bert_base width, bf16,
    ``attention_impl="flash"``, batch 32 x seq 128; logits held against
    the same weights with dense attention (bf16 and f32).
@@ -72,9 +74,9 @@ LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
 # BERT-GLUE (32, 128), and longer sequences.
 KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
                  (4, 512, 12, 64)]
-# Every kernel has a wgmma instance in each dtype (f32: TF32 x3), except
-# the f32 dq; each is also checked at every other head dim and at S that
-# is not a multiple of its 64-row tiles.
+# Every kernel but the delta pass has a wgmma instance in each dtype (f32:
+# TF32 x3); each is also checked at every other head dim and at S that is
+# not a multiple of its 64-row tiles.
 EXTRA_SHAPES = [(2, 128, 4, 16), (2, 128, 4, 32), (2, 128, 4, 128),
                 (2, 48, 12, 64), (2, 96, 12, 64)]
 # The decode oracle's forward: B 1, H 12, D 64, causal, S in the prompt
@@ -184,10 +186,10 @@ def warm_cold_ms(torch, make_call, n_sets: int = COLD_SETS):
 def report_build(torch):
     """Each bf16 and f32 kernel instance's registers, shared memory,
     resident CTAs per SM and spills (from the CUDA runtime), and the ptxas
-    report of the wgmma instances (``-Xptxas=-v``): every bf16 kernel and
-    the f32 forward and dk/dv. Fails on a spill in a wgmma kernel.
-    Returns the names (``flash_fwd_f32_kernel<64>``, ...) of the wgmma
-    instances that the build compiled."""
+    report of the wgmma instances (``-Xptxas=-v``): the forward, dq and
+    dk/dv in both dtypes. Fails on a spill in any of them, by either
+    count. Returns the names (``flash_fwd_f32_kernel<64>``, ...) of the
+    wgmma instances that the build compiled."""
     import re
 
     from raydp_tpu_torch.ops import _build
@@ -207,14 +209,16 @@ def report_build(torch):
                     compiled.add(name)
             elif name and ("Used" in line or "spill" in line):
                 log(f"[1] ptxas {name}: {line.strip()}")
+                spills = re.findall(r"(\d+) bytes spill", line)
+                check(all(n == "0" for n in spills),
+                      f"ptxas reports spills in {name}: {line.strip()}")
     for kernel in ("fwd", "dq", "dkv"):
         for dtype in (torch.bfloat16, torch.float32):
             for d in (16, 32, 64, 128):
                 res = fa.kernel_resources(kernel, dtype, d)
                 log(f"[1] resources {kernel} {str(dtype)[6:]} D {d}: {res}")
-                if dtype == torch.bfloat16 or kernel != "dq":  # wgmma
-                    check(res["spill_bytes"] == 0,
-                          f"{kernel} {str(dtype)[6:]} D {d} spills: {res}")
+                check(res["spill_bytes"] == 0,
+                      f"{kernel} {str(dtype)[6:]} D {d} spills: {res}")
     return compiled
 
 
@@ -257,6 +261,25 @@ def device_profile(torch, label, fn, top=5):
         f"{idle:.3f}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {t / 1e3:9.3f} ms {t / busy:6.1%}  {name[:80]}")
+
+
+def kernel_sum_ms(torch, fn, reps: int = 5):
+    """Device ms per call of ``fn`` as torch.profiler sees it: the summed
+    durations of the device events of ``reps`` calls, over ``reps``; None
+    where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if str(e.device_type).endswith("CUDA")
+             and not getattr(e, "is_user_annotation", False)]
+    return sum(spans) / 1e3 / reps if spans else None
 
 
 def fused_qkv(torch, shape, dtype, gen):
@@ -409,6 +432,18 @@ def whole_backward_vs_sdpa(torch, fa, sets, label):
         f"{both_warm - fwd_warm:.4f} cold {both_cold - fwd_cold:.4f} ms, "
         f"paced {sdpa_paced:.4f}; ours / SDPA warm "
         f"{ours_warm / (both_warm - fwd_warm):.2f}x")
+    # The yardstick held against a profiler sum of SDPA's backward
+    # kernels alone: its forward runs before the profiled window, and
+    # every device event in the window belongs to autograd.grad.
+    out = sdpa(*leaves[0])
+    sdpa_sum = kernel_sum_ms(torch, lambda: torch.autograd.grad(
+        out, leaves[0], cots[0], retain_graph=True))
+    ours_sum = kernel_sum_ms(torch, ours(0))
+    sums = ["not measured" if x is None else f"{x:.4f} ms"
+            for x in (sdpa_sum, ours_sum)]
+    log(f"[1] backward kernel sums (torch.profiler, 5 calls) {label}: SDPA "
+        f"{sums[0]} against its graph yardstick {both_warm - fwd_warm:.4f} "
+        f"ms; ours {sums[1]} against its graph {ours_warm:.4f} ms")
 
 
 def phase_backward_kernels(torch, P):
@@ -520,16 +555,17 @@ def phase_backward_kernels(torch, P):
 
 
 def time_f32_kernels(torch, wgmma):
-    """The f32 kernels at the BERT shape: the forward and dk/dv (wgmma,
-    TF32 x3) and dq (scalar), graph-timed warm and cold, their plain
-    versions, and each bound both ways against the HBM bytes: f32 FMAs on
-    the CUDA cores (67 TFLOP/s) and TF32 x3 on the tensor cores (three
-    products at 495 TFLOP/s). Then SDPA's f32 forward, the forward at the
-    decode oracle's shapes beside SDPA's, and the whole f32 backward
-    against SDPA's f32 backward. A kernel's design in the log is wgmma
-    where the build compiled an f32 wgmma instance of it (``wgmma``, from
-    ``report_build``). Returns the ``f32`` object of the forward's and
-    dk/dv's entries in the kernels line."""
+    """The f32 kernels at the BERT shape: the forward, dq and dk/dv
+    (wgmma, TF32 x3) and the delta pass, graph-timed warm and cold, their
+    plain versions, and each bound both ways against the HBM bytes: f32
+    FMAs on the CUDA cores (67 TFLOP/s) and TF32 x3 on the tensor cores
+    (three products at 495 TFLOP/s; the delta pass runs on the CUDA
+    cores, so its bound is the first). Then SDPA's f32 forward, the
+    forward at the decode oracle's shapes beside SDPA's, and the whole
+    f32 backward against SDPA's f32 backward. A kernel's design in the
+    log is wgmma where the build compiled an f32 wgmma instance of it
+    (``wgmma``, from ``report_build``). Returns the ``f32`` object of
+    each kernel's entry in the kernels line."""
     fa = flash_module()
     gen = torch.Generator(device="cuda").manual_seed(9)
     b, s, h, d = GLUE_BATCH, GLUE_SEQ, 12, 64
@@ -552,6 +588,10 @@ def time_f32_kernels(torch, wgmma):
             lambda i: lambda: fa.flash_attention_forward(*sets[i][:3]),
             lambda: fa.flash_attention_plain(*sets[0][:3]),
             4 * el + row, 4 * sq),
+        "flash_bwd_delta": (
+            lambda i: lambda: fa.flash_bwd_delta(sets[i][3], sets[i][5]),
+            lambda: fa.flash_bwd_delta_plain(sets[0][3], sets[0][5]),
+            2 * el + row, 2 * b * s * h * d),
         "flash_bwd_dq": (
             lambda i: lambda: fa.flash_bwd_dq(*args(i)),
             lambda: fa.flash_bwd_dq_plain(*args(0)), 5 * el + 2 * row,
@@ -569,10 +609,10 @@ def time_f32_kernels(torch, wgmma):
         tc_ms, tc_by = _bound(n_bytes, 3 * flops, "tf32")
         design = ("wgmma TF32 x3" if f"{name}_f32_kernel<{d}>" in wgmma
                   else "scalar")
-        if name != "flash_bwd_dq":
-            f32[name] = {"ms": warm, "ms_cold": cold, "bound_ms": tc_ms,
-                         "library_ms":
-                             lib_warm if name == "flash_fwd" else None}
+        f32[name] = {"ms": warm, "ms_cold": cold, "plain_ms": plain_ms,
+                     "bound_ms": fma_ms if name == "flash_bwd_delta"
+                     else tc_ms,
+                     "library_ms": lib_warm if name == "flash_fwd" else None}
         log(f"[1] {name} at (B {b}, S {s}, H {h}, D {d}) f32 ({design}): "
             f"kernel_ms warm {warm:.4f} cold {cold:.4f}; plain_ms "
             f"{plain_ms:.4f}; bound_ms TF32 x3 {tc_ms:.4f} by {tc_by} "

@@ -6,7 +6,7 @@
 //   flash_bwd_delta_kernel   <- the delta einsum, delta = rowsum(dO * O)
 //                               in f32 (an XLA op there, a pre-pass here);
 //   flash_bwd_dq_bf16_kernel,
-//   flash_bwd_dq_kernel      <- `_bwd_dq_kernel` (bf16, f32);
+//   flash_bwd_dq_f32_kernel  <- `_bwd_dq_kernel` (bf16, f32);
 //   flash_bwd_dkv_bf16_kernel,
 //   flash_bwd_dkv_f32_kernel <- `_bwd_dkv_kernel` (bf16, f32).
 // Same function as the TPU kernels: p = exp(s - lse) from the forward's row
@@ -34,10 +34,11 @@
 // What bounds it: at the BERT-base training shape (B 32, S 128, H 12,
 // D 64, bf16) dq moves 31.9 MB and dk/dv 38.1 MB, 9.5 and 11.4 us at the
 // data-sheet 3.35 TB/s, while their 2.4 and 3.2 GFLOP take 2.4 and 3.3 us
-// at 989 TFLOP/s bf16: memory-bound on the H100. In f32 dk/dv moves 75.9
-// MB (22.7 us); its 3.2 GFLOP as three TF32 products each take 19.5 us at
-// 495 TFLOP/s, so it stays memory-bound, where f32 FMAs on the CUDA cores
-// (48 us at 67 TFLOP/s) would bound it by operations.
+// at 989 TFLOP/s bf16: memory-bound on the H100. In f32 dq moves 63.3 MB
+// (18.9 us) and dk/dv 75.9 MB (22.7 us); their 2.4 and 3.2 GFLOP as three
+// TF32 products each take 14.6 and 19.5 us at 495 TFLOP/s, so both stay
+// memory-bound, where f32 FMAs on the CUDA cores (36 and 48 us at 67
+// TFLOP/s) would bound them by operations.
 //
 // The wgmma kernels are one warpgroup (128 threads) per 64-row tile, with
 // products on the tensor cores, tiles in the swizzled layout of
@@ -80,12 +81,34 @@
 // two-stage ring up to D 64 (210 KB of shared memory, 1 CTA per SM);
 // 16-row tiles in one stage at D 128.
 //
-// dq in f32, flash_bwd_dq_kernel: the first, scalar design. Four threads
-// share a tile row; operand tiles are staged in shared memory as f32,
-// padded by one column against bank conflicts; ds goes through shared
-// memory to the second product; every product is a scalar f32 FMA, so
-// the FP32 pipe and shared-memory bandwidth bound it, not HBM. The delta
-// pass is a plain streaming reduction and reads O and dO once.
+// dq in f32, flash_bwd_dq_f32_kernel: the bf16 dq plan with every product
+// a tf32 wgmma taken three times, as in the f32 dk/dv. One warpgroup per
+// 64 q rows; Q and dO arrive by cp.async once and are split in place, lse
+// and delta of the thread's two fragment rows sit in registers. S = Q.K^T
+// and dP = dO.V^T are SS products, all operands K-major over D. dQ += dS.K
+// takes dS from registers (split, not rounded: k is f32) and needs K^T as
+// its B operand, tf32 having no MN-major B. So each K and V tile lands raw
+// by cp.async a tile ahead; K is then split and stored transposed in
+// tf32_slot order (RawTile::store_t), and K and V stacked, big rows over
+// small rows (RawTile::store_stacked). Against a stacked tile, one
+// product of twice the width gives q_big.k_big and q_big.k_small side by
+// side, so the SS products read Q's and dO's A tiles twice a kv tile
+// instead of three times (Q and dO as register A operands would hold 128
+// registers at D 64). dQ's scale once in the epilogue; no atomics.
+//
+// Its shared memory, with BKV kv rows a tile: Q and dO big and small,
+// 4 x 64 x D x 4 B; K and V stacked and K^T big and small, 6 x BKV x D x
+// 4 B a stage; the raw K and V tiles, 2 x BKV x D x 4 B; 1 KB of
+// alignment slack. At D 64 a two-stage ring of 32-row tiles comes to
+// 64 + 96 + 16 + 1 = 177 KB, one CTA (4 warps) per SM; one stage of
+// 16-row tiles to 64 + 24 + 8 + 1 = 97 KB, two CTAs (8 warps) per SM. The
+// f32 kernels are latency-bound at 4-8 warps an SM, so it takes one stage
+// of 16 rows: the next tile's copies still land under the products (into
+// the raw tiles), and the other CTA's products fill this one's split and
+// barriers. That makes 33, 49, 97 and 193 KB at D 16 (32-row tiles
+// there), 32, 64 and 128.
+//
+// The delta pass is a plain streaming reduction and reads O and dO once.
 //
 // Build (plain C interface, loaded with ctypes; flash_common.cuh and
 // hopper_mma.cuh sit beside it):
@@ -135,121 +158,6 @@ __global__ void __launch_bounds__(256)
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   if (r < rows && lane == 0) {
     delta[((long long)b * H + h) * S + s] = sum;
-  }
-}
-
-// --------------------------------------------------------------------- dq
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // q_s, g_s [BQ][D+1]; k_s, v_s [BKV][D+1]; ds_s [BQ][BKV+1]; all f32.
-  return sizeof(float) *
-         (size_t)(2 * BQ * (D + 1) + 2 * BKV * (D + 1) + BQ * (BKV + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, int H, int causal, float scale, Strides qs,
-                        Strides ks, Strides vs, Strides gs, Strides dqs) {
-  static_assert(D % TPR == 0 && BKV % TPR == 0, "tile shape");
-  constexpr int DP = D + 1;
-  constexpr int KP = BKV + 1;
-  constexpr int NJ = BKV / TPR;  // scores per thread per kv tile
-  constexpr int ND = D / TPR;    // dq columns per thread
-
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* g_s = q_s + BQ * DP;
-  float* k_s = g_s + BQ * DP;
-  float* v_s = k_s + BKV * DP;
-  float* ds_s = v_s + BKV * DP;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int lane = tid % TPR;
-  const int qpos = q0 + row;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* gb = g + b * gs.b + h * gs.h;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    float qq = 0.f, gg = 0.f;
-    if (s < S) {
-      qq = to_f32(qb[s * qs.s + d]);
-      gg = to_f32(gb[s * gs.s + d]);
-    }
-    q_s[r * DP + d] = qq;
-    g_s[r * DP + d] = gg;
-  }
-  // lse and delta are defined only for rows inside the sequence.
-  const long long row_base = ((long long)b * H + h) * S;
-  const float lse_r = qpos < S ? lse[row_base + qpos] : 0.f;
-  const float delta_r = qpos < S ? delta[row_base + qpos] : 0.f;
-
-  float acc[ND];
-#pragma unroll
-  for (int t = 0; t < ND; ++t) acc[t] = 0.f;
-
-  // Causal: kv tiles that start past the CTA's last query row are skipped.
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    __syncthreads();  // the previous tile's readers are done (Q is staged)
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, d = i % D, s = kv0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (s < S) {
-        kk = to_f32(kb[s * ks.s + d]);
-        vv = to_f32(vb[s * vs.s + d]);
-      }
-      k_s[r * DP + d] = kk;
-      v_s[r * DP + d] = vv;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int j = lane + jj * TPR;
-      const int kpos = kv0 + j;
-      float sdot = 0.f, dpdot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        sdot = fmaf(q_s[row * DP + d], k_s[j * DP + d], sdot);
-        dpdot = fmaf(g_s[row * DP + d], v_s[j * DP + d], dpdot);
-      }
-      float sc = sdot * scale;
-      if (causal && qpos < kpos) sc = NEG_INF;
-      const float p = kpos < S ? expf(sc - lse_r) : 0.f;
-      // ds.astype(k.dtype) before ds . k, as the TPU kernel feeds its MXU.
-      ds_s[row * KP + j] = round_to<T>(p * (dpdot - delta_r));
-    }
-    __syncwarp();  // a row's ds is written and read by its own four lanes
-
-#pragma unroll
-    for (int t = 0; t < ND; ++t) {
-      const int d = lane + t * TPR;
-      float a = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < BKV; ++j) {
-        a = fmaf(ds_s[row * KP + j], k_s[j * DP + d], a);
-      }
-      acc[t] += a * scale;  // scaled per tile product, as the TPU kernel
-    }
-  }
-
-  if (qpos < S) {
-    T* out = dq + b * dqs.b + qpos * dqs.s + h * dqs.h;
-#pragma unroll
-    for (int t = 0; t < ND; ++t) out[lane + t * TPR] = from_f32<T>(acc[t]);
   }
 }
 
@@ -388,6 +296,218 @@ __global__ void __launch_bounds__(WG_THREADS)
   // kernel: the two differ by f32 rounding only.
   const float mul[2] = {scale, scale};
   stage_frag<D>(smem, acc, mul, tid);  // into q's tile, no longer read
+  __syncthreads();
+  store_tile<D, R>(dq + b * dqs.b + h * dqs.h, dqs.s, smem, q0, S, tid);
+}
+
+// ----------------------------------------------------------------- dq f32
+
+// kv rows per tile of the f32 dq: 16, in one stage (see the header), and
+// 32 at D 16, where a 16-row raw tile has fewer 16-byte chunks than the
+// warpgroup has threads.
+template <int D>
+__host__ __device__ constexpr int dq_f32_bkv() {
+  return D == 16 ? 32 : 16;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dq_f32_smem() {
+  using L = TileLayout<D, 4>;
+  // q and dO big and small (q big then the dq staging); k and v stacked
+  // (big over small) and k^T big and small; the next k and v tiles as
+  // they land; the alignment slack.
+  return 4 * (size_t)L::template bytes<DQ_ROWS>() +
+         8 * (size_t)L::template bytes<dq_f32_bkv<D>()>() + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ g,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int S, int H, int causal,
+                            float scale, Strides qs, Strides ks, Strides vs,
+                            Strides gs, Strides dqs) {
+  constexpr int R = DQ_ROWS, KV = dq_f32_bkv<D>();
+  using L = TileLayout<D, 4>;
+  constexpr uint32_t QT = L::template bytes<R>();
+  constexpr uint32_t KT = L::template bytes<KV>();  // and k^T's D x KV
+  static_assert(dq_f32_smem<D>() <= 232448, "shared memory budget");
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t base = aligned_smem(smem_raw, &smem);
+  // Byte offsets: q big, q small, dO big and dO small at 0, QT, 2 QT and
+  // 3 QT; k stacked (2 KV rows: big, then small) at kv_tile(0), k^T big
+  // and small at kv_tile(2) and kv_tile(3), v stacked at kv_tile(4); the
+  // raw k and v tiles at kv_tile(6) and kv_tile(7).
+  auto kv_tile = [](int j) -> uint32_t { return 4 * QT + j * KT; };
+  using KVRaw = RawTile<D, KV>;
+
+  const int q0 = blockIdx.x * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const long long row_base = ((long long)b * H + h) * S;
+  // This thread's two query rows in the accumulator fragments, and their
+  // lse and delta (defined only inside the sequence; a row past S has
+  // zero Q and dO, so its ds is 0 whatever these are).
+  const int qpos[2] = {q0 + frag_row(tid, 0), q0 + frag_row(tid, 2)};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = qpos[r] < S ? lse[row_base + qpos[r]] : 0.f;
+    delta_r[r] = qpos[r] < S ? delta[row_base + qpos[r]] : 0.f;
+  }
+
+  // Causal: kv tiles that start past the CTA's last query row are skipped.
+  const int kv_end = causal ? min(S, q0 + R) : S;
+  const int n_tiles = (kv_end + KV - 1) / KV;
+
+  // K and V of kv tile t land raw; after this thread's copies have landed
+  // it splits the chunks it copied: K and V stacked (for S and dP), K
+  // transposed in tf32_slot order (for dQ).
+  auto load_kv = [&](int t) {
+    KVRaw::load(base + kv_tile(6), kb, ks.s, t * KV, S, tid);
+    KVRaw::load(base + kv_tile(7), vb, vs.s, t * KV, S, tid);
+    cp_async_commit();
+  };
+  auto store_kv = [&]() {
+    KVRaw::store_stacked(smem + kv_tile(6), smem + kv_tile(0), tid);
+    KVRaw::store_t(smem + kv_tile(6), smem + kv_tile(2), smem + kv_tile(3),
+                   tid);
+    KVRaw::store_stacked(smem + kv_tile(7), smem + kv_tile(4), tid);
+  };
+
+  // Q and dO once, split in place.
+  load_tile<D, R>(base, q + b * qs.b + h * qs.h, qs.s, q0, S, tid);
+  load_tile<D, R>(base + 2 * QT, g + b * gs.b + h * gs.h, gs.s, q0, S, tid);
+  load_kv(0);
+  cp_async_wait<0>();
+  split_tile<D, R>(smem, smem + QT, tid);
+  split_tile<D, R>(smem + 2 * QT, smem + 3 * QT, tid);
+  store_kv();
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const bool more = t + 1 < n_tiles;
+    if (more) load_kv(t + 1);  // lands under this tile's products
+
+    // S = Q.K^T and dP = dO.V^T in TF32 x3, q rows by kv columns, all
+    // operands K-major in shared memory. Q big against stacked K is one
+    // product 2 KV columns wide, q_big.k_big beside q_big.k_small;
+    // q_small.k_big goes first into the first KV columns, and the halves
+    // are added after. Q's and dO's A tiles are read twice a kv tile, not
+    // three times.
+    float s2[KV], dp2[KV];
+#pragma unroll
+    for (int i = 0; i < KV; ++i) {
+      s2[i] = 0.f;
+      dp2[i] = 0.f;
+    }
+    // The first KV columns of a 64 x 2 KV fragment are its first KV / 2
+    // registers, laid out as a 64 x KV fragment.
+    float(&s_lo)[KV / 2] = *reinterpret_cast<float(*)[KV / 2]>(s2);
+    float(&dp_lo)[KV / 2] = *reinterpret_cast<float(*)[KV / 2]>(dp2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_ss_tf32<KV>(s_lo, desc_k_major<D, R, 4>(base + QT, 0, k0),
+                        desc_k_major<D, 2 * KV, 4>(base + kv_tile(0), 0, k0),
+                        1);
+      wgmma_ss_tf32<KV>(dp_lo, desc_k_major<D, R, 4>(base + 3 * QT, 0, k0),
+                        desc_k_major<D, 2 * KV, 4>(base + kv_tile(4), 0, k0),
+                        1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_ss_tf32<2 * KV>(
+          s2, desc_k_major<D, R, 4>(base, 0, k0),
+          desc_k_major<D, 2 * KV, 4>(base + kv_tile(0), 0, k0), 1);
+      wgmma_ss_tf32<2 * KV>(
+          dp2, desc_k_major<D, R, 4>(base + 2 * QT, 0, k0),
+          desc_k_major<D, 2 * KV, 4>(base + kv_tile(4), 0, k0), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s2);
+    fence_regs(dp2);
+    float s[KV / 2], dp[KV / 2];
+#pragma unroll
+    for (int i = 0; i < KV / 2; ++i) {
+      s[i] = s2[i] + s2[i + KV / 2];
+      dp[i] = dp2[i] + dp2[i + KV / 2];
+    }
+
+    // P = exp(scale S - lse) and dS = P (dP - delta) in f32 on the
+    // fragments, as the bf16 kernel; dS overwrites S. Columns past S get
+    // p = 0.
+    const int kv0 = t * KV;
+#pragma unroll
+    for (int i = 0; i < KV / 2; ++i) {
+      const int kpos = kv0 + frag_col(tid, i);
+      const int r = (i / 2) % 2;
+      float x = s[i] * scale;
+      if (causal && qpos[r] < kpos) x = NEG_INF;
+      const float p = kpos < S ? exp2f((x - lse_r[r]) * LOG2E) : 0.f;
+      s[i] = p * (dp[i] - delta_r[r]);
+    }
+
+    // dQ += dS.K in TF32 x3: dS split in registers is the A operand (ds
+    // in k's dtype, f32, so no rounding), K^T big and small the B
+    // operands.
+    uint32_t a_big[KV / 8][4], a_small[KV / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      frag_to_a_tf32(s, kk, a_big[kk], a_small[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      const int k0 = kk * 8;
+      wgmma_rs_tf32<D>(acc, a_small[kk],
+                       desc_k_major<KV, D, 4>(base + kv_tile(2), 0, k0), 1);
+      wgmma_rs_tf32<D>(acc, a_big[kk],
+                       desc_k_major<KV, D, 4>(base + kv_tile(3), 0, k0), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      wgmma_rs_tf32<D>(
+          acc, a_big[kk],
+          desc_k_major<KV, D, 4>(base + kv_tile(2), 0, kk * 8), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < KV / 8; ++kk) {
+      fence_regs(a_big[kk]);
+      fence_regs(a_small[kk]);
+    }
+    __syncthreads();  // the stage is free
+    if (more) {       // one stage: the next tile after the wait
+      cp_async_wait<0>();
+      store_kv();
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+
+  // dQ's scale is applied once here, as in the bf16 kernel.
+  const float mul[2] = {scale, scale};
+  stage_frag_f32<D>(smem, acc, mul, tid);  // into q's big tile
   __syncthreads();
   store_tile<D, R>(dq + b * dqs.b + h * dqs.h, dqs.s, smem, q0, S, tid);
 }
@@ -828,8 +948,9 @@ template <int D>
 int launch_dq_f32(const BwdArgs& a, cudaStream_t stream) {
   using T = float;
   return launch_kernel(
-      flash_bwd_dq_kernel<T, D>, dim3((a.S + BQ - 1) / BQ, a.H, a.B),
-      THREADS, dq_smem_bytes<D>(), stream, static_cast<const T*>(a.q),
+      flash_bwd_dq_f32_kernel<D>,
+      dim3((a.S + DQ_ROWS - 1) / DQ_ROWS, a.H, a.B), WG_THREADS,
+      dq_f32_smem<D>(), stream, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.g), a.lse, a.delta, static_cast<T*>(a.dq),
       a.S, a.H, a.causal, a.scale, a.qs, a.ks, a.vs, a.gs, a.dqs);
@@ -992,8 +1113,8 @@ extern "C" int raydp_flash_bwd_resources(int* out, int which, int dtype,
       return dtype == 1
                  ? kernel_resources(flash_bwd_dq_bf16_kernel<DD>, WG_THREADS,
                                     dq_bf16_smem<DD>(), out)
-                 : kernel_resources(flash_bwd_dq_kernel<float, DD>, THREADS,
-                                    dq_smem_bytes<DD>(), out);
+                 : kernel_resources(flash_bwd_dq_f32_kernel<DD>, WG_THREADS,
+                                    dq_f32_smem<DD>(), out);
     }
     return dtype == 1
                ? kernel_resources(flash_bwd_dkv_bf16_kernel<DD>, WG_THREADS,

@@ -499,6 +499,26 @@ struct RawTile {
     }
   }
 
+  // The same into one 2R x D tile, big at rows [0, R) and small at rows
+  // [R, 2R): the B operand of a product twice as wide, whose one A read
+  // yields a.big and a.small side by side.
+  static __device__ __forceinline__ void store_stacked(const uint8_t* raw,
+                                                       uint8_t* tile,
+                                                       int tid) {
+    using L = TileLayout<D, 4>;
+    tid = opaque(tid);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = tid + j * WG_THREADS;
+      const float4 v = *reinterpret_cast<const float4*>(raw + 16 * i);
+      const float4 b = tf32_big4(v);
+      *reinterpret_cast<float4*>(
+          tile + L::template offset<2 * R>(row(i), col(i))) = b;
+      *reinterpret_cast<float4*>(
+          tile + L::template offset<2 * R>(row(i) + R, col(i))) = sub4(v, b);
+    }
+  }
+
   // The same into big and small D x R tiles: element (r, c) goes to row c,
   // column tf32_slot(r), the K-major B operand of a product over the
   // positions whose A is an accumulator fragment.
@@ -584,6 +604,28 @@ __device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16], uint64_t da,
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -14,9 +14,11 @@ take the plain versions, which compute the same tile-by-tile function
 with the JAX package's block sizes and casts. Each kernel wrapper counts
 its launches in an integer ``launches`` attribute: ``flash_attention``,
 ``flash_bwd_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. The wgmma
-kernels (bf16, and the f32 forward and dk/dv) read their inputs with
+kernels (the forward, dq and dk/dv, bf16 and f32) read their inputs with
 16-byte copies, so a CUDA tensor of either dtype that
-:func:`async_copy_aligned` refuses raises ``ValueError``.
+:func:`async_copy_aligned` refuses raises ``ValueError``. The autograd
+backward hands them autograd's upstream gradient in a dense copy where
+it comes in another layout (the expanded gradient of ``.sum()``).
 """
 from __future__ import annotations
 
@@ -268,6 +270,18 @@ def async_copy_aligned(address: int, shape, strides, itemsize: int) -> bool:
                for size, stride in zip(shape[:3], strides[:3]))
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where the kernels can read it (a contiguous last
+    dimension and :func:`async_copy_aligned`), else a fresh contiguous
+    copy: of an expanded or strided tensor, and of a contiguous view at a
+    misaligned address, which ``.contiguous()`` would return unchanged.
+    A change of layout only; the wrappers still launch or raise."""
+    if x.stride(-1) == 1 and async_copy_aligned(
+            x.data_ptr(), x.shape, x.stride(), x.element_size()):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def kernel_resources(kernel: str, dtype: torch.dtype, head_dim: int) -> dict:
     """What one CTA of a kernel holds on the card: ``registers`` a thread,
     ``smem_bytes`` a CTA, ``ctas_per_sm`` resident on one SM and
@@ -402,6 +416,8 @@ class _FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out, grad_lse):
         q, k, v, out, lse = ctx.saved_tensors
+        if not _on_cpu("flash attention", grad_out):
+            grad_out = _dense(grad_out)
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, grad_out,
                                               *ctx.config)
         return dq, dk, dv, None, None, None

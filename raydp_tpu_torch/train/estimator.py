@@ -273,12 +273,25 @@ class Estimator:
         model = self._model.eval()
         x = np.asarray(x, dtype=self.feature_dtype)
         if len(x) == 0:
-            return np.empty((0,), dtype=np.float32)
+            return self._empty_preds(model, x.shape[1:])
         outs = []
         for i in range(0, len(x), self.batch_size):
             chunk = torch.from_numpy(x[i:i + self.batch_size]).to(self.device)
             outs.append(model(chunk).float().cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+    def _empty_preds(self, model: nn.Module, feature_shape) -> np.ndarray:
+        """Zero rows of the model's output: its trailing dims and dtype
+        from one forward of a single zero row of ``feature_shape``. Falls
+        back to ``(0,)`` float32 where that row cannot feed the model (a
+        bare ``np.empty((0,))`` for a model that needs a feature dim)."""
+        row = np.zeros((1,) + tuple(feature_shape), dtype=self.feature_dtype)
+        try:
+            out = model(torch.from_numpy(row).to(self.device)).float()
+        except Exception:
+            return np.empty((0,), dtype=np.float32)
+        out = out.cpu().numpy()
+        return np.empty((0,) + out.shape[1:], dtype=out.dtype)
 
     def get_model(self) -> nn.Module:
         return self._model

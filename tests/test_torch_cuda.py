@@ -20,6 +20,7 @@ from raydp_tpu_torch.models.transformer import (
 )
 from raydp_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_backward_plain,
     flash_attention_forward,
     flash_attention_plain,
     flash_bwd_delta,
@@ -169,10 +170,11 @@ def test_bf16_wgmma_kernels_match_plain(cuda, d, s, causal):
 @pytest.mark.parametrize("s", [16, 48, 96, 128, 384])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_f32_wgmma_kernels_match_plain(cuda, d, s, causal):
-    """The f32 forward and dk/dv (the TF32 x3 wgmma kernels) at every head
-    dim and at S on and off their tiles (32 kv rows forward; 32 q rows,
-    16 at D 128, in dk/dv), S 16 being a single kv tile: out, lse, dk and
-    dv against the plain versions in exact f32 at the f32 bounds."""
+    """The f32 forward, dq and dk/dv (the TF32 x3 wgmma kernels) at every
+    head dim and at S on and off their tiles (32 kv rows forward; 16 kv
+    rows, 32 at D 16, in dq; 32 q rows, 16 at D 128, in dk/dv), S 16 being
+    a single kv tile: out, lse, dq, dk and dv against the plain versions
+    in exact f32 at the f32 bounds."""
     shape = (2, s, 3, d)
     q, k, v = _qkv(shape, torch.float32, seed=d + s)
     out, lse = flash_attention_forward(q, k, v, causal=causal)
@@ -180,19 +182,22 @@ def test_f32_wgmma_kernels_match_plain(cuda, d, s, causal):
     gen = torch.Generator(device="cuda").manual_seed(8)
     g = torch.randn(shape, generator=gen, device="cuda")
     delta = flash_bwd_delta(out, g)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    want_dq = flash_bwd_dq_plain(q, k, v, g, lse, delta, causal)
     want_dk, want_dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref_out, **TOL[torch.float32])
     torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
-    for got, want in ((dk, want_dk), (dv, want_dv)):
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, **GRAD_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("kernel, dtype", [
     ("dq", torch.bfloat16), ("dkv", torch.bfloat16), ("dkv", torch.float32),
-], ids=["dq-bf16", "dkv-bf16", "dkv-f32"])
+    ("dq", torch.float32),
+], ids=["dq-bf16", "dkv-bf16", "dkv-f32", "dq-f32"])
 @pytest.mark.parametrize("d", [64, 128])
 def test_bwd_kernels_are_deterministic(cuda, d, kernel, dtype):
     """dq and dk/dv sum without atomics: two runs are bit-identical."""
@@ -249,6 +254,34 @@ def test_backward_reads_contiguous_and_strided_alike(cuda):
         grads.append([x.grad for x in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sum_backward_matches_plain(cuda, causal, dtype):
+    """``flash_attention(q, k, v).sum().backward()``: autograd's upstream
+    gradient is an expanded tensor of ones, which the backward hands the
+    kernels as a dense copy; the gradients match the plain backward's
+    under the same ones."""
+    shape = (2, 96, 4, 64)
+    qkv = torch.randn((2, 96, 3, 4, 64), generator=torch.Generator(
+        device="cuda").manual_seed(12), device="cuda").to(dtype)
+    leaf = qkv.clone().requires_grad_(True)
+    q, k, v = leaf.unbind(dim=2)
+    counts = (flash_bwd_delta.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    flash_attention(q, k, v, causal=causal).sum().backward()
+    assert (flash_bwd_delta.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    q, k, v = qkv.unbind(dim=2)
+    out, lse = flash_attention_forward(q, k, v, causal=causal)
+    ones = torch.ones(shape, dtype=dtype, device="cuda")
+    want = flash_attention_backward_plain(q, k, v, out, lse, ones, causal)
+    torch.cuda.synchronize()
+    for got, w in zip(leaf.grad.unbind(dim=2), want):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), w.float(), **GRAD_TOL[dtype])
 
 
 def test_backward_kernels_reject_what_they_do_not_take(cuda):

@@ -163,3 +163,108 @@ def test_ctypes_function_is_configured_once_per_symbol(monkeypatch):
         assert len(first.argtypes) == (n_ptrs + n_ints + has_scale
                                        + 3 * n_strided + 1)
     assert sorted(loads) == sorted(s for s, *_ in fa._SIGNATURES.values())
+
+
+# ------------------------------------------- the autograd backward's dO
+
+SHAPE = (2, 32, 2, 16)
+UPSTREAM = ["sum", "misaligned", "strided", "dense"]
+
+
+def _upstream(kind, dtype):
+    """An upstream gradient of SHAPE: expanded (the gradient of
+    ``.sum()``), contiguous at a base one element off, with (s, h) strides
+    of 18 elements, or dense."""
+    if kind == "sum":
+        return torch.ones((), dtype=dtype).expand(SHAPE)
+    gen = torch.Generator().manual_seed(5)
+    n = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
+    if kind == "misaligned":
+        flat = torch.randn(n + 1, generator=gen).to(dtype)
+        return flat[1:].view(SHAPE)
+    if kind == "strided":
+        wide = torch.randn(SHAPE[:-1] + (SHAPE[-1] + 2,), generator=gen)
+        return wide.to(dtype)[..., :SHAPE[-1]]
+    return torch.randn(SHAPE, generator=gen).to(dtype)
+
+
+def _readable(x):
+    return x.stride(-1) == 1 and fa.async_copy_aligned(
+        x.data_ptr(), x.shape, x.stride(), x.element_size())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", UPSTREAM)
+def test_dense_copies_only_what_the_kernels_cannot_read(kind, dtype):
+    g = _upstream(kind, dtype)
+    assert _readable(g) == (kind == "dense")
+    got = fa._dense(g)
+    assert (got is g) == (kind == "dense")
+    assert got.is_contiguous() and _readable(got)
+    assert torch.equal(got, g)
+
+
+def _plain_launch(received):
+    """Stands in for ``_launch`` on CPU tensors: records the [B, S, H, D]
+    tensors each C entry is handed and fills its outputs from the plain
+    versions, as the kernel would."""
+    def launch(symbol, ptrs, ints, scale, strided, device):
+        received.append((symbol, strided))
+        causal = bool(ints[-1])
+        if symbol == "raydp_flash_fwd":
+            q, k, v, out, lse = ptrs
+            want_out, want_lse = fa.flash_attention_plain(q, k, v, causal)
+            out.copy_(want_out)
+            lse.copy_(want_lse)
+        elif symbol == "raydp_flash_bwd_delta":
+            out, g, delta = ptrs
+            delta.copy_(fa.flash_bwd_delta_plain(out, g))
+        elif symbol == "raydp_flash_bwd_dq":
+            *args, dq = ptrs
+            dq.copy_(fa.flash_bwd_dq_plain(*args, causal))
+        else:
+            *args, dk, dv = ptrs
+            want_dk, want_dv = fa.flash_bwd_dkv_plain(*args, causal)
+            dk.copy_(want_dk)
+            dv.copy_(want_dv)
+    return launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", UPSTREAM)
+def test_backward_hands_the_kernels_dense_aligned_grad_out(monkeypatch, kind,
+                                                          dtype):
+    """With CPU tensors forced onto the kernel route (``_on_cpu`` False,
+    ``_launch`` stubbed), ``flash_attention(q, k, v).sum().backward()``
+    and ``.backward(g)`` under any layout of ``g`` reach the delta, dq
+    and dk/dv entries with a contiguous, 16-byte aligned ``grad_out`` of
+    the upstream values, and give the plain route's gradients."""
+    gen = torch.Generator().manual_seed(6)
+    qkv = torch.randn((SHAPE[0], SHAPE[1], 3) + SHAPE[2:],
+                      generator=gen).to(dtype)
+    upstream = _upstream(kind, dtype)
+
+    def grads():
+        leaf = qkv.clone().requires_grad_(True)
+        out = fa.flash_attention(*leaf.unbind(dim=2), causal=True)
+        if kind == "sum":
+            out.sum().backward()
+        else:
+            out.backward(upstream)
+        return leaf.grad
+
+    want = grads()  # the CPU route, plain versions throughout
+    received = []
+    monkeypatch.setattr(fa, "_on_cpu", lambda name, x: False)
+    monkeypatch.setattr(fa, "_launch", _plain_launch(received))
+    got = grads()
+    assert [symbol for symbol, _ in received] == [
+        "raydp_flash_fwd", "raydp_flash_bwd_delta", "raydp_flash_bwd_dq",
+        "raydp_flash_bwd_dkv"]
+    for symbol, strided in received[1:]:
+        g = strided[1 if symbol == "raydp_flash_bwd_delta" else 3]
+        assert g.is_contiguous() and _readable(g), symbol
+        assert torch.equal(g, upstream), symbol
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -193,6 +193,27 @@ def test_estimator_matches_jax_on_taxi_mlp(loss):
         jest.evaluate(JaxMLDataset([pa.table(cols)], 1))["loss"], rtol=RTOL)
 
 
+@pytest.mark.parametrize("rows", ["features", "bare"])
+def test_predict_on_zero_rows_matches_jax(rows):
+    """``predict`` on zero rows: (0, 1) float32 for the taxi MLP, the
+    trailing dims and dtype of its output on one row, as the JAX
+    estimator gives; ``(0,)`` for a bare ``np.empty((0,))`` that cannot
+    feed the model, in both."""
+    x, cols = _taxi_data()
+    jest, test, _, _ = _fit_both(
+        jmlp.taxi_fare_regressor(), taxi_fare_regressor(N_FEAT, device="cpu"),
+        x, cols, optax.adam(1e-3), lambda p: torch.optim.Adam(p, lr=1e-3),
+        evaluate=False, loss="mse", num_epochs=1, batch_size=BATCH,
+        feature_columns=[f"f{i}" for i in range(N_FEAT)],
+        label_column="fare")
+    empty = x[:0] if rows == "features" else np.empty((0,))
+    got, want = test.predict(empty), jest.predict(empty)
+    assert got.shape == want.shape == ((0, 1) if rows == "features"
+                                       else (0,))
+    assert got.dtype == want.dtype == np.float32
+    assert test.predict(x[:3]).shape == jest.predict(x[:3]).shape == (3, 1)
+
+
 def _token_data(n, seq, vocab, seed=3):
     rng = np.random.default_rng(seed)
     ids = rng.integers(10, vocab, size=(n, seq)).astype(np.int32)
