@@ -29,15 +29,24 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    the same weights with dense attention (bf16 and f32).
 3. Decode server: a bert_base-width f32 ``CausalLM`` engine behind one
    ``DecodeLoop``, 8 ragged prompts (3 to 200 tokens), 16 new tokens
-   each; every stream must equal ``reference_decode``, which runs the
-   flash kernel.
+   each, its prefill and step replayed as CUDA graphs (one per prompt
+   bucket and kv bucket used, run eagerly at first use and captured at
+   the second); every stream must equal ``reference_decode``, which runs
+   the flash kernel, reruns must repeat them, and each captured graph,
+   replayed at a cache state, must give the eager ``decode_step``'s or
+   ``prefill``'s tokens there.
 4. BERT-GLUE fine-tune: (a) one batch's parameter gradients with flash
    against dense attention (bf16 and f32); (b) ``Estimator.fit`` of the
    bf16 flash ``SequenceClassifier`` at bert_base width and depth,
-   dropout 0.1, AdamW, ``softmax_ce``, batch 32 x seq 128, a few epochs
-   of 10 steps on learnable data, then ``evaluate`` and ``predict``, with
-   a profile of one train step; (c) a short self-supervised ``lm_ce`` fit
-   of a bert_base-width ``CausalLM`` (causal flash backward).
+   dropout 0.1, AdamW, ``softmax_ce``, batch 32 x seq 128, unshuffled,
+   4 epochs of 10 steps on learnable data, once with
+   ``epoch_mode="stream"`` (eager steps) and once with ``"scan"`` (the
+   step captured as a CUDA graph and replayed), the two held together;
+   then ``evaluate`` and ``predict``, and each path's step timed and
+   profiled, the flash kernels in the trace of 5 graph replays counted
+   against the launch counters; (c) a short self-supervised ``lm_ce``
+   fit of a bert_base-width ``CausalLM`` (causal flash backward) on both
+   paths.
 
 Kernel launch counts are set to 0 just before each main-path phase (2,
 3, 4b and 4c) and read just after. The last lines are a ``kernels`` JSON
@@ -89,9 +98,20 @@ GRAPH_REPS = 10
 GLUE_BATCH, GLUE_SEQ = 32, 128
 DECODE_PROMPT_LENS = [3, 17, 40, 64, 90, 128, 161, 200]
 DECODE_MAX_NEW = 16
-# Fine-tune: 10 steps an epoch; the causal LM fit: batch 8 x seq 256.
+# Fine-tune: 10 steps an epoch; the causal LM fit: batch 8 x seq 256, 3
+# steps an epoch (scan: epoch 0 the 3 warm-up steps, epoch 1 the capture
+# and 2 replays, epoch 2 replays only).
 FIT_EPOCHS, FIT_STEPS = 4, 10
-LM_BATCH, LM_SEQ, LM_EPOCHS, LM_STEPS = 8, 256, 2, 3
+LM_BATCH, LM_SEQ, LM_EPOCHS, LM_STEPS = 8, 256, 3, 3
+# The symbols of the bf16 kernels in a profiler trace, by counter name.
+KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",
+                  "flash_bwd_delta": "flash_bwd_delta_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel"}
+# Scan against stream fit losses (bf16, dropout 0.1, unshuffled): the
+# JAX package's bf16 backward bound. The two paths run the same kernels,
+# but the scan path's optimizer runs in its capturable mode.
+FIT_TOL = dict(rtol=6e-2, atol=6e-2)
 # Per-parameter relative L2 error of flash against dense gradients over
 # 12 bf16 layers: the two paths round at different places (bf16 P, the
 # kernels' summation order) and the differences grow through depth; a
@@ -226,7 +246,9 @@ def device_profile(torch, label, fn, top=5):
     """Trace one call of ``fn`` with torch.profiler: the device's busy and
     idle share between its first and last kernel, and the kernels that
     took the most device time. Tracing slows the host's launches, so the
-    idle share is an upper bound on the untraced run's."""
+    idle share is an upper bound on the untraced run's. Returns the
+    number of device events of each name (None where the profiler saw
+    no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -243,11 +265,12 @@ def device_profile(torch, label, fn, top=5):
     if not spans:
         log(f"[profile] {label}: the profiler saw no device activity "
             "(not measured)")
-        return
+        return None
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
-    by_name = {}
+    by_name, seen = {}, {}
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
+        seen[name] = seen.get(name, 0) + 1
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start, cur_end = start, end
@@ -261,6 +284,7 @@ def device_profile(torch, label, fn, top=5):
         f"{idle:.3f}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {t / 1e3:9.3f} ms {t / busy:6.1%}  {name[:80]}")
+    return seen
 
 
 def kernel_sum_ms(torch, fn, reps: int = 5):
@@ -703,8 +727,57 @@ def _top2_gap(torch, engine, context):
     return (top[0] - top[1]).item()
 
 
+def check_decode_graphs(torch, engine, gen):
+    """Each captured step graph (one per kv bucket) and prefill graph (one
+    per prompt bucket), replayed at a cache state, against the eager
+    ``decode_step`` or ``prefill`` at the same state: the same tokens.
+    The cache is put back after each."""
+    model, cache = engine.model, engine._cache
+    snapshot = [(k.clone(), v.clone()) for k, v in cache]
+    vocab, slots = model.cfg.vocab_size, engine.num_slots
+
+    def restore():
+        for (k, v), (k0, v0) in zip(cache, snapshot):
+            k.copy_(k0)
+            v.copy_(v0)
+
+    for kv_len in sorted(engine.step_graphs):
+        tokens = torch.randint(1, vocab, (slots,), generator=gen).tolist()
+        lens = [max(0, kv_len - 1 - j % 5) for j in range(slots)]
+        got = engine.step(tokens, lens, kv_len)
+        restore()
+        with torch.inference_mode():
+            want = model.decode_step(
+                torch.tensor(tokens, device="cuda")[:, None],
+                torch.tensor(lens, device="cuda"), kv_len,
+                cache).argmax(-1).tolist()
+        restore()
+        check(got == want, f"step graph for kv bucket {kv_len} gave {got}, "
+                           f"eager decode_step {want}")
+    for bucket in sorted(engine.prefill_graphs):
+        n = max(1, bucket - 3)
+        prompt = torch.randint(1, vocab, (n,), generator=gen).tolist()
+        got = engine.prefill(1, prompt)
+        restore()
+        with torch.inference_mode():
+            want = int(model.prefill(
+                engine._padded(prompt),
+                torch.tensor([n], device="cuda"), cache,
+                slots=torch.tensor([1], device="cuda")).argmax(-1)[0])
+        restore()
+        check(got == want, f"prefill graph for bucket {bucket} gave {got}, "
+                           f"eager prefill {want}")
+    log(f"[3] captured graphs replayed at a cache state match eager: step "
+        f"kv buckets {sorted(engine.step_graphs)}, prefill buckets "
+        f"{sorted(engine.prefill_graphs)}")
+
+
 def phase_decode(torch, P):
-    from raydp_tpu_torch.serve.decode import DecodeConfig, DecodeLoop
+    from raydp_tpu_torch.serve.decode import (
+        DecodeConfig,
+        DecodeLoop,
+        bucket_for,
+    )
 
     flash_attention = P.flash_attention
     P.set_exact_float32()
@@ -716,45 +789,65 @@ def phase_decode(torch, P):
     )
     config = DecodeConfig(slots=8, page_tokens=16,
                           max_new=DECODE_MAX_NEW, round_linger_s=0.0)
-    # Warm-up on a short request: cuBLAS handles and the first launches.
-    warm = DecodeLoop(engine, config)
-    warm.submit("warm", [1, 2, 3], max_new=2)
-    warm.run_until_idle()
+    # The kv buckets the loop steps in, beside the graphs it captures.
+    kv_used = set()
+    graphed_step = engine.step
+
+    def step(last, lens, kv_len):
+        kv_used.add(kv_len)
+        return graphed_step(last, lens, kv_len)
+
+    engine.step = step
+    # Warm-up on a short request, twice: cuBLAS handles, the first
+    # launches, and the graphs of the smallest buckets (each captured at
+    # its second use).
+    for _ in range(2):
+        warm = DecodeLoop(engine, config)
+        warm.submit("warm", [1, 2, 3], max_new=2)
+        warm.run_until_idle()
     engine.reference_decode([1, 2, 3], 2)
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(1, 30522, (n,), generator=gen).tolist()
                for n in DECODE_PROMPT_LENS]
-    first_token_s = {}
-    t_start = time.perf_counter()
 
-    def on_token(rid, index, token):
-        if index == 0:
-            first_token_s[rid] = time.perf_counter() - t_start
+    def run_loop(tag):
+        """The 8 requests through one loop: (streams, seconds, rounds,
+        first-token latencies in s)."""
+        first_token_s = {}
+        t_start = time.perf_counter()
+
+        def on_token(rid, index, token):
+            if index == 0:
+                first_token_s[rid] = time.perf_counter() - t_start
+
+        loop = DecodeLoop(engine, config, on_token=on_token)
+        for i, p in enumerate(prompts):
+            loop.submit(f"r{i}", p, max_new=DECODE_MAX_NEW)
+        rounds = loop.run_until_idle()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t_start
+        streams = [loop.sequence_info(f"r{i}")["tokens"]
+                   for i in range(len(prompts))]
+        n_tokens = sum(len(s) for s in streams)
+        ttft = sorted(first_token_s.values())
+        log(f"[3] decode server {tag} (bert_base width, f32, 8 slots, "
+            f"CUDA graphs): {n_tokens} tokens in {rounds} rounds, "
+            f"{loop_s:.3f} s -> {n_tokens / loop_s:.1f} tokens/s; first-token "
+            f"latency mean {sum(ttft) / len(ttft) * 1e3:.2f} ms, max "
+            f"{ttft[-1] * 1e3:.2f} ms; graphs captured so far "
+            f"{engine.graph_count}")
+        return streams
 
     flash_attention.launches = 0
-    loop = DecodeLoop(engine, config, on_token=on_token)
-    for i, p in enumerate(prompts):
-        loop.submit(f"r{i}", p, max_new=DECODE_MAX_NEW)
-    rounds = loop.run_until_idle()
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t_start
-    streams = [loop.sequence_info(f"r{i}")["tokens"]
-               for i in range(len(prompts))]
-
+    streams = run_loop("first run, capturing")
     t_ref = time.perf_counter()
     refs = [engine.reference_decode(p, DECODE_MAX_NEW) for p in prompts]
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t_ref
     launches = flash_attention.launches
 
-    n_tokens = sum(len(s) for s in streams)
-    ttft = sorted(first_token_s.values())
-    log(f"[3] decode server (bert_base width, f32, 8 slots): {n_tokens} "
-        f"tokens in {rounds} rounds, {loop_s:.3f} s -> "
-        f"{n_tokens / loop_s:.1f} tokens/s; first-token latency mean "
-        f"{sum(ttft) / len(ttft) * 1e3:.2f} ms, max {ttft[-1] * 1e3:.2f} ms")
     log(f"[3] reference_decode (full flash forward per token): "
         f"{sum(len(r) for r in refs)} tokens in {ref_s:.3f} s -> "
         f"{sum(len(r) for r in refs) / ref_s:.1f} tokens/s; flash launches "
@@ -774,14 +867,29 @@ def phase_decode(torch, P):
                            "reference_decode")
     check(all(len(s) == DECODE_MAX_NEW for s in streams), "stream lengths")
     check(launches > 0, "reference_decode launched no flash kernel")
+    # A bucket first used once in the first run is captured in this one.
+    second = run_loop("second run, capturing the rest")
+    check(second == streams, "the second run's streams differ from the "
+                             "first's")
+    prefill_used = {bucket_for(engine.prompt_buckets, n)
+                    for n in [3] + DECODE_PROMPT_LENS}
+    log(f"[3] graphs: {len(engine.step_graphs)} step (kv buckets used "
+        f"{sorted(kv_used)}), {len(engine.prefill_graphs)} prefill (prompt "
+        f"buckets used {sorted(prefill_used)}), {engine.graph_count} "
+        f"captured")
+    check(set(engine.step_graphs) == kv_used,
+          "not one step graph per kv bucket used")
+    check(set(engine.prefill_graphs) == prefill_used,
+          "not one prefill graph per prompt bucket used")
+    check(engine.graph_count == len(kv_used) + len(prefill_used),
+          "a graph used twice is not captured")
 
-    def rerun():
-        again = DecodeLoop(engine, config)
-        for i, p in enumerate(prompts):
-            again.submit(f"p{i}", p, max_new=DECODE_MAX_NEW)
-        again.run_until_idle()
-
-    device_profile(torch, "decode loop, same 8 requests", rerun)
+    again = run_loop("steady rerun, all graphs captured")
+    check(again == streams, "the rerun's streams differ from the first run's")
+    device_profile(torch, "decode loop, same 8 requests (CUDA graphs)",
+                   lambda: run_loop("profiled rerun"))
+    engine.step = graphed_step
+    check_decode_graphs(torch, engine, gen)
     return launches
 
 
@@ -856,8 +964,46 @@ def phase_grad_check(torch, P):
               f"{ref_key}")
 
 
+def _fit_modes(torch, P, np, tag, make_estimator, cols, epochs, steps):
+    """Fit one estimator per epoch mode, stream then scan, from the same
+    weights and seeds, counting launches around each fit. Returns
+    ``{mode: (estimator, history, counts)}``."""
+    out = {}
+    for mode in ("stream", "scan"):
+        est = make_estimator(mode)
+        torch.cuda.synchronize()
+        _reset_counts()
+        history = est.fit(P.MLDataset([cols], num_shards=1))
+        torch.cuda.synchronize()
+        counts = _counts()
+        losses = [h["train_loss"] for h in history]
+        for h in history:
+            log(f"[{tag}] {mode} epoch {h['epoch']}: train_loss "
+                f"{h['train_loss']:.4f}, {h['samples']} samples in "
+                f"{h['time_s']:.3f} s -> {h['samples_per_sec']:.1f} "
+                f"samples/s, {h['time_s'] / steps * 1e3:.2f} ms/step")
+        log(f"[{tag}] {mode}: launches over {epochs * steps} steps: {counts}")
+        check(est.effective_epoch_mode == mode,
+              f"{tag}: asked for {mode}, ran {est.effective_epoch_mode}")
+        check(all(np.isfinite(losses)), f"{tag} {mode}: non-finite losses "
+                                        f"{losses}")
+        check(all(counts[k] == 12 * epochs * steps for k in counts),
+              f"{tag} {mode}: expected {12 * epochs * steps} launches of "
+              f"each kernel, saw {counts}")
+        out[mode] = (est, history, counts)
+    stream = [h["train_loss"] for h in out["stream"][1]]
+    scan = [h["train_loss"] for h in out["scan"][1]]
+    diff = max(abs(a - b) for a, b in zip(scan, stream))
+    log(f"[{tag}] scan against stream losses: max |difference| {diff:.3e} "
+        f"(tolerance {FIT_TOL}); bit-identical: {scan == stream}")
+    check(np.allclose(scan, stream, **FIT_TOL),
+          f"{tag}: scan losses {scan} disagree with stream {stream}")
+    return out
+
+
 def phase_finetune(torch, P):
-    """4b: Estimator.fit of the bf16 flash classifier at bert_base."""
+    """4b: Estimator.fit of the bf16 flash classifier at bert_base, on
+    the stream path and on the scan path (a CUDA graph of the step)."""
     import numpy as np
 
     n_rows = GLUE_BATCH * FIT_STEPS
@@ -865,62 +1011,78 @@ def phase_finetune(torch, P):
     _, eval_cols = glue_columns(np, 2 * GLUE_BATCH, GLUE_SEQ, 30522, seed=6)
     cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
                       dropout_rate=0.1, max_len=GLUE_SEQ)
-    est = P.Estimator(
-        model=P.SequenceClassifier(cfg, device="cuda",
-                                   generator=torch.Generator().manual_seed(7)),
-        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4, weight_decay=1e-2),
-        loss="softmax_ce", metrics=["categorical_accuracy"],
-        num_epochs=FIT_EPOCHS, batch_size=GLUE_BATCH,
-        feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
-        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
-        seed=0, device="cuda",
-    )
-    torch.cuda.synchronize()
-    _reset_counts()
-    history = est.fit(P.MLDataset([cols], num_shards=1))
-    torch.cuda.synchronize()
-    counts = _counts()
-    steps = FIT_EPOCHS * FIT_STEPS
-    losses = [h["train_loss"] for h in history]
-    for h in history:
-        log(f"[4b] epoch {h['epoch']}: train_loss {h['train_loss']:.4f}, "
-            f"{h['samples']} samples in {h['time_s']:.3f} s -> "
-            f"{h['samples_per_sec']:.1f} samples/s, "
-            f"{h['time_s'] / FIT_STEPS * 1e3:.2f} ms/step")
-    log(f"[4b] launches over {steps} steps: {counts}")
+
+    def make_estimator(mode):
+        return P.Estimator(
+            model=P.SequenceClassifier(
+                cfg, device="cuda", generator=torch.Generator().manual_seed(7)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4,
+                                                  weight_decay=1e-2),
+            loss="softmax_ce", metrics=["categorical_accuracy"],
+            num_epochs=FIT_EPOCHS, batch_size=GLUE_BATCH,
+            feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, seed=0, shuffle=False, epoch_mode=mode,
+            device="cuda",
+        )
+
+    fits = _fit_modes(torch, P, np, "4b", make_estimator, cols, FIT_EPOCHS,
+                      FIT_STEPS)
+    for mode, (est, history, _) in fits.items():
+        losses = [h["train_loss"] for h in history]
+        later = history[1:]  # epoch 0 of scan holds warm-up and capture
+        ms = sum(h["time_s"] for h in later) / (len(later) * FIT_STEPS) * 1e3
+        log(f"[4b] {mode}: epochs 1-{FIT_EPOCHS - 1} {ms:.2f} ms/step, "
+            f"{GLUE_BATCH / ms * 1e3:.1f} samples/s (host clock)")
+        check(losses[-1] < losses[0], f"{mode}: train loss did not fall: "
+                                      f"{losses}")
+    est = fits["scan"][0]
     evals = est.evaluate(P.MLDataset([eval_cols], num_shards=1))
     preds = est.predict(ids[:GLUE_BATCH + 5])
     log(f"[4b] evaluate: {evals}; predict {preds.shape}")
-    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
-    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
-    check(all(counts[k] == 12 * steps for k in counts),
-          f"expected {12 * steps} launches of each kernel, saw {counts}")
     check(np.isfinite(evals["loss"]), "non-finite eval loss")
     check(preds.shape == (GLUE_BATCH + 5, 2) and np.isfinite(preds).all(),
           "predict output")
 
-    model, opt = est.get_model().train(), est.optimizer
     x = torch.from_numpy(ids[:GLUE_BATCH]).cuda()
     y = torch.from_numpy(cols["label"][:GLUE_BATCH]).cuda()
-
-    def train_step():
-        opt.zero_grad(set_to_none=True)
-        torch.nn.functional.cross_entropy(model(x), y.long()).backward()
-        opt.step()
-
-    step_ms = time_ms(torch, train_step, iters=10)
-    log(f"[4b] one train step (CUDA events, 10 steps): {step_ms:.3f} ms -> "
-        f"{GLUE_BATCH / step_ms * 1e3:.1f} samples/s")
-    device_profile(torch, "bert_base fine-tune, one train step", train_step,
-                   top=8)
-    del est, model, opt
+    eager = fits["stream"][0]
+    eager.get_model().train()
+    est.get_model().train()
+    graphed = est._captured_train_step()
+    while not graphed.captured:
+        graphed(x, y)
+    step_ms = {"stream": time_ms(torch, lambda: eager._train_step(x, y),
+                                 iters=10),
+               "scan": time_ms(torch, lambda: graphed(x, y), iters=10)}
+    for mode, ms in step_ms.items():
+        log(f"[4b] one {mode} train step (CUDA events, 10 steps): {ms:.3f} ms "
+            f"-> {GLUE_BATCH / ms * 1e3:.1f} samples/s")
+    device_profile(torch, "bert_base fine-tune, one stream train step",
+                   lambda: eager._train_step(x, y), top=8)
+    _reset_counts()
+    seen = device_profile(torch, "bert_base fine-tune, 5 scan steps (graph "
+                          "replays)",
+                          lambda: [graphed(x, y) for _ in range(5)], top=8)
+    counted = _counts()
+    # The counters add each replay's launches as recorded at capture;
+    # hold them against the kernels the trace saw the replays run.
+    traced = {k: sum(n for name, n in (seen or {}).items() if sym in name)
+              for k, sym in KERNEL_SYMBOLS.items()}
+    log(f"[4b] 5 replays: flash kernels in the trace {traced}, launch "
+        f"counters {counted}")
+    check(traced == counted == {k: 12 * 5 for k in KERNEL_SYMBOLS},
+          f"5 replays: expected {12 * 5} of each kernel, traced {traced}, "
+          f"counted {counted}")
+    counts = [c for _, _, c in fits.values()]
+    del fits, est, eager, graphed
     torch.cuda.empty_cache()
-    return counts
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def phase_causal_lm(torch, P):
     """4c: a short self-supervised lm_ce fit of a bert_base-width
-    CausalLM, which runs the causal flash backward."""
+    CausalLM, which runs the causal flash backward, on both paths."""
     import numpy as np
 
     rng = np.random.default_rng(8)
@@ -928,28 +1090,29 @@ def phase_causal_lm(torch, P):
     cols = {f"t{i}": ids[:, i].astype(np.int32) for i in range(LM_SEQ)}
     cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
                       causal=True, dropout_rate=0.1, max_len=LM_SEQ)
-    est = P.Estimator(
-        model=P.CausalLM(cfg, device="cuda"),
-        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4),
-        loss="lm_ce", num_epochs=LM_EPOCHS, batch_size=LM_BATCH,
-        feature_columns=[f"t{i}" for i in range(LM_SEQ)],
-        self_supervised=True, feature_dtype=np.int32, device="cuda")
-    torch.cuda.synchronize()
-    _reset_counts()
-    history = est.fit(P.MLDataset([cols], num_shards=1))
-    torch.cuda.synchronize()
-    counts = _counts()
-    steps = LM_EPOCHS * LM_STEPS
-    losses = [h["train_loss"] for h in history]
-    log(f"[4c] CausalLM bert_base width, batch {LM_BATCH} x seq {LM_SEQ}, "
-        f"{steps} steps: losses {losses}, last epoch "
-        f"{history[-1]['samples_per_sec']:.1f} samples/s; launches {counts}")
-    check(all(np.isfinite(losses)), f"non-finite LM losses {losses}")
-    check(all(counts[k] == 12 * steps for k in counts),
-          f"expected {12 * steps} launches of each kernel, saw {counts}")
-    del est
+
+    def make_estimator(mode):
+        return P.Estimator(
+            model=P.CausalLM(cfg, device="cuda"),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4),
+            loss="lm_ce", num_epochs=LM_EPOCHS, batch_size=LM_BATCH,
+            feature_columns=[f"t{i}" for i in range(LM_SEQ)],
+            self_supervised=True, feature_dtype=np.int32, shuffle=False,
+            epoch_mode=mode, device="cuda")
+
+    fits = _fit_modes(torch, P, np, "4c", make_estimator, cols, LM_EPOCHS,
+                      LM_STEPS)
+    for mode, (_, history, _) in fits.items():
+        # The last epoch is eager steps (stream) or replays only (scan).
+        last = history[-1]
+        log(f"[4c] CausalLM bert_base width, {mode}, batch {LM_BATCH} x seq "
+            f"{LM_SEQ}: losses {[h['train_loss'] for h in history]}, last "
+            f"epoch {last['samples_per_sec']:.1f} samples/s, "
+            f"{last['time_s'] / LM_STEPS * 1e3:.2f} ms/step")
+    counts = [c for _, _, c in fits.values()]
+    del fits
     torch.cuda.empty_cache()
-    return counts
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def main() -> int:

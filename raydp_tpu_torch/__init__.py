@@ -5,7 +5,9 @@ package imports nothing of it (nor of JAX) and keeps its own copies of
 what it needs. Slice 1 is transformer inference: the BERT-GLUE
 classifier forward and the continuous-batching decode server. Slice 2 is
 training: the ``Estimator`` over a local ``MLDataset`` and its device
-loader, losses, MLP models, and the flash-attention backward. With
+loader (its scan path replays the train step as a CUDA graph on a
+card, as the decode engine does its prefill and step), losses, MLP
+models, and the flash-attention backward. With
 ``attention_impl="flash"`` attention runs hand-written Hopper kernels,
 forward and backward.
 

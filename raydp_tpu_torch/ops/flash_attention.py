@@ -22,9 +22,10 @@ it comes in another layout (the expanded gradient of ``.sum()``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -454,3 +455,27 @@ flash_attention.launches = 0
 flash_bwd_delta.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+_COUNTED = (flash_attention, flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a CUDA graph capture, where a wrapper's increment records
+    a launch that each replay will make, not one made now. Yields a list
+    that is filled on exit with what each counter gained (in the order
+    forward, delta, dq, dk/dv), and puts the counters back."""
+    before = [fn.launches for fn in _COUNTED]
+    gained: List[int] = []
+    try:
+        yield gained
+    finally:
+        for fn, b in zip(_COUNTED, before):
+            gained.append(fn.launches - b)
+            fn.launches = b
+
+
+def count_replay(launches: Sequence[int]) -> None:
+    """Add one replay's launches, as :func:`recording_launches` gave
+    them, to the counters."""
+    for fn, n in zip(_COUNTED, launches):
+        fn.launches += n

@@ -16,7 +16,8 @@ granularity (continuous batching, one greedy stream per request):
   live slot, bucketed by cache length, retires finished sequences and
   buffers token/done events.
 * Engines: :class:`TransformerDecodeEngine` drives a
-  :class:`~raydp_tpu_torch.models.transformer.CausalLM` on its device;
+  :class:`~raydp_tpu_torch.models.transformer.CausalLM` on its device
+  (on a card its prefill and step replay CUDA graphs, one per bucket);
   :class:`ToyDecodeEngine` is a deterministic arithmetic stand-in for
   scheduler tests.
 
@@ -37,6 +38,7 @@ import torch
 from raydp_tpu_torch.models.transformer import CausalLM, tiny_transformer
 from raydp_tpu_torch.utils.device import DeviceLike
 from raydp_tpu_torch.utils.env import _env_float, _env_int
+from raydp_tpu_torch.utils.graphed import CapturedStep
 from raydp_tpu_torch.utils.profiling import metrics
 
 DECODE_SLOTS_ENV = "RAYDP_TPU_DECODE_SLOTS"
@@ -244,6 +246,13 @@ class TransformerDecodeEngine:
     scatters one row per slot, both in place, so a steady-state round
     allocates no cache memory. One host sync per round (the step's token
     fetch), never one per token per sequence.
+
+    On a card the prefill and the step are CUDA graphs, the counterparts
+    of the JAX engine's jitted programs (``raydp_tpu/serve/decode.py:
+    266-296``): one step graph per kv bucket and one prefill graph per
+    prompt bucket, each run eagerly at its first use and captured at its
+    second over static input buffers, with the argmax inside, all in one
+    memory pool. On the CPU both run eagerly.
     """
 
     def __init__(self, model, num_slots: int = _DEFAULT_SLOTS,
@@ -254,6 +263,10 @@ class TransformerDecodeEngine:
         self.max_len = int(model.cfg.max_len)
         self.prompt_buckets = kv_buckets(page_tokens, self.max_len)
         self._cache = model.init_cache(num_slots)
+        self._graphed = self.device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if self._graphed else None
+        self.step_graphs: Dict[int, CapturedStep] = {}
+        self.prefill_graphs: Dict[int, CapturedStep] = {}
 
     def _padded(self, tokens: Sequence[int]) -> torch.Tensor:
         bucket = bucket_for(self.prompt_buckets, len(tokens))
@@ -261,15 +274,40 @@ class TransformerDecodeEngine:
         ids[0, : len(tokens)] = torch.as_tensor(list(tokens))
         return ids.to(self.device)
 
+    def _prefill_tokens(self, ids, lengths, slots):
+        logits = self.model.prefill(ids, lengths, self._cache, slots=slots)
+        return logits.argmax(dim=-1)
+
+    def _step_tokens(self, kv_len: int):
+        def step(tokens, positions):
+            logits = self.model.decode_step(tokens, positions, kv_len,
+                                            self._cache)
+            return logits.argmax(dim=-1)
+        return step
+
+    def _run(self, graphs: Dict[int, CapturedStep], key: int, fn, *args):
+        """``fn(*args)``: eagerly on the CPU; on a card by ``graphs[key]``,
+        whose first call is eager and whose second captures."""
+        if not self._graphed:
+            return fn(*args)
+        if key not in graphs:
+            graphs[key] = CapturedStep(fn, warmup=1, pool=self._pool)
+        return graphs[key](*args)
+
+    @property
+    def graph_count(self) -> int:
+        """CUDA graphs captured so far (0 on the CPU)."""
+        return sum(g.captured for g in (*self.step_graphs.values(),
+                                        *self.prefill_graphs.values()))
+
     @torch.inference_mode()
     def prefill(self, slot: int, tokens: Sequence[int]) -> int:
-        logits = self.model.prefill(
-            self._padded(tokens),
+        ids = self._padded(tokens)
+        out = self._run(
+            self.prefill_graphs, ids.shape[1], self._prefill_tokens, ids,
             torch.tensor([len(tokens)], device=self.device),
-            self._cache,
-            slots=torch.tensor([slot], device=self.device),
-        )
-        return int(logits.argmax(dim=-1)[0])
+            torch.tensor([slot], device=self.device))
+        return int(out[0])
 
     @torch.inference_mode()
     def step(self, last_tokens: Sequence[int], cache_lens: Sequence[int],
@@ -278,9 +316,10 @@ class TransformerDecodeEngine:
                               device=self.device)[:, None]
         positions = torch.tensor(list(cache_lens), dtype=torch.long,
                                  device=self.device)
-        logits = self.model.decode_step(tokens, positions, int(kv_len),
-                                        self._cache)
-        return logits.argmax(dim=-1).tolist()
+        kv_len = int(kv_len)
+        out = self._run(self.step_graphs, kv_len, self._step_tokens(kv_len),
+                        tokens, positions)
+        return out.tolist()
 
     @torch.inference_mode()
     def reference_decode(self, prompt: Sequence[int], max_new: int,

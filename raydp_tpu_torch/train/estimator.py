@@ -1,21 +1,35 @@
 """Estimator: scikit-learn-style training of a torch module on one device.
 
-The counterpart of ``JAXEstimator`` (``raydp_tpu/train/estimator.py``) on
-its stream path (``:717-927``): a configured loss and optimizer, per-epoch
-history and callbacks, evaluation, prediction, and checkpoints that carry
-the data position so ``fit(resume_from=...)`` continues mid-epoch exactly.
-(``TorchEstimator`` is the JAX package's gloo-based compat trainer; this
-is the port's native one.)
+The counterpart of ``JAXEstimator`` (``raydp_tpu/train/estimator.py``): a
+configured loss and optimizer, per-epoch history and callbacks,
+evaluation, prediction, and checkpoints. Two epoch paths, chosen as the
+JAX package chooses them (:meth:`Estimator._use_scan`):
+
+* **stream** (``:717-927``): batches from the dataset's device loader,
+  one eager step each, checkpoints every ``save_every_steps`` that carry
+  the data position, so ``fit(resume_from=...)`` continues mid-epoch
+  exactly. A resumed fit always streams, as in JAX.
+* **scan** (``:1047-1144``; ``"auto"`` picks it for a dataset of at most
+  ``scan_threshold_bytes``): the whole dataset is uploaded once, padded
+  to whole batches by cycling rows; each epoch draws one permutation on
+  the device and gathers its batches there. On a card the step is
+  captured once per fit into a CUDA graph and replayed
+  (``utils/graphed.py``), the counterpart of JAX's one dispatch per
+  epoch; on the CPU the same step runs eagerly. Checkpoints and
+  callbacks come at epoch ends only.
+
+Both paths run one step function, :meth:`Estimator._train_step`, which
+sums the loss on the device: one host sync per epoch.
 
 Differences from the JAX estimator, each deliberate:
 
-* Eager PyTorch: one optimizer step per batch, the loss summed on the
-  device with one host sync per epoch. ``epoch_mode="scan"`` (one fused
-  dispatch per epoch) is not ported yet and raises; ``"auto"`` streams.
 * Dropout draws from an explicit ``torch.Generator`` seeded from
   ``seed + 1`` (JAX: ``PRNGKey(seed + 1)``), handed to the model with
   ``set_dropout_generator`` and saved in every checkpoint, so a resumed
-  fit draws the masks the uninterrupted one would have.
+  fit draws the masks the uninterrupted one would have. The scan
+  shuffle draws from a generator seeded from ``seed`` on the fit's
+  device. Neither reproduces ``jax.random``'s bits, so a scan fit
+  matches JAX's only unshuffled and without dropout.
 * Checkpoints are ``torch.save`` files (model, optimizer, step, data
   position, generator state), not orbax directories.
 * One process, one device: the mesh, parameter sharding, multi-process
@@ -36,14 +50,13 @@ from torch import nn
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
+from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
 
 logger = logging.getLogger(__name__)
 
-_SCAN_TODO = (
-    "epoch_mode='scan' (one fused dispatch per epoch) is not ported yet: "
-    "ROADMAP Queue A, slice 2 rest item 1 (scan epochs with a CUDA graph); "
-    "use 'stream' or 'auto'"
-)
+# Eager steps before the scan path captures its step: real steps of the
+# first epoch, counted in its history.
+CAPTURE_WARMUP_STEPS = 3
 
 
 class TrainingCallback:
@@ -66,8 +79,9 @@ class Estimator:
 
     ``model`` is an ``nn.Module`` or a zero-arg creator of one;
     ``optimizer`` a callable from parameters to a ``torch.optim``
-    optimizer. Batches come from a dataset's ``to_torch`` loader onto
-    ``device`` (default ``"cuda"``).
+    optimizer. ``epoch_mode`` is ``"auto"``, ``"stream"`` or ``"scan"``
+    (the module docstring); the stream path's batches come from a
+    dataset's ``to_torch`` loader onto ``device`` (default ``"cuda"``).
     """
 
     def __init__(
@@ -93,11 +107,10 @@ class Estimator:
         prefetch: int = 2,
         drop_last: bool = False,
         epoch_mode: str = "auto",
+        scan_threshold_bytes: int = 2 << 30,
         device: DeviceLike = "cuda",
     ):
-        if epoch_mode == "scan":
-            raise NotImplementedError(_SCAN_TODO)
-        if epoch_mode not in ("auto", "stream"):
+        if epoch_mode not in ("auto", "stream", "scan"):
             raise ValueError(
                 f"epoch_mode must be auto|stream|scan, got {epoch_mode!r}")
         self.device = resolve_device(device)
@@ -129,11 +142,16 @@ class Estimator:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.epoch_mode = epoch_mode
+        self.scan_threshold_bytes = scan_threshold_bytes
+        # Set by fit(): which epoch path ran ('scan' or 'stream').
+        self.effective_epoch_mode: Optional[str] = None
         # The training generator (dropout masks), seeded as JAX seeds its
         # dropout chain: PRNGKey(seed + 1).
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed + 1)
         set_dropout_generator(self._model, self._generator)
+        # The epoch's loss, summed on the device by every step.
+        self._loss_sum = torch.zeros((), device=self.device)
         self._step = 0
         self._resume_position: Optional[tuple] = None
         self.history: List[Dict[str, float]] = []
@@ -172,13 +190,41 @@ class Estimator:
         """Train. ``resume_from`` names a checkpoint (as returned by
         :meth:`save`); one with a mid-epoch data position continues at
         exactly that (epoch, batch): the epoch's shuffle is deterministic
-        and the dropout generator's state is restored."""
+        and the dropout generator's state is restored. A resumed fit runs
+        the stream path."""
         if self.feature_columns is None or (
                 self.label_column is None and not self.self_supervised):
             raise ValueError(
                 "feature_columns and label_column must be configured "
                 "(label_column may be omitted with self_supervised=True)")
         epochs = num_epochs if num_epochs is not None else self.num_epochs
+        if self._use_scan(train_ds) and resume_from is None:
+            self.effective_epoch_mode = "scan"
+            self._fit_scan(train_ds, evaluate_ds, epochs)
+        else:
+            self.effective_epoch_mode = "stream"
+            self._fit_stream(train_ds, evaluate_ds, epochs, resume_from)
+        for cb in self.callbacks:
+            cb.on_train_end(self.history)
+        return self.history
+
+    def _train_step(self, x: torch.Tensor,
+                    y: Optional[torch.Tensor]) -> torch.Tensor:
+        """One optimizer step on the batch ``(x, y)``, its loss added to
+        the epoch's sum on the device; returns the loss. Both paths run
+        it: the stream path eagerly, the scan path as a CUDA graph on a
+        card."""
+        opt = self.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss = self._loss_fn(self._model(x), self._target(x, y))
+        loss.backward()
+        opt.step()
+        loss = loss.detach()
+        self._loss_sum += loss
+        return loss
+
+    def _fit_stream(self, train_ds, evaluate_ds, epochs: int,
+                    resume_from: Optional[str]) -> None:
         loaders = self._loaders(train_ds, self.feature_columns,
                                 self.label_column, self.shuffle,
                                 self.drop_last)
@@ -187,25 +233,19 @@ class Estimator:
             self.restore_path(resume_from)
             if self._resume_position is not None:
                 start_epoch, skip_batches = self._resume_position
-        model, opt = self._model, self.optimizer
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
-            model.train()
+            self._model.train()
             for loader in loaders:
                 loader.set_epoch(epoch)
             to_skip = skip_batches if epoch == start_epoch else 0
             b_idx = to_skip
-            loss_sum = torch.zeros((), device=self.device)
+            self._loss_sum.zero_()
             n_batches = n_samples = 0
             for i, (x, y) in enumerate(self._batches(loaders)):
                 if i < to_skip:
                     continue
-                opt.zero_grad(set_to_none=True)
-                loss = self._loss_fn(model(x), self._target(x, y))
-                loss.backward()
-                opt.step()
-                # Summed on the device: a float() per step would sync.
-                loss_sum += loss.detach()
+                loss = self._train_step(x, y)
                 n_batches += 1
                 b_idx += 1
                 self._step += 1
@@ -217,11 +257,118 @@ class Estimator:
                 if self.log_every and n_batches % self.log_every == 0:
                     logger.info("epoch %d step %d loss %.5f", epoch,
                                 n_batches, float(loss))  # sync: opt-in
-            train_loss = float(loss_sum) / max(1, n_batches)  # one sync
+            train_loss = float(self._loss_sum) / max(1, n_batches)  # one sync
             self._finish_epoch(epoch, t0, train_loss, n_samples, evaluate_ds)
-        for cb in self.callbacks:
-            cb.on_train_end(self.history)
-        return self.history
+
+    # -- scan path --------------------------------------------------------
+    def _use_scan(self, train_ds) -> bool:
+        """Whether a fit runs the scan path: the JAX package's rule
+        (``raydp_tpu/train/estimator.py:930-974``) for one process, plus
+        one of the card's: ``"auto"`` streams where the optimizer's step
+        cannot be captured into a CUDA graph
+        (:func:`~raydp_tpu_torch.utils.graphed.capture_refusal`)."""
+        if self.epoch_mode == "stream":
+            return False
+        try:
+            n_rows = train_ds.total_rows
+        except AttributeError:
+            n_rows = None
+        if n_rows == 0:
+            if self.epoch_mode == "scan":
+                logger.warning(
+                    "epoch_mode='scan' requested but dataset is empty; "
+                    "falling back to the stream path")
+            return False
+        if self.epoch_mode == "scan":
+            return True
+        if n_rows is None:
+            return False
+        n_cols = len(self.feature_columns) + 1
+        approx = n_rows * n_cols * max(
+            np.dtype(self.feature_dtype).itemsize,
+            np.dtype(self.label_dtype).itemsize)
+        if approx > self.scan_threshold_bytes:
+            return False
+        # On a card the scan step is a CUDA graph: "auto" keeps an
+        # optimizer whose step cannot be captured on the stream path
+        # ("scan" asked for raises on it).
+        if self.device.type == "cuda":
+            refusal = capture_refusal(self.optimizer)
+            if refusal is not None:
+                logger.info("epoch_mode='auto' streams: %s", refusal)
+                return False
+        return True
+
+    def _materialize_all(self, ds):
+        """Every shard, in rank order, as one ``(x, y)`` pair of host
+        arrays (``y`` None without a label column)."""
+        wanted = list(self.feature_columns) + (
+            [self.label_column] if self.label_column else [])
+        xs, ys = [], []
+        for rank in range(ds.num_shards):
+            cols = ds.shard_columns(rank, wanted)
+            xs.append(np.stack(
+                [cols[c].astype(self.feature_dtype, copy=False)
+                 for c in self.feature_columns], axis=1))
+            if self.label_column:
+                ys.append(cols[self.label_column].astype(self.label_dtype,
+                                                         copy=False))
+        x = np.concatenate(xs) if len(xs) > 1 else xs[0]
+        y = (np.concatenate(ys) if len(ys) > 1 else ys[0]) if ys else None
+        return x, y
+
+    def _captured_train_step(self) -> CapturedStep:
+        """The scan path's step on a card: :meth:`_train_step` captured
+        after ``CAPTURE_WARMUP_STEPS`` eager steps, with the dropout
+        generator registered and the optimizer made capturable."""
+        return CapturedStep(self._train_step, warmup=CAPTURE_WARMUP_STEPS,
+                            optimizer=self.optimizer,
+                            generators=(self._generator,))
+
+    def _fit_scan(self, train_ds, evaluate_ds, epochs: int) -> None:
+        x, y = self._materialize_all(train_ds)
+        n_true = len(x)
+        if n_true == 0:
+            # A dataset without total_rows reaches here empty (_use_scan
+            # cannot pre-check it): record empty epochs, as JAX does.
+            logger.warning("scan-mode dataset is empty; recording empty "
+                           "epochs")
+            for epoch in range(epochs):
+                self._finish_epoch(epoch, time.perf_counter(), 0.0, 0,
+                                   evaluate_ds)
+            return
+        batch = self.batch_size
+        n_steps = max(1, -(-n_true // batch))
+        pad = n_steps * batch - n_true
+        if pad:
+            x, y = _pad_cycle(x, y, pad)
+        xd = torch.tensor(x, device=self.device)  # uploaded once per fit
+        yd = None if y is None else torch.tensor(y, device=self.device)
+        shuffle_gen = torch.Generator(device=self.device)
+        shuffle_gen.manual_seed(self.seed)
+        step = (self._captured_train_step() if self.device.type == "cuda"
+                else self._train_step)
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            self._model.train()
+            xe, ye = xd, yd
+            if self.shuffle:
+                perm = torch.randperm(len(xd), generator=shuffle_gen,
+                                      device=self.device)
+                xe = xd.index_select(0, perm)
+                ye = None if yd is None else yd.index_select(0, perm)
+            self._loss_sum.zero_()
+            for i in range(0, n_steps * batch, batch):
+                step(xe[i:i + batch], None if ye is None else ye[i:i + batch])
+            self._step += n_steps
+            # The mean over the fused steps, padded rows included, as
+            # JAX's losses.mean(); samples count the true rows.
+            train_loss = float(self._loss_sum) / n_steps  # one sync
+            metrics = self._finish_epoch(epoch, t0, train_loss, n_true,
+                                         evaluate_ds)
+            if self.log_every:
+                logger.info("epoch %d (%d fused steps) loss %.5f", epoch,
+                            n_steps, metrics["train_loss"])
 
     def _finish_epoch(self, epoch: int, t0: float, train_loss: float,
                       n_samples: int, evaluate_ds) -> Dict[str, float]:
@@ -328,3 +475,14 @@ class Estimator:
         self._generator.set_state(state["generator"])
         epoch, batch = int(state["data_epoch"]), int(state["data_batch"])
         self._resume_position = (epoch, batch) if epoch >= 0 else None
+
+
+def _pad_cycle(x: np.ndarray, y: Optional[np.ndarray], pad: int):
+    """Pad by ``pad`` rows cycled from the start (the JAX package's one
+    padding convention, ``raydp_tpu/train/estimator.py:1495-1503``);
+    ``pad`` may exceed ``len(x)``."""
+    idx = np.arange(pad) % len(x)
+    x = np.concatenate([x, x[idx]])
+    if y is not None:
+        y = np.concatenate([y, y[idx]])
+    return x, y

@@ -1,7 +1,10 @@
 """The port's CUDA paths on a card: the flash forward and backward
 kernels against their plain versions over every head dim, ragged
 sequence lengths and strided inputs, the tiny models (outputs and
-gradients) on the card against the CPU, and an estimator fit on the card.
+gradients) on the card against the CPU, an estimator fit on the card,
+and the CUDA graphs: the scan path's captured train step (against the
+stream path, dropout draws, learning-rate guard, launch counts,
+checkpoints) and the decode engine's captured prefill and step.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -17,6 +20,11 @@ from raydp_tpu_torch.models.transformer import (
     CausalLM,
     SequenceClassifier,
     tiny_transformer,
+)
+from raydp_tpu_torch.serve.decode import (
+    DecodeConfig,
+    DecodeLoop,
+    build_transformer_engine,
 )
 from raydp_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -405,7 +413,7 @@ def test_estimator_fit_on_card_matches_cpu(cuda):
             num_epochs=2, batch_size=16,
             feature_columns=[f"t{i}" for i in range(16)],
             label_column="label", feature_dtype=np.int32,
-            label_dtype=np.int32, device=dev,
+            label_dtype=np.int32, device=dev, epoch_mode="stream",
             optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3))
         before = (flash_attention.launches, flash_bwd_dq.launches,
                   flash_bwd_dkv.launches, flash_bwd_delta.launches)
@@ -418,3 +426,221 @@ def test_estimator_fit_on_card_matches_cpu(cuda):
     for g, c in zip(hist["cuda"], hist["cpu"]):
         np.testing.assert_allclose(g["train_loss"], c["train_loss"],
                                    rtol=1e-3)
+
+
+# ------------------------------------------------------ CUDA graphs
+
+def _counts():
+    return [f.launches for f in (flash_attention, flash_bwd_delta,
+                                 flash_bwd_dq, flash_bwd_dkv)]
+
+
+def _graph_estimator(dev="cuda", mode="scan", lr=1e-3, dtype=torch.bfloat16,
+                     optimizer=None, **kw):
+    """A tiny flash classifier at dropout 0.1, unshuffled: 128 rows in
+    batches of 16, 8 steps an epoch; AdamW unless ``optimizer`` is
+    given."""
+    cfg = tiny_transformer(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                           d_ff=64, max_len=16, attention_impl="flash",
+                           dtype=dtype, dropout_rate=0.1)
+    return Estimator(
+        model=SequenceClassifier(cfg, device=dev,
+                                 generator=torch.Generator().manual_seed(3)),
+        loss="softmax_ce", num_epochs=2, batch_size=16,
+        feature_columns=[f"t{i}" for i in range(16)], label_column="label",
+        feature_dtype=np.int32, label_dtype=np.int32, device=dev,
+        shuffle=False, epoch_mode=mode, seed=4,
+        optimizer=optimizer or (lambda p: torch.optim.AdamW(p, lr=lr)), **kw)
+
+
+def test_scan_graph_matches_stream_and_counts_every_launch(cuda):
+    """bf16, dropout 0.1: the scan fit (3 eager steps, then 13 replays of
+    one graph) against the stream fit within the bf16 tolerance (6e-2);
+    each kernel counted 2 layers x 16 steps in both; two scan fits from
+    one seed bit-identical."""
+    cols = _token_cols(128, 16, 64, seed=2)
+    losses, counts = {}, {}
+    for mode in ("stream", "scan", "scan-again"):
+        est = _graph_estimator(mode=mode.split("-")[0])
+        before = _counts()
+        hist = est.fit(MLDataset([cols], 1))
+        counts[mode] = [a - b for a, b in zip(_counts(), before)]
+        losses[mode] = [h["train_loss"] for h in hist]
+        assert est.effective_epoch_mode == mode.split("-")[0]
+        assert [h["samples"] for h in hist] == [128, 128]
+    assert counts["stream"] == counts["scan"] == [2 * 16] * 4
+    np.testing.assert_allclose(losses["scan"], losses["stream"], rtol=6e-2,
+                               atol=6e-2)
+    assert losses["scan"] == losses["scan-again"]
+
+
+def test_replays_draw_fresh_masks_in_the_eager_sequence(cuda):
+    """At lr 0 the weights never move, so a step's loss changes only with
+    its dropout masks: every replay of one batch gives a new loss, and
+    the graphed steps give the eager steps' losses in turn (f32)."""
+    cols = _token_cols(16, 16, 64, seed=3)
+    x = torch.from_numpy(np.stack([cols[f"t{i}"] for i in range(16)], 1))
+    y = torch.from_numpy(cols["label"])
+    x, y = x.cuda(), y.cuda()
+    runs = {}
+    for graphed in (False, True):
+        est = _graph_estimator(lr=0.0, dtype=torch.float32)
+        est.get_model().train()
+        step = est._captured_train_step() if graphed else est._train_step
+        runs[graphed] = [float(step(x, y)) for _ in range(7)]
+        if graphed:
+            assert step.captured
+    replays = runs[True][3:]
+    assert len(set(replays)) == len(replays)
+    np.testing.assert_allclose(runs[True], runs[False], rtol=1e-5)
+
+
+def test_graphed_sgd_momentum_steps_follow_eager_steps(cuda):
+    """SGD has no capturable mode and keeps no host state: it is captured
+    as it is, after warm-up steps that create its momentum buffers, so
+    the replays apply the momentum update (a capture of the first step
+    would reset the buffers on every replay). f32, dropout 0.1: the
+    graphed steps give the eager steps' losses and weights."""
+    cols = _token_cols(16, 16, 64, seed=7)
+    x = torch.from_numpy(np.stack([cols[f"t{i}"] for i in range(16)], 1))
+    y = torch.from_numpy(cols["label"])
+    x, y = x.cuda(), y.cuda()
+    runs, weights = {}, {}
+    for graphed in (False, True):
+        est = _graph_estimator(dtype=torch.float32, optimizer=lambda p:
+                               torch.optim.SGD(p, lr=0.05, momentum=0.9))
+        est.get_model().train()
+        step = est._captured_train_step() if graphed else est._train_step
+        runs[graphed] = [float(step(x, y)) for _ in range(8)]
+        weights[graphed] = [p.detach().clone()
+                            for p in est.get_model().parameters()]
+        if graphed:
+            assert step.captured
+    assert len(set(runs[True])) == len(runs[True])
+    np.testing.assert_allclose(runs[True], runs[False], rtol=1e-5)
+    for a, b in zip(weights[True], weights[False]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["SGD", "Adagrad"])
+def test_default_epoch_mode_by_optimizer(cuda, name):
+    """Under the default ``epoch_mode="auto"`` an SGD fit scans (a CUDA
+    graph) and agrees with its stream fit within the bf16 tolerance
+    (6e-2); an Adagrad fit, whose step count lies on the host, streams,
+    and asked for ``"scan"`` it raises."""
+    make = {"SGD": lambda p: torch.optim.SGD(p, lr=1e-2, momentum=0.9),
+            "Adagrad": lambda p: torch.optim.Adagrad(p, lr=1e-2)}[name]
+    cols = _token_cols(128, 16, 64, seed=8)
+    losses, modes = {}, {}
+    for mode in ("auto", "stream"):
+        est = _graph_estimator(mode=mode, optimizer=make)
+        before = _counts()
+        hist = est.fit(MLDataset([cols], 1))
+        assert [a - b for a, b in zip(_counts(), before)] == [2 * 16] * 4
+        losses[mode] = [h["train_loss"] for h in hist]
+        modes[mode] = est.effective_epoch_mode
+    assert modes["auto"] == ("scan" if name == "SGD" else "stream")
+    np.testing.assert_allclose(losses["auto"], losses["stream"], rtol=6e-2,
+                               atol=6e-2)
+    if name == "Adagrad":
+        with pytest.raises(TypeError, match="Adagrad"):
+            _graph_estimator(mode="scan", optimizer=make).fit(
+                MLDataset([cols], 1))
+
+
+def test_changed_learning_rate_raises_after_capture(cuda):
+    cols = _token_cols(64, 16, 64, seed=4)
+    est = _graph_estimator()
+    est.fit(MLDataset([cols], 1), num_epochs=1)
+    x = torch.zeros((16, 16), dtype=torch.int32, device="cuda")
+    y = torch.zeros(16, dtype=torch.int32, device="cuda")
+    step = est._captured_train_step()
+    for _ in range(4):
+        step(x, y)
+    assert step.captured
+    est.optimizer.param_groups[0]["lr"] = 5e-4
+    with pytest.raises(RuntimeError, match="learning rate"):
+        step(x, y)
+
+
+def test_scan_checkpoint_restores_and_resumes_on_stream(cuda, tmp_path):
+    """An epoch-end checkpoint of a scan fit holds the dropout
+    generator's state after the epoch's replays (the stream fit's after
+    the same steps); a fit resumed from it runs the stream path."""
+    cols = _token_cols(128, 16, 64, seed=5)
+    gens = {}
+    for mode in ("scan", "stream"):
+        est = _graph_estimator(mode=mode,
+                               checkpoint_dir=str(tmp_path / mode))
+        est.fit(MLDataset([cols], 1))
+        state = torch.load(tmp_path / mode / "step_0.pt", weights_only=True)
+        gens[mode] = state["generator"]
+        assert state["step"] == 8 and state["data_epoch"] == 1
+    assert torch.equal(gens["scan"], gens["stream"])
+    resumed = _graph_estimator()
+    hist = resumed.fit(MLDataset([cols], 1),
+                       resume_from=str(tmp_path / "scan" / "step_0.pt"))
+    assert resumed.effective_epoch_mode == "stream"
+    assert [h["epoch"] for h in hist] == [1]
+    assert np.isfinite(hist[0]["train_loss"])
+    # A scan fit after it: the restored AdamW's step counts lie on the
+    # CPU and move to the card when the optimizer turns capturable.
+    hist = resumed.fit(MLDataset([cols], 1), num_epochs=1)
+    assert resumed.effective_epoch_mode == "scan"
+    assert np.isfinite(hist[-1]["train_loss"])
+
+
+def test_decode_graphs_match_eager_steps_and_reference(cuda):
+    """A tiny f32 flash CausalLM engine (page 8, max_len 64: kv buckets 8,
+    16, 32, 64): the loop's streams equal ``reference_decode``; then each
+    captured step and prefill graph, replayed at a cache state, gives the
+    tokens of the eager ``decode_step`` or ``prefill`` at that state."""
+    engine = build_transformer_engine(
+        num_slots=4, page_tokens=8, seed=1, device="cuda", vocab_size=96,
+        max_len=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+        attention_impl="flash")
+    config = DecodeConfig(slots=4, page_tokens=8, max_new=12,
+                          round_linger_s=0.0)
+    gen = torch.Generator().manual_seed(0)
+    # One prompt at a time, so the short ones run in the small buckets.
+    for n in (3, 9, 20, 45):
+        prompt = torch.randint(1, 96, (n,), generator=gen).tolist()
+        loop = DecodeLoop(engine, config)
+        loop.submit("r", prompt)
+        loop.run_until_idle()
+        assert (loop.sequence_info("r")["tokens"]
+                == engine.reference_decode(prompt, 12)), n
+    assert sorted(engine.step_graphs) == [8, 16, 32, 64]
+    assert sorted(engine.prefill_graphs) == [8, 16, 32, 64]
+    model, cache = engine.model, engine._cache
+    snapshot = [(k.clone(), v.clone()) for k, v in cache]
+
+    def restore():
+        for (k, v), (k0, v0) in zip(cache, snapshot):
+            k.copy_(k0)
+            v.copy_(v0)
+
+    for kv_len in engine.step_graphs:
+        tokens = torch.randint(1, 96, (4,), generator=gen).tolist()
+        lens = [kv_len - 1 - j % 3 for j in range(4)]
+        got = engine.step(tokens, lens, kv_len)
+        restore()
+        with torch.inference_mode():
+            want = model.decode_step(
+                torch.tensor(tokens, device="cuda")[:, None],
+                torch.tensor(lens, device="cuda"), kv_len,
+                cache).argmax(-1).tolist()
+        restore()
+        assert got == want, kv_len
+    for bucket in engine.prefill_graphs:
+        prompt = torch.randint(1, 96, (bucket - 2,), generator=gen).tolist()
+        got = engine.prefill(2, prompt)
+        restore()
+        with torch.inference_mode():
+            want = int(model.prefill(
+                engine._padded(prompt), torch.tensor([len(prompt)],
+                                                     device="cuda"),
+                cache, slots=torch.tensor([2], device="cuda")).argmax(-1)[0])
+        restore()
+        assert got == want, bucket
+    assert engine.graph_count == 8

@@ -2,8 +2,9 @@
 
 * Every loss and metric name against the JAX function, on numpy inputs.
 * ``taxi_fare_regressor`` forward from converted flax parameters.
-* ``Estimator`` against ``JAXEstimator`` (``epoch_mode="stream"``, whose
-  shuffle the port copies): both start from the JAX estimator's own
+* ``Estimator`` against ``JAXEstimator``, both on one epoch path
+  (``"stream"``, whose shuffle the port copies, unless a test names
+  ``"scan"``): both start from the JAX estimator's own
   initial parameters, ``model.init(PRNGKey(seed), x[:1])``, converted.
   Weight decay is set explicitly on both sides (optax's adamw default is
   1e-4, torch's AdamW 1e-2).
@@ -142,7 +143,7 @@ def _fit_both(jmodel, tmodel, sample_x, cols, jax_opt, torch_opt,
     jest = JAXEstimator(model=jmodel, optimizer=jax_opt, seed=seed,
                         epoch_mode=jax_epoch_mode, **kw)
     test = Estimator(model=tmodel, optimizer=torch_opt, seed=seed,
-                     device="cpu", **kw)
+                     epoch_mode=jax_epoch_mode, device="cpu", **kw)
     jhist = jest.fit(JaxMLDataset([pa.table(cols)], 1), evaluate_ds=(
         JaxMLDataset([pa.table(cols)], 1) if evaluate else None))
     thist = test.fit(MLDataset([cols], 1),
@@ -272,6 +273,7 @@ def test_estimator_matches_jax_on_causal_lm():
 # ---------------------------------------------- dropout and resume
 
 def _dropout_estimator(seed=0, **kw):
+    kw.setdefault("epoch_mode", "stream")  # these fits test the stream path
     cfg = tt.tiny_transformer(dtype=torch.float32, dropout_rate=0.1, **TINY)
     model = tt.SequenceClassifier(
         cfg, device="cpu", generator=torch.Generator().manual_seed(5))
@@ -337,8 +339,14 @@ def test_dropout_keeps_one_minus_rate_and_scales():
 
 
 def test_estimator_rejects_scan_and_unknown_modes():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _dropout_estimator(epoch_mode="scan")
+    """``"scan"`` is accepted and runs its path (it raised before the
+    scan path was ported); an unknown mode raises."""
+    _, cols = _token_data(32, 16, 64, seed=8)
+    est = _dropout_estimator(epoch_mode="scan")
+    assert est.effective_epoch_mode is None
+    hist = est.fit(MLDataset([cols], 1), num_epochs=1)
+    assert est.effective_epoch_mode == "scan"
+    assert hist[0]["samples"] == 32 and np.isfinite(hist[0]["train_loss"])
     with pytest.raises(ValueError, match="epoch_mode"):
         _dropout_estimator(epoch_mode="fused")
 
