@@ -46,10 +46,34 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    profiled, the flash kernels in the trace of 5 graph replays counted
    against the launch counters; (c) a short self-supervised ``lm_ce``
    fit of a bert_base-width ``CausalLM`` (causal flash backward) on both
-   paths.
+   paths; (d) the 4b fine-tune with ``remat=True`` on the scan path, its
+   blocks recomputed in the backward (24 forward launches a step, 12 of
+   each backward kernel, in the counters and in a trace of 5 replays),
+   its losses held against 4b's and its peak memory beside 4b's.
+5. DLRM: ``PackedDLRM`` at ``criteo_dlrm``'s full width (26 tables of
+   100k x 128, bf16 trunk) through ``Estimator``, bce, AdamW, batch
+   1024, on both epoch paths from the same weights, over Criteo-shaped
+   rows with Pareto-skewed ids; one table by ``onehot`` against ``take``.
+6. MoE: ``MoEClassifier`` over bert_base with the flash trunk (8 experts
+   of d_ff 3072, top-2), ``aux_losses=True``, on both epoch paths: 12
+   launches of each bf16 flash kernel a step, the aux term finite, the
+   share of token-slots dropped for capacity.
+7. GBT: ``GBTEstimator`` at examples/gbt_nyctaxi.py's settings on
+   synthetic taxi rows (squared, then logistic), on the card and on the
+   CPU in the same run: histories and predictions within rtol 1e-3; the
+   card's histograms sum with atomics, so where that flips a near-tie
+   and the trees part, the histories within rtol 1e-3 through the round
+   they parted at and the final losses within 1e-2; the split nodes
+   that differ counted either way; save, restore and predict the same.
+8. Keras: ``TFEstimator`` with examples/tf_nyctaxi.py's tower on the
+   taxi rows (``predict`` held against the returned model), and a
+   Titanic-shaped classifier with its sigmoid head fused.
 
-Kernel launch counts are set to 0 just before each main-path phase (2,
-3, 4b and 4c) and read just after. The last lines are a ``kernels`` JSON
+Each phase of 4-8 reports ms/step (CUDA events over graph replays and
+eager steps, and per epoch by the host clock), samples/s, the traced
+idle share and the peak device memory of each fit. Kernel launch counts
+are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d and 6)
+and read just after. The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -103,6 +127,13 @@ DECODE_MAX_NEW = 16
 # and 2 replays, epoch 2 replays only).
 FIT_EPOCHS, FIT_STEPS = 4, 10
 LM_BATCH, LM_SEQ, LM_EPOCHS, LM_STEPS = 8, 256, 3, 3
+# DLRM (criteo_dlrm, batch 1024) and the MoE classifier (batch 32 x 128):
+# epochs of steps on each path.
+DLRM_BATCH, DLRM_EPOCHS, DLRM_STEPS = 1024, 3, 8
+MOE_EPOCHS, MOE_STEPS = 4, 8
+# The taxi rows of the GBT and keras phases, before the filter; GBT trees
+# (examples/gbt_nyctaxi.py); keras epochs.
+GBT_ROWS, GBT_TREES, TF_EPOCHS = 200_000, 60, 3
 # The symbols of the bf16 kernels in a profiler trace, by counter name.
 KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",
                   "flash_bwd_delta": "flash_bwd_delta_kernel",
@@ -112,6 +143,8 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",
 # JAX package's bf16 backward bound. The two paths run the same kernels,
 # but the scan path's optimizer runs in its capturable mode.
 FIT_TOL = dict(rtol=6e-2, atol=6e-2)
+# Peak device memory of each fit, (peak, held before it), by (phase, mode).
+PEAK_BYTES = {}
 # Per-parameter relative L2 error of flash against dense gradients over
 # 12 bf16 layers: the two paths round at different places (bf16 P, the
 # kernels' summation order) and the differences grow through depth; a
@@ -964,46 +997,103 @@ def phase_grad_check(torch, P):
               f"{ref_key}")
 
 
-def _fit_modes(torch, P, np, tag, make_estimator, cols, epochs, steps):
-    """Fit one estimator per epoch mode, stream then scan, from the same
-    weights and seeds, counting launches around each fit. Returns
-    ``{mode: (estimator, history, counts)}``."""
+def _fit_modes(torch, P, np, tag, make_estimator, cols, epochs, steps,
+               modes=("stream", "scan"), per_step=None):
+    """Fit one estimator per epoch mode (stream then scan) from the same
+    weights and seeds, counting launches and the peak memory around each
+    fit; ``per_step`` is each kernel's expected launches a step (12 of
+    each by default). Returns ``{mode: (estimator, history, counts)}``."""
+    per_step = per_step or {k: 12 for k in KERNEL_SYMBOLS}
     out = {}
-    for mode in ("stream", "scan"):
+    for mode in modes:
         est = make_estimator(mode)
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         history = est.fit(P.MLDataset([cols], num_shards=1))
         torch.cuda.synchronize()
         counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        PEAK_BYTES[(tag, mode)] = (peak, held)
         losses = [h["train_loss"] for h in history]
         for h in history:
             log(f"[{tag}] {mode} epoch {h['epoch']}: train_loss "
                 f"{h['train_loss']:.4f}, {h['samples']} samples in "
                 f"{h['time_s']:.3f} s -> {h['samples_per_sec']:.1f} "
                 f"samples/s, {h['time_s'] / steps * 1e3:.2f} ms/step")
-        log(f"[{tag}] {mode}: launches over {epochs * steps} steps: {counts}")
+        log(f"[{tag}] {mode}: launches over {epochs * steps} steps: {counts}; "
+            f"peak memory allocated {peak / 2**30:.3f} GiB, "
+            f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
+            f"GiB held before the fit")
         check(est.effective_epoch_mode == mode,
               f"{tag}: asked for {mode}, ran {est.effective_epoch_mode}")
         check(all(np.isfinite(losses)), f"{tag} {mode}: non-finite losses "
                                         f"{losses}")
-        check(all(counts[k] == 12 * epochs * steps for k in counts),
-              f"{tag} {mode}: expected {12 * epochs * steps} launches of "
-              f"each kernel, saw {counts}")
+        want = {k: n * epochs * steps for k, n in per_step.items()}
+        check(counts == want, f"{tag} {mode}: expected launches {want}, saw "
+                              f"{counts}")
         out[mode] = (est, history, counts)
-    stream = [h["train_loss"] for h in out["stream"][1]]
-    scan = [h["train_loss"] for h in out["scan"][1]]
-    diff = max(abs(a - b) for a, b in zip(scan, stream))
-    log(f"[{tag}] scan against stream losses: max |difference| {diff:.3e} "
-        f"(tolerance {FIT_TOL}); bit-identical: {scan == stream}")
-    check(np.allclose(scan, stream, **FIT_TOL),
-          f"{tag}: scan losses {scan} disagree with stream {stream}")
+    if len(out) == 2:
+        stream = [h["train_loss"] for h in out["stream"][1]]
+        scan = [h["train_loss"] for h in out["scan"][1]]
+        diff = max(abs(a - b) for a, b in zip(scan, stream))
+        log(f"[{tag}] scan against stream losses: max |difference| "
+            f"{diff:.3e} (tolerance {FIT_TOL}); bit-identical: "
+            f"{scan == stream}")
+        check(np.allclose(scan, stream, **FIT_TOL),
+              f"{tag}: scan losses {scan} disagree with stream {stream}")
     return out
+
+
+def graph_step_report(torch, tag, est, x, y, per_step):
+    """``est``'s train step captured as a CUDA graph: its time by CUDA
+    events over 10 replays, then a torch.profiler trace of 5 replays
+    (device busy, idle share, top kernels), whose flash kernels must
+    equal the launch counters and ``per_step`` of each a step. Returns
+    the step's ms."""
+    est.get_model().train()
+    graphed = est._captured_train_step()
+    while not graphed.captured:
+        graphed(x, y)
+    ms = time_ms(torch, lambda: graphed(x, y), iters=10)
+    log(f"[{tag}] one scan train step (graph replay, CUDA events, 10 steps): "
+        f"{ms:.3f} ms -> {len(x) / ms * 1e3:.1f} samples/s")
+    _reset_counts()
+    seen = device_profile(torch, f"{tag}, 5 scan steps (graph replays)",
+                          lambda: [graphed(x, y) for _ in range(5)], top=8)
+    counted = _counts()
+    # The counters add each replay's launches as recorded at capture;
+    # hold them against the kernels the trace saw the replays run.
+    traced = {k: sum(n for name, n in (seen or {}).items() if sym in name)
+              for k, sym in KERNEL_SYMBOLS.items()}
+    want = {k: per_step[k] * 5 for k in KERNEL_SYMBOLS}
+    log(f"[{tag}] 5 replays: flash kernels in the trace {traced}, launch "
+        f"counters {counted}")
+    check(traced == counted == want, f"{tag}, 5 replays: expected {want}, "
+                                     f"traced {traced}, counted {counted}")
+    return ms
+
+
+def _glue_estimator(torch, P, np, cfg, mode, epochs):
+    """The fine-tune estimator of phases 4b and 4d: bert_base-width
+    classifier from generator seed 7, AdamW, softmax_ce, batch 32 x seq
+    128, unshuffled."""
+    return P.Estimator(
+        model=P.SequenceClassifier(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(7)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4, weight_decay=1e-2),
+        loss="softmax_ce", metrics=["categorical_accuracy"],
+        num_epochs=epochs, batch_size=GLUE_BATCH,
+        feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
+        seed=0, shuffle=False, epoch_mode=mode, device="cuda")
 
 
 def phase_finetune(torch, P):
     """4b: Estimator.fit of the bf16 flash classifier at bert_base, on
-    the stream path and on the scan path (a CUDA graph of the step)."""
+    the stream path and on the scan path (a CUDA graph of the step).
+    Returns the launch counts and the scan fit's losses."""
     import numpy as np
 
     n_rows = GLUE_BATCH * FIT_STEPS
@@ -1011,23 +1101,10 @@ def phase_finetune(torch, P):
     _, eval_cols = glue_columns(np, 2 * GLUE_BATCH, GLUE_SEQ, 30522, seed=6)
     cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
                       dropout_rate=0.1, max_len=GLUE_SEQ)
-
-    def make_estimator(mode):
-        return P.Estimator(
-            model=P.SequenceClassifier(
-                cfg, device="cuda", generator=torch.Generator().manual_seed(7)),
-            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4,
-                                                  weight_decay=1e-2),
-            loss="softmax_ce", metrics=["categorical_accuracy"],
-            num_epochs=FIT_EPOCHS, batch_size=GLUE_BATCH,
-            feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
-            label_column="label", feature_dtype=np.int32,
-            label_dtype=np.int32, seed=0, shuffle=False, epoch_mode=mode,
-            device="cuda",
-        )
-
-    fits = _fit_modes(torch, P, np, "4b", make_estimator, cols, FIT_EPOCHS,
-                      FIT_STEPS)
+    fits = _fit_modes(
+        torch, P, np, "4b",
+        lambda mode: _glue_estimator(torch, P, np, cfg, mode, FIT_EPOCHS),
+        cols, FIT_EPOCHS, FIT_STEPS)
     for mode, (est, history, _) in fits.items():
         losses = [h["train_loss"] for h in history]
         later = history[1:]  # epoch 0 of scan holds warm-up and capture
@@ -1048,36 +1125,18 @@ def phase_finetune(torch, P):
     y = torch.from_numpy(cols["label"][:GLUE_BATCH]).cuda()
     eager = fits["stream"][0]
     eager.get_model().train()
-    est.get_model().train()
-    graphed = est._captured_train_step()
-    while not graphed.captured:
-        graphed(x, y)
-    step_ms = {"stream": time_ms(torch, lambda: eager._train_step(x, y),
-                                 iters=10),
-               "scan": time_ms(torch, lambda: graphed(x, y), iters=10)}
-    for mode, ms in step_ms.items():
-        log(f"[4b] one {mode} train step (CUDA events, 10 steps): {ms:.3f} ms "
-            f"-> {GLUE_BATCH / ms * 1e3:.1f} samples/s")
+    stream_ms = time_ms(torch, lambda: eager._train_step(x, y), iters=10)
+    log(f"[4b] one stream train step (CUDA events, 10 steps): "
+        f"{stream_ms:.3f} ms -> {GLUE_BATCH / stream_ms * 1e3:.1f} samples/s")
     device_profile(torch, "bert_base fine-tune, one stream train step",
                    lambda: eager._train_step(x, y), top=8)
-    _reset_counts()
-    seen = device_profile(torch, "bert_base fine-tune, 5 scan steps (graph "
-                          "replays)",
-                          lambda: [graphed(x, y) for _ in range(5)], top=8)
-    counted = _counts()
-    # The counters add each replay's launches as recorded at capture;
-    # hold them against the kernels the trace saw the replays run.
-    traced = {k: sum(n for name, n in (seen or {}).items() if sym in name)
-              for k, sym in KERNEL_SYMBOLS.items()}
-    log(f"[4b] 5 replays: flash kernels in the trace {traced}, launch "
-        f"counters {counted}")
-    check(traced == counted == {k: 12 * 5 for k in KERNEL_SYMBOLS},
-          f"5 replays: expected {12 * 5} of each kernel, traced {traced}, "
-          f"counted {counted}")
+    graph_step_report(torch, "4b", est, x, y,
+                      {k: 12 for k in KERNEL_SYMBOLS})
     counts = [c for _, _, c in fits.values()]
-    del fits, est, eager, graphed
+    scan_losses = [h["train_loss"] for h in fits["scan"][1]]
+    del fits, est, eager
     torch.cuda.empty_cache()
-    return {k: sum(c[k] for c in counts) for k in counts[0]}
+    return {k: sum(c[k] for c in counts) for k in counts[0]}, scan_losses
 
 
 def phase_causal_lm(torch, P):
@@ -1115,6 +1174,483 @@ def phase_causal_lm(torch, P):
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+def phase_remat(torch, P, scan_losses):
+    """4d: the 4b fine-tune with ``remat=True`` on the scan path, from
+    4b's weights and seeds: each step recomputes every block's forward
+    in the backward (24 forward launches, 12 of each backward kernel),
+    the losses stay within FIT_TOL of 4b's scan losses, and the peak
+    memory is held beside 4b's."""
+    import numpy as np
+
+    ids, cols = glue_columns(np, GLUE_BATCH * FIT_STEPS, GLUE_SEQ, 30522,
+                             seed=5)
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      dropout_rate=0.1, max_len=GLUE_SEQ, remat=True)
+    per_step = {k: 12 for k in KERNEL_SYMBOLS}
+    per_step["flash_fwd"] = 24
+    fits = _fit_modes(
+        torch, P, np, "4d",
+        lambda mode: _glue_estimator(torch, P, np, cfg, mode, FIT_EPOCHS),
+        cols, FIT_EPOCHS, FIT_STEPS, modes=("scan",), per_step=per_step)
+    est, history, counts = fits["scan"]
+    losses = [h["train_loss"] for h in history]
+    diff = max(abs(a - b) for a, b in zip(losses, scan_losses))
+    log(f"[4d] remat scan losses {losses} against 4b's scan {scan_losses}: "
+        f"max |difference| {diff:.3e} (tolerance {FIT_TOL})")
+    check(np.allclose(losses, scan_losses, **FIT_TOL),
+          "remat losses disagree with 4b's scan losses")
+    later = history[1:]
+    ms = sum(h["time_s"] for h in later) / (len(later) * FIT_STEPS) * 1e3
+    log(f"[4d] scan epochs 1-{FIT_EPOCHS - 1}: {ms:.2f} ms/step, "
+        f"{GLUE_BATCH / ms * 1e3:.1f} samples/s (host clock)")
+    x = torch.from_numpy(ids[:GLUE_BATCH]).cuda()
+    y = torch.from_numpy(cols["label"][:GLUE_BATCH]).cuda()
+    graph_step_report(torch, "4d", est, x, y, per_step)
+    (peak, held), (peak_b, held_b) = PEAK_BYTES[("4d", "scan")], \
+        PEAK_BYTES[("4b", "scan")]
+    log(f"[4d] fit's peak above what it held before: remat "
+        f"{(peak - held) / 2**30:.3f} GiB, 4b scan (no remat) "
+        f"{(peak_b - held_b) / 2**30:.3f} GiB")
+    del fits, est
+    torch.cuda.empty_cache()
+    return counts
+
+
+def criteo_columns(np, cfg, n, seed):
+    """Criteo-shaped rows, drawn as examples/dlrm_criteo.py draws them:
+    gamma dense features; Pareto-skewed ids (heavy heads, long tails)
+    folded into each table's vocabulary, as float columns (PackedDLRM's
+    form); a label from a logistic of I0, I1 and C0's parity."""
+    rng = np.random.default_rng(seed)
+    cols = {f"I{i}": rng.gamma(1.5, 2.0, n).astype(np.float32)
+            for i in range(cfg.dense_features)}
+    for t, vocab in enumerate(cfg.vocab_sizes):
+        ids = (rng.pareto(1.2, n) * 17).astype(np.int64) % vocab
+        cols[f"C{t}"] = ids.astype(np.float32)
+    logit = -1.2 + 0.35 * cols["I0"] - 0.2 * cols["I1"] + 0.3 * (
+        cols["C0"] % 2)
+    cols["label"] = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(
+        np.float32)
+    return cols
+
+
+def embedding_impls(torch, P, ids):
+    """One criteo table (100k x 128, bf16 lookups) by ``onehot`` against
+    ``take`` on the card: the same rows, and each lookup's time."""
+    from raydp_tpu_torch.models.dlrm import ShardedEmbedding
+
+    take = ShardedEmbedding(100_000, 128, impl="take").cuda()
+    onehot = ShardedEmbedding(100_000, 128, impl="onehot").cuda()
+    onehot.load_state_dict(take.state_dict())
+    with torch.no_grad():
+        got, want = onehot(ids), take(ids)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        take_ms = time_ms(torch, lambda: take(ids), iters=20)
+        onehot_ms = time_ms(torch, lambda: onehot(ids), iters=20)
+    log(f"[5] one table (100000 x 128) at batch {len(ids)}: onehot against "
+        f"take max |difference| {err:.3e} (tol {TOL['bfloat16']}); forward "
+        f"take {take_ms:.4f} ms, onehot {onehot_ms:.4f} ms")
+    check(torch.allclose(got.float(), want.float(), **TOL["bfloat16"]),
+          "onehot lookup disagrees with take")
+
+
+def phase_dlrm(torch, P):
+    """5: PackedDLRM at criteo_dlrm's full width through Estimator, bce,
+    AdamW, batch 1024, on both epoch paths from the same weights."""
+    import numpy as np
+
+    cfg = P.criteo_dlrm()
+    cols = criteo_columns(np, cfg, DLRM_BATCH * DLRM_STEPS, seed=11)
+    names = [f"I{i}" for i in range(cfg.dense_features)] + [
+        f"C{t}" for t in range(cfg.n_tables)]
+
+    def make_estimator(mode):
+        return P.Estimator(
+            model=P.PackedDLRM(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(12)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3,
+                                                  weight_decay=1e-2),
+            loss="bce", metrics=["accuracy"], num_epochs=DLRM_EPOCHS,
+            batch_size=DLRM_BATCH, feature_columns=names,
+            label_column="label", seed=0, shuffle=False, epoch_mode=mode,
+            device="cuda")
+
+    no_flash = {k: 0 for k in KERNEL_SYMBOLS}
+    fits = _fit_modes(torch, P, np, "5", make_estimator, cols, DLRM_EPOCHS,
+                      DLRM_STEPS, per_step=no_flash)
+    est = fits["scan"][0]
+    n_params = sum(p.numel() for p in est.get_model().parameters())
+    log(f"[5] criteo_dlrm: {n_params} parameters, {cfg.n_tables} tables "
+        f"of {cfg.vocab_sizes[0]} x {cfg.embed_dim}, lookups "
+        f"{cfg.impl_for(cfg.vocab_sizes[0])}")
+    for mode, (_, history, _) in fits.items():
+        losses = [h["train_loss"] for h in history]
+        later = history[1:]
+        ms = sum(h["time_s"] for h in later) / (len(later) * DLRM_STEPS) * 1e3
+        log(f"[5] {mode}: epochs 1-{DLRM_EPOCHS - 1} {ms:.2f} ms/step, "
+            f"{DLRM_BATCH / ms * 1e3:.1f} samples/s (host clock)")
+        check(losses[-1] < losses[0], f"5 {mode}: train loss did not fall: "
+                                      f"{losses}")
+    x = torch.from_numpy(np.stack([cols[c] for c in names], axis=1)[
+        :DLRM_BATCH]).cuda()
+    y = torch.from_numpy(cols["label"][:DLRM_BATCH]).cuda()
+    eager = fits["stream"][0]
+    eager.get_model().train()
+    stream_ms = time_ms(torch, lambda: eager._train_step(x, y), iters=10)
+    log(f"[5] one stream train step (CUDA events, 10 steps): "
+        f"{stream_ms:.3f} ms -> {DLRM_BATCH / stream_ms * 1e3:.1f} samples/s")
+    device_profile(torch, "criteo_dlrm, one stream train step",
+                   lambda: eager._train_step(x, y), top=8)
+    graph_step_report(torch, "5", est, x, y, no_flash)
+    embedding_impls(torch, P, x[:, cfg.dense_features].long())
+    del fits, est, eager
+    torch.cuda.empty_cache()
+
+
+def phase_moe(torch, P):
+    """6: MoEClassifier over bert_base with the flash trunk (8 experts of
+    d_ff 3072, top-2, capacity factor 1.25), aux_losses=True, AdamW,
+    softmax_ce, batch 32 x seq 128, dropout 0.1, on both epoch paths from
+    the same weights: 12 launches of each bf16 flash kernel a step."""
+    import numpy as np
+
+    from raydp_tpu_torch.models.moe import MoELayer
+
+    ids, cols = glue_columns(np, GLUE_BATCH * MOE_STEPS, GLUE_SEQ, 30522,
+                             seed=5)
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      dropout_rate=0.1, max_len=GLUE_SEQ)
+    moe = P.MoEConfig()
+
+    def make_estimator(mode):
+        return P.Estimator(
+            model=P.MoEClassifier(cfg, moe, 2, device="cuda",
+                                  generator=torch.Generator().manual_seed(13)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4,
+                                                  weight_decay=1e-2),
+            loss="softmax_ce", metrics=["categorical_accuracy"],
+            num_epochs=MOE_EPOCHS, batch_size=GLUE_BATCH,
+            feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, seed=0, shuffle=False, epoch_mode=mode,
+            aux_losses=True, device="cuda")
+
+    fits = _fit_modes(torch, P, np, "6", make_estimator, cols, MOE_EPOCHS,
+                      MOE_STEPS)
+    tokens = GLUE_BATCH * GLUE_SEQ
+    for mode, (est, history, _) in fits.items():
+        model = est.get_model()
+        layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+        aux = float(P.moe_aux_loss(model).detach())
+        kept = sum(float(m.kept_slots) for m in layers)
+        slots = tokens * moe.top_k * len(layers)
+        losses = [h["train_loss"] for h in history]
+        later = history[1:]
+        ms = sum(h["time_s"] for h in later) / (len(later) * MOE_STEPS) * 1e3
+        log(f"[6] {mode}: epochs 1-{MOE_EPOCHS - 1} {ms:.2f} ms/step, "
+            f"{GLUE_BATCH / ms * 1e3:.1f} samples/s (host clock); last "
+            f"step's aux term {aux:.5f} (weight {moe.aux_loss_weight}); "
+            f"token-slots dropped for capacity {1 - kept / slots:.4f} "
+            f"({slots - kept:.0f} of {slots}; capacity "
+            f"{moe.capacity(tokens)} a expert a layer)")
+        check(np.isfinite(aux), f"6 {mode}: non-finite aux loss {aux}")
+        check(losses[-1] < losses[0], f"6 {mode}: train loss did not fall: "
+                                      f"{losses}")
+    est = fits["scan"][0]
+    n_params = sum(p.numel() for p in est.get_model().parameters())
+    log(f"[6] MoEClassifier: {n_params} parameters")
+    x = torch.from_numpy(ids[:GLUE_BATCH]).cuda()
+    y = torch.from_numpy(cols["label"][:GLUE_BATCH]).cuda()
+    eager = fits["stream"][0]
+    eager.get_model().train()
+    stream_ms = time_ms(torch, lambda: eager._train_step(x, y), iters=10)
+    log(f"[6] one stream train step (CUDA events, 10 steps): "
+        f"{stream_ms:.3f} ms -> {GLUE_BATCH / stream_ms * 1e3:.1f} samples/s")
+    device_profile(torch, "MoE classifier, one stream train step",
+                   lambda: eager._train_step(x, y), top=8)
+    graph_step_report(torch, "6", est, x, y, {k: 12 for k in KERNEL_SYMBOLS})
+    counts = [c for _, _, c in fits.values()]
+    del fits, est, eager
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def taxi_columns(np, n_rows, seed=0):
+    """examples/data_process.py's ``synthetic_taxi`` rows (the same draws
+    in the same order) through its ``nyc_taxi_preprocess`` (rows with a
+    passenger; hour, Spark's day of week, haversine distance), in numpy."""
+    rng = np.random.default_rng(seed)
+    secs = rng.integers(0, 365 * 24 * 3600, n_rows)  # from 2020-01-01 00:00
+    trip_min = rng.gamma(2.0, 7.0, n_rows)
+    plon = -73.98 + 0.1 * rng.standard_normal(n_rows)
+    plat = 40.75 + 0.1 * rng.standard_normal(n_rows)
+    dlon = -73.97 + 0.1 * rng.standard_normal(n_rows)
+    dlat = 40.76 + 0.1 * rng.standard_normal(n_rows)
+    dist = np.hypot((dlon - plon) * 84.3, (dlat - plat) * 111.1)
+    passengers = rng.integers(0, 7, n_rows)
+    fare = np.maximum(2.5, 2.5 + 1.6 * dist + 0.3 * trip_min
+                      + rng.standard_normal(n_rows))
+    rad = np.pi / 180.0
+    a = (np.sin((dlat - plat) * rad / 2) ** 2 + np.cos(plat * rad)
+         * np.cos(dlat * rad) * np.sin((dlon - plon) * rad / 2) ** 2)
+    days = 18262 + secs // 86400  # 2020-01-01 is day 18262 of the epoch
+    keep = (fare > 0) & (passengers > 0)
+    cols = {"hour": (secs // 3600) % 24,
+            "day_of_week": (days + 4) % 7 + 1,  # Sunday 1 .. Saturday 7
+            "distance_km": 6371.0 * 2 * np.arcsin(np.sqrt(a)),
+            "passenger_count": passengers, "fare_amount": fare}
+    return {k: v[keep].astype(np.float32) for k, v in cols.items()}
+
+
+def _split(np, cols, share=0.9, seed=42):
+    """(train, test) row split, the examples' ``random_split([0.9, 0.1])``
+    in numpy."""
+    train = np.random.default_rng(seed).random(len(cols["fare_amount"])) \
+        < share
+    return ({k: v[train] for k, v in cols.items()},
+            {k: v[~train] for k, v in cols.items()})
+
+
+def _gbt_fit(torch, P, gbt_mod, device, train_ds, test_ds, label, loss):
+    """One GBTEstimator fit at examples/gbt_nyctaxi.py's settings on
+    ``device``; on the card each level's histogram and split search are
+    timed (synchronised). Returns (estimator, history, seconds,
+    histogram seconds)."""
+    est = P.GBTEstimator(n_trees=GBT_TREES, max_depth=5, max_bins=64,
+                         loss=loss, feature_columns=TAXI_FEATURES,
+                         label_column=label, device=device)
+    spent = [0.0]
+    hist_fn, split_fn = gbt_mod._level_histograms, gbt_mod._best_splits
+
+    def timed(fn):
+        def run(*args):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return out
+        return run
+
+    gbt_mod._level_histograms = timed(hist_fn)
+    gbt_mod._best_splits = timed(split_fn)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        history = est.fit(train_ds, evaluate_ds=test_ds)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        gbt_mod._level_histograms, gbt_mod._best_splits = hist_fn, split_fn
+    if device == "cuda":
+        log(f"[7] GBT {loss} card fit: peak memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return est, history, seconds, spent[0]
+
+
+def phase_gbt(torch, P, train, test):
+    """7: GBTEstimator at examples/gbt_nyctaxi.py's settings (60 trees,
+    depth 5, 64 bins) on the taxi rows, squared loss on the fare, then
+    logistic on a thresholded fare; each on the card and on the CPU in
+    this run, histories and predictions held together, split nodes that
+    differ counted; save on the card, restore, predict the same."""
+    import importlib
+
+    import numpy as np
+
+    gbt_mod = importlib.import_module("raydp_tpu_torch.train.gbt")
+    threshold = float(np.median(train["fare_amount"]))
+    x_test = np.stack([test[c] for c in TAXI_FEATURES], axis=1)
+    for loss, label in (("squared", "fare_amount"), ("logistic", "high_fare")):
+        tr, te = dict(train), dict(test)
+        tr["high_fare"] = (tr["fare_amount"] > threshold).astype(np.float32)
+        te["high_fare"] = (te["fare_amount"] > threshold).astype(np.float32)
+        half = len(tr[label]) // 2
+        blocks = [{k: v[:half] for k, v in tr.items()},
+                  {k: v[half:] for k, v in tr.items()}]
+        fits = {dev: _gbt_fit(torch, P, gbt_mod, dev,
+                              P.MLDataset(blocks, num_shards=2),
+                              P.MLDataset([te], num_shards=1), label, loss)
+                for dev in ("cuda", "cpu")}
+        (card, h_card, s_card, hist_card), (cpu, h_cpu, s_cpu, hist_cpu) = \
+            fits["cuda"], fits["cpu"]
+        parted_nodes = ((card._trees["feature"] != cpu._trees["feature"])
+                        | (card._trees["bin"] != cpu._trees["bin"]))
+        differ = int(parted_nodes.sum())
+        parted = np.flatnonzero(parted_nodes.any(axis=1))
+        first = int(parted[0]) if len(parted) else None
+        n_split = int((cpu._trees["feature"] >= 0).sum())
+        keys = ("train_loss", "eval_loss")
+
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 1e-12)
+
+        worst = [max(rel(h_card[t][k], h_cpu[t][k]) for k in keys)
+                 for t in range(len(h_cpu))]
+        p_card, p_cpu = card.predict(x_test), cpu.predict(x_test)
+        p_err = float(np.max(np.abs(p_card - p_cpu)
+                             / np.maximum(np.abs(p_cpu), 1e-12)))
+        rounds = len(h_card)
+        log(f"[7] GBT {loss} ({len(tr[label])} train rows, {len(te[label])} "
+            f"eval rows, {rounds} trees): train_loss "
+            f"{h_card[0]['train_loss']:.4f} -> {h_card[-1]['train_loss']:.4f},"
+            f" eval_loss {h_card[-1]['eval_loss']:.4f}; "
+            f"{card.evaluate(P.MLDataset([te], num_shards=1))}")
+        log(f"[7] GBT {loss}: card {s_card / rounds * 1e3:.2f} ms a round "
+            f"(histogram and split search {hist_card / rounds * 1e3:.2f} ms, "
+            f"the rest {(s_card - hist_card) / rounds * 1e3:.2f} ms: routing, "
+            f"leaves, the host's bookkeeping and one sync a level); CPU "
+            f"{s_cpu / rounds * 1e3:.2f} ms a round (histogram "
+            f"{hist_cpu / rounds * 1e3:.2f})")
+        log(f"[7] GBT {loss} card against CPU: {differ} of "
+            f"{card._trees['feature'].size} tree nodes differ in split "
+            f"({n_split} splits on the CPU), in {len(parted)} trees from "
+            f"round {first}; history max relative difference "
+            f"{max(worst):.3e}, predictions {p_err:.3e} (rtol 1e-3)")
+        check(h_card[-1]["train_loss"] < h_card[0]["train_loss"],
+              f"GBT {loss}: train loss did not fall")
+        same = max(worst) <= 1e-3 and np.allclose(p_card, p_cpu, rtol=1e-3,
+                                                  atol=1e-6)
+        if not same:
+            # The card's atomic sums can flip a near-tie, and every later
+            # tree then grows on other residuals. Hold the fits together up
+            # to the round where the trees parted (a near-tie leaves that
+            # round's loss alike), then their final quality.
+            check(first is not None, f"GBT {loss}: identical trees, yet the "
+                                     f"card's fit differs from the CPU's")
+            final = worst[-1]
+            log(f"[7] GBT {loss}: the trees parted at round {first}; history "
+                f"through it within {max(worst[:first + 1]):.3e}, final "
+                f"losses within {final:.3e} (bounds 1e-3, 1e-2)")
+            check(max(worst[:first + 1]) <= 1e-3,
+                  f"GBT {loss}: the card's trees parted from the CPU's at "
+                  f"round {first} on no near-tie")
+            check(final <= 1e-2, f"GBT {loss}: after the trees parted the "
+                                 f"card's final losses differ by {final:.3e}")
+        if loss == "squared":
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as tmp:
+                again = P.GBTEstimator.restore(card.save(tmp), device="cuda")
+            check(np.array_equal(again.predict(x_test), p_card),
+                  "GBT restored from its save predicts otherwise")
+            log("[7] GBT saved on the card, restored: the same predictions")
+        # The device's idle share over 5 rounds of the same fit, refitted.
+        device_profile(torch, f"GBT {loss}, 5 rounds on the card",
+                       lambda: card.fit(P.MLDataset(blocks, num_shards=2),
+                                        num_epochs=5))
+
+
+TAXI_FEATURES = ["hour", "day_of_week", "distance_km", "passenger_count"]
+
+
+def keras_taxi_model() -> str:
+    """examples/tf_nyctaxi.py's ``keras_taxi_model``: the reference
+    example's Dense(256..16) + BatchNormalization tower in the keras
+    ``to_json()`` wire format."""
+    layers = []
+    for units in (256, 128, 64, 32, 16):
+        layers.append({"class_name": "Dense",
+                       "config": {"units": units, "activation": "relu"}})
+        layers.append({"class_name": "BatchNormalization", "config": {}})
+    layers.append({"class_name": "Dense",
+                   "config": {"units": 1, "activation": "linear"}})
+    return json.dumps({"class_name": "Sequential",
+                       "config": {"name": "taxi_fare", "layers": layers}})
+
+
+def titanic_columns(np, n, seed=7):
+    """Titanic-shaped passengers (examples/jax_titanic.py's draws) after
+    its fillna, encoding and scaling, with the class one-hot: 8 features
+    and ``Survived``."""
+    rng = np.random.default_rng(seed)
+    female = rng.choice(["male", "female"], n) == "female"
+    pclass = rng.choice([1, 2, 3], n, p=[0.24, 0.21, 0.55])
+    age = rng.normal(30, 14, n).clip(0.5, 80)
+    age[rng.random(n) < 0.2] = np.nan
+    fare = rng.gamma(2.0, 16.0, n)
+    logit = (1.2 * female - 0.45 * (pclass - 2)
+             - 0.012 * np.nan_to_num(age, nan=30.0) + 0.004 * fare)
+    survived = rng.random(n) < 1 / (1 + np.exp(-logit))
+    cols = {"class_1": pclass == 1, "class_2": pclass == 2,
+            "class_3": pclass == 3, "is_female": female,
+            "age_n": np.nan_to_num(age, nan=30.0) / 40.0 - 0.75,
+            "SibSp": rng.integers(0, 5, n), "Parch": rng.integers(0, 4, n),
+            "fare_n": fare / 50.0 - 0.6, "Survived": survived}
+    return {k: v.astype(np.float32) for k, v in cols.items()}
+
+
+def phase_tf(torch, P, train, test):
+    """8: TFEstimator with examples/tf_nyctaxi.py's keras tower,
+    optimizer, loss and batch on the taxi rows; then a Titanic-shaped
+    binary classifier with its sigmoid head fused into the loss."""
+    import numpy as np
+
+    est = P.TFEstimator(
+        model=keras_taxi_model(),
+        optimizer={"class_name": "Adam", "config": {"learning_rate": 1e-3}},
+        loss="mean_squared_error", metrics=["mae"],
+        feature_columns=TAXI_FEATURES, label_column="fare_amount",
+        batch_size=256, num_epochs=TF_EPOCHS, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    history = est.fit(P.MLDataset([train], num_shards=1),
+                      evaluate_ds=P.MLDataset([test], num_shards=1))
+    log(f"[8] keras taxi tower fit: peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    impl = est._built()
+    steps = -(-len(train["fare_amount"]) // 256)
+    for h in history:
+        log(f"[8] keras taxi tower ({impl.effective_epoch_mode}) epoch "
+            f"{h['epoch']}: train_loss {h['train_loss']:.4f}, eval_mae "
+            f"{h['eval_mae']:.4f}, {h['samples_per_sec']:.1f} samples/s, "
+            f"{h['time_s'] / steps * 1e3:.3f} ms/step ({steps} steps)")
+    check(history[-1]["train_loss"] < history[0]["train_loss"],
+          "keras taxi tower: train loss did not fall")
+    x = np.stack([test[c] for c in TAXI_FEATURES], axis=1)[:4096]
+    preds = est.predict(x)
+    module = est.get_model().eval()
+    with torch.no_grad():
+        want = module(torch.from_numpy(x).cuda()).cpu().numpy()
+    check(preds.shape == (len(x), 1) and np.allclose(preds, want, rtol=1e-6,
+                                                     atol=1e-6),
+          "TFEstimator.predict differs from its model's forward")
+    log(f"[8] predict on {len(x)} rows equals the returned model's forward")
+    graph_step_report(
+        torch, "8", impl,
+        torch.from_numpy(np.stack([train[c] for c in TAXI_FEATURES],
+                                  axis=1)[:256]).cuda(),
+        torch.from_numpy(train["fare_amount"][:256]).cuda(),
+        {k: 0 for k in KERNEL_SYMBOLS})
+
+    cols = titanic_columns(np, 50_000)
+    features = [c for c in cols if c != "Survived"]
+    clf = P.TFEstimator(
+        model=[{"class_name": "Dense",
+                "config": {"units": 128, "activation": "relu"}},
+               {"class_name": "Dense",
+                "config": {"units": 64, "activation": "relu"}},
+               {"class_name": "Dense",
+                "config": {"units": 1, "activation": "sigmoid"}}],
+        optimizer="adam", loss="binary_crossentropy", metrics=["accuracy"],
+        feature_columns=features, label_column="Survived", batch_size=256,
+        num_epochs=TF_EPOCHS, seed=0, device="cuda")
+    check(clf.layer_configs[-1]["config"]["activation"] == "linear",
+          "the sigmoid head was not fused into the loss")
+    hist = clf.fit(P.MLDataset([cols], num_shards=1),
+                   evaluate_ds=P.MLDataset([cols], num_shards=1))
+    log(f"[8] Titanic-shaped classifier ({len(features)} features): losses "
+        f"{[round(h['train_loss'], 4) for h in hist]}, eval accuracy "
+        f"{hist[-1]['eval_accuracy']:.4f}, "
+        f"{hist[-1]['samples_per_sec']:.1f} samples/s")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+          "Titanic-shaped classifier: train loss did not fall")
+
+
 def main() -> int:
     import torch
 
@@ -1144,19 +1680,28 @@ def main() -> int:
     glue_launches = phase_glue(torch, P)
     decode_launches = phase_decode(torch, P)
     phase_grad_check(torch, P)
-    fit_counts = phase_finetune(torch, P)
+    fit_counts, scan_losses = phase_finetune(torch, P)
     lm_counts = phase_causal_lm(torch, P)
+    remat_counts = phase_remat(torch, P, scan_losses)
+    phase_dlrm(torch, P)
+    moe_counts = phase_moe(torch, P)
+    import numpy as np
+
+    train, test = _split(np, taxi_columns(np, GBT_ROWS))
+    phase_gbt(torch, P, train, test)
+    phase_tf(torch, P, train, test)
+    fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
+            "remat fine-tune": remat_counts, "MoE": moe_counts}
     for e in entries:
         name = e["name"]
-        e["launches"] = fit_counts[name] + lm_counts[name]
+        e["launches"] = sum(c[name] for c in fits.values())
         if name == "flash_fwd":
             e["launches"] += glue_launches + decode_launches
         check(e["launches"] > 0, f"the main path launched no {name}")
     log(f"[main path] flash_fwd launches: GLUE forward {glue_launches}, "
         f"decode server and its reference {decode_launches} (the f32 "
-        f"ones; no f32 backward runs on the main path), fine-tune "
-        f"{fit_counts['flash_fwd']}, causal LM fit {lm_counts['flash_fwd']}; "
-        f"backward kernels: fine-tune {fit_counts}, causal LM {lm_counts}")
+        f"ones; no f32 backward runs on the main path); by fit: "
+        + "; ".join(f"{tag} {c}" for tag, c in fits.items()))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(gpu_line())

@@ -63,6 +63,23 @@ class MLDataset:
     def rows_per_shard(self) -> int:
         return math.ceil(self.total_rows / self.num_shards)
 
+    def shard_global_indices(self, rank: int) -> np.ndarray:
+        """The dataset row index (block order, then row order in a block)
+        of every sample of ``rank``'s plan, in plan order: the inverse of
+        the plan. Padding rows map to the row they repeat, so a scatter
+        of per-shard predictions through these collapses onto
+        ``total_rows`` rows."""
+        if rank not in self.shard_plan:
+            raise IndexError(f"rank {rank} out of {self.num_shards}")
+        starts = np.zeros(len(self.block_sizes), dtype=np.int64)
+        starts[1:] = np.cumsum(self.block_sizes[:-1])
+        parts = [starts[s.block_index] + s.offset
+                 + np.arange(s.num_samples, dtype=np.int64)
+                 for s in self.shard_plan[rank]]
+        if not parts:
+            return np.empty((0,), dtype=np.int64)
+        return np.concatenate(parts)
+
     def shard_columns(self, rank: int,
                       columns: Optional[List[str]] = None) -> Columns:
         """Shard ``rank`` materialised as contiguous numpy columns."""

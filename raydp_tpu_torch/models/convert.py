@@ -1,7 +1,8 @@
 """Carry the JAX package's flax parameters into the port's modules.
 
 ``params_from_flax`` takes the flax ``params`` tree of a
-``SequenceClassifier``, ``CausalLM`` or ``MLP`` (from ``raydp_tpu``) with
+``SequenceClassifier``, ``CausalLM``, ``MLP``, ``MoEClassifier``,
+``DLRM``/``PackedDLRM`` or ``KerasSequential`` (from ``raydp_tpu``) with
 its leaves already turned into numpy arrays, and returns a ``state_dict``
 for the port's module of the same name. It imports no JAX.
 
@@ -10,7 +11,14 @@ for the port's module of the same name. It imports no JAX.
   ``[3·H·D, E]`` / ``[3·H·D]`` (row order q, k, v, then head, then dim).
 * out DenseGeneral kernel ``[H, D, E]`` → Linear ``[E, H·D]``.
 * Embed ``embedding`` → ``weight``; LayerNorm ``scale`` → ``weight``.
-* ``block_<i>`` → ``blocks.<i>``; the MLP's ``Dense_<i>`` → ``layers.<i>``.
+* ``block_<i>`` → ``blocks.<i>``; an auto-named ``Dense_<i>`` (the MLP's,
+  a keras layer's without a name) → ``layers.<i>``; DLRM's ``bottom_<i>``,
+  ``top_<i>`` and ``emb_<t>`` → ``bottom.<i>``, ``top.<i>``, ``emb.<t>``;
+  a named keras layer keeps its name.
+* Parameters that are tensors of their own, not a layer's kernel, keep
+  their layout and name: the MoE's ``pos`` table and stacked expert
+  weights (``w_up`` ``[E, D, F]``, ``b_up``, ``w_down``, ``b_down``) and
+  DLRM's embedding ``table``. Any other leaf name raises.
 """
 from __future__ import annotations
 
@@ -32,8 +40,14 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
+# Parameters kept as they are, under their own name.
+_TENSOR_LEAVES = ("pos", "w_up", "b_up", "w_down", "b_down", "table")
+
+
 def _convert(path: tuple, arr: np.ndarray,
              cfg: Optional[TransformerConfig]) -> np.ndarray:
+    if path[-1] in _TENSOR_LEAVES:
+        return arr
     module, leaf = path[-2], path[-1]
     if leaf == "kernel":
         if module == "qkv":
@@ -54,18 +68,27 @@ def _convert(path: tuple, arr: np.ndarray,
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
                "bias": "bias"}
+# flax module-name prefix → the port's ModuleList attribute.
+_LISTS = {"block_": "blocks", "Dense_": "layers", "bottom_": "bottom",
+          "top_": "top", "emb_": "emb"}
 
 
 def _torch_name(path: tuple) -> str:
     parts = []
     for p in path[:-1]:
-        if p.startswith("block_"):
-            parts += ["blocks", p[len("block_"):]]
-        elif p.startswith("Dense_"):
-            parts += ["layers", p[len("Dense_"):]]
-        else:
+        prefix = next((k for k in _LISTS if p.startswith(k)
+                       and p[len(k):].isdigit()), None)
+        if prefix is None:
             parts.append(p)
-    parts.append(_LEAF_NAMES[path[-1]])
+        else:
+            parts += [_LISTS[prefix], p[len(prefix):]]
+    leaf = path[-1]
+    if leaf in _TENSOR_LEAVES:
+        parts.append(leaf)
+    elif leaf in _LEAF_NAMES:
+        parts.append(_LEAF_NAMES[leaf])
+    else:
+        raise ValueError(f"no port parameter for flax leaf {'/'.join(path)}")
     return ".".join(parts)
 
 

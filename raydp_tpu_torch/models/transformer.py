@@ -11,7 +11,9 @@ Dropout sits where flax puts it and draws from the generator that
 
 Attention is ``dense`` (plain softmax attention) or ``flash`` (the
 hand-written kernel on CUDA, its plain version on the CPU). Ring and
-Ulysses attention, the mesh and ``remat`` arrive with later slices.
+Ulysses attention and the mesh arrive with later slices. ``remat``
+checkpoints every encoder block (:func:`checkpoint_block`): its
+activations are recomputed in the backward instead of kept.
 
 The decode KV cache is a preallocated ``(key, value)`` tensor pair per
 layer, ``[slots, max_len, H, D]`` in ``cfg.dtype``. Prefill and decode
@@ -26,9 +28,10 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from raydp_tpu_torch.models.dropout import Dropout
+from raydp_tpu_torch.models.dropout import Dropout, MaskTape
 from raydp_tpu_torch.ops.attention import (
     cached_decode_attention,
     reference_attention,
@@ -53,6 +56,7 @@ class TransformerConfig:
     dropout_rate: float = 0.1
     causal: bool = False
     attention_impl: str = "dense"    # dense | flash
+    remat: bool = False              # checkpoint blocks (memory-bound fits)
     dtype: torch.dtype = torch.bfloat16        # compute dtype
     param_dtype: torch.dtype = torch.float32
 
@@ -121,7 +125,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
         for m in module.modules():
             if isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 nn.init.normal_(m.weight, std=0.02, generator=generator)
             elif isinstance(m, nn.LayerNorm):
@@ -205,6 +210,42 @@ class TransformerBlock(nn.Module):
         return x + self.dropout(self.mlp_down(y))
 
 
+def checkpoint_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in the backward (flax's
+    ``nn.remat``).
+
+    The recompute must apply the forward's dropout masks, or the
+    gradients belong to other masks than the loss. ``checkpoint`` restores
+    only the default generators, and the port's dropout draws from an
+    explicit one (``models/dropout.py``). Rewinding that generator for the
+    recompute cannot be done inside the scan path's CUDA graph: there the
+    generator is registered with the graph, ``set_state`` raises while
+    capturing, ``graphsafe_get_state`` shares the live state rather than
+    copying it, and a ``clone_state`` copy is not registered, so no draw
+    can be made from it during capture. So the forward's keep-masks are
+    kept instead (one byte an element, against the block's activations in
+    ``cfg.dtype``) and the recompute reads them back
+    (:class:`~raydp_tpu_torch.models.dropout.MaskTape`). The generator
+    advances once per forward, as without remat."""
+    tape = MaskTape()
+    drops = [m for m in block.modules() if isinstance(m, Dropout)]
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        tape.cursor = 0
+        for d in drops:
+            d.tape = tape
+        try:
+            return block(h)
+        finally:
+            for d in drops:
+                d.tape = None
+            tape.replaying = True
+
+    return torch.utils.checkpoint.checkpoint(
+        run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
     """Token + position (+ optional segment) embeddings, N blocks, final LN.
 
@@ -241,6 +282,8 @@ class TransformerEncoder(nn.Module):
         slots: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         cfg = self.cfg
+        if cache_mode is not None and cfg.remat:
+            raise ValueError("decode cache is incompatible with remat")
         x = self.tok_embed(input_ids)
         if cache_mode == "step":
             # Each slot's token sits at its own absolute position.
@@ -254,6 +297,10 @@ class TransformerEncoder(nn.Module):
                 raise ValueError("this encoder takes no segment ids")
             x = x + self.seg_embed(segment_ids)
         x = self.dropout(x)
+        if cfg.remat and torch.is_grad_enabled():
+            for block in self.blocks:
+                x = checkpoint_block(block, x)
+            return self.ln_final(x)
         for i, block in enumerate(self.blocks):
             x = block(
                 x,

@@ -19,7 +19,11 @@ JAX package chooses them (:meth:`Estimator._use_scan`):
   callbacks come at epoch ends only.
 
 Both paths run one step function, :meth:`Estimator._train_step`, which
-sums the loss on the device: one host sync per epoch.
+sums the loss on the device: one host sync per epoch. With
+``aux_losses=True`` its objective adds the model's MoE load-balancing
+losses (:func:`~raydp_tpu_torch.models.moe.moe_aux_loss`), as the JAX
+train step adds the sown ``losses`` collection; ``evaluate``'s loss and
+``predict`` leave them out, as JAX's eval and predict steps do.
 
 Differences from the JAX estimator, each deliberate:
 
@@ -48,6 +52,7 @@ import torch
 from torch import nn
 
 from raydp_tpu_torch.models.dropout import set_dropout_generator
+from raydp_tpu_torch.models.moe import moe_aux_loss
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
@@ -108,6 +113,7 @@ class Estimator:
         drop_last: bool = False,
         epoch_mode: str = "auto",
         scan_threshold_bytes: int = 2 << 30,
+        aux_losses: bool = False,
         device: DeviceLike = "cuda",
     ):
         if epoch_mode not in ("auto", "stream", "scan"):
@@ -143,6 +149,7 @@ class Estimator:
         self.drop_last = drop_last
         self.epoch_mode = epoch_mode
         self.scan_threshold_bytes = scan_threshold_bytes
+        self.aux_losses = aux_losses
         # Set by fit(): which epoch path ran ('scan' or 'stream').
         self.effective_epoch_mode: Optional[str] = None
         # The training generator (dropout masks), seeded as JAX seeds its
@@ -217,6 +224,8 @@ class Estimator:
         opt = self.optimizer
         opt.zero_grad(set_to_none=True)
         loss = self._loss_fn(self._model(x), self._target(x, y))
+        if self.aux_losses:
+            loss = loss + moe_aux_loss(self._model)
         loss.backward()
         opt.step()
         loss = loss.detach()

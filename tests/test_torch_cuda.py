@@ -4,7 +4,10 @@ sequence lengths and strided inputs, the tiny models (outputs and
 gradients) on the card against the CPU, an estimator fit on the card,
 and the CUDA graphs: the scan path's captured train step (against the
 stream path, dropout draws, learning-rate guard, launch counts,
-checkpoints) and the decode engine's captured prefill and step.
+checkpoints) and the decode engine's captured prefill and step. Slice 5:
+remat inside the captured step against eager steps, the MoE classifier
+and DLRM forwards on the card against the CPU, and the GBT histogram and
+split search on the card against the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from raydp_tpu_torch.data import MLDataset
+from raydp_tpu_torch.models import dlrm, moe
 from raydp_tpu_torch.models.transformer import (
     CausalLM,
     SequenceClassifier,
@@ -644,3 +648,109 @@ def test_decode_graphs_match_eager_steps_and_reference(cuda):
         restore()
         assert got == want, bucket
     assert engine.graph_count == 8
+
+
+# ------------------------------------------------------------ slice 5
+
+def test_remat_in_captured_step_matches_eager_steps(cuda):
+    """f32 flash classifier with remat at dropout 0.1: the scan fit (the
+    step, recomputed blocks included, as one CUDA graph) against the
+    stream fit's eager steps from the same weights and generator seeds,
+    and against the scan fit without remat; each step runs the forward
+    twice a layer (once recomputed) and each backward kernel once."""
+    cols = _token_cols(128, 16, 64, seed=2)
+    losses, counts = {}, {}
+    for mode, remat in (("stream", True), ("scan", True), ("scan", False)):
+        cfg = tiny_transformer(vocab_size=64, d_model=32, n_heads=2,
+                               n_layers=2, d_ff=64, max_len=16,
+                               attention_impl="flash", dtype=torch.float32,
+                               dropout_rate=0.1, remat=remat)
+        est = Estimator(
+            model=SequenceClassifier(
+                cfg, device="cuda", generator=torch.Generator().manual_seed(3)),
+            loss="softmax_ce", num_epochs=2, batch_size=16,
+            feature_columns=[f"t{i}" for i in range(16)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, device="cuda", shuffle=False,
+            epoch_mode=mode, seed=4,
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3))
+        before = _counts()
+        hist = est.fit(MLDataset([cols], 1))
+        counts[(mode, remat)] = [a - b for a, b in zip(_counts(), before)]
+        losses[(mode, remat)] = [h["train_loss"] for h in hist]
+    steps = 2 * 8
+    assert counts[("scan", True)] == counts[("stream", True)] == [
+        2 * 2 * steps, 2 * steps, 2 * steps, 2 * steps]
+    assert counts[("scan", False)] == [2 * steps] * 4
+    np.testing.assert_allclose(losses[("scan", True)],
+                               losses[("stream", True)], rtol=1e-4)
+    np.testing.assert_allclose(losses[("scan", True)],
+                               losses[("scan", False)], rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["take", "onehot"])
+def test_dlrm_forward_on_card_matches_cpu(cuda, impl):
+    cfg = dlrm.tiny_dlrm(dtype=torch.float32, embedding_impl=impl)
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((32, cfg.dense_features)).astype(np.float32)
+    sparse = np.stack([rng.integers(0, v, 32) for v in cfg.vocab_sizes], 1)
+    x = torch.from_numpy(np.concatenate([dense, sparse], 1).astype(
+        np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = dlrm.PackedDLRM(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            out[dev] = model(x.to(dev)).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], **TOL[torch.float32])
+
+
+def test_moe_classifier_forward_on_card_matches_cpu(cuda):
+    cfg = tiny_transformer(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                           d_ff=64, max_len=16, attention_impl="flash",
+                           dtype=torch.float32)
+    ids = torch.randint(0, 64, (4, 16), generator=torch.Generator()
+                        .manual_seed(2))
+    out, aux = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = moe.MoEClassifier(cfg, moe.tiny_moe(capacity_factor=1.0), 2,
+                                  device=dev,
+                                  generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            out[dev] = model(ids.to(dev)).cpu()
+        aux[dev] = moe.moe_aux_loss(model).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], **TOL[torch.float32])
+    torch.testing.assert_close(aux["cuda"], aux["cpu"], **GRAD_TOL[
+        torch.float32])
+
+
+def test_gbt_histogram_on_card_matches_cpu(cuda):
+    """One level's histogram (index_add_ with atomics on the card, in row
+    order on the CPU) and its split search: sums within float32
+    summation-order bounds, and the same splits where the gains are not
+    near-ties."""
+    from raydp_tpu_torch.train import gbt
+
+    rng = np.random.default_rng(3)
+    n, n_feat, n_bins, n_nodes = 200_000, 4, 64, 8
+    binned = torch.from_numpy(rng.integers(0, n_bins, (n, n_feat)).astype(
+        np.int32))
+    node_rel = torch.from_numpy(rng.integers(0, n_nodes, n))
+    active = torch.from_numpy(rng.random(n) < 0.9)
+    grad = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    hess = torch.ones(n)
+    sums, splits = {}, {}
+    for dev in ("cuda", "cpu"):
+        args = [t.to(dev) for t in (binned, node_rel, active, grad, hess)]
+        gsum, hsum = gbt._level_histograms(*args, n_nodes, n_feat, n_bins)
+        sums[dev] = (gsum.cpu(), hsum.cpu())
+        splits[dev] = [t.cpu() for t in gbt._best_splits(gsum, hsum, 1.0,
+                                                         n_nodes)]
+    torch.testing.assert_close(sums["cuda"][0], sums["cpu"][0], rtol=1e-5,
+                               atol=1e-3)
+    torch.testing.assert_close(sums["cuda"][1], sums["cpu"][1], rtol=0,
+                               atol=0)  # integer counts: exact either way
+    torch.testing.assert_close(splits["cuda"][2], splits["cpu"][2],
+                               rtol=1e-4, atol=1e-3)
+    assert torch.equal(splits["cuda"][0], splits["cpu"][0])
+    assert torch.equal(splits["cuda"][1], splits["cpu"][1])

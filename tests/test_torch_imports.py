@@ -41,8 +41,12 @@ def test_port_files_exist():
                 "raydp_tpu_torch/ops/flash_attention.py",
                 "raydp_tpu_torch/models/dropout.py",
                 "raydp_tpu_torch/models/mlp.py",
+                "raydp_tpu_torch/models/moe.py",
+                "raydp_tpu_torch/models/dlrm.py",
                 "raydp_tpu_torch/train/estimator.py",
                 "raydp_tpu_torch/train/losses.py",
+                "raydp_tpu_torch/train/gbt.py",
+                "raydp_tpu_torch/train/tf_estimator.py",
                 "raydp_tpu_torch/data/ml_dataset.py",
                 "raydp_tpu_torch/data/loader.py",
                 "raydp_tpu_torch/utils/sharding.py"):
