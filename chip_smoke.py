@@ -68,12 +68,31 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 8. Keras: ``TFEstimator`` with examples/tf_nyctaxi.py's tower on the
    taxi rows (``predict`` held against the returned model), and a
    Titanic-shaped classifier with its sigmoid head fused.
+9. Serve plane: (a) a ``ReplicaGroup`` of 2 replica processes on the
+   card, batch mode (buckets 32/64/128, batch up to 32, SLO 10 ms),
+   serving phase 2's bert_base bf16 flash classifier
+   (:func:`classify_batch`, shipped by reference); 512 requests of 8-128
+   random ids at once, twice (the first pass warms the replicas), every
+   reply held against the driver's dense forward (no kernel) of the
+   same weights on the same padded ids (the bf16 logit bound, equal
+   argmax save ties at that bound), each replica reporting the card,
+   the memory it holds there and flash forward launches by ``Ping``;
+   phase 1 holds the kernel against its plain version at these
+   batches' shapes. Then the
+   same traffic under ``serve_kill:replica=0,request=40``: 512 replies,
+   0 errors, a restart and both lineages alive again. (b) A decode-mode
+   group of 1 replica serving the bert_base-width f32 decode engine of
+   phase 3 under ``serve_kill:replica=0,request=4``: four prompts of 48
+   new tokens, the trigger ``[9, 9]`` once 4 tokens have streamed; every
+   stream equal to the driver's ``reference_decode`` (the f32 flash
+   kernel), a restart and requeued prefills.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
-are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d and 6)
-and read just after. The last lines are a ``kernels`` JSON
+are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6 and
+9) and read just after; phase 9's replicas are new processes, whose
+counts start at 0 and are read by ``Ping``. The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -104,8 +123,10 @@ DELTA_TOL = dict(rtol=1e-4, atol=1e-4)
 LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
 
 # (B, S, H, D) of the main path: decode reference prompts (B 1, S 16..256),
-# BERT-GLUE (32, 128), and longer sequences.
+# BERT-GLUE (32, 128), the serve plane's classifier batches (B up to 32 at
+# S 32, 64, 128: full batches and an odd one), and longer sequences.
 KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
+                 (32, 32, 12, 64), (32, 64, 12, 64), (17, 128, 12, 64),
                  (4, 512, 12, 64)]
 # Every kernel but the delta pass has a wgmma instance in each dtype (f32:
 # TF32 x3); each is also checked at every other head dim and at S that is
@@ -145,6 +166,15 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",
 FIT_TOL = dict(rtol=6e-2, atol=6e-2)
 # Peak device memory of each fit, (peak, held before it), by (phase, mode).
 PEAK_BYTES = {}
+# Serve plane (phase 9): the batch group's traffic and knobs, the decode
+# group's prompts and new tokens, and how long a replica may take to come
+# up (a process reaches the card in ~8 s) or a request to be answered.
+SERVE_REPLICAS, SERVE_REQUESTS, SERVE_MAX_BATCH = 2, 512, 32
+SERVE_BUCKETS, SERVE_SLO_MS, SERVE_SEED = [32, 64, 128], 10, 0
+SERVE_KILL_PLAN = "serve_kill:replica=0,request=40"
+SERVE_DECODE_PROMPT_LENS, SERVE_DECODE_MAX_NEW = [5, 17, 40, 90], 48
+SERVE_DECODE_KILL_PLAN = "serve_kill:replica=0,request=4"
+SERVE_UP_S, SERVE_REQUEST_S = 180.0, 300.0
 # Per-parameter relative L2 error of flash against dense gradients over
 # 12 bf16 layers: the two paths round at different places (bf16 P, the
 # kernels' summation order) and the differences grow through depth; a
@@ -1651,6 +1681,318 @@ def phase_tf(torch, P, train, test):
           "Titanic-shaped classifier: train loss did not fall")
 
 
+# ------------------------------------------------------------ phase 9
+
+_SERVE_MODELS = {}
+
+
+def serve_classifier(seed: int, device="cuda", attention_impl="flash"):
+    """Phase 2's classifier (bert_base width and depth, bf16, 2 classes)
+    with weights from ``seed``, built once per process and argument
+    set; ``attention_impl="dense"`` gives the same weights without the
+    kernel."""
+    import torch
+
+    import raydp_tpu_torch as P
+
+    key = (seed, str(device), attention_impl)
+    if key not in _SERVE_MODELS:
+        _SERVE_MODELS[key] = P.SequenceClassifier(
+            P.bert_base(attention_impl=attention_impl, dtype=torch.bfloat16),
+            device=device, generator=torch.Generator().manual_seed(seed),
+        ).eval()
+    return _SERVE_MODELS[key]
+
+
+def padded_ids(torch, payloads, bucket, device):
+    """Each request's ids padded with 0 to ``bucket``, as one tensor."""
+    return torch.tensor([list(p)[:bucket] + [0] * (bucket - len(p))
+                         for p in payloads], device=device)
+
+
+def classify_batch(payloads, bucket, *, seed, device):
+    """A batch replica's model: the requests' ids, padded to ``bucket``,
+    through :func:`serve_classifier`; each request's logits as floats.
+    Shipped as ``functools.partial(classify_batch, seed=...)``; a replica
+    imports this file as the module ``chip_smoke`` and gives ``device``,
+    the group's."""
+    import torch
+
+    model = serve_classifier(seed, device)
+    with torch.inference_mode():
+        logits = model(padded_ids(torch, payloads, bucket, device))
+    return logits.float().cpu().tolist()
+
+
+def _wait_up(group, what):
+    """Until every replica of ``group`` has registered; fails the run
+    after ``SERVE_UP_S``."""
+    deadline = time.monotonic() + SERVE_UP_S
+    while group.stats()["replicas_alive"] < group.replicas:
+        check(time.monotonic() < deadline,
+              f"{what}: replicas did not register within {SERVE_UP_S:.0f} "
+              f"s: {group.stats()}")
+        time.sleep(0.05)
+
+
+def _wait_respawned(group, what):
+    """Until the group has restarted a replica and every lineage is
+    alive again."""
+    deadline = time.monotonic() + SERVE_UP_S
+    while True:
+        st = group.stats()
+        if st["restarts"] >= 1 and st["replicas_alive"] == group.replicas:
+            return st
+        check(time.monotonic() < deadline,
+              f"{what}: no restart, or a lineage not back, after "
+              f"{SERVE_UP_S:.0f} s: {st}")
+        time.sleep(0.1)
+
+
+def phase_serve_batch(torch, P):
+    """9a: the bert_base classifier behind a 2-replica batch group."""
+    import functools
+    import importlib
+
+    import numpy as np
+
+    from raydp_tpu_torch.fault import FAULT_PLAN_ENV
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    # By the name the replicas import it under: run as a script, this
+    # file is __main__, which a replica cannot resolve.
+    smoke = importlib.import_module("chip_smoke")
+    model_fn = functools.partial(smoke.classify_batch, seed=SERVE_SEED)
+    rng = np.random.default_rng(9)
+    payloads = [rng.integers(1, 30522, size=int(n)).tolist()
+                for n in rng.integers(8, 129, size=SERVE_REQUESTS)]
+
+    # The driver's forwards of the same weights, each request padded to
+    # its bucket, in the batches the queue would form from a full queue:
+    # the flash model gives the in-process rate of this traffic, the
+    # dense one (no kernel) the reference the replies are held against.
+    model = smoke.serve_classifier(SERVE_SEED)
+    dense = smoke.serve_classifier(SERVE_SEED, attention_impl="dense")
+    by_bucket = {}
+    for i, p in enumerate(payloads):
+        b = next(b for b in SERVE_BUCKETS if len(p) <= b)
+        by_bucket.setdefault(b, []).append(i)
+    batches = [(b, idx[j:j + SERVE_MAX_BATCH])
+               for b, idx in sorted(by_bucket.items())
+               for j in range(0, len(idx), SERVE_MAX_BATCH)]
+
+    def forward(m):
+        out = [None] * len(payloads)
+        for b, idx in batches:
+            logits = m(padded_ids(torch, [payloads[i] for i in idx], b,
+                                  "cuda")).float().cpu()
+            for i, row in zip(idx, logits):
+                out[i] = row
+        return torch.stack(out)
+
+    with torch.inference_mode():
+        forward(model)  # warm-up
+        t0 = time.perf_counter()
+        inproc = forward(model)  # one host copy a batch, as a replica's
+        inproc_s = time.perf_counter() - t0
+        want = forward(dense)
+    inproc_rate = SERVE_REQUESTS / inproc_s
+    log(f"[9a] traffic: {SERVE_REQUESTS} requests of "
+        f"{min(map(len, payloads))}-{max(map(len, payloads))} ids, "
+        f"buckets {SERVE_BUCKETS}: "
+        + ", ".join(f"{b}: {len(i)}" for b, i in sorted(by_bucket.items()))
+        + f"; in-process forward of the same batches ({len(batches)}): "
+        f"{inproc_s * 1e3:.2f} ms, {inproc_rate:.1f} sequences/s; max "
+        f"|flash - dense| {(inproc - want).abs().max().item():.3e}")
+
+    bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * want.abs()
+    # Two logits nearer than their bounds allow are a tie at bf16
+    # precision: either argmax is right there.
+    tie = (want[:, 0] - want[:, 1]).abs() <= bound.max(dim=1).values * 2
+
+    def check_replies(tag, got):
+        got = torch.tensor(got, dtype=torch.float32)
+        check(got.shape == want.shape, f"{tag}: replies {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite logits")
+        outside = int(((got - want).abs() > bound).any(dim=1).sum())
+        flips = got.argmax(1) != want.argmax(1)
+        log(f"[9a] {tag}: {len(got)} replies, max |replica - dense| "
+            f"{(got - want).abs().max().item():.3e} (tol {LOGIT_TOL}), "
+            f"{outside} outside; argmax differs on {int(flips.sum())}, "
+            f"{int((flips & tie).sum())} of them ties ({int(tie.sum())} "
+            f"ties in all); max |replica - driver's flash| "
+            f"{(got - inproc).abs().max().item():.3e}")
+        check(outside == 0, f"{tag}: {outside} replies outside the bound")
+        check(torch.allclose(got, inproc, **LOGIT_TOL),
+              f"{tag}: replies differ from the driver's flash forward")
+        check(not bool((flips & ~tie).any()),
+              f"{tag}: argmax differs beyond a tie")
+
+    def run(tag, plan, passes):
+        if plan:
+            os.environ[FAULT_PLAN_ENV] = plan
+        metrics.reset()
+        group = P.ReplicaGroup(
+            replicas=SERVE_REPLICAS, device="cuda", mode="batch",
+            model_fn=model_fn, buckets=SERVE_BUCKETS,
+            max_batch=SERVE_MAX_BATCH, slo_ms=SERVE_SLO_MS,
+            max_queue=SERVE_REQUESTS, dispatch_timeout_s=SERVE_REQUEST_S,
+            label=f"smoke-{tag}")
+        try:
+            t0 = time.perf_counter()
+            group.start()
+            _wait_up(group, tag)
+            up_s = time.perf_counter() - t0
+            for k in range(passes):
+                metrics.reset()
+                t1 = time.perf_counter()
+                reqs = [group.submit(p, timeout_s=SERVE_REQUEST_S)
+                        for p in payloads]
+                got = [r.wait(timeout=SERVE_REQUEST_S) for r in reqs]
+                wall = time.perf_counter() - t1
+                check_replies(f"{tag} pass {k}", got)
+            stats = _wait_respawned(group, tag) if plan else group.stats()
+            pongs = group.ping()
+        finally:
+            group.stop()
+            os.environ.pop(FAULT_PLAN_ENV, None)
+        log(f"[9a] {tag}: replicas up in {up_s:.2f} s; last pass "
+            f"{wall * 1e3:.1f} ms -> {SERVE_REQUESTS / wall:.1f} sequences/s "
+            f"through the group ({SERVE_REQUESTS / wall / inproc_rate:.3f} "
+            f"of in-process); latency p50 {stats['latency_p50_s']} s, p99 "
+            f"{stats['latency_p99_s']} s; batch fill {stats['batch_fill']}; "
+            f"accepted {stats['accepted']:.0f}, replies "
+            f"{stats['replies']:.0f}, errors {stats['errors']:.0f}, requeued "
+            f"{stats['requeued']:.0f}, restarts {stats['restarts']:.0f}, "
+            f"dup replies {stats['dup_replies']:.0f}; phases (mean s) "
+            + ", ".join(f"{k} {v['mean_s']}" for k, v in
+                        stats["phases"].items())
+            + "; per replica " + json.dumps(stats["per_replica"]))
+        log(f"[9a] {tag}: Ping " + "; ".join(
+            f"replica {p['replica']} on {p['device']}, {p['cuda_bytes']} "
+            f"B on the card, flash_fwd {p['launches']['flash_fwd']}"
+            for p in pongs))
+        check(stats["replies"] == SERVE_REQUESTS and stats["errors"] == 0,
+              f"{tag}: {stats['replies']} replies, {stats['errors']} errors")
+        check(stats["dup_replies"] == 0, f"{tag}: duplicate replies")
+        check(all(p["device"] == "cuda" for p in pongs),
+              f"{tag}: a replica serves on {[p['device'] for p in pongs]}")
+        # A replica that ran its model holds it on the card (a respawned
+        # one that served nothing has built none).
+        check(all(p["cuda_bytes"] > 0 for p in pongs
+                  if p["launches"]["flash_fwd"] > 0),
+              f"{tag}: a replica launched kernels but holds no card memory")
+        return stats, pongs, SERVE_REQUESTS / wall
+
+    stats, pongs, rate = run("batch", None, passes=2)
+    check(all(p["launches"]["flash_fwd"] > 0 for p in pongs),
+          "a batch replica launched no flash forward")
+    kill_stats, kill_pongs, kill_rate = run("batch-kill", SERVE_KILL_PLAN,
+                                            passes=1)
+    check(kill_stats["restarts"] >= 1 and kill_stats["dead_lineages"] == 0,
+          "serve_kill: no restart, or a lineage lost")
+    check(kill_stats["requeued"] >= 1, "serve_kill: no batch requeued")
+    # By Ping, the replicas alive at each run's end: a killed
+    # incarnation's launches are lost with it.
+    return {"replica_launches": [
+                sum(p["launches"]["flash_fwd"] for p in pongs),
+                sum(p["launches"]["flash_fwd"] for p in kill_pongs)],
+            "rate": rate, "inproc_rate": inproc_rate, "kill_rate": kill_rate}
+
+
+def phase_serve_decode(torch, P):
+    """9b: the bert_base-width f32 decode engine behind a 1-replica
+    decode group, killed mid-stream."""
+    import functools
+
+    from raydp_tpu_torch.fault import FAULT_PLAN_ENV
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    # No device bound: the replica gives the factory the group's.
+    factory = functools.partial(
+        P.build_transformer_engine, num_slots=8,
+        page_tokens=16, seed=0, causal=True, attention_impl="flash",
+        vocab_size=30522, max_len=512, d_model=768, n_heads=12,
+        n_layers=12, d_ff=3072)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 30522, (n,), generator=gen).tolist()
+               for n in SERVE_DECODE_PROMPT_LENS]
+    trigger = [9, 9]
+    P.set_exact_float32()
+    engine = factory(device="cuda")
+    want = [P.reference_decode(engine, p, SERVE_DECODE_MAX_NEW)
+            for p in prompts]
+    want_trigger = P.reference_decode(engine, trigger, 4)
+    del engine
+    torch.cuda.empty_cache()
+
+    os.environ[FAULT_PLAN_ENV] = SERVE_DECODE_KILL_PLAN
+    metrics.reset()
+    group = P.ReplicaGroup(
+        replicas=1, device="cuda", mode="decode", model_fn=factory,
+        slo_ms=SERVE_SLO_MS, dispatch_timeout_s=SERVE_REQUEST_S,
+        label="smoke-decode")
+    try:
+        t0 = time.perf_counter()
+        group.start()
+        _wait_up(group, "decode")
+        # Registered; the engine is ready once Ping reports its graphs.
+        deadline = time.monotonic() + SERVE_UP_S
+        while "graphs" not in group.ping()[0]:
+            check(time.monotonic() < deadline, "decode engine not built")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        reqs = [group.submit_generate(p, max_new=SERVE_DECODE_MAX_NEW,
+                                      timeout_s=SERVE_REQUEST_S)
+                for p in prompts]
+        deadline = time.monotonic() + SERVE_REQUEST_S
+        while metrics.snapshot()["counters"].get("decode/tokens", 0) < 4:
+            check(time.monotonic() < deadline, "no token streamed")
+            time.sleep(0.005)
+        trig = group.submit_generate(trigger, max_new=4,
+                                     timeout_s=SERVE_REQUEST_S)
+        got = [r.wait(timeout=SERVE_REQUEST_S)["tokens"] for r in reqs]
+        got_trigger = trig.wait(timeout=SERVE_REQUEST_S)["tokens"]
+        wall = time.perf_counter() - t1
+        stats = _wait_respawned(group, "decode")
+        pongs = group.ping()
+    finally:
+        group.stop()
+        os.environ.pop(FAULT_PLAN_ENV, None)
+    dec = stats["decode"]
+    n_tokens = sum(map(len, got)) + len(got_trigger)
+    ttfts = [r.ttft_s() for r in reqs + [trig]]
+    log(f"[9b] decode group (bert_base width, f32, 1 replica, "
+        f"{SERVE_DECODE_KILL_PLAN}): engine up in {up_s:.2f} s; "
+        f"{n_tokens} tokens in {wall:.3f} s -> {n_tokens / wall:.1f} "
+        f"tokens/s by the host clock, stats tokens/s "
+        f"{dec['tokens_per_sec']}; TTFT p50 {dec['ttft_p50_s']} s, p99 "
+        f"{dec['ttft_p99_s']} s; by request (prompt lengths "
+        f"{SERVE_DECODE_PROMPT_LENS}, then the trigger) "
+        + ", ".join(f"{t:.4f}" for t in ttfts)
+        + f" s; TPOT p50 {dec['tpot_p50_s']} s; restarts "
+        f"{stats['restarts']:.0f}, requeued prefills "
+        f"{dec['requeued_prefills']:.0f}, dup tokens {dec['dup_tokens']:.0f}"
+        f", replies {stats['replies']:.0f}, errors {stats['errors']:.0f}; "
+        f"respawned replica: Ping {pongs[0]}")
+    for p, g, w in zip(prompts, got, want):
+        if g != w:
+            i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                     min(len(g), len(w)))
+            log(f"[9b] MISMATCH prompt len {len(p)} at token {i}: group "
+                f"{g[i:i + 3]} reference {w[i:i + 3]}")
+    check(got == want, "decode group streams differ from reference_decode")
+    check(got_trigger == want_trigger, "the trigger's stream differs")
+    check(stats["restarts"] >= 1, "decode: no restart")
+    check(dec["requeued_prefills"] >= 1, "decode: no prefill requeued")
+    check(stats["errors"] == 0 and stats["replies"] == len(prompts) + 1,
+          "decode: errors or missing replies")
+    check(pongs[0]["device"] == "cuda" and pongs[0]["cuda_bytes"] > 0,
+          "decode replica's engine not on the card")
+    return pongs[0]["launches"]["flash_fwd"]
+
+
 def main() -> int:
     import torch
 
@@ -1690,18 +2032,32 @@ def main() -> int:
     train, test = _split(np, taxi_columns(np, GBT_ROWS))
     phase_gbt(torch, P, train, test)
     phase_tf(torch, P, train, test)
+    _reset_counts()
+    serve = phase_serve_batch(torch, P)
+    serve_bf16_driver = _counts()["flash_fwd"]
+    _reset_counts()
+    decode_replica_launches = phase_serve_decode(torch, P)
+    serve_f32_driver = _counts()["flash_fwd"]
+    serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
+                      + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
             "remat fine-tune": remat_counts, "MoE": moe_counts}
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())
         if name == "flash_fwd":
-            e["launches"] += glue_launches + decode_launches
+            e["launches"] += glue_launches + decode_launches + serve_launches
         check(e["launches"] > 0, f"the main path launched no {name}")
     log(f"[main path] flash_fwd launches: GLUE forward {glue_launches}, "
         f"decode server and its reference {decode_launches} (the f32 "
         f"ones; no f32 backward runs on the main path); by fit: "
-        + "; ".join(f"{tag} {c}" for tag, c in fits.items()))
+        + "; ".join(f"{tag} {c}" for tag, c in fits.items())
+        + f"; serve plane {serve_launches}: batch replicas "
+        f"{' + '.join(map(str, serve['replica_launches']))} (by Ping at "
+        f"the end of the clean run and of the serve_kill run), the "
+        f"driver's bf16 flash forward {serve_bf16_driver} (the in-process "
+        f"rate), decode replica {decode_replica_launches}, the driver's "
+        f"f32 reference_decode {serve_f32_driver}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(gpu_line())

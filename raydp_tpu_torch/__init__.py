@@ -14,7 +14,11 @@ DLRM (``models/dlrm.py``), the MoE classifier with the Switch aux loss
 (``models/moe.py``, ``Estimator(aux_losses=True)``), block
 rematerialisation (``TransformerConfig.remat``), gradient-boosted trees
 (``train/gbt.py``) and the keras wire-format ``TFEstimator``
-(``train/tf_estimator.py``).
+(``train/tf_estimator.py``). Slice 6 is the replica-process serve plane
+(``serve/``: ``ReplicaGroup``, ``RequestQueue``, ``ServeFrontend``),
+its standard-library RPC layer (``cluster/rpc.py``) and the serve fault
+hooks (``fault/``): supervised replica processes on the card serving the
+classifier in batches or the decode engine token by token.
 
 Entry points take ``device=`` (default ``"cuda"``); without a card they
 raise unless the caller passes ``device="cpu"``.
@@ -54,6 +58,9 @@ from raydp_tpu_torch.serve import (
     DecodeConfig,
     DecodeLoop,
     PagedSlotPool,
+    ReplicaGroup,
+    RequestQueue,
+    ServeFrontend,
     ToyDecodeEngine,
     TransformerDecodeEngine,
     build_transformer_engine,
@@ -81,7 +88,10 @@ __all__ = [
     "MoEConfig",
     "PackedDLRM",
     "PagedSlotPool",
+    "ReplicaGroup",
+    "RequestQueue",
     "SequenceClassifier",
+    "ServeFrontend",
     "ShardLoader",
     "TFEstimator",
     "ToyDecodeEngine",

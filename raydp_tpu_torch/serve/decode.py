@@ -21,8 +21,9 @@ granularity (continuous batching, one greedy stream per request):
   :class:`ToyDecodeEngine` is a deterministic arithmetic stand-in for
   scheduler tests.
 
-The replica-process serve plane arrives with a later slice; the
-in-process :class:`DecodeLoop` is this package's server.
+A decode-mode :class:`~raydp_tpu_torch.serve.group.ReplicaGroup` runs
+one :class:`DecodeLoop` in each replica process; in process, the loop is
+a server of its own.
 """
 from __future__ import annotations
 

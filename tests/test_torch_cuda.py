@@ -7,13 +7,21 @@ stream path, dropout draws, learning-rate guard, launch counts,
 checkpoints) and the decode engine's captured prefill and step. Slice 5:
 remat inside the captured step against eager steps, the MoE classifier
 and DLRM forwards on the card against the CPU, and the GBT histogram and
-split search on the card against the CPU.
+split search on the card against the CPU. Slice 6: a replica group of
+processes on the card serving a bf16 flash classifier, against the
+driver's forward, and a ``cuda`` group refusing to start without a card.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -42,8 +50,10 @@ from raydp_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_bwd_dq_plain,
 )
+from raydp_tpu_torch.serve import ReplicaGroup
 from raydp_tpu_torch.train import Estimator
 from raydp_tpu_torch.utils.device import set_exact_float32
+from test_torch_serve_models import classify_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -754,3 +764,62 @@ def test_gbt_histogram_on_card_matches_cpu(cuda):
                                rtol=1e-4, atol=1e-3)
     assert torch.equal(splits["cuda"][0], splits["cpu"][0])
     assert torch.equal(splits["cuda"][1], splits["cpu"][1])
+
+
+def test_replica_group_serves_flash_classifier_on_card(cuda):
+    """Two replica processes on the card serve a 2-layer bf16 flash
+    classifier: every reply equals the driver's forward of the same
+    padded ids within the bf16 logit bound, and each replica reports the
+    card, memory held on it and flash forward launches. The group's
+    device overrules the one the model function binds."""
+    model_fn = functools.partial(classify_batch, device="cpu")  # overruled
+    rng = np.random.default_rng(0)
+    payloads = [rng.integers(1, 512, size=n).tolist()
+                for n in rng.integers(8, 65, size=64)]
+    group = ReplicaGroup(replicas=2, device="cuda", model_fn=model_fn,
+                         buckets=[32, 64], max_batch=8, slo_ms=10,
+                         dispatch_timeout_s=120, label="t-card").start()
+    try:
+        deadline = time.monotonic() + 120.0
+        while group.stats()["replicas_alive"] < 2:
+            assert time.monotonic() < deadline, group.stats()
+            time.sleep(0.05)
+        reqs = [group.submit(p, timeout_s=120.0) for p in payloads]
+        got = [r.wait(timeout=120.0) for r in reqs]
+        pongs = group.ping()
+        stats = group.stats()
+    finally:
+        group.stop()
+    assert stats["errors"] == 0 and stats["replies"] == len(payloads)
+    for p, logits in zip(payloads, got):
+        bucket = 32 if len(p) <= 32 else 64
+        want = torch.tensor(classify_batch([p], bucket, device="cuda")[0])
+        torch.testing.assert_close(torch.tensor(logits), want, rtol=2e-2,
+                                   atol=5e-2)
+    for pong in pongs:
+        assert pong["device"] == "cuda" and pong["cuda_bytes"] > 0, pong
+        assert pong["launches"]["flash_fwd"] > 0, pong
+
+
+def test_cuda_group_refuses_to_start_without_a_visible_card(cuda):
+    """With the card hidden, ``ReplicaGroup(device="cuda").start()``
+    raises and starts no replica; it never serves on the CPU."""
+    code = (
+        "from raydp_tpu_torch.serve import ReplicaGroup\n"
+        "from test_torch_serve_models import sum_model\n"
+        "g = ReplicaGroup(replicas=1, model_fn=sum_model, device='cuda')\n"
+        "try:\n"
+        "    g.start()\n"
+        "except RuntimeError as e:\n"
+        "    print('refused:', e, 'slots:', len(g._slots))\n"
+        "else:\n"
+        "    g.stop()\n"
+        "    raise SystemExit('started without a card')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        os.path.abspath(p) if p else os.getcwd() for p in sys.path))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "refused:" in out.stdout and "no CUDA device" in out.stdout
+    assert "slots: 0" in out.stdout

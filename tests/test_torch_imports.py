@@ -11,6 +11,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "raydp_tpu"}
+# The card machine has neither: the port's RPC layer uses the standard
+# library's sockets and pickle instead.
+NOT_ON_THE_CARD_MACHINE = {"grpc", "cloudpickle"}
 
 
 def _port_files():
@@ -49,7 +52,16 @@ def test_port_files_exist():
                 "raydp_tpu_torch/train/tf_estimator.py",
                 "raydp_tpu_torch/data/ml_dataset.py",
                 "raydp_tpu_torch/data/loader.py",
-                "raydp_tpu_torch/utils/sharding.py"):
+                "raydp_tpu_torch/utils/sharding.py",
+                "raydp_tpu_torch/utils/clock.py",
+                "raydp_tpu_torch/utils/profiling.py",
+                "raydp_tpu_torch/fault/plan.py",
+                "raydp_tpu_torch/fault/inject.py",
+                "raydp_tpu_torch/cluster/rpc.py",
+                "raydp_tpu_torch/serve/batching.py",
+                "raydp_tpu_torch/serve/replica_main.py",
+                "raydp_tpu_torch/serve/group.py",
+                "raydp_tpu_torch/serve/frontend.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
 
@@ -60,6 +72,15 @@ def test_port_files_exist():
 def test_no_jax_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
            if mod in BANNED]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_no_grpc_or_cloudpickle_imports(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in NOT_ON_THE_CARD_MACHINE]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
@@ -74,3 +95,6 @@ def test_checker_catches_banned_imports(tmp_path):
     )
     found = {mod for _, mod in _imported_roots(str(src))} & BANNED
     assert found == {"jax", "raydp_tpu", "flax"}
+    src.write_text("import grpc\nfrom cloudpickle import dumps\n")
+    found = {mod for _, mod in _imported_roots(str(src))}
+    assert found == NOT_ON_THE_CARD_MACHINE
