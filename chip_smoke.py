@@ -86,12 +86,35 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    new tokens, the trigger ``[9, 9]`` once 4 tokens have streamed; every
    stream equal to the driver's ``reference_decode`` (the f32 flash
    kernel), a restart and requeued prefills.
+10. The ETL half in one process, frames built from numpy columns through
+   the engine's ``from_arrow``: (a) the native host library built from
+   ``raydp_tpu_torch/native/src`` and loaded (the run fails if not);
+   ``hash_bucket`` over 4M int64 and float64 keys with nulls bit-exact
+   with its numpy twin, directly and through the exchange's hash;
+   ``gather_matrix`` (f32, i32) over a 129-column int frame of 8192 rows
+   equal to numpy fancy indexing; each timed against its twin. (b)
+   examples/data_process.py's 200,000 taxi rows through its
+   ``nyc_taxi_preprocess`` over 4 partitions and ``random_split([0.9,
+   0.1], seed=42)``, held against the same features computed with numpy
+   (rows and values exact, the haversine within rtol 1e-12), feeding
+   ``Estimator.fit_on_df`` of the taxi MLP and ``predict_on_df`` (one
+   prediction per row, in row order), ``GBTEstimator.fit_on_df`` at
+   phase 7's settings and ``TFEstimator.fit_on_df`` with phase 8's
+   tower; falling losses. (c) examples/bert_glue.py's 8192 rows as a
+   frame of 4 partitions -> ``Estimator.fit_on_df(num_shards=2)`` of the
+   bf16 flash classifier at bert_base width and depth, batch 64, AdamW,
+   2 epochs on the path ``"auto"`` picks: 12 launches of each flash
+   kernel a step, in the counters. (d) examples/dlrm_criteo.py's
+   500,000 rows and rare-id remap (``groupBy().count()``, a udf), the
+   vocab sizes against ``np.unique``, into a stream ``PackedDLRM`` fit.
+   ETL seconds and rows/s, and the seconds from each ``fit_on_df``'s
+   call to its first step.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
-are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6 and
-9) and read just after; phase 9's replicas are new processes, whose
+are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9
+and 10c) and read just after; phase 9's replicas are new processes, whose
 counts start at 0 and are read by ``Ping``. The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
@@ -124,10 +147,11 @@ LOGIT_TOL = dict(rtol=2e-2, atol=5e-2)
 
 # (B, S, H, D) of the main path: decode reference prompts (B 1, S 16..256),
 # BERT-GLUE (32, 128), the serve plane's classifier batches (B up to 32 at
-# S 32, 64, 128: full batches and an odd one), and longer sequences.
+# S 32, 64, 128: full batches and an odd one), the DataFrame fine-tune
+# (64, 128), and longer sequences.
 KERNEL_SHAPES = [(2, 16, 12, 64), (1, 256, 12, 64), (32, 128, 12, 64),
                  (32, 32, 12, 64), (32, 64, 12, 64), (17, 128, 12, 64),
-                 (4, 512, 12, 64)]
+                 (64, 128, 12, 64), (4, 512, 12, 64)]
 # Every kernel but the delta pass has a wgmma instance in each dtype (f32:
 # TF32 x3); each is also checked at every other head dim and at S that is
 # not a multiple of its 64-row tiles.
@@ -1993,6 +2017,451 @@ def phase_serve_decode(torch, P):
     return pongs[0]["launches"]["flash_fwd"]
 
 
+# ----------------------------------------------------------- phase 10
+
+# The ETL half: the taxi rows before the filter, the frames' partitions,
+# the GLUE rows of the fine-tune from a frame, the Criteo rows of the DLRM
+# fit; the native kernels' rows and columns (a GLUE-shaped int frame: 128
+# token ids and the label).
+ETL_TAXI_ROWS, ETL_PARTS, TAXI_MLP_EPOCHS = 200_000, 4, 3
+ETL_GLUE_ROWS, ETL_GLUE_BATCH, ETL_GLUE_EPOCHS = 8192, 64, 2
+ETL_CRITEO_ROWS, ETL_CRITEO_EPOCHS, ETL_CRITEO_MIN_COUNT = 500_000, 5, 3
+NATIVE_HASH_ROWS, NATIVE_GATHER_ROWS, NATIVE_GATHER_COLS = 4_000_000, 8192, 129
+# The haversine udf runs row by row on Python floats, the numpy check on
+# whole arrays: the two may round the last bit apart.
+HAVERSINE_RTOL = 1e-12
+
+
+def synthetic_taxi_table(np, n_rows, seed=0):
+    """examples/data_process.py's ``synthetic_taxi`` rows (the same draws
+    in the same order) as an Arrow table built from numpy columns, the
+    pickup and dropoff times as ``datetime64[ns]``."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    secs = rng.integers(0, 365 * 24 * 3600, n_rows)
+    pickup = (np.datetime64("2020-01-01", "ns")
+              + secs.astype("timedelta64[s]").astype("timedelta64[ns]"))
+    trip_min = rng.gamma(2.0, 7.0, n_rows)
+    plon = -73.98 + 0.1 * rng.standard_normal(n_rows)
+    plat = 40.75 + 0.1 * rng.standard_normal(n_rows)
+    dlon = -73.97 + 0.1 * rng.standard_normal(n_rows)
+    dlat = 40.76 + 0.1 * rng.standard_normal(n_rows)
+    dist_km = np.hypot((dlon - plon) * 84.3, (dlat - plat) * 111.1)
+    passengers = rng.integers(0, 7, n_rows)
+    fare = np.maximum(2.5, 2.5 + 1.6 * dist_km + 0.3 * trip_min
+                      + rng.standard_normal(n_rows))
+    dropoff = pickup + np.round(trip_min * 60e9).astype("timedelta64[ns]")
+    return pa.table({
+        "pickup_datetime": pickup, "dropoff_datetime": dropoff,
+        "passenger_count": passengers, "pickup_longitude": plon,
+        "pickup_latitude": plat, "dropoff_longitude": dlon,
+        "dropoff_latitude": dlat, "fare_amount": fare})
+
+
+def nyc_taxi_preprocess(rdf, df):
+    """examples/data_process.py's pipeline on the port's engine: drop bad
+    rows, derive time and distance features, drop raw columns."""
+    import numpy as np
+
+    col = rdf.col
+    df = df.filter((col("fare_amount") > 0) & (col("passenger_count") > 0))
+    df = df.withColumn("hour", rdf.hour(col("pickup_datetime")))
+    df = df.withColumn("day_of_week", rdf.dayofweek(col("pickup_datetime")))
+
+    @rdf.udf("double")
+    def haversine(lon1, lat1, lon2, lat2):
+        rad = np.pi / 180.0
+        dlon = (lon2 - lon1) * rad
+        dlat = (lat2 - lat1) * rad
+        a = (np.sin(dlat / 2) ** 2
+             + np.cos(lat1 * rad) * np.cos(lat2 * rad) * np.sin(dlon / 2) ** 2)
+        return 6371.0 * 2 * np.arcsin(np.sqrt(a))
+
+    df = df.withColumn("distance_km", haversine(
+        col("pickup_longitude"), col("pickup_latitude"),
+        col("dropoff_longitude"), col("dropoff_latitude")))
+    return df.select("hour", "day_of_week", "distance_km", "passenger_count",
+                     "fare_amount")
+
+
+def taxi_features_numpy(np, table):
+    """``nyc_taxi_preprocess``'s output computed directly with numpy: the
+    filter, the hour, Spark's day of week (Sunday 1) from nanoseconds
+    since the epoch, and the haversine on whole arrays."""
+    c = {n: table.column(n).to_numpy() for n in table.column_names}
+    keep = (c["fare_amount"] > 0) & (c["passenger_count"] > 0)
+    ns = c["pickup_datetime"].astype("int64")
+    rad = np.pi / 180.0
+    plon, plat = c["pickup_longitude"], c["pickup_latitude"]
+    dlon, dlat = c["dropoff_longitude"], c["dropoff_latitude"]
+    a = (np.sin((dlat - plat) * rad / 2) ** 2 + np.cos(plat * rad)
+         * np.cos(dlat * rad) * np.sin((dlon - plon) * rad / 2) ** 2)
+    days = ns // 86_400_000_000_000  # 1970-01-01 was a Thursday
+    cols = {"hour": (ns // 3_600_000_000_000) % 24,
+            "day_of_week": (days + 4) % 7 + 1,
+            "distance_km": 6371.0 * 2 * np.arcsin(np.sqrt(a)),
+            "passenger_count": c["passenger_count"],
+            "fare_amount": c["fare_amount"]}
+    return {k: v[keep] for k, v in cols.items()}
+
+
+def taxi_etl_mismatch(np, got, want):
+    """What differs between the engine's taxi features (an Arrow table)
+    and ``taxi_features_numpy``'s: ``None`` when the row count and every
+    value agree (the haversine within ``HAVERSINE_RTOL``)."""
+    if got.num_rows != len(want["hour"]):
+        return f"{got.num_rows} rows, want {len(want['hour'])}"
+    for name, ref in want.items():
+        vals = got.column(name).to_numpy()
+        same = (np.allclose(vals, ref, rtol=HAVERSINE_RTOL, atol=0)
+                if name == "distance_km" else np.array_equal(vals, ref))
+        if not same:
+            return f"column {name} differs"
+    return None
+
+
+def synthetic_glue(np, n, seq, vocab):
+    """examples/bert_glue.py's ``synthetic_glue`` columns (seed 0): the
+    label is whether marker token 7 appears."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(10, vocab, size=(n, seq))
+    pos = rng.random(n) < 0.5
+    ids[pos, rng.integers(0, seq, pos.sum())] = 7
+    cols = {f"t{i}": ids[:, i] for i in range(seq)}
+    cols["label"] = pos.astype(np.int64)
+    return cols
+
+
+def synthetic_criteo(np, n, n_dense=4, n_cat=6, vocab=1000):
+    """examples/dlrm_criteo.py's ``synthetic_criteo`` columns (seed 11):
+    gamma dense features, Pareto-skewed ids, a logistic label."""
+    rng = np.random.default_rng(11)
+    out = {}
+    for i in range(n_dense):
+        out[f"I{i}"] = rng.gamma(1.5, 2.0, n).astype(np.float32)
+    for i in range(n_cat):
+        out[f"C{i}"] = (rng.pareto(1.2, n) * 17).astype(np.int64) % vocab
+    logit = -1.2 + 0.35 * out["I0"] - 0.2 * out["I1"] + 0.3 * (out["C0"] % 2)
+    out["label"] = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(
+        np.float32)
+    return out
+
+
+def remap_rare_ids(rdf, df, cat_cols, min_count):
+    """examples/dlrm_criteo.py's ``remap_rare_ids`` on the port's engine:
+    ids seen fewer than ``min_count`` times (``groupBy().count()``)
+    collapse to 0, survivors are renumbered densely from 1 by a udf.
+    The example's udf maps one id through ``pd.Series(...).map``; this
+    one looks it up in the same dict, the same function at a small part
+    of the cost. Returns (df, vocab sizes)."""
+    vocab_sizes = []
+    for c in cat_cols:
+        counts = df.groupBy(c).count().to_arrow()
+        ids = counts.column(c).to_numpy()
+        seen = counts.column("count").to_numpy()
+        keep = sorted(int(v) for v in ids[seen >= min_count])
+        mapping = {v: i + 1 for i, v in enumerate(keep)}
+        vocab_sizes.append(len(keep) + 1)
+
+        @rdf.udf("int64")
+        def remap(v, _m=mapping):
+            return _m.get(v, 0)
+
+        df = df.withColumn(c, remap(rdf.col(c)))
+    return df, tuple(vocab_sizes)
+
+
+def fit_timed(est, fit):
+    """``fit()`` with the seconds from the call to ``est``'s first train
+    step. Returns (history, seconds)."""
+    first = []
+    step = est._train_step
+
+    def timed(x, y):
+        if not first:
+            first.append(time.perf_counter())
+        return step(x, y)
+
+    est._train_step = timed
+    t0 = time.perf_counter()
+    try:
+        history = fit()
+    finally:
+        del est._train_step
+    return history, first[0] - t0
+
+
+def host_ms(fn, reps=3):
+    """Best host-clock ms of ``reps`` calls (host code: no device)."""
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t) * 1e3)
+    return best
+
+
+def phase_native(np):
+    """10a: the native host library built from raydp_tpu_torch/native/src
+    and loaded; hash_bucket over 4M int64 and float64 keys with nulls
+    bit-exact with its numpy twin (directly and through the engine's
+    exchange hash); gather_matrix (f32 and i32) over a 129-column int
+    frame of 8192 rows equal to numpy fancy indexing; each timed against
+    its twin."""
+    import pyarrow as pa
+
+    from raydp_tpu_torch.dataframe import dataframe as engine
+    from raydp_tpu_torch.native import build, lib as native
+
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    check(ok, f"the native library did not build or load: {native._error}")
+    flags = build.built_flags()
+    log(f"[10a] native library {build.lib_path(flags)}: built and loaded "
+        f"in {time.perf_counter() - t0:.2f} s (g++ {' '.join(flags)}; "
+        f"OpenMP {'-fopenmp' in flags})")
+    rng = np.random.default_rng(21)
+    n = NATIVE_HASH_ROWS
+    ints = pa.array(rng.integers(-2**40, 2**40, n), mask=rng.random(n) < 0.05)
+    floats = pa.array(rng.standard_normal(n), mask=rng.random(n) < 0.05)
+    table = pa.table({"i": ints, "f": floats})
+    cols = [np.asarray(ints.fill_null(0)), np.asarray(floats.fill_null(0.0)),
+            np.asarray(ints.is_valid()).astype(np.uint8),
+            np.asarray(floats.is_valid()).astype(np.uint8)]
+    for n_buckets in (8, 200):
+        got = native.hash_bucket(cols, n_buckets, native=True)
+        want = native.hash_bucket(cols, n_buckets, native=False)
+        check(np.array_equal(got, want),
+              f"native hash_bucket differs from its twin at {n_buckets}")
+        check(np.array_equal(engine._hash_bucket(table, ["i", "f"],
+                                                 n_buckets), want),
+              "the engine's exchange hash differs from the twin")
+    ms = host_ms(lambda: native.hash_bucket(cols, 200, native=True))
+    twin = host_ms(lambda: native.hash_bucket(cols, 200, native=False))
+    log(f"[10a] hash_bucket, {n} rows of int64 and float64 keys with nulls "
+        f"(4 columns with validity): bit-exact with the numpy twin; native "
+        f"{ms:.2f} ms, twin {twin:.2f} ms ({twin / ms:.1f}x, host clock, "
+        f"best of 3)")
+    gcols = [rng.integers(0, 30522, NATIVE_GATHER_ROWS)
+             for _ in range(NATIVE_GATHER_COLS)]
+    idx = rng.permutation(NATIVE_GATHER_ROWS)
+    for out_dtype in (np.float32, np.int32):
+        want = np.stack(gcols, axis=1)[idx].astype(out_dtype)
+        got = native.gather_matrix(gcols, idx, out_dtype, native=True)
+        check(np.array_equal(got, want),
+              f"native gather_matrix {out_dtype.__name__} differs from numpy")
+        ms = host_ms(lambda: native.gather_matrix(gcols, idx, out_dtype,
+                                                  native=True))
+        twin = host_ms(lambda: native.gather_matrix(gcols, idx, out_dtype,
+                                                    native=False))
+        log(f"[10a] gather_matrix {out_dtype.__name__}, {NATIVE_GATHER_ROWS} "
+            f"rows x {NATIVE_GATHER_COLS} int64 columns, permuted: equal to "
+            f"numpy fancy indexing; native {ms:.3f} ms, twin {twin:.3f} ms "
+            f"({twin / ms:.1f}x, host clock, best of 3)")
+
+
+def phase_taxi_etl(torch, P):
+    """10b: the taxi ETL (examples/data_process.py) over 4 partitions and
+    random_split, checked against numpy, feeding Estimator.fit_on_df of
+    the taxi MLP (and predict_on_df), GBTEstimator.fit_on_df and
+    TFEstimator.fit_on_df on the card."""
+    import numpy as np
+
+    from raydp_tpu_torch import dataframe as rdf
+
+    table = synthetic_taxi_table(np, ETL_TAXI_ROWS)
+    t0 = time.perf_counter()
+    out = nyc_taxi_preprocess(
+        rdf, rdf.from_arrow(table, num_partitions=ETL_PARTS)).persist()
+    train_df, test_df = (d.persist() for d in
+                         out.random_split([0.9, 0.1], seed=42))
+    n_out, n_train, n_test = out.count(), train_df.count(), test_df.count()
+    etl_s = time.perf_counter() - t0
+    log(f"[10b] taxi ETL: {ETL_TAXI_ROWS} rows over {ETL_PARTS} partitions "
+        f"-> {n_out} rows -> {n_train} train + {n_test} test in {etl_s:.3f} s"
+        f" ({ETL_TAXI_ROWS / etl_s:.0f} input rows/s, host clock)")
+    wrong = taxi_etl_mismatch(np, out.to_arrow(),
+                              taxi_features_numpy(np, table))
+    check(wrong is None, f"taxi ETL against numpy: {wrong}")
+    check(n_train + n_test == n_out, "random_split lost or doubled rows")
+    log(f"[10b] taxi ETL equals numpy's features (rows and values exact, "
+        f"haversine within rtol {HAVERSINE_RTOL})")
+
+    mlp = P.Estimator(
+        model=P.taxi_fare_regressor(len(TAXI_FEATURES), device="cuda",
+                                    generator=torch.Generator().manual_seed(0)),
+        optimizer=lambda p: torch.optim.Adam(p, lr=1e-3), loss="smooth_l1",
+        metrics=["mae"], num_epochs=TAXI_MLP_EPOCHS, batch_size=512,
+        feature_columns=TAXI_FEATURES, label_column="fare_amount", seed=0,
+        device="cuda")
+    hist, first_s = fit_timed(mlp, lambda: mlp.fit_on_df(
+        train_df, test_df, num_shards=2))
+    losses = [h["train_loss"] for h in hist]
+    log(f"[10b] taxi MLP fit_on_df ({mlp.effective_epoch_mode}): losses "
+        f"{[round(v, 4) for v in losses]}, eval_mae {hist[-1]['eval_mae']:.4f},"
+        f" {hist[-1]['samples_per_sec']:.0f} samples/s; {first_s:.3f} s from "
+        f"the call to the first step")
+    check(losses[-1] < losses[0], f"taxi MLP: train loss did not fall "
+                                  f"{losses}")
+    pdf = mlp.predict_on_df(test_df, num_shards=2)
+    x = pdf[TAXI_FEATURES].to_numpy(np.float32)
+    want = mlp.predict(x)[:, 0]
+    check(len(pdf) == n_test and np.allclose(pdf["prediction"], want,
+                                             rtol=1e-5, atol=1e-5),
+          "predict_on_df: not one prediction per row in row order")
+    log(f"[10b] predict_on_df: {len(pdf)} rows, each row's prediction "
+        f"equal to predict() on its features (rtol 1e-5)")
+
+    gbt = P.GBTEstimator(n_trees=GBT_TREES, max_depth=5, max_bins=64,
+                         feature_columns=TAXI_FEATURES,
+                         label_column="fare_amount", device="cuda")
+    started = []
+    fit_matrix = gbt._fit_matrix
+
+    def timed_fit_matrix(*args, **kw):
+        started.append(time.perf_counter())
+        return fit_matrix(*args, **kw)
+
+    gbt._fit_matrix = timed_fit_matrix
+    t0 = time.perf_counter()
+    hist = gbt.fit_on_df(train_df, num_shards=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    metrics = gbt.evaluate(P.MLDataset.from_df(test_df, num_shards=2))
+    log(f"[10b] GBT fit_on_df: {len(hist)} trees, train_loss "
+        f"{hist[0]['train_loss']:.4f} -> {hist[-1]['train_loss']:.4f}, test "
+        f"{metrics}; {seconds:.2f} s, {started[0] - t0:.3f} s from the call "
+        f"to the first tree's data")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+          "GBT fit_on_df: train loss did not fall")
+
+    tf = P.TFEstimator(
+        model=keras_taxi_model(),
+        optimizer={"class_name": "Adam", "config": {"learning_rate": 1e-3}},
+        loss="mean_squared_error", metrics=["mae"],
+        feature_columns=TAXI_FEATURES, label_column="fare_amount",
+        batch_size=256, num_epochs=TF_EPOCHS, seed=0, device="cuda")
+    hist, first_s = fit_timed(tf._built(), lambda: tf.fit_on_df(train_df,
+                                                                test_df))
+    losses = [h["train_loss"] for h in hist]
+    log(f"[10b] keras tower fit_on_df ({tf._built().effective_epoch_mode}): "
+        f"losses {[round(v, 4) for v in losses]}, eval_mae "
+        f"{hist[-1]['eval_mae']:.4f}, {hist[-1]['samples_per_sec']:.0f} "
+        f"samples/s; {first_s:.3f} s from the call to the first step")
+    check(losses[-1] < losses[0], "keras tower fit_on_df: train loss did "
+                                  "not fall")
+
+
+def phase_glue_etl(torch, P):
+    """10c: examples/bert_glue.py's rows as a frame of 4 partitions ->
+    Estimator.fit_on_df(num_shards=2) of the bf16 flash SequenceClassifier
+    at bert_base width and depth, batch 64, AdamW, 2 epochs on the path
+    "auto" picks: 12 launches of each flash kernel a step, in the
+    counters. Returns the launch counts."""
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+
+    df = rdf.from_arrow(pa.table(synthetic_glue(np, ETL_GLUE_ROWS, GLUE_SEQ,
+                                                30522)),
+                        num_partitions=ETL_PARTS)
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      max_len=GLUE_SEQ)
+    est = P.Estimator(
+        model=P.SequenceClassifier(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(9)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5, weight_decay=1e-4),
+        loss="softmax_ce", metrics=["categorical_accuracy"],
+        num_epochs=ETL_GLUE_EPOCHS, batch_size=ETL_GLUE_BATCH,
+        feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
+        seed=0, device="cuda")
+    steps = ETL_GLUE_EPOCHS * ETL_GLUE_ROWS // ETL_GLUE_BATCH
+    torch.cuda.synchronize()
+    _reset_counts()
+    hist, first_s = fit_timed(est, lambda: est.fit_on_df(df, num_shards=2))
+    torch.cuda.synchronize()
+    counts = _counts()
+    losses = [h["train_loss"] for h in hist]
+    per_epoch = ETL_GLUE_ROWS // ETL_GLUE_BATCH
+    for h in hist:
+        log(f"[10c] bert_base fine-tune from a DataFrame "
+            f"({est.effective_epoch_mode}) epoch {h['epoch']}: train_loss "
+            f"{h['train_loss']:.4f}, {h['samples']} samples in "
+            f"{h['time_s']:.3f} s -> {h['samples_per_sec']:.1f} samples/s, "
+            f"{h['time_s'] / per_epoch * 1e3:.2f} ms/step (host clock)")
+    log(f"[10c] {first_s:.3f} s from fit_on_df's call to the first step; "
+        f"launches over {steps} steps: {counts}")
+    want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+    check(counts == want, f"10c: expected launches {want}, saw {counts}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"10c: train loss did not fall {losses}")
+    del est
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_criteo_etl(torch, P):
+    """10d: examples/dlrm_criteo.py's rows and rare-id remap
+    (``groupBy().count()``, a udf) -> fit_on_df of PackedDLRM at the
+    example's configuration on the stream path."""
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.train.tf_estimator import OptaxAdagrad
+
+    cols = synthetic_criteo(np, ETL_CRITEO_ROWS)
+    cat = [f"C{i}" for i in range(6)]
+    t0 = time.perf_counter()
+    df = rdf.from_arrow(pa.table(cols), num_partitions=ETL_PARTS)
+    df, vocab_sizes = remap_rare_ids(rdf, df, cat, ETL_CRITEO_MIN_COUNT)
+    df = df.persist()
+    n = df.count()
+    etl_s = time.perf_counter() - t0
+    want = tuple(int((np.unique(cols[c], return_counts=True)[1]
+                      >= ETL_CRITEO_MIN_COUNT).sum()) + 1 for c in cat)
+    log(f"[10d] criteo ETL: {n} rows, vocab sizes {vocab_sizes} (numpy "
+        f"np.unique: {want}) in {etl_s:.3f} s ({n / etl_s:.0f} rows/s, host "
+        f"clock)")
+    check(vocab_sizes == want, f"remapped vocab sizes {vocab_sizes}, numpy "
+                               f"{want}")
+    cfg = P.DLRMConfig(dense_features=4, vocab_sizes=vocab_sizes,
+                       embed_dim=32, bottom_mlp=(64, 32), top_mlp=(64, 32))
+    est = P.Estimator(
+        model=P.PackedDLRM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(13)),
+        optimizer=lambda p: OptaxAdagrad(p, lr=5e-2), loss="bce",
+        metrics=["accuracy"], num_epochs=ETL_CRITEO_EPOCHS, batch_size=1024,
+        feature_columns=[f"I{i}" for i in range(4)] + cat,
+        label_column="label", seed=0, epoch_mode="stream", device="cuda")
+    hist, first_s = fit_timed(est, lambda: est.fit_on_df(df, num_shards=2))
+    losses = [h["train_loss"] for h in hist]
+    log(f"[10d] PackedDLRM fit_on_df (stream): losses "
+        f"{[round(v, 4) for v in losses]}, {hist[-1]['samples_per_sec']:.0f} "
+        f"samples/s; {first_s:.3f} s from the call to the first step")
+    check(losses[-1] < losses[0], f"10d: train loss did not fall {losses}")
+
+
+def phase_etl(torch, P):
+    """10: the ETL half on the card. Returns 10c's launch counts."""
+    import numpy as np
+
+    for lib in ("pyarrow", "pandas"):
+        try:
+            version = __import__(lib).__version__
+        except ImportError:
+            version = "missing"
+        log(f"[10] {lib} {version}")
+    phase_native(np)
+    phase_taxi_etl(torch, P)
+    counts = phase_glue_etl(torch, P)
+    phase_criteo_etl(torch, P)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2038,10 +2507,12 @@ def main() -> int:
     _reset_counts()
     decode_replica_launches = phase_serve_decode(torch, P)
     serve_f32_driver = _counts()["flash_fwd"]
+    etl_counts = phase_etl(torch, P)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
-            "remat fine-tune": remat_counts, "MoE": moe_counts}
+            "remat fine-tune": remat_counts, "MoE": moe_counts,
+            "fine-tune from a DataFrame": etl_counts}
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

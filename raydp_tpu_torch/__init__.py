@@ -18,7 +18,11 @@ rematerialisation (``TransformerConfig.remat``), gradient-boosted trees
 (``serve/``: ``ReplicaGroup``, ``RequestQueue``, ``ServeFrontend``),
 its standard-library RPC layer (``cluster/rpc.py``) and the serve fault
 hooks (``fault/``): supervised replica processes on the card serving the
-classifier in batches or the decode engine token by token.
+classifier in batches or the decode engine token by token. Slice 7 is
+the ETL half in one process: the partitioned Arrow DataFrame engine on
+its local executor (``dataframe/``), the native host kernels
+(``native/``, g++-built at first use) and the handoff into training,
+``fit_on_df`` of ``Estimator``, ``GBTEstimator`` and ``TFEstimator``.
 
 Entry points take ``device=`` (default ``"cuda"``); without a card they
 raise unless the caller passes ``device="cpu"``.

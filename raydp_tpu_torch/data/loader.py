@@ -3,24 +3,29 @@
 The counterpart of ``JaxShardLoader`` (``raydp_tpu/data/loader.py``).
 Per epoch:
 
-1. the shard's columns are staged once as a row-major ``[n, F]`` feature
-   matrix (and a label vector) in the requested dtypes;
+1. the shard's columns are staged once as contiguous numpy arrays (the
+   label cast to its dtype);
 2. the epoch's row order is the JAX package's,
    ``np.random.default_rng(seed + epoch * 1009 + rank).permutation(n)``,
    and ``drop_last`` trims the ragged tail the same way, so batches come
    in the same order with the same rows;
-3. rows are gathered in chunks of ``transfer_coalesce`` batches (numpy
-   ``take``), and features and labels are packed into one uint8 buffer per
-   chunk;
+3. rows are gathered in chunks of ``transfer_coalesce`` batches straight
+   from the columns into one uint8 buffer per chunk: the native row
+   kernel (``native.gather_matrix``, ``raydp_tpu_torch/native``) writes
+   the row-major ``[rows, F]`` features, the labels follow;
 4. a background thread keeps ``prefetch`` packed chunks ahead;
-5. on a CUDA device each chunk is packed into a pinned host buffer and
+5. on a CUDA device the chunk buffer is a pinned host buffer that
    crosses with ONE ``non_blocking`` copy; the typed features and labels
    are recovered on the device with ``.view(dtype)``, and batches are
    device slices of the chunk. Pinned buffers form a ring: a buffer goes
    back to the producer with the CUDA event recorded after its copy, and
-   the producer waits on that event before packing into it again.
+   the producer waits on that event before gathering into it again.
 
-On the CPU the same packing runs without pinning or copies.
+On the CPU the same gather runs into plain host buffers. Epoch 0 of rank
+0, unshuffled over an unshuffled dataset whose blocks the DataFrame
+engine is still producing, streams its prefix: whole chunks of the
+blocks landed so far are served before the shard plan exists
+(:meth:`ShardLoader._prefix_chunks`), as the JAX loader does.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from raydp_tpu_torch.dataframe.scheduler import streaming_enabled
+from raydp_tpu_torch.native import lib as native
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # Auto chunk sizing, as the JAX loader: coalesce batches until a chunk
@@ -38,6 +45,10 @@ from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 _TARGET_CHUNK_BYTES = 128 * 1024 * 1024
 _MAX_COALESCE = 32
 _LABEL_ALIGN = 8  # label bytes start on an 8-byte boundary for .view()
+_NATIVE_OUT = (np.dtype(np.float32), np.dtype(np.int32))
+
+# One chunk to gather: feature columns, label column, and the rows.
+Chunk = Tuple[List[np.ndarray], Optional[np.ndarray], np.ndarray]
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -108,7 +119,8 @@ class ShardLoader:
         self.drop_last = drop_last
         self.transfer_coalesce = transfer_coalesce
         self._epoch = 0
-        self._staged: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None
+        self._staged: Optional[Tuple[List[np.ndarray],
+                                     Optional[np.ndarray]]] = None
 
     def __len__(self) -> int:
         n = self._dataset.rows_per_shard
@@ -125,20 +137,22 @@ class ShardLoader:
         return self._epoch_iter(epoch)
 
     # -- staging --------------------------------------------------------
-    def _stage_matrix(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Columns → one row-major ``[n, F]`` matrix (a gathered row is
-        contiguous), built once and reused every epoch."""
+    def _stage_columns(self, cols) -> Tuple[List[np.ndarray],
+                                            Optional[np.ndarray]]:
+        """(contiguous feature columns, label column in its dtype)."""
+        feats = [np.ascontiguousarray(cols[c]) for c in self.feature_columns]
+        labels = (cols[self.label_column].astype(self.label_dtype,
+                                                  copy=False)
+                  if self.label_column else None)
+        return feats, labels
+
+    def _stage_shard(self) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
+        """The shard's columns, staged once and reused every epoch."""
         if self._staged is None:
             wanted = self.feature_columns + (
                 [self.label_column] if self.label_column else [])
-            cols = self._dataset.shard_columns(self._rank, wanted)
-            matrix = np.stack(
-                [cols[c].astype(self.feature_dtype, copy=False)
-                 for c in self.feature_columns], axis=1)
-            labels = (cols[self.label_column].astype(self.label_dtype,
-                                                      copy=False)
-                      if self.label_column else None)
-            self._staged = (matrix, labels)
+            self._staged = self._stage_columns(
+                self._dataset.shard_columns(self._rank, wanted))
         return self._staged
 
     def _coalesce_batches(self) -> int:
@@ -160,13 +174,26 @@ class ShardLoader:
         y_off = -(-nb_x // _LABEL_ALIGN) * _LABEL_ALIGN
         return y_off, y_off + rows * self.label_dtype.itemsize
 
-    def _pack(self, out: np.ndarray, x: np.ndarray,
-              y: Optional[np.ndarray]) -> None:
-        y_off, _ = self._layout(len(x))
-        out[:x.nbytes] = np.ascontiguousarray(x).view(np.uint8).reshape(-1)
-        if y is not None:
-            out[y_off:y_off + y.nbytes] = (
-                np.ascontiguousarray(y).view(np.uint8).reshape(-1))
+    def _gather_into(self, out: np.ndarray, chunk: Chunk) -> int:
+        """Gather ``chunk``'s rows into the packed layout in ``out``
+        (uint8): row-major features cast to ``feature_dtype``, then the
+        labels. Returns the rows."""
+        feats, labels, idx = chunk
+        rows, nf = len(idx), len(feats)
+        y_off, _ = self._layout(rows)
+        x = out[:rows * nf * self.feature_dtype.itemsize].view(
+            self.feature_dtype).reshape(rows, nf)
+        if self.feature_dtype in _NATIVE_OUT:
+            native.gather_matrix(feats, idx, out_dtype=self.feature_dtype,
+                                 out=x)
+        else:
+            for c, col in enumerate(feats):
+                x[:, c] = col[idx].astype(self.feature_dtype, copy=False)
+        if labels is not None:
+            y = out[y_off:y_off + rows * self.label_dtype.itemsize].view(
+                self.label_dtype)
+            np.take(labels, idx, out=y)
+        return rows
 
     def _unpack(self, buf: torch.Tensor, rows: int):
         """Typed (features, labels) views of one packed chunk."""
@@ -179,27 +206,66 @@ class ShardLoader:
         return x, buf[y_off:end].view(_torch_dtype(self.label_dtype))
 
     # -- epoch iteration ------------------------------------------------
-    def _chunk_rows(self, epoch: int) -> Iterator[Tuple[np.ndarray,
-                                                        Optional[np.ndarray]]]:
-        """The epoch's rows, gathered ``coalesce × batch`` at a time."""
-        matrix, labels = self._stage_matrix()
-        n = matrix.shape[0]
+    def _chunks(self, epoch: int, start_row: int = 0) -> Iterator[Chunk]:
+        """The epoch's rows, ``coalesce × batch`` at a time, from
+        ``start_row`` (chunk-aligned: the rows a prefix stream served)."""
+        feats, labels = self._stage_shard()
+        n = len(feats[0]) if feats else 0
         order = None
         if self.shuffle:
             rng = np.random.default_rng(self.seed + epoch * 1009 + self._rank)
             order = rng.permutation(n)
         n_used = min(n, len(self) * self.batch_size)
         step = self._coalesce_batches() * self.batch_size
-        for lo in range(0, n_used, step):
+        for lo in range(start_row, n_used, step):
             hi = min(lo + step, n_used)
-            if order is None:
-                x = matrix[lo:hi]
-                y = labels[lo:hi] if labels is not None else None
-            else:
-                idx = order[lo:hi]
-                x = np.take(matrix, idx, axis=0)
-                y = np.take(labels, idx) if labels is not None else None
-            yield x, y
+            idx = (np.arange(lo, hi, dtype=np.int64) if order is None
+                   else order[lo:hi])
+            yield feats, labels, idx
+
+    def _streams_prefix(self, epoch: int) -> bool:
+        """Whether this epoch starts with :meth:`_prefix_chunks`."""
+        ds = self._dataset
+        return (epoch == 0 and self._rank == 0 and not self.shuffle
+                and self._staged is None and not ds.shuffle
+                and ds.has_pending_blocks() and streaming_enabled())
+
+    def _prefix_chunks(self, epoch: int) -> Iterator[Chunk]:
+        """Epoch-0 prefix streamer: serve batches while later blocks are
+        still being produced.
+
+        Rank 0 of an unshuffled plan gets the dataset's prefix
+        ``[0, ceil(total/num_shards))``, so rows of the first landed
+        blocks ARE the head of this shard. ``known_rows()`` is a lower
+        bound of ``total_rows``, so ``ceil(known/num_shards)`` never
+        overshoots the shard's end: whole chunks below it are safe to
+        serve before the plan exists. Once every block has landed, the
+        rest of the epoch comes from :meth:`_chunks`, past what was
+        served."""
+        ds = self._dataset
+        step = self._coalesce_batches() * self.batch_size
+        wanted = self.feature_columns + (
+            [self.label_column] if self.label_column else [])
+        landed: List[dict] = []
+        staged = emitted = 0
+        for _, block in ds.iter_prefix_tables():
+            landed.append({n: block.column(n).to_numpy(zero_copy_only=False)
+                           for n in wanted})
+            staged += len(landed[-1][wanted[0]])
+            known, complete = ds.known_rows()
+            if complete:
+                break
+            bound = min(staged, -(-known // ds.num_shards))
+            bound -= bound % self.batch_size  # batch-aligned
+            if emitted + step > bound:
+                continue
+            feats, labels = self._stage_columns(
+                {n: np.concatenate([b[n] for b in landed]) for n in wanted})
+            while emitted + step <= bound:
+                yield feats, labels, np.arange(emitted, emitted + step,
+                                               dtype=np.int64)
+                emitted += step
+        yield from self._chunks(epoch, start_row=emitted)
 
     def _epoch_iter(self, epoch: int):
         bs = self.batch_size
@@ -210,19 +276,21 @@ class ShardLoader:
             ring = _PinnedRing(self.prefetch + 2, self._layout(chunk_rows)[1])
         stop = threading.Event()
 
+        chunks = (self._prefix_chunks(epoch) if self._streams_prefix(epoch)
+                  else self._chunks(epoch))
+
         def packed():
-            for x, y in self._chunk_rows(epoch):
-                rows = len(x)
-                nbytes = self._layout(rows)[1]
+            for chunk in chunks:
+                nbytes = self._layout(len(chunk[2]))[1]
                 if ring is None:
                     out = np.empty(nbytes, dtype=np.uint8)
-                    self._pack(out, x, y)
-                    yield out, rows
+                    yield out, self._gather_into(out, chunk)
                 else:
                     slot = ring.acquire(stop)
                     if slot is None:
                         return
-                    self._pack(ring.bufs[slot].numpy()[:nbytes], x, y)
+                    rows = self._gather_into(
+                        ring.bufs[slot].numpy()[:nbytes], chunk)
                     yield slot, rows
 
         source = packed()

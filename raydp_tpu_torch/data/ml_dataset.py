@@ -1,44 +1,55 @@
-"""Sharded ML dataset over local blocks: the handoff into training.
+"""Sharded ML dataset: the DataFrame → trainer handoff.
 
-The counterpart of ``raydp_tpu/data/ml_dataset.py`` for blocks that are
-already in this process, the form the BERT fine-tune uses
-(``MLDataset([table], num_shards=1)``). A block is a dict of equal-length
-numpy columns, or a ``pyarrow.Table`` where pyarrow imports. The shard
-plan is the JAX package's: every shard yields exactly
-``ceil(total_rows / num_shards)`` rows per epoch, padding by reuse.
+The counterpart of ``raydp_tpu/data/ml_dataset.py`` in one process. A
+block is a ``pyarrow.Table`` (a DataFrame partition; a dict of
+equal-length numpy columns is stored as one), or a partition the
+DataFrame engine's streaming executor is still producing
+(:class:`~raydp_tpu_torch.dataframe.scheduler.PendingPartition`).
+:meth:`MLDataset.from_df` hands a frame's partitions over in partition
+order as they are, pending or landed, as the JAX package's session
+branch does: the shard plan waits for every block's size, and the
+loader's epoch-0 prefix streamer serves the first landed blocks before
+it exists. The shard plan is the JAX package's: every shard yields
+exactly ``ceil(total_rows / num_shards)`` rows per epoch, padding by
+reuse.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Sequence
+import threading
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from raydp_tpu_torch.dataframe.scheduler import is_pending, resolve_one
 from raydp_tpu_torch.utils.sharding import BlockSlice, divide_blocks
 
 Columns = Dict[str, np.ndarray]
 
 
-def _as_columns(block) -> Columns:
-    """A block as a dict of numpy columns of one length."""
+def _checked(block):
+    """A block as stored: a dict of numpy columns of one length becomes
+    a ``pyarrow.Table``; tables and pending partitions are kept as they
+    are."""
+    if is_pending(block):
+        return block
+    import pyarrow as pa
+
     if isinstance(block, Mapping):
         cols = {str(k): np.asarray(v) for k, v in block.items()}
-    else:
-        import pyarrow as pa
-
-        if not isinstance(block, pa.Table):
-            raise TypeError(f"a block is a dict of numpy columns or a "
-                            f"pyarrow.Table, got {type(block).__name__}")
-        cols = {name: block.column(name).to_numpy(zero_copy_only=False)
-                for name in block.column_names}
-    lengths = {len(c) for c in cols.values()}
-    if len(lengths) > 1:
-        raise ValueError(f"block columns differ in length: {sorted(lengths)}")
-    return cols
+        lengths = {len(c) for c in cols.values()}
+        if len(lengths) > 1:
+            raise ValueError(
+                f"block columns differ in length: {sorted(lengths)}")
+        return pa.table(cols)
+    if not isinstance(block, pa.Table):
+        raise TypeError(f"a block is a dict of numpy columns or a "
+                        f"pyarrow.Table, got {type(block).__name__}")
+    return block
 
 
 class MLDataset:
-    """An immutable list of local blocks and a shard plan over them."""
+    """An immutable list of blocks and a shard plan over them."""
 
     def __init__(self, blocks: Sequence, num_shards: int,
                  shuffle: bool = False, shuffle_seed: Optional[int] = None):
@@ -47,13 +58,133 @@ class MLDataset:
         if len(blocks) < num_shards:
             raise ValueError(f"{len(blocks)} blocks cannot feed {num_shards} "
                              "shards; split the data into more blocks")
-        self._blocks: List[Columns] = [_as_columns(b) for b in blocks]
+        self._blocks: List = [_checked(b) for b in blocks]
         self.num_shards = num_shards
-        self.block_sizes = [len(next(iter(b.values()), ()))
-                            for b in self._blocks]
-        self.shard_plan: Dict[int, List[BlockSlice]] = divide_blocks(
-            self.block_sizes, num_shards, shuffle, shuffle_seed
-        )
+        self.shuffle = shuffle
+        self.shuffle_seed = shuffle_seed
+        # The plan needs every block's size, so it waits until a
+        # consumer asks (_ensure_plan); the epoch-0 prefix streamer reads
+        # only the monotone lower bound in _known and never waits on it.
+        self._plan_mu = threading.Lock()
+        self._known: List[Optional[int]] = [
+            None if is_pending(b) else b.num_rows for b in self._blocks]
+        self._block_sizes: Optional[List[int]] = None
+        self._shard_plan: Optional[Dict[int, List[BlockSlice]]] = None
+        for i, b in enumerate(self._blocks):
+            if is_pending(b):
+                b.future.add_done_callback(
+                    lambda f, i=i: self._note_block(i, f))
+        if not any(is_pending(b) for b in self._blocks):
+            self._ensure_plan()
+
+    # -- constructors ---------------------------------------------------
+    @staticmethod
+    def from_df(df, num_shards: int, shuffle: bool = False,
+                shuffle_seed: Optional[int] = None) -> "MLDataset":
+        """From a :class:`raydp_tpu_torch.dataframe.DataFrame`, one block
+        per partition in partition order; repartitions up to
+        ``num_shards`` if short."""
+        if df.num_partitions < num_shards:
+            df = df.repartition(num_shards)
+        return MLDataset(list(df._flush()._parts), num_shards, shuffle,
+                         shuffle_seed)
+
+    @staticmethod
+    def from_parquet(paths: Union[str, Sequence[str]], num_shards: int,
+                     shuffle: bool = False,
+                     shuffle_seed: Optional[int] = None,
+                     columns: Optional[List[str]] = None) -> "MLDataset":
+        """One block per parquet row group."""
+        import pyarrow.parquet as pq
+
+        from raydp_tpu_torch.dataframe.io import _expand
+
+        files = (_expand(paths, (".parquet", ".pq"))
+                 if isinstance(paths, str) else list(paths))
+        tables = []
+        for f in files:
+            pf = pq.ParquetFile(f)
+            for rg in range(pf.num_row_groups):
+                tables.append(pf.read_row_group(rg, columns=columns))
+        return MLDataset(tables, num_shards, shuffle, shuffle_seed)
+
+    def to_df(self):
+        """Back to a DataFrame, one partition per block."""
+        import pyarrow as pa
+
+        from raydp_tpu_torch.dataframe.io import _distribute
+
+        self._ensure_plan()
+        return _distribute(list(self._blocks))
+
+    # -- pending blocks -------------------------------------------------
+    def has_pending_blocks(self) -> bool:
+        """True while any block is still being produced."""
+        return any(is_pending(b) and not b.future.done()
+                   for b in self._blocks)
+
+    def known_rows(self) -> Tuple[int, bool]:
+        """(sum of the block sizes known so far, whether all are known):
+        a lower bound of ``total_rows`` that only grows as blocks land."""
+        with self._plan_mu:
+            vals = list(self._known)
+        return (sum(v for v in vals if v is not None),
+                all(v is not None for v in vals))
+
+    def iter_prefix_tables(self) -> Iterator[Tuple[int, object]]:
+        """``(block_index, block)`` in block order, waiting on each
+        pending block in turn: the dataset's prefix streams out while
+        later blocks are still being produced."""
+        for i, b in enumerate(list(self._blocks)):
+            block = resolve_one(b)
+            with self._plan_mu:
+                if self._known[i] is None:
+                    self._known[i] = block.num_rows
+            yield i, block
+
+    def _note_block(self, i: int, fut) -> None:
+        """Done-callback of pending block ``i``: record its row count
+        the moment it lands (feeds ``known_rows``)."""
+        if fut.exception() is not None:
+            return
+        with self._plan_mu:
+            if self._known[i] is None:
+                self._known[i] = fut.result().num_rows
+
+    def _ensure_plan(self) -> None:
+        """Wait for every block and build the shard plan; every shard
+        accessor comes through here."""
+        if self._shard_plan is not None:
+            return
+        # Resolve outside the lock; a racing consumer re-resolves the
+        # same futures.
+        blocks = [resolve_one(b) for b in self._blocks]
+        sizes = [b.num_rows for b in blocks]
+        with self._plan_mu:
+            if self._shard_plan is not None:
+                return
+            self._blocks = blocks
+            self._block_sizes = sizes
+            self._known = list(sizes)
+            self._shard_plan = divide_blocks(sizes, self.num_shards,
+                                             self.shuffle, self.shuffle_seed)
+
+    # -- introspection --------------------------------------------------
+    @property
+    def blocks(self) -> List:
+        """The landed blocks (waits for pending ones)."""
+        self._ensure_plan()
+        return list(self._blocks)
+
+    @property
+    def shard_plan(self) -> Dict[int, List[BlockSlice]]:
+        self._ensure_plan()
+        return self._shard_plan
+
+    @property
+    def block_sizes(self) -> List[int]:
+        self._ensure_plan()
+        return list(self._block_sizes)
 
     @property
     def total_rows(self) -> int:
@@ -63,38 +194,44 @@ class MLDataset:
     def rows_per_shard(self) -> int:
         return math.ceil(self.total_rows / self.num_shards)
 
+    # -- shard access ---------------------------------------------------
     def shard_global_indices(self, rank: int) -> np.ndarray:
         """The dataset row index (block order, then row order in a block)
         of every sample of ``rank``'s plan, in plan order: the inverse of
         the plan. Padding rows map to the row they repeat, so a scatter
         of per-shard predictions through these collapses onto
         ``total_rows`` rows."""
-        if rank not in self.shard_plan:
+        plan = self.shard_plan
+        if rank not in plan:
             raise IndexError(f"rank {rank} out of {self.num_shards}")
-        starts = np.zeros(len(self.block_sizes), dtype=np.int64)
-        starts[1:] = np.cumsum(self.block_sizes[:-1])
+        starts = np.zeros(len(self._block_sizes), dtype=np.int64)
+        starts[1:] = np.cumsum(self._block_sizes[:-1])
         parts = [starts[s.block_index] + s.offset
                  + np.arange(s.num_samples, dtype=np.int64)
-                 for s in self.shard_plan[rank]]
+                 for s in plan[rank]]
         if not parts:
             return np.empty((0,), dtype=np.int64)
         return np.concatenate(parts)
 
     def shard_columns(self, rank: int,
                       columns: Optional[List[str]] = None) -> Columns:
-        """Shard ``rank`` materialised as contiguous numpy columns."""
-        if rank not in self.shard_plan:
+        """Shard ``rank`` materialised as contiguous numpy columns. Table
+        slices are concatenated as tables first, as the JAX package does,
+        so a column's numpy dtype is the one it gives."""
+        plan = self.shard_plan
+        if rank not in plan:
             raise IndexError(f"rank {rank} out of {self.num_shards}")
-        names = columns or list(self._blocks[0])
-        plan = self.shard_plan[rank]
-        return {
-            name: np.concatenate([
-                self._blocks[s.block_index][name][s.offset:
-                                                  s.offset + s.num_samples]
-                for s in plan
-            ])
-            for name in names
-        }
+        blocks = [self._blocks[s.block_index] for s in plan[rank]]
+        import pyarrow as pa
+
+        names = columns or self._blocks[0].column_names
+        parts = [b if s.offset == 0 and s.num_samples == b.num_rows
+                 else b.slice(s.offset, s.num_samples)
+                 for s, b in zip(plan[rank], blocks)]
+        merged = (pa.concat_tables(parts, promote_options="default")
+                  if len(parts) > 1 else parts[0])
+        return {n: merged.column(n).to_numpy(zero_copy_only=False)
+                for n in names}
 
     def to_torch(self, feature_columns: List[str],
                  label_column: Optional[str] = None, batch_size: int = 256,

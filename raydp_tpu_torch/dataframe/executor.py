@@ -1,0 +1,542 @@
+"""The DataFrame engine's partition executor: where stages run.
+
+``LocalExecutor`` keeps partitions as in-memory ``pa.Table``s and runs
+stages on a thread pool (pyarrow kernels release the GIL), like Spark
+``local[n]``. It is the engine's executor when no cluster session is
+live, which in the port is always: the cluster executor, whose
+partitions live in a shared-memory object store and whose stages ship
+to ETL worker processes, comes with the session.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, List, Optional, Sequence
+
+import pyarrow as pa
+
+from raydp_tpu_torch.dataframe.scheduler import (
+    PendingPartition,
+    StreamingStage,
+    resolve,
+    resolve_one,
+    streaming_enabled,
+)
+from raydp_tpu_torch.telemetry.progress import (
+    StageStats,
+    stage_stats_enabled,
+    stage_store,
+)
+from raydp_tpu_torch.utils.profiling import metrics
+
+StageFn = Callable[[pa.Table], pa.Table]
+
+
+# -- per-stage runtime statistics ------------------------------------------
+# The planner names the stage it is about to run (``stage_label``); the
+# executor records a StageStats per stage into ``stage_store``. The
+# label context also collects the stage ids it covered, which is how
+# DataFrame plan nodes find their runtime numbers again (the AQE reads
+# recorded output bytes through them).
+_stage_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def stage_label(label: str):
+    """Name the executor stages run inside this context after the plan
+    node driving them; yields the list of stage ids recorded."""
+    ids: List[int] = []
+    prev = getattr(_stage_ctx, "cur", None)
+    _stage_ctx.cur = (label, ids)
+    try:
+        yield ids
+    finally:
+        _stage_ctx.cur = prev
+
+
+def _part_meta(part: Any) -> "tuple[int, int]":
+    """(rows, bytes) of one partition without materializing it; rows is
+    -1 while a pending partition has not landed."""
+    if isinstance(part, PendingPartition):
+        if not part.future.done() or part.future.exception() is not None:
+            return -1, 0
+        part = part.future.result()
+    if isinstance(part, pa.Table):
+        return part.num_rows, part.nbytes
+    return -1, 0
+
+
+class _StageRecorder:
+    """Accumulates one :class:`StageStats` while a stage runs.
+
+    Cheap when disabled (``RAYDP_TPU_STAGE_STATS=0``): every method
+    no-ops after one boolean check."""
+
+    def __init__(self, op: str, parts_in: Sequence[Any], kind: str,
+                 streaming: bool = False):
+        self.enabled = stage_stats_enabled()
+        cur = getattr(_stage_ctx, "cur", None)
+        self.op = cur[0] if cur else op
+        self._ids_sink = cur[1] if cur else None
+        self._ids_sunk = False
+        self.kind = kind
+        self.streaming = bool(streaming)
+        self._t0 = time.perf_counter()
+        self._dispatch_s = 0.0
+        self._mu = threading.Lock()
+        self._outs: Optional[List[Any]] = None
+        self._rows_in = self._bytes_in = 0
+        self._out_meta: dict = {}
+        self.stage_id = 0
+        if not self.enabled:
+            return
+        self.stage_id = stage_store.next_id()
+        self._parts_in = len(parts_in)
+        if self.streaming:
+            # Inputs may still be pending futures: rows_in/bytes_in
+            # accrue per task at dispatch time (task_input), keeping the
+            # totals identical to the barriered path. The stage id must
+            # land in the label sink NOW — the planner copies that list
+            # into the lineage node before this stage completes.
+            if self._ids_sink is not None:
+                self._ids_sink.append(self.stage_id)
+                self._ids_sunk = True
+        else:
+            rows = nbytes = 0
+            for p in parts_in:
+                r, b = _part_meta(p)
+                if r > 0:
+                    rows += r
+                nbytes += b
+            self._rows_in, self._bytes_in = rows, nbytes
+
+    def dispatched(self) -> None:
+        """Mark the end of submission (dispatch time)."""
+        if self.enabled:
+            self._dispatch_s = time.perf_counter() - self._t0
+
+    def finish(self, parts_out: Sequence[Any]) -> None:
+        if self.enabled:
+            self._outs = list(parts_out)
+
+    def task_input(self, dep_parts: Sequence[Any]) -> None:
+        """Streaming mode: account one task's (resolved) inputs at
+        dispatch time — by then the upstream partitions exist, so the
+        stage totals match what the barriered path would have seen."""
+        if not self.enabled:
+            return
+        rows = nbytes = 0
+        for p in dep_parts:
+            r, b = _part_meta(p)
+            if r > 0:
+                rows += r
+            nbytes += b
+        with self._mu:
+            self._rows_in += rows
+            self._bytes_in += nbytes
+
+    def task_output(self, index: int, part: Any) -> None:
+        """Streaming mode: record one completed task's output partition
+        (keyed by index so skew stats stay order-stable regardless of
+        completion order)."""
+        if not self.enabled:
+            return
+        meta = _part_meta(part)
+        with self._mu:
+            self._out_meta[index] = meta
+
+    def close_streaming(self) -> None:
+        """Finalize a streaming stage: called by the scheduler after the
+        last task lands, BEFORE the final output future resolves."""
+        if not self.enabled:
+            return
+        with self._mu:
+            meta = dict(self._out_meta)
+        part_rows = [meta[i][0] for i in sorted(meta)]
+        part_bytes = [meta[i][1] for i in sorted(meta)]
+        self._emit(part_rows, part_bytes, len(meta))
+
+    def close(self) -> None:
+        if not self.enabled:
+            return
+        part_rows: List[int] = []
+        part_bytes: List[int] = []
+        for p in self._outs or ():
+            r, b = _part_meta(p)
+            part_rows.append(r)
+            part_bytes.append(b)
+        self._emit(part_rows, part_bytes, len(self._outs or ()))
+
+    def _emit(self, part_rows: List[int], part_bytes: List[int],
+              parts_out: int) -> None:
+        wall = time.perf_counter() - self._t0
+        rows_out = sum(r for r in part_rows if r > 0)
+        bytes_out = sum(part_bytes)
+        stats = StageStats(
+            stage_id=self.stage_id,
+            op=self.op,
+            executor=self.kind,
+            rows_in=self._rows_in,
+            rows_out=rows_out,
+            bytes_in=self._bytes_in,
+            bytes_out=bytes_out,
+            parts_in=self._parts_in,
+            parts_out=parts_out,
+            wall_s=wall,
+            dispatch_s=self._dispatch_s,
+            part_rows=part_rows,
+            part_bytes=part_bytes,
+        )
+        stage_store.record(stats)
+        if self._ids_sink is not None and not self._ids_sunk:
+            self._ids_sink.append(self.stage_id)
+        metrics.counter_add(f"stage/rows_in/{self.op}", self._rows_in)
+        metrics.counter_add(f"stage/rows_out/{self.op}", rows_out)
+        metrics.counter_add(f"stage/bytes_in/{self.op}", self._bytes_in)
+        metrics.counter_add(f"stage/bytes_out/{self.op}", bytes_out)
+        metrics.counter_add(f"stage/seconds/{self.op}", wall)
+
+
+@contextlib.contextmanager
+def _stage(op: str, parts_in: Sequence[Any], executor: str):
+    """Counter + StageStats recording around one stage."""
+    rec = _StageRecorder(op, parts_in, executor)
+    metrics.counter_add("df/stages")
+    try:
+        yield rec
+    finally:
+        rec.close()
+
+# Memoized gather-concat for coalesced runs (Spark's analog: shuffle
+# block reuse). Interactive ETL re-runs queries over the SAME stored
+# partitions; re-concatenating them rebuilds fresh buffers each time,
+# which also defeats every buffer-identity cache downstream. Keyed by
+# partition identity (table ids), LRU-bounded by bytes, per process.
+_CONCAT_MEMO_BYTES = int(
+    os.environ.get("RAYDP_TPU_CONCAT_CACHE_BYTES", 256 << 20)
+)
+_concat_memo: OrderedDict = OrderedDict()
+_concat_memo_lock = threading.Lock()
+
+
+def _concat_cached(tables: List[pa.Table], key, keepalive=None) -> pa.Table:
+    """``_concat`` with identity-keyed memoization. ``keepalive`` pins
+    the objects whose ids form ``key`` (local mode: id() reuse after GC
+    would otherwise alias a stale entry)."""
+    if key is None:
+        return _concat(tables)
+    with _concat_memo_lock:
+        hit = _concat_memo.pop(key, None)
+        if hit is not None:
+            _concat_memo[key] = hit  # refresh LRU position
+            return hit[1]
+    out = _concat(tables)
+    # Entry cost: arrow's concat is zero-copy (the output references the
+    # input chunks' buffers), so ``out.nbytes`` already measures the
+    # retained memory and the keepalive pins only object headers on top.
+    cost = out.nbytes
+    with _concat_memo_lock:
+        _concat_memo[key] = (keepalive, out, cost)
+        total = sum(c for _, _, c in _concat_memo.values())
+        while total > _CONCAT_MEMO_BYTES and len(_concat_memo) > 1:
+            _, (_, _, evicted_cost) = _concat_memo.popitem(last=False)
+            total -= evicted_cost
+    return out
+
+
+class Executor:
+    def map_partitions(self, parts: List[Any], fn: StageFn) -> List[Any]:
+        raise NotImplementedError
+
+    def map_partitions_indexed(
+        self, parts: List[Any], fn: Callable[[pa.Table, int], pa.Table]
+    ) -> List[Any]:
+        """Like map_partitions, but ``fn`` also receives the partition
+        index (for partition-indexed ops like monotonically_increasing_id)."""
+        raise NotImplementedError
+
+    def map_pairs(
+        self,
+        parts_a: List[Any],
+        parts_b: List[Any],
+        fn: Callable[[pa.Table, pa.Table], pa.Table],
+    ) -> List[Any]:
+        """Zip two equally-partitioned lists through a binary stage
+        (bucket i of a shuffle join meets bucket i)."""
+        raise NotImplementedError
+
+    def exchange(
+        self,
+        parts: List[Any],
+        splitter: Callable[[pa.Table], List[pa.Table]],
+        n_out: int,
+        combine: Optional[StageFn] = None,
+        replan: Optional[Callable[[List[int]], Any]] = None,
+    ) -> List[Any]:
+        """All-to-all: split every partition into n_out chunks, then
+        concatenate chunk i across partitions into output partition i.
+
+        ``replan`` is the AQE hook: called with the measured per-bucket
+        byte sizes AFTER the split phase and BEFORE merge dispatch — the
+        one point where the true shuffle layout is known but nothing has
+        been merged yet. It returns an
+        :class:`raydp_tpu.dataframe.aqe.ExchangePlan` (or ``None`` to
+        keep the static layout); the executor then builds output
+        partitions group-by-group instead of one-per-bucket. ``split``
+        groups are only legal with ``combine=None`` (a per-bucket
+        combine over a sub-bucket would see partial groups)."""
+        raise NotImplementedError
+
+    def part_nbytes(self, part: Any) -> int:
+        """Approximate in-memory/wire size of one partition, WITHOUT
+        materializing it — drives adaptive shuffle planning (Spark AQE's
+        coalescing decisions read shuffle statistics the same way)."""
+        raise NotImplementedError
+
+    def discard(self, parts: List[Any]) -> None:
+        """Free intermediate partitions (shuffle temps). No-op where
+        partitions are plain in-memory tables."""
+
+    def run_coalesced(
+        self,
+        parts: List[Any],
+        fn: Callable[[Any], pa.Table],
+        pre_concat: bool = False,
+    ) -> Any:
+        """Run ``fn`` over ALL partitions in one task and return a single
+        output partition. The adaptive small-data plan: when inputs (or
+        partial-agg outputs) are small, one arrow kernel pass — which
+        parallelizes internally across cores — beats a process-level
+        hash exchange whose per-task orchestration would dominate.
+
+        ``pre_concat=True``: the executor concatenates the partitions
+        itself — memoized by partition identity (``_concat_cached``) so
+        repeated queries over the same stored partitions hand ``fn`` the
+        SAME table object (same buffers → downstream buffer-identity
+        caches hit) — and ``fn`` receives one ``pa.Table`` instead of a
+        list."""
+        raise NotImplementedError
+
+    def materialize(self, part: Any) -> pa.Table:
+        raise NotImplementedError
+
+    def head(self, part: Any, k: int) -> pa.Table:
+        """First ``k`` rows of one partition (schema/peek probes).
+        Backends cut the head where the partition lives — the caller
+        never pulls the whole table for a 32-row probe."""
+        raise NotImplementedError
+
+    def put(self, table: pa.Table) -> Any:
+        raise NotImplementedError
+
+    def put_many(self, tables: List[pa.Table]) -> List[Any]:
+        """Bulk ingest; overridden where scatter can run concurrently."""
+        return [self.put(t) for t in tables]
+
+    def num_rows(self, part: Any) -> int:
+        raise NotImplementedError
+
+    def sample_column(self, parts: List[Any], column: str, k: int) -> list:
+        """Up to ``k`` non-null sample values of ``column`` per partition,
+        WITHOUT materializing partitions in the caller (range-sort
+        pivots)."""
+        raise NotImplementedError
+
+    def default_fanout(self) -> int:
+        """How many output partitions a shuffle should target."""
+        return 8
+
+
+def _split_groups(items: List[Any], k: int) -> List[List[Any]]:
+    """Distribute one bucket's per-input chunk list over ``k``
+    contiguous, non-empty groups (AQE skew splitting). Contiguous in
+    input order so sub-bucket contents stay deterministic run-to-run;
+    ``plan_exchange`` clamps ``k`` to the input-partition count, the
+    ``min`` here is belt-and-braces."""
+    k = max(1, min(k, len(items)))
+    base, extra = divmod(len(items), k)
+    groups, offset = [], 0
+    for i in range(k):
+        size = base + (1 if i < extra else 0)
+        groups.append(items[offset:offset + size])
+        offset += size
+    return groups
+
+
+def _concat(tables: List[pa.Table]) -> pa.Table:
+    tables = [t for t in tables if t is not None]
+    if not tables:
+        return pa.table({})
+    # Drop empty tables: stages like distributed agg can emit empties with
+    # an intermediate schema (partial-agg columns); schema-promoting concat
+    # would leak those as all-null columns.
+    non_empty = [t for t in tables if t.num_rows > 0]
+    if not non_empty:
+        return tables[0]
+    if len(non_empty) == 1:
+        return non_empty[0]
+    return pa.concat_tables(non_empty, promote_options="default")
+
+
+class LocalExecutor(Executor):
+    def __init__(self, max_threads: Optional[int] = None):
+        self._pool = ThreadPoolExecutor(
+            max_workers=max_threads or min(8, (os.cpu_count() or 2) * 2)
+        )
+
+    def _stream_narrow(self, op, deps, call_of):
+        """Event-driven narrow stage on the thread pool: each output's
+        task runs the moment its upstream partitions exist; callers get
+        pending partitions immediately."""
+        rec = _StageRecorder(op, [d[0] for d in deps], "local",
+                             streaming=True)
+
+        def run_one(i, vals):
+            rec.task_input(vals[:1])
+            return call_of(i, vals)
+
+        def submit(items):
+            return [self._pool.submit(run_one, i, vals)
+                    for i, vals in items]
+
+        stage = StreamingStage(deps, submit, on_output=rec.task_output,
+                               on_close=rec.close_streaming, op=op)
+        metrics.counter_add("df/stages")
+        outs = stage.start()
+        rec.dispatched()
+        return outs
+
+    def map_partitions(self, parts, fn):
+        if streaming_enabled() and parts:
+            return self._stream_narrow(
+                "map_partitions", [[p] for p in parts],
+                lambda i, vals: fn(vals[0]),
+            )
+        parts = resolve(parts)
+        with _stage("map_partitions", parts, "local") as rec:
+            outs = list(self._pool.map(fn, parts))
+            rec.finish(outs)
+            return outs
+
+    def map_partitions_indexed(self, parts, fn):
+        if streaming_enabled() and parts:
+            return self._stream_narrow(
+                "map_partitions_indexed", [[p] for p in parts],
+                lambda i, vals: fn(vals[0], i),
+            )
+        parts = resolve(parts)
+        with _stage("map_partitions_indexed", parts, "local") as rec:
+            outs = list(self._pool.map(fn, parts, range(len(parts))))
+            rec.finish(outs)
+            return outs
+
+    def map_pairs(self, parts_a, parts_b, fn):
+        if streaming_enabled() and parts_a:
+            return self._stream_narrow(
+                "map_pairs",
+                [[a, b] for a, b in zip(parts_a, parts_b)],
+                lambda i, vals: fn(vals[0], vals[1]),
+            )
+        parts_a = resolve(parts_a)
+        parts_b = resolve(parts_b)
+        with _stage("map_pairs", parts_a, "local") as rec:
+            outs = list(self._pool.map(fn, parts_a, parts_b))
+            rec.finish(outs)
+            return outs
+
+    def exchange(self, parts, splitter, n_out, combine=None, replan=None):
+        # Wide stage: every input partition feeds every output bucket,
+        # so this is a true barrier — resolve pendings up front.
+        parts = resolve(parts)
+        with _stage("exchange", parts, "local") as rec:
+            metrics.counter_add("shuffle/exchanges")
+            chunked = list(self._pool.map(splitter, parts))
+            rec.dispatched()
+            moved = sum(
+                c.nbytes for chunks in chunked for c in chunks
+            )
+            metrics.counter_add("shuffle/bytes", moved)
+            # Single host: every chunk is already local to its merge.
+            metrics.counter_add("shuffle/local_bytes", moved)
+            plan = None
+            if replan is not None:
+                plan = replan([
+                    sum(chunks[i].nbytes for chunks in chunked)
+                    for i in range(n_out)
+                ])
+            outs = []
+            if plan is None:
+                for i in range(n_out):
+                    merged = _concat([chunks[i] for chunks in chunked])
+                    outs.append(combine(merged) if combine else merged)
+                rec.finish(outs)
+                return outs
+            for g in plan.groups:
+                if g[0] == "merge":
+                    # Bucket-major order: a group of one bucket is
+                    # byte-identical to the static merge of that bucket.
+                    merged = _concat(
+                        [chunks[i] for i in g[1] for chunks in chunked]
+                    )
+                    outs.append(combine(merged) if combine else merged)
+                elif g[0] == "replicate":
+                    merged = _concat([chunks[g[1]] for chunks in chunked])
+                    merged = combine(merged) if combine else merged
+                    outs.extend([merged] * g[2])
+                else:  # ("split", id, k): combine is None by contract
+                    for grp in _split_groups(
+                        [chunks[g[1]] for chunks in chunked], g[2]
+                    ):
+                        outs.append(_concat(grp))
+            rec.finish(outs)
+            return outs
+
+    def part_nbytes(self, part):
+        return resolve_one(part).nbytes
+
+    def run_coalesced(self, parts, fn, pre_concat=False):
+        parts = resolve(list(parts))
+        with _stage("run_coalesced", parts, "local") as rec:
+            if not pre_concat:
+                out = fn(parts)
+            else:
+                key = ("local",) + tuple(id(t) for t in parts)
+                out = fn(_concat_cached(parts, key, keepalive=parts))
+            rec.finish([out] if isinstance(out, pa.Table) else [])
+            return out
+
+    def materialize(self, part):
+        return resolve_one(part)
+
+    def head(self, part, k):
+        part = resolve_one(part)
+        return part.slice(0, min(k, part.num_rows))
+
+    def put(self, table):
+        return table
+
+    def num_rows(self, part):
+        return resolve_one(part).num_rows
+
+    def sample_column(self, parts, column, k):
+        return [
+            vals
+            for t in resolve(parts)
+            for vals in [_sample_table(t, column, k)]
+        ]
+
+    def default_fanout(self) -> int:
+        return min(8, (os.cpu_count() or 2) * 2)
+
+
+def _sample_table(t: pa.Table, column: str, k: int) -> list:
+    if t.num_rows == 0:
+        return []
+    series = t.column(column).to_pandas().dropna()
+    if not len(series):
+        return []
+    return series.sample(min(k, len(series)), random_state=0).tolist()

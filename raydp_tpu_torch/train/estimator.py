@@ -25,6 +25,10 @@ losses (:func:`~raydp_tpu_torch.models.moe.moe_aux_loss`), as the JAX
 train step adds the sown ``losses`` collection; ``evaluate``'s loss and
 ``predict`` leave them out, as JAX's eval and predict steps do.
 
+``fit_on_df``, ``predict_on_ds`` and ``predict_on_df`` take the port's
+DataFrames (``raydp_tpu_torch/dataframe``) through
+:meth:`MLDataset.from_df`, as the JAX estimator's do.
+
 Differences from the JAX estimator, each deliberate:
 
 * Dropout draws from an explicit ``torch.Generator`` seeded from
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from raydp_tpu_torch.data.ml_dataset import MLDataset
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
@@ -379,6 +384,21 @@ class Estimator:
                 logger.info("epoch %d (%d fused steps) loss %.5f", epoch,
                             n_steps, metrics["train_loss"])
 
+    def fit_on_df(self, train_df, evaluate_df=None,
+                  num_epochs: Optional[int] = None,
+                  num_shards: int = 1) -> List[Dict[str, float]]:
+        """The ETL handoff: DataFrame → :class:`MLDataset` → :meth:`fit`.
+        Takes a :mod:`raydp_tpu_torch.dataframe` DataFrame or a pandas
+        one."""
+        train_ds = MLDataset.from_df(_ensure_df(train_df),
+                                     num_shards=num_shards,
+                                     shuffle=self.shuffle,
+                                     shuffle_seed=self.seed)
+        eval_ds = (MLDataset.from_df(_ensure_df(evaluate_df),
+                                     num_shards=num_shards)
+                   if evaluate_df is not None else None)
+        return self.fit(train_ds, eval_ds, num_epochs)
+
     def _finish_epoch(self, epoch: int, t0: float, train_loss: float,
                       n_samples: int, evaluate_ds) -> Dict[str, float]:
         dt = time.perf_counter() - t0
@@ -436,6 +456,50 @@ class Estimator:
             outs.append(model(chunk).float().cpu().numpy())
         return np.concatenate(outs, axis=0)
 
+    @torch.no_grad()
+    def predict_on_ds(self, ds: MLDataset,
+                      feature_columns: Optional[List[str]] = None
+                      ) -> np.ndarray:
+        """Inference over every shard of ``ds`` through its device
+        loaders; rows come back in dataset order, exactly
+        ``ds.total_rows`` of them: the padded per-shard outputs are
+        scattered through ``ds.shard_global_indices``, so padding rows
+        collapse onto the rows they repeat."""
+        model = self._model.eval()
+        cols = feature_columns or self.feature_columns
+        outs = [model(x).float().cpu().numpy()
+                for loader in self._loaders(ds, cols, None, shuffle=False,
+                                            drop_last=False)
+                for x in loader]
+        if not outs:
+            return np.empty((0,), dtype=np.float32)
+        flat = np.concatenate(outs, axis=0)
+        idx = np.concatenate([ds.shard_global_indices(r)
+                              for r in range(ds.num_shards)])
+        if len(flat) != len(idx):
+            raise RuntimeError(
+                f"prediction count {len(flat)} does not match the shard "
+                f"plan's {len(idx)} samples: loader/plan mismatch")
+        out = np.empty((ds.total_rows,) + flat.shape[1:], dtype=flat.dtype)
+        out[idx] = flat
+        return out
+
+    def predict_on_df(self, df, output_column: str = "prediction",
+                      num_shards: int = 1):
+        """A pandas DataFrame of ``df``'s rows with a prediction column,
+        aligned by position: ``from_df`` keeps partition order, the
+        shard loaders run in rank order, and ``to_pandas`` concatenates
+        partitions in that order. A multi-output model gets one row
+        array per cell."""
+        df = _ensure_df(df)
+        preds = self.predict_on_ds(MLDataset.from_df(df,
+                                                     num_shards=num_shards))
+        pdf = df.to_pandas()
+        if preds.ndim > 1 and preds.shape[-1] == 1:
+            preds = preds[..., 0]
+        pdf[output_column] = preds if preds.ndim == 1 else list(preds)
+        return pdf
+
     def _empty_preds(self, model: nn.Module, feature_shape) -> np.ndarray:
         """Zero rows of the model's output: its trailing dims and dtype
         from one forward of a single zero row of ``feature_shape``. Falls
@@ -484,6 +548,19 @@ class Estimator:
         self._generator.set_state(state["generator"])
         epoch, batch = int(state["data_epoch"]), int(state["data_batch"])
         self._resume_position = (epoch, batch) if epoch >= 0 else None
+
+
+def _ensure_df(df):
+    """A pandas DataFrame as an engine DataFrame; anything else as is."""
+    if df is None:
+        return None
+    import pandas as pd
+
+    if isinstance(df, pd.DataFrame):
+        from raydp_tpu_torch.dataframe.io import from_pandas
+
+        return from_pandas(df)
+    return df
 
 
 def _pad_cycle(x: np.ndarray, y: Optional[np.ndarray], pad: int):

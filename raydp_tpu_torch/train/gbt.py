@@ -207,9 +207,14 @@ class GBTEstimator:
         return self._fit_matrix(X, y, eval_xy=eval_xy, n_rounds=num_epochs)
 
     def fit_on_df(self, train_df, evaluate_df=None, num_shards=None):
-        raise NotImplementedError(
-            "fit_on_df needs the port's DataFrame engine (ROADMAP Queue A, "
-            "the data and ETL planes); build an MLDataset and call fit")
+        """DataFrame → :class:`MLDataset` (2 shards by default, as the
+        JAX package) → :meth:`fit`."""
+        from raydp_tpu_torch.data import MLDataset
+
+        ds = MLDataset.from_df(train_df, num_shards=num_shards or 2)
+        eval_ds = (MLDataset.from_df(evaluate_df, num_shards=num_shards or 2)
+                   if evaluate_df is not None else None)
+        return self.fit(ds, evaluate_ds=eval_ds)
 
     def _loss_of(self, pred, y, n_real: int) -> float:
         if self.loss == "squared":

@@ -370,9 +370,9 @@ class TFEstimator:
         return self._built().fit(train_ds, evaluate_ds, num_epochs)
 
     def fit_on_df(self, train_df, evaluate_df=None, num_epochs=None):
-        raise NotImplementedError(
-            "fit_on_df needs the port's DataFrame engine (ROADMAP Queue A, "
-            "the data and ETL planes); build an MLDataset and call fit")
+        return self._built().fit_on_df(
+            train_df, evaluate_df, num_epochs,
+            num_shards=max(1, self.num_workers))
 
     fit_on_spark = fit_on_df
 

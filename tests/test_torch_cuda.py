@@ -10,6 +10,9 @@ and DLRM forwards on the card against the CPU, and the GBT histogram and
 split search on the card against the CPU. Slice 6: a replica group of
 processes on the card serving a bf16 flash classifier, against the
 driver's forward, and a ``cuda`` group refusing to start without a card.
+Slice 7: ``fit_on_df`` from a 4-partition frame on the card against the
+CPU, and the native host library built there, its bucket ids equal to
+the numpy twin's.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -823,3 +826,59 @@ def test_cuda_group_refuses_to_start_without_a_visible_card(cuda):
     assert out.returncode == 0, out.stderr
     assert "refused:" in out.stdout and "no CUDA device" in out.stdout
     assert "slots: 0" in out.stdout
+
+
+# ------------------------------------------------------------- slice 7
+
+def test_fit_on_df_on_card_matches_cpu(cuda):
+    """A tiny flash classifier fitted from a 4-partition DataFrame on the
+    card (stream path: the loader gathers chunks natively into pinned
+    buffers) and on the CPU: losses within 1e-3, every launch counted,
+    and ``predict_on_df`` one prediction per row on both, the two within
+    1e-3."""
+    import pyarrow as pa
+
+    import raydp_tpu_torch.dataframe as rdf
+
+    cols = _token_cols(64, 16, 64, seed=2)
+    df = rdf.from_arrow(pa.table(cols), num_partitions=4)
+    cfg = tiny_transformer(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                           d_ff=64, max_len=16, attention_impl="flash",
+                           dtype=torch.float32, dropout_rate=0.0)
+    hist, preds = {}, {}
+    for dev in ("cuda", "cpu"):
+        est = Estimator(
+            model=SequenceClassifier(
+                cfg, device=dev, generator=torch.Generator().manual_seed(3)),
+            loss="softmax_ce", num_epochs=2, batch_size=16,
+            feature_columns=[f"t{i}" for i in range(16)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, device=dev, epoch_mode="stream",
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3))
+        before = flash_attention.launches
+        hist[dev] = est.fit_on_df(df, num_shards=2)
+        want = cfg.n_layers * 2 * 4 if dev == "cuda" else 0
+        assert flash_attention.launches - before == want
+        preds[dev] = est.predict_on_df(df)["prediction"]
+        assert len(preds[dev]) == 64
+    for g, c in zip(hist["cuda"], hist["cpu"]):
+        np.testing.assert_allclose(g["train_loss"], c["train_loss"],
+                                   rtol=1e-3)
+    np.testing.assert_allclose(np.stack(preds["cuda"]),
+                               np.stack(preds["cpu"]), rtol=1e-3, atol=1e-3)
+
+
+def test_native_hash_bucket_equals_its_twin(cuda):
+    """The native library builds and loads on the card's machine, and its
+    bucket ids equal the numpy twin's bit for bit."""
+    from raydp_tpu_torch.native import lib as native
+
+    assert native.native_available()
+    rng = np.random.default_rng(4)
+    n = 200_000
+    cols = [rng.integers(-2**40, 2**40, n), rng.standard_normal(n),
+            (rng.random(n) > 0.1).astype(np.uint8)]
+    for n_buckets in (2, 64, 1000):
+        np.testing.assert_array_equal(
+            native.hash_bucket(cols, n_buckets, native=True),
+            native.hash_bucket(cols, n_buckets, native=False))

@@ -18,6 +18,7 @@ import pytest
 
 from raydp_tpu.data.ml_dataset import MLDataset as JaxMLDataset
 from raydp_tpu.train.gbt import GBTEstimator as JaxGBT
+import raydp_tpu_torch.dataframe as torch_rdf
 from raydp_tpu_torch.data import MLDataset
 from raydp_tpu_torch.train import GBTEstimator
 
@@ -172,8 +173,10 @@ def test_gbt_requires_config_and_a_fit():
         GBTEstimator(device="cpu").fit(None)
     with pytest.raises(ValueError, match="unfitted"):
         GBTEstimator(device="cpu").save("/nonexistent")
-    with pytest.raises(NotImplementedError, match="DataFrame"):
-        GBTEstimator(device="cpu").fit_on_df(None)
+    # fit_on_df reaches fit through the DataFrame engine's handoff.
+    df = torch_rdf.from_items([{"a": 1.0, "y": 0.0}, {"a": 2.0, "y": 1.0}])
+    with pytest.raises(ValueError, match="feature_columns"):
+        GBTEstimator(device="cpu").fit_on_df(df, num_shards=1)
 
 
 @pytest.mark.parametrize("sizes,num_shards", [

@@ -61,9 +61,21 @@ def test_port_files_exist():
                 "raydp_tpu_torch/serve/batching.py",
                 "raydp_tpu_torch/serve/replica_main.py",
                 "raydp_tpu_torch/serve/group.py",
-                "raydp_tpu_torch/serve/frontend.py"):
+                "raydp_tpu_torch/serve/frontend.py",
+                "raydp_tpu_torch/native/build.py",
+                "raydp_tpu_torch/native/lib.py",
+                "raydp_tpu_torch/telemetry/progress.py",
+                "raydp_tpu_torch/dataframe/__init__.py",
+                "raydp_tpu_torch/dataframe/aqe.py",
+                "raydp_tpu_torch/dataframe/dataframe.py",
+                "raydp_tpu_torch/dataframe/executor.py",
+                "raydp_tpu_torch/dataframe/expr.py",
+                "raydp_tpu_torch/dataframe/io.py",
+                "raydp_tpu_torch/dataframe/scheduler.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
+    assert os.path.exists(os.path.join(ROOT, "raydp_tpu_torch", "native",
+                                       "src", "gather.cpp"))
 
 
 @pytest.mark.parametrize(

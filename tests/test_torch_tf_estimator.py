@@ -10,8 +10,8 @@
 * ``TFEstimator`` fits against the JAX ``TFEstimator``'s from the same
   initial parameters: a regression tower, the fused sigmoid head and the
   fused softmax head (int labels), each history within rtol 1e-4.
-* The errors: unsupported layer, loss, optimizer and metric; ``fit_on_df``
-  waits for the DataFrame engine.
+* The errors: unsupported layer, loss, optimizer and metric, the layer
+  error also through ``fit_on_df``.
 
 Tolerances: optimizer updates rtol 1e-5 / atol 1e-7 (float32, the same
 arithmetic in another order); forwards rtol 2e-4 / atol 2e-5; histories
@@ -31,6 +31,7 @@ import torch
 
 from raydp_tpu.data.ml_dataset import MLDataset as JaxMLDataset
 from raydp_tpu.train import tf_estimator as jtf
+import raydp_tpu_torch.dataframe as torch_rdf
 from raydp_tpu_torch.data import MLDataset
 from raydp_tpu_torch.models.convert import params_from_flax
 from raydp_tpu_torch.train import tf_estimator as ttf
@@ -267,8 +268,9 @@ def test_unsupported_layer_loss_metric_and_df_raise():
             "y": np.array([0.0, 1.0], np.float32)}
     with pytest.raises(ValueError, match="unsupported keras layer"):
         est.fit(MLDataset([cols], 1))
-    with pytest.raises(NotImplementedError, match="DataFrame"):
-        est.fit_on_df(None)
+    df = torch_rdf.from_items([{"a": 1.0, "y": 0.0}, {"a": 2.0, "y": 1.0}])
+    with pytest.raises(ValueError, match="unsupported keras layer"):
+        est.fit_on_df(df)
     with pytest.raises(ValueError, match="Sequential"):
         ttf.parse_keras_model({"class_name": "Model"})
 
