@@ -109,12 +109,28 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    vocab sizes against ``np.unique``, into a stream ``PackedDLRM`` fit.
    ETL seconds and rows/s, and the seconds from each ``fit_on_df``'s
    call to its first step.
+11. The session: ``raydp_tpu_torch.init(app_name="chip-smoke",
+   num_workers=4)``, the AppMaster and 4 ETL worker processes, the
+   partitions in the shared-memory object store, stages shipped to the
+   workers as closures. (a) ``init``'s seconds and the shm directory's
+   capacity; 4 workers alive, a frame's executor a ``ClusterExecutor``,
+   and each worker, with the engine imported, holding no torch and
+   seeing no CUDA device. (b) 10b's taxi ETL and random_split on the
+   workers (the haversine udf shipped by value), held against numpy as
+   10b is, its input rows/s beside 10b's, then 10b's MLP
+   ``fit_on_df``/``predict_on_df`` on the card. (c) 10c's fine-tune
+   from a frame on the workers: 12 launches of each kernel a step, ms a
+   step and seconds to the first step beside 10c's. (d)
+   ``to_object_refs(owner_transfer=True)`` of 11b's output, a worker
+   SIGKILLed, every ref read back equal (by the driver and a worker)
+   once the respawned worker has joined, then ``stop()``: every worker
+   exited and no segment of the session left in the shm directory.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
-are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9
-and 10c) and read just after; phase 9's replicas are new processes, whose
+are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
+10c and 11c) and read just after; phase 9's replicas are new processes, whose
 counts start at 0 and are read by ``Ping``. The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
@@ -2261,33 +2277,47 @@ def phase_native(np):
             f"({twin / ms:.1f}x, host clock, best of 3)")
 
 
-def phase_taxi_etl(torch, P):
-    """10b: the taxi ETL (examples/data_process.py) over 4 partitions and
-    random_split, checked against numpy, feeding Estimator.fit_on_df of
-    the taxi MLP (and predict_on_df), GBTEstimator.fit_on_df and
-    TFEstimator.fit_on_df on the card."""
-    import numpy as np
-
+def taxi_etl(np, tag):
+    """The taxi ETL (examples/data_process.py) over 4 partitions and
+    random_split on whatever executor ``from_arrow`` picks (the session's
+    workers while one is live), checked against numpy. Returns (input
+    rows/s, the ETL's frame, train frame, test frame, test rows)."""
     from raydp_tpu_torch import dataframe as rdf
 
     table = synthetic_taxi_table(np, ETL_TAXI_ROWS)
     t0 = time.perf_counter()
-    out = nyc_taxi_preprocess(
-        rdf, rdf.from_arrow(table, num_partitions=ETL_PARTS)).persist()
+    raw = rdf.from_arrow(table, num_partitions=ETL_PARTS)
+    t1 = time.perf_counter()
+    out = nyc_taxi_preprocess(rdf, raw).persist()
+    n_out = out.count()
+    t2 = time.perf_counter()
     train_df, test_df = (d.persist() for d in
                          out.random_split([0.9, 0.1], seed=42))
-    n_out, n_train, n_test = out.count(), train_df.count(), test_df.count()
+    n_train, n_test = train_df.count(), test_df.count()
     etl_s = time.perf_counter() - t0
-    log(f"[10b] taxi ETL: {ETL_TAXI_ROWS} rows over {ETL_PARTS} partitions "
-        f"-> {n_out} rows -> {n_train} train + {n_test} test in {etl_s:.3f} s"
-        f" ({ETL_TAXI_ROWS / etl_s:.0f} input rows/s, host clock)")
+    rate = ETL_TAXI_ROWS / etl_s
+    log(f"[{tag}] taxi ETL ({type(raw._executor).__name__}): "
+        f"{ETL_TAXI_ROWS} rows over {ETL_PARTS} partitions -> {n_out} rows "
+        f"-> {n_train} train + {n_test} test in {etl_s:.3f} s ({rate:.0f} "
+        f"input rows/s, host clock): partitioning {t1 - t0:.3f} s, the "
+        f"pipeline {t2 - t1:.3f} s, random_split {etl_s - (t2 - t0):.3f} s")
     wrong = taxi_etl_mismatch(np, out.to_arrow(),
                               taxi_features_numpy(np, table))
-    check(wrong is None, f"taxi ETL against numpy: {wrong}")
-    check(n_train + n_test == n_out, "random_split lost or doubled rows")
-    log(f"[10b] taxi ETL equals numpy's features (rows and values exact, "
+    check(wrong is None, f"{tag}: taxi ETL against numpy: {wrong}")
+    check(n_train + n_test == n_out, f"{tag}: random_split lost or doubled "
+                                     f"rows")
+    log(f"[{tag}] taxi ETL equals numpy's features (rows and values exact, "
         f"haversine within rtol {HAVERSINE_RTOL})")
+    return rate, out, train_df, test_df, n_test
 
+
+def taxi_etl_and_mlp(torch, P, tag):
+    """:func:`taxi_etl`, then Estimator.fit_on_df of the taxi MLP and
+    predict_on_df on the card. Returns (input rows/s, the ETL's frame,
+    train frame, test frame)."""
+    import numpy as np
+
+    rate, out, train_df, test_df, n_test = taxi_etl(np, tag)
     mlp = P.Estimator(
         model=P.taxi_fare_regressor(len(TAXI_FEATURES), device="cuda",
                                     generator=torch.Generator().manual_seed(0)),
@@ -2298,20 +2328,28 @@ def phase_taxi_etl(torch, P):
     hist, first_s = fit_timed(mlp, lambda: mlp.fit_on_df(
         train_df, test_df, num_shards=2))
     losses = [h["train_loss"] for h in hist]
-    log(f"[10b] taxi MLP fit_on_df ({mlp.effective_epoch_mode}): losses "
+    log(f"[{tag}] taxi MLP fit_on_df ({mlp.effective_epoch_mode}): losses "
         f"{[round(v, 4) for v in losses]}, eval_mae {hist[-1]['eval_mae']:.4f},"
         f" {hist[-1]['samples_per_sec']:.0f} samples/s; {first_s:.3f} s from "
         f"the call to the first step")
-    check(losses[-1] < losses[0], f"taxi MLP: train loss did not fall "
-                                  f"{losses}")
+    check(losses[-1] < losses[0], f"{tag}: taxi MLP: train loss did not "
+                                  f"fall {losses}")
     pdf = mlp.predict_on_df(test_df, num_shards=2)
     x = pdf[TAXI_FEATURES].to_numpy(np.float32)
     want = mlp.predict(x)[:, 0]
     check(len(pdf) == n_test and np.allclose(pdf["prediction"], want,
                                              rtol=1e-5, atol=1e-5),
-          "predict_on_df: not one prediction per row in row order")
-    log(f"[10b] predict_on_df: {len(pdf)} rows, each row's prediction "
+          f"{tag}: predict_on_df: not one prediction per row in row order")
+    log(f"[{tag}] predict_on_df: {len(pdf)} rows, each row's prediction "
         f"equal to predict() on its features (rtol 1e-5)")
+    return rate, out, train_df, test_df
+
+
+def phase_taxi_etl(torch, P):
+    """10b: the taxi ETL and MLP fit in this process
+    (:func:`taxi_etl_and_mlp`), then GBTEstimator.fit_on_df and
+    TFEstimator.fit_on_df on the card. Returns the ETL's input rows/s."""
+    rate, _, train_df, test_df = taxi_etl_and_mlp(torch, P, "10b")
 
     gbt = P.GBTEstimator(n_trees=GBT_TREES, max_depth=5, max_bins=64,
                          feature_columns=TAXI_FEATURES,
@@ -2351,14 +2389,17 @@ def phase_taxi_etl(torch, P):
         f"samples/s; {first_s:.3f} s from the call to the first step")
     check(losses[-1] < losses[0], "keras tower fit_on_df: train loss did "
                                   "not fall")
+    return rate
 
 
-def phase_glue_etl(torch, P):
-    """10c: examples/bert_glue.py's rows as a frame of 4 partitions ->
+def phase_glue_etl(torch, P, tag="10c"):
+    """10c: examples/bert_glue.py's rows as a frame of 4 partitions (on
+    the session's workers while one is live: 11c) ->
     Estimator.fit_on_df(num_shards=2) of the bf16 flash SequenceClassifier
     at bert_base width and depth, batch 64, AdamW, 2 epochs on the path
     "auto" picks: 12 launches of each flash kernel a step, in the
-    counters. Returns the launch counts."""
+    counters. Returns (launch counts, ms a step of the last epoch,
+    seconds from the call to the first step)."""
     import numpy as np
     import pyarrow as pa
 
@@ -2367,6 +2408,8 @@ def phase_glue_etl(torch, P):
     df = rdf.from_arrow(pa.table(synthetic_glue(np, ETL_GLUE_ROWS, GLUE_SEQ,
                                                 30522)),
                         num_partitions=ETL_PARTS)
+    log(f"[{tag}] GLUE frame: {ETL_GLUE_ROWS} rows, {ETL_PARTS} partitions "
+        f"on a {type(df._executor).__name__}")
     cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
                       max_len=GLUE_SEQ)
     est = P.Estimator(
@@ -2387,20 +2430,21 @@ def phase_glue_etl(torch, P):
     losses = [h["train_loss"] for h in hist]
     per_epoch = ETL_GLUE_ROWS // ETL_GLUE_BATCH
     for h in hist:
-        log(f"[10c] bert_base fine-tune from a DataFrame "
+        log(f"[{tag}] bert_base fine-tune from a DataFrame "
             f"({est.effective_epoch_mode}) epoch {h['epoch']}: train_loss "
             f"{h['train_loss']:.4f}, {h['samples']} samples in "
             f"{h['time_s']:.3f} s -> {h['samples_per_sec']:.1f} samples/s, "
             f"{h['time_s'] / per_epoch * 1e3:.2f} ms/step (host clock)")
-    log(f"[10c] {first_s:.3f} s from fit_on_df's call to the first step; "
+    log(f"[{tag}] {first_s:.3f} s from fit_on_df's call to the first step; "
         f"launches over {steps} steps: {counts}")
     want = {k: 12 * steps for k in KERNEL_SYMBOLS}
-    check(counts == want, f"10c: expected launches {want}, saw {counts}")
+    check(counts == want, f"{tag}: expected launches {want}, saw {counts}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"10c: train loss did not fall {losses}")
+          f"{tag}: train loss did not fall {losses}")
+    ms_per_step = hist[-1]["time_s"] / per_epoch * 1e3
     del est
     torch.cuda.empty_cache()
-    return counts
+    return counts, ms_per_step, first_s
 
 
 def phase_criteo_etl(torch, P):
@@ -2446,7 +2490,9 @@ def phase_criteo_etl(torch, P):
 
 
 def phase_etl(torch, P):
-    """10: the ETL half on the card. Returns 10c's launch counts."""
+    """10: the ETL half on the card. Returns 10c's launch counts and the
+    numbers phase 11 is set beside: 10b's input rows/s, 10c's ms a step
+    and seconds to its first step."""
     import numpy as np
 
     for lib in ("pyarrow", "pandas"):
@@ -2456,9 +2502,154 @@ def phase_etl(torch, P):
             version = "missing"
         log(f"[10] {lib} {version}")
     phase_native(np)
-    phase_taxi_etl(torch, P)
-    counts = phase_glue_etl(torch, P)
+    taxi_rate = phase_taxi_etl(torch, P)
+    counts, glue_ms, glue_first_s = phase_glue_etl(torch, P)
     phase_criteo_etl(torch, P)
+    return counts, {"taxi_rows_per_s": taxi_rate, "glue_ms": glue_ms,
+                    "glue_first_s": glue_first_s}
+
+
+SESSION_WORKERS = 4
+RESPAWN_WAIT_S = 60.0
+
+
+def _worker_probe(ctx):
+    """Runs on an ETL worker and imports nothing, so the workers stay as
+    warm as ``init`` left them: whether the worker holds torch, and the
+    CUDA devices it may see."""
+    import os
+    import sys
+
+    return "torch" in sys.modules, os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def _log_worker_logs(log_dir, names=None):
+    """Print the path and tail of each worker log (a worker failed)."""
+    if not os.path.isdir(log_dir):
+        log(f"[11] no worker logs at {log_dir}")
+        return
+    for name in sorted(names or os.listdir(log_dir)):
+        path = os.path.join(log_dir, name)
+        try:
+            with open(path, errors="replace") as f:
+                tail = f.read()[-2000:]
+        except OSError as e:
+            tail = f"(unreadable: {e})"
+        log(f"[11] worker log {path}:\n{tail}")
+
+
+def phase_session(torch, P, ref):
+    """11: the session on the card. ``raydp_tpu_torch.init`` with 4 ETL
+    worker processes; (a) the workers alive, torch-free and seeing no
+    card; (b) 10b's taxi ETL and MLP fit on the workers; (c) 10c's
+    bert_base fine-tune from a frame on the workers; (d) refs handed to
+    the holder survive a SIGKILLed worker and its respawn, and ``stop()``
+    leaves no segment. ``ref`` holds 10b's and 10c's numbers. Returns
+    11c's launch counts."""
+    import signal
+    import tempfile
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+    from raydp_tpu_torch.store import shm
+
+    st = os.statvfs(shm.shm_dir())
+    log(f"[11a] shm directory {shm.shm_dir()}: "
+        f"{st.f_bavail * st.f_frsize / 2**30:.2f} GiB free of "
+        f"{st.f_blocks * st.f_frsize / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    try:
+        session = P.init(app_name="chip-smoke", num_workers=SESSION_WORKERS)
+    except Exception:
+        _log_worker_logs(os.path.join(tempfile.gettempdir(),
+                                      "raydp_tpu_torch",
+                                      f"chip-smoke-{os.getpid()}"))
+        raise
+    init_s = time.perf_counter() - t0
+    cluster = session.cluster
+    namespace = cluster.namespace
+    workers = cluster.alive_workers()
+    log(f"[11a] init: {len(workers)} workers registered in {init_s:.3f} s "
+        f"(host clock); namespace {namespace}, logs {cluster.log_dir}")
+    check(len(workers) == SESSION_WORKERS,
+          f"11a: {len(workers)} workers alive, want {SESSION_WORKERS}")
+    frame = rdf.range(8, num_partitions=2)
+    check(isinstance(frame._executor, ClusterExecutor),
+          f"11a: a frame's executor is {type(frame._executor).__name__}")
+    t0 = time.perf_counter()
+    seen = {w.worker_id: cluster.submit(_worker_probe, worker_id=w.worker_id)
+            for w in workers}
+    log(f"[11a] each worker's (torch imported, CUDA_VISIBLE_DEVICES), "
+        f"{time.perf_counter() - t0:.3f} s for the four probes: {seen}")
+    check(all(v == (False, "") for v in seen.values()),
+          f"11a: a worker imported torch or sees a card: {seen}")
+
+    import numpy as np
+
+    rate, out, _, _ = taxi_etl_and_mlp(torch, P, "11b")
+    warm, _, _, _, _ = taxi_etl(np, "11b warm")
+    base = ref["taxi_rows_per_s"]
+    log(f"[11b] taxi ETL on {SESSION_WORKERS} workers: the first after init "
+        f"{rate:.0f} input rows/s, again on warm workers {warm:.0f}, against "
+        f"10b's {base:.0f} in this process ({rate / base:.2f}x; "
+        f"{warm / base:.2f}x; host clock, same run)")
+    seen = {w.worker_id: cluster.submit(_worker_probe, worker_id=w.worker_id)
+            for w in cluster.alive_workers()}
+    check(all(v == (False, "") for v in seen.values()),
+          f"11b: a worker imported torch after the taxi ETL: {seen}")
+
+    counts, ms, first_s = phase_glue_etl(torch, P, tag="11c")
+    log(f"[11c] bert_base from a cluster frame: {ms:.2f} ms/step against "
+        f"10c's {ref['glue_ms']:.2f} ({ms / ref['glue_ms']:.3f}x); "
+        f"{first_s:.3f} s from fit_on_df's call to the first step against "
+        f"10c's {ref['glue_first_s']:.3f} s (host clock, same run)")
+
+    refs = out.to_object_refs(owner_transfer=True)
+    check(all(r.owner == "__holder__" for r in refs),
+          "11d: to_object_refs(owner_transfer=True) left a worker owner")
+    before = [cluster.resolver.get_arrow_table(r) for r in refs]
+    victim = cluster.alive_workers()[0]
+    os.kill(victim.pid, signal.SIGKILL)
+    log(f"[11d] SIGKILLed worker {victim.worker_id} (pid {victim.pid}, log "
+        f"{os.path.join(cluster.log_dir, victim.worker_id + '.log')}) "
+        f"holding {len(refs)} holder-owned refs")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RESPAWN_WAIT_S:
+        alive = cluster.alive_workers()
+        if (len(alive) == SESSION_WORKERS
+                and victim.worker_id not in {w.worker_id for w in alive}):
+            break
+        time.sleep(0.1)
+    alive = cluster.alive_workers()
+    respawn_s = time.perf_counter() - t0
+    check(len(alive) == SESSION_WORKERS
+          and victim.worker_id not in {w.worker_id for w in alive},
+          f"11d: no respawn within {RESPAWN_WAIT_S} s: alive "
+          f"{[w.worker_id for w in alive]}")
+    after = [cluster.resolver.get_arrow_table(r) for r in refs]
+    check(all(a.equals(b) for a, b in zip(after, before)),
+          "11d: a ref read back differs after the SIGKILL")
+    rows = [cluster.submit(lambda ctx, r: ctx.get_table(r).num_rows, r,
+                           worker_id=alive[-1].worker_id) for r in refs]
+    check(rows == [t.num_rows for t in before],
+          f"11d: a worker read other row counts {rows}")
+    new = sorted({w.worker_id for w in alive}
+                 - {w.worker_id for w in workers})
+    log(f"[11d] {len(alive)} workers alive again {respawn_s:.2f} s after the "
+        f"SIGKILL (new: {new}); all {len(refs)} refs ({sum(rows)} rows) read "
+        f"back equal, by the driver and by worker {alive[-1].worker_id}")
+    procs = list(cluster._procs.values())
+    t0 = time.perf_counter()
+    P.stop()
+    stop_s = time.perf_counter() - t0
+    left = shm.list_segments(f"rdp-{namespace}-")
+    check(not left, f"11d: {len(left)} segments left after stop(): "
+                    f"{left[:4]}")
+    check(all(p.poll() is not None for p in procs),
+          "11d: a worker process outlived stop()")
+    check(P.current_session() is None, "11d: a session is live after stop()")
+    log(f"[11d] stop() in {stop_s:.3f} s: every worker exited, no segment "
+        f"of {namespace} left under {shm.shm_dir()}")
     return counts
 
 
@@ -2507,12 +2698,14 @@ def main() -> int:
     _reset_counts()
     decode_replica_launches = phase_serve_decode(torch, P)
     serve_f32_driver = _counts()["flash_fwd"]
-    etl_counts = phase_etl(torch, P)
+    etl_counts, etl_ref = phase_etl(torch, P)
+    session_counts = phase_session(torch, P, etl_ref)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
             "remat fine-tune": remat_counts, "MoE": moe_counts,
-            "fine-tune from a DataFrame": etl_counts}
+            "fine-tune from a DataFrame": etl_counts,
+            "fine-tune from a cluster frame": session_counts}
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

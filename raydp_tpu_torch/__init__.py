@@ -23,105 +23,90 @@ the ETL half in one process: the partitioned Arrow DataFrame engine on
 its local executor (``dataframe/``), the native host kernels
 (``native/``, g++-built at first use) and the handoff into training,
 ``fit_on_df`` of ``Estimator``, ``GBTEstimator`` and ``TFEstimator``.
+Slice 8 is the session and its ETL worker cluster: ``init()`` starts
+the AppMaster and worker processes (``cluster/``), partitions live in
+the shared-memory object store (``store/``), the engine's stages ship to
+the workers as closures (``cluster/closure.py``), and ``stop()`` tears
+it down.
 
-Entry points take ``device=`` (default ``"cuda"``); without a card they
-raise unless the caller passes ``device="cpu"``.
+The package imports its parts lazily (PEP 562): ``import
+raydp_tpu_torch`` and the DataFrame engine load no torch, so an ETL
+worker process stays light; a name below loads its module at first use.
+
+Entry points that touch a device take ``device=`` (default ``"cuda"``);
+without a card they raise unless the caller passes ``device="cpu"``.
 """
-from raydp_tpu_torch.data import MLDataset, ShardLoader
-from raydp_tpu_torch.models import (
-    DLRM,
-    MLP,
-    CausalLM,
-    DLRMConfig,
-    MoEClassifier,
-    MoEConfig,
-    PackedDLRM,
-    SequenceClassifier,
-    TransformerConfig,
-    bert_base,
-    binary_classifier,
-    criteo_dlrm,
-    moe_aux_loss,
-    params_from_flax,
-    set_dropout_generator,
-    taxi_fare_regressor,
-    tiny_dlrm,
-    tiny_moe,
-    tiny_transformer,
-)
-from raydp_tpu_torch.ops import (
-    cached_decode_attention,
-    flash_attention,
-    flash_attention_backward,
-    flash_attention_backward_plain,
-    flash_attention_forward,
-    flash_attention_plain,
-    reference_attention,
-)
-from raydp_tpu_torch.serve import (
-    DecodeConfig,
-    DecodeLoop,
-    PagedSlotPool,
-    ReplicaGroup,
-    RequestQueue,
-    ServeFrontend,
-    ToyDecodeEngine,
-    TransformerDecodeEngine,
-    build_transformer_engine,
-    reference_decode,
-)
-from raydp_tpu_torch.train import (
-    Estimator,
-    GBTEstimator,
-    TFEstimator,
-    TrainingCallback,
-)
-from raydp_tpu_torch.utils import metrics, resolve_device, set_exact_float32
+import importlib
 
-__all__ = [
-    "CausalLM",
-    "DLRM",
-    "DLRMConfig",
-    "DecodeConfig",
-    "DecodeLoop",
-    "Estimator",
-    "GBTEstimator",
-    "MLDataset",
-    "MLP",
-    "MoEClassifier",
-    "MoEConfig",
-    "PackedDLRM",
-    "PagedSlotPool",
-    "ReplicaGroup",
-    "RequestQueue",
-    "SequenceClassifier",
-    "ServeFrontend",
-    "ShardLoader",
-    "TFEstimator",
-    "ToyDecodeEngine",
-    "TransformerConfig",
-    "TrainingCallback",
-    "TransformerDecodeEngine",
-    "bert_base",
-    "binary_classifier",
-    "build_transformer_engine",
-    "cached_decode_attention",
-    "criteo_dlrm",
-    "flash_attention",
-    "flash_attention_backward",
-    "flash_attention_backward_plain",
-    "flash_attention_forward",
-    "flash_attention_plain",
-    "metrics",
-    "moe_aux_loss",
-    "params_from_flax",
-    "reference_attention",
-    "reference_decode",
-    "resolve_device",
-    "set_dropout_generator",
-    "set_exact_float32",
-    "taxi_fare_regressor",
-    "tiny_dlrm",
-    "tiny_moe",
-    "tiny_transformer",
-]
+# Public name -> the module that defines it, imported at first use.
+_EXPORTS = {
+    "current_session": "raydp_tpu_torch.context",
+    "init": "raydp_tpu_torch.context",
+    "stop": "raydp_tpu_torch.context",
+    "MLDataset": "raydp_tpu_torch.data",
+    "ShardLoader": "raydp_tpu_torch.data",
+    "DLRM": "raydp_tpu_torch.models",
+    "MLP": "raydp_tpu_torch.models",
+    "CausalLM": "raydp_tpu_torch.models",
+    "DLRMConfig": "raydp_tpu_torch.models",
+    "MoEClassifier": "raydp_tpu_torch.models",
+    "MoEConfig": "raydp_tpu_torch.models",
+    "PackedDLRM": "raydp_tpu_torch.models",
+    "SequenceClassifier": "raydp_tpu_torch.models",
+    "TransformerConfig": "raydp_tpu_torch.models",
+    "bert_base": "raydp_tpu_torch.models",
+    "binary_classifier": "raydp_tpu_torch.models",
+    "criteo_dlrm": "raydp_tpu_torch.models",
+    "moe_aux_loss": "raydp_tpu_torch.models",
+    "params_from_flax": "raydp_tpu_torch.models",
+    "set_dropout_generator": "raydp_tpu_torch.models",
+    "taxi_fare_regressor": "raydp_tpu_torch.models",
+    "tiny_dlrm": "raydp_tpu_torch.models",
+    "tiny_moe": "raydp_tpu_torch.models",
+    "tiny_transformer": "raydp_tpu_torch.models",
+    "cached_decode_attention": "raydp_tpu_torch.ops",
+    "flash_attention": "raydp_tpu_torch.ops",
+    "flash_attention_backward": "raydp_tpu_torch.ops",
+    "flash_attention_backward_plain": "raydp_tpu_torch.ops",
+    "flash_attention_forward": "raydp_tpu_torch.ops",
+    "flash_attention_plain": "raydp_tpu_torch.ops",
+    "reference_attention": "raydp_tpu_torch.ops",
+    "DecodeConfig": "raydp_tpu_torch.serve",
+    "DecodeLoop": "raydp_tpu_torch.serve",
+    "PagedSlotPool": "raydp_tpu_torch.serve",
+    "ReplicaGroup": "raydp_tpu_torch.serve",
+    "RequestQueue": "raydp_tpu_torch.serve",
+    "ServeFrontend": "raydp_tpu_torch.serve",
+    "ToyDecodeEngine": "raydp_tpu_torch.serve",
+    "TransformerDecodeEngine": "raydp_tpu_torch.serve",
+    "build_transformer_engine": "raydp_tpu_torch.serve",
+    "reference_decode": "raydp_tpu_torch.serve",
+    "Estimator": "raydp_tpu_torch.train",
+    "GBTEstimator": "raydp_tpu_torch.train",
+    "TFEstimator": "raydp_tpu_torch.train",
+    "TrainingCallback": "raydp_tpu_torch.train",
+    "metrics": "raydp_tpu_torch.utils",
+    "resolve_device": "raydp_tpu_torch.utils",
+    "set_exact_float32": "raydp_tpu_torch.utils",
+}
+_SUBPACKAGES = ("cluster", "config", "context", "data", "dataframe",
+                "fault", "models", "native", "ops", "serve", "store",
+                "telemetry", "train", "utils")
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is not None:
+        value = getattr(importlib.import_module(module), name)
+    elif name in _SUBPACKAGES:
+        value = importlib.import_module(f"{__name__}.{name}")
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS) | set(_SUBPACKAGES))

@@ -1,0 +1,346 @@
+"""AppMaster: the control-plane service (the port's copy of
+``raydp_tpu/cluster/master.py``).
+
+Role parity with the reference's RayAppMaster
+(reference: core/.../deploy/raydp/RayAppMaster.scala:40-296): registers the
+application, tracks workers (register / started / request / kill),
+schedules workers onto placement-group bundles round-robin
+(``RayAppMaster.scala:281-289``), detects worker death and cleans up, and
+hosts the **object directory** with holder ownership (the reference
+splits this into ObjectRefHolder + a Python holder actor).
+
+Runs as an RPC service (``cluster/rpc.py``) in a thread of the driver
+process, so holder-owned objects survive worker teardown for the
+driver's lifetime; the service boundary means workers speak to it the
+same way a detached deployment would. The reference's report handlers
+(metrics, health, progress, scheduler, usage, events, dashboard) and its
+lifecycle events belong to the telemetry plane and are not ported yet.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from raydp_tpu_torch.cluster import placement as pl
+from raydp_tpu_torch.cluster.rpc import RpcServer
+from raydp_tpu_torch.store.agent import agent_handlers
+from raydp_tpu_torch.store.directory import DirectoryStore
+from raydp_tpu_torch.store.object_store import DEFAULT_NODE, OWNER_HOLDER
+
+logger = logging.getLogger(__name__)
+
+SERVICE = "raydp.AppMaster"
+# Generous by design: local crashes are detected instantly via the
+# cluster's proc.poll() monitor, so the heartbeat path only covers hung
+# or remote workers — and a CPU-saturated host (big shuffle on few
+# cores) must not read as death.
+HEARTBEAT_TIMEOUT_S = float(
+    os.environ.get("RAYDP_TPU_HEARTBEAT_TIMEOUT", "45")
+)
+
+
+@dataclass
+class WorkerInfo:
+    worker_id: str
+    address: str  # worker RPC endpoint
+    pid: int
+    node_id: str
+    resources: Dict[str, float]
+    state: str = "ALIVE"  # ALIVE | DEAD | STOPPED
+    last_heartbeat: float = field(default_factory=time.monotonic)
+
+
+class AppMaster:
+    """Control-plane state machine + its RPC server."""
+
+    def __init__(
+        self,
+        namespace: str,
+        nodes: Optional[List[pl.NodeInfo]] = None,
+        bind_host: str = "127.0.0.1",
+        advertise_host: Optional[str] = None,
+        port: int = 0,
+    ):
+        self.namespace = namespace
+        self.nodes = nodes if nodes is not None else pl.detect_nodes()
+        self.node_id = DEFAULT_NODE  # the master lives on the driver node
+        self.store = DirectoryStore(namespace=namespace, node_id=self.node_id)
+        self._workers: Dict[str, WorkerInfo] = {}
+        self._lock = threading.RLock()
+        self._registration_event = threading.Event()
+        self._expected_workers = 0
+        self._agent_event = threading.Event()
+        self._expected_agent_nodes: set = set()
+        self._monitor_stop = threading.Event()
+        handlers = {
+            "RegisterWorker": self._on_register_worker,
+            "Heartbeat": self._on_heartbeat,
+            "WorkerStopped": self._on_worker_stopped,
+            "RegisterObject": self._on_register_object,
+            "PutObject": self._on_put_object,
+            "RegisterAgent": self._on_register_agent,
+            "TransferToHolder": self._on_transfer_to_holder,
+            "GetObjectMeta": self._on_get_object_meta,
+            "ListObjects": self._on_list_objects,
+            "DeleteObject": self._on_delete_object,
+            "ListWorkers": self._on_list_workers,
+            "ClusterResources": self._on_cluster_resources,
+            "Ping": lambda req: {"pong": True, "namespace": self.namespace},
+        }
+        # The master doubles as the driver node's store agent (no extra
+        # process on the node the driver already occupies).
+        handlers.update(agent_handlers(self.store))
+        self._server = RpcServer(SERVICE, handlers, host=bind_host, port=port)
+        # A server bound to every interface is dialled at a concrete
+        # address (the reference's RpcServer advertises the same way).
+        if advertise_host is None and bind_host == "0.0.0.0":
+            advertise_host = pl.local_ip()
+        self._address = (f"{advertise_host}:{self._server.port}"
+                         if advertise_host else self._server.address)
+        self.store.register_agent(self.node_id, self.address, SERVICE)
+        self._monitor = threading.Thread(
+            target=self._monitor_loop, name="raydp-master-monitor", daemon=True
+        )
+        self._monitor.start()
+
+    # ------------------------------------------------------------------
+    @property
+    def address(self) -> str:
+        return self._address
+
+    def expect_workers(self, n: int) -> None:
+        with self._lock:
+            self._expected_workers = n
+            self._registration_event.clear()
+            self._check_registration_barrier()
+
+    def wait_for_workers(self, timeout: float = 60.0) -> bool:
+        """Registration barrier (reference:
+        RayCoarseGrainedSchedulerBackend.scala:155,180-182)."""
+        return self._registration_event.wait(timeout)
+
+    def expect_agents(self, node_ids) -> None:
+        with self._lock:
+            self._expected_agent_nodes = set(node_ids)
+            self._agent_event.clear()
+            self._check_agent_barrier()
+
+    def wait_for_agents(self, timeout: float = 60.0) -> bool:
+        return self._agent_event.wait(timeout)
+
+    def _check_agent_barrier(self) -> None:
+        if self._expected_agent_nodes <= set(self.store.agents()):
+            self._agent_event.set()
+
+    def object_meta(self, object_id: str):
+        """In-process resolver hook: (ref, agent) for the driver."""
+        return self.store.meta(object_id)
+
+    def alive_workers(self) -> List[WorkerInfo]:
+        with self._lock:
+            return [w for w in self._workers.values() if w.state == "ALIVE"]
+
+    def mark_worker_dead(self, worker_id: str, reason: str = "") -> None:
+        """Worker-disconnect path (reference: RayAppMaster.scala:184-186
+        kills executors on RPC disconnect). Unlinks the worker's
+        non-transferred objects."""
+        with self._lock:
+            info = self._workers.get(worker_id)
+            if info is None or info.state != "ALIVE":
+                return
+            info.state = "DEAD"
+        doomed = self.store.on_owner_died(worker_id)
+        logger.warning(
+            "worker %s dead (%s); unlinked %d objects",
+            worker_id,
+            reason,
+            len(doomed),
+        )
+
+    def release_holder(self) -> int:
+        """Unlink holder-owned objects (the del_obj_holder=True path)."""
+        doomed = self.store.on_owner_died(OWNER_HOLDER)
+        return len(doomed)
+
+    def shutdown(self) -> None:
+        self._monitor_stop.set()
+        self._server.stop()
+
+    # -- handlers -------------------------------------------------------
+    def _on_register_worker(self, req: dict) -> dict:
+        info = WorkerInfo(
+            worker_id=req["worker_id"],
+            address=req["address"],
+            pid=req["pid"],
+            node_id=req.get("node_id", "node-0"),
+            resources=req.get("resources", {}),
+        )
+        with self._lock:
+            self._workers[info.worker_id] = info
+            self._check_registration_barrier()
+        logger.info("registered worker %s @ %s", info.worker_id, info.address)
+        return {"namespace": self.namespace}
+
+    def _check_registration_barrier(self) -> None:
+        alive = sum(1 for w in self._workers.values() if w.state == "ALIVE")
+        if self._expected_workers and alive >= self._expected_workers:
+            self._registration_event.set()
+
+    def _on_heartbeat(self, req: dict) -> dict:
+        with self._lock:
+            info = self._workers.get(req["worker_id"])
+            if info is None:
+                return {"known": False}
+            info.last_heartbeat = time.monotonic()
+            return {"known": info.state == "ALIVE"}
+
+    def _on_worker_stopped(self, req: dict) -> dict:
+        worker_id = req["worker_id"]
+        with self._lock:
+            info = self._workers.get(worker_id)
+            if info is not None:
+                info.state = "STOPPED"
+        # Graceful stop loses non-transferred objects too — data survives
+        # worker teardown only via the holder (reference semantics:
+        # test_data_owner_transfer.py:34-78, stop_spark → OwnerDiedError).
+        doomed = self.store.on_owner_died(worker_id)
+        if doomed:
+            logger.info(
+                "worker %s stopped; unlinked %d non-transferred objects",
+                worker_id,
+                len(doomed),
+            )
+        return {}
+
+    def _on_register_object(self, req: dict) -> dict:
+        ref = req["ref"]
+        # A worker this master already wrote off (disowned mid-task but
+        # still finishing — the heartbeat-starvation survival path) may
+        # register worker-owned objects whose segments were unlinked the
+        # moment it was marked dead. Registering such a ref would hand
+        # later readers a pointer to deleted storage; fail the task
+        # loudly here instead (holder-owned refs — every DataFrame stage
+        # output — are unaffected: the holder never "dies").
+        owner = getattr(ref, "owner", None)
+        if owner is not None and owner != OWNER_HOLDER:
+            # check + register under ONE lock hold: mark_worker_dead
+            # flips state to DEAD under this lock and only unlinks
+            # afterwards, so with the lock held across both steps a
+            # registration lands either strictly before the DEAD
+            # transition (the subsequent on_owner_died unlinks it) or
+            # after (this raises) — never in between as a dangling ref.
+            with self._lock:
+                info = self._workers.get(owner)
+                if info is not None and info.state != "ALIVE":
+                    raise RuntimeError(
+                        f"owner {owner} was marked dead; its objects were "
+                        "unlinked — refusing to register a dangling ref"
+                    )
+                self.store.register_ref(ref)
+            return {}
+        self.store.register_ref(ref)
+        return {}
+
+    def _on_put_object(self, req: dict) -> dict:
+        """Remote write path: bytes land in the driver node's store under
+        the requested owner."""
+        ref = self.store.put(
+            req["data"],
+            owner=req.get("owner", OWNER_HOLDER),
+            num_rows=req.get("num_rows", -1),
+        )
+        return {"ref": ref}
+
+    def _on_register_agent(self, req: dict) -> dict:
+        self.store.register_agent(
+            req["node_id"], req["address"], req["service"]
+        )
+        with self._lock:
+            self._check_agent_barrier()
+        return {"namespace": self.namespace}
+
+    def _on_transfer_to_holder(self, req: dict) -> dict:
+        return {"ref": self.store.transfer_to_holder(req["ref"])}
+
+    def _on_get_object_meta(self, req: dict) -> dict:
+        ref, agent = self.store.meta(req["object_id"])
+        return {"ref": ref, "agent": agent}
+
+    def _on_list_objects(self, req: dict) -> dict:
+        return {"refs": self.store.refs()}
+
+    def _on_delete_object(self, req: dict) -> dict:
+        return {"deleted": self.store.delete(req["object_id"])}
+
+    def _on_list_workers(self, req: dict) -> dict:
+        with self._lock:
+            return {"workers": list(self._workers.values())}
+
+    def _on_cluster_resources(self, req: dict) -> dict:
+        return self.cluster_resources()
+
+    def cluster_resources(self) -> dict:
+        """Resource introspection (reference:
+        python/raydp/ray_cluster_resources.py)."""
+        with self._lock:
+            alive = [w for w in self._workers.values() if w.state == "ALIVE"]
+        total: Dict[str, float] = {}
+        for node in self.nodes:
+            for k, v in node.resources.items():
+                total[k] = total.get(k, 0.0) + v
+        used: Dict[str, float] = {}
+        for w in alive:
+            for k, v in w.resources.items():
+                used[k] = used.get(k, 0.0) + v
+        return {
+            "total": total,
+            "used": used,
+            "available": {k: total.get(k, 0.0) - used.get(k, 0.0) for k in total},
+            "num_nodes": len(self.nodes),
+            "num_alive_workers": len(alive),
+        }
+
+    # -- monitor --------------------------------------------------------
+    def _monitor_loop(self) -> None:
+        prev = time.monotonic()
+        while not self._monitor_stop.wait(1.0):
+            now = time.monotonic()
+            prev = self._monitor_tick(now, prev)
+
+    def _monitor_tick(self, now: float, prev: float) -> float:
+        """One liveness pass; returns the new ``prev`` timestamp.
+
+        Self-stall defense: if the loop overslept its 1 s period (driver
+        process GIL-starved by a big shuffle on a small host), the
+        workers' heartbeats were starved by the same cause — their
+        staleness is evidence of OUR stall, not their death. Grant the
+        oversleep back as grace instead of declaring a massacre.
+        """
+        oversleep = (now - prev) - 1.0
+        if oversleep > 2.0:
+            with self._lock:
+                for w in self._workers.values():
+                    if w.state == "ALIVE":
+                        # Clamped: grace covers staleness accrued DURING
+                        # the stall; a beat processed near the stall's
+                        # end must not end up timestamped in the future.
+                        w.last_heartbeat = min(
+                            now, w.last_heartbeat + oversleep
+                        )
+            # Fall through to the stale check: under CHRONIC oversleep
+            # net staleness still accumulates tick by tick, and skipping
+            # the check here would blind death detection.
+        with self._lock:
+            stale = [
+                w.worker_id
+                for w in self._workers.values()
+                if w.state == "ALIVE"
+                and now - w.last_heartbeat > HEARTBEAT_TIMEOUT_S
+            ]
+        for worker_id in stale:
+            self.mark_worker_dead(worker_id, reason="heartbeat timeout")
+        return now

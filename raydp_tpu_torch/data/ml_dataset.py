@@ -1,7 +1,7 @@
 """Sharded ML dataset: the DataFrame → trainer handoff.
 
-The counterpart of ``raydp_tpu/data/ml_dataset.py`` in one process. A
-block is a ``pyarrow.Table`` (a DataFrame partition; a dict of
+The counterpart of ``raydp_tpu/data/ml_dataset.py`` for one trainer
+process. A block is a ``pyarrow.Table`` (a DataFrame partition; a dict of
 equal-length numpy columns is stored as one), or a partition the
 DataFrame engine's streaming executor is still producing
 (:class:`~raydp_tpu_torch.dataframe.scheduler.PendingPartition`).
@@ -21,7 +21,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Uni
 
 import numpy as np
 
-from raydp_tpu_torch.dataframe.scheduler import is_pending, resolve_one
+from raydp_tpu_torch.dataframe.scheduler import chain, is_pending, resolve_one
 from raydp_tpu_torch.utils.sharding import BlockSlice, divide_blocks
 
 Columns = Dict[str, np.ndarray]
@@ -83,11 +83,26 @@ class MLDataset:
                 shuffle_seed: Optional[int] = None) -> "MLDataset":
         """From a :class:`raydp_tpu_torch.dataframe.DataFrame`, one block
         per partition in partition order; repartitions up to
-        ``num_shards`` if short."""
+        ``num_shards`` if short.
+
+        A frame on a live session's cluster hands over its partitions as
+        the JAX package's does (``raydp_tpu/data/ml_dataset.py:209-228``):
+        each ``ObjectRef`` is transferred to the holder and read by the
+        session's resolver, a zero-copy table over the mapped segment; a
+        partition still being produced stays pending and is read when
+        it lands. A local frame's partitions are taken as they are."""
         if df.num_partitions < num_shards:
             df = df.repartition(num_shards)
-        return MLDataset(list(df._flush()._parts), num_shards, shuffle,
-                         shuffle_seed)
+        from raydp_tpu_torch.context import current_session
+
+        session = current_session()
+        parts = df._to_block_parts() if session is not None else None
+        if parts is None:
+            parts = list(df._flush()._parts)
+        else:
+            read = session.cluster.resolver.get_arrow_table
+            parts = [chain(p, read) for p in parts]
+        return MLDataset(parts, num_shards, shuffle, shuffle_seed)
 
     @staticmethod
     def from_parquet(paths: Union[str, Sequence[str]], num_shards: int,

@@ -1,8 +1,10 @@
 """Partitioned Arrow DataFrame engine (the framework's Spark replacement).
 
-The port's copy of ``raydp_tpu.dataframe`` on its local executor: every
-stage runs on a thread pool in this process. Public surface mirrors the
-PySpark idioms the reference's pipelines use:
+The port's copy of ``raydp_tpu.dataframe``: stages run on the session's
+ETL worker processes while a session from ``raydp_tpu_torch.init()`` is
+live (partitions in its shared-memory object store), else on a thread
+pool in this process. Public surface mirrors the PySpark idioms the
+reference's pipelines use:
 
     from raydp_tpu_torch import dataframe as rdf
     from raydp_tpu_torch.dataframe import col, lit, udf, hour, dayofweek
@@ -44,6 +46,7 @@ from raydp_tpu_torch.dataframe.io import (
     from_arrow,
     from_items,
     from_pandas,
+    from_refs,
     range,
     read_csv,
     read_parquet,
@@ -56,6 +59,6 @@ __all__ = [
     "quarter", "weekofyear", "dayofweek",
     "sqrt", "exp", "log", "floor", "ceil", "lower", "upper", "length",
     "monotonically_increasing_id",
-    "from_arrow", "from_items", "from_pandas", "range",
+    "from_arrow", "from_items", "from_pandas", "from_refs", "range",
     "read_csv", "read_parquet",
 ]

@@ -28,6 +28,7 @@ from raydp_tpu_torch.dataframe.executor import (
 )
 from raydp_tpu_torch.dataframe.scheduler import (
     all_settled as _all_settled,
+    chain as _chain_part,
     resolve as _resolve_parts,
     when_settled as _when_settled,
 )
@@ -76,6 +77,19 @@ def _resolve_lazy(
     return out
 
 
+def _default_executor() -> Executor:
+    """The cluster executor while a session with live workers exists,
+    else a local one."""
+    from raydp_tpu_torch.context import current_session
+
+    session = current_session()
+    if session is not None and session.cluster.alive_workers():
+        from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
+        return ClusterExecutor(session.cluster)
+    return LocalExecutor()
+
+
 def keys_cover(existing, needed) -> bool:
     """Whether a frame hash-partitioned on ``existing`` is already
     co-located for a grouping op on ``needed`` (groupBy keys, distinct
@@ -99,7 +113,7 @@ class DataFrame:
         pending: Optional[List[Callable[[pa.Table], pa.Table]]] = None,
     ):
         self._parts = parts
-        self._executor = executor or LocalExecutor()
+        self._executor = executor or _default_executor()
         self._pending = list(pending or [])
         # Keys this frame is currently hash-partitioned on (co-located
         # groups); lets chained grouping ops skip re-shuffles.
@@ -626,7 +640,7 @@ class DataFrame:
     def union(self, other: "DataFrame") -> "DataFrame":
         a, b = self._flush(), other._flush()
         out = DataFrame(
-            a._parts + list(b._parts), a._executor
+            a._parts + _coerce_parts(b, a._executor), a._executor
         )
         out._lineage = a._lineage + [
             _node(f"union[+{len(b._parts)} parts]")
@@ -676,7 +690,9 @@ class DataFrame:
         left, right = self._flush(), other._flush()
 
         # Broadcast hash join (right side small — the baseline pipelines
-        # join dimension tables).
+        # join dimension tables). Under the cluster executor the broadcast
+        # rides the shm store ONCE as an ObjectRef; embedding the table in
+        # the closure would re-ship it in every per-partition task payload.
         join_type = {
             "inner": "inner",
             "left": "left outer",
@@ -715,7 +731,7 @@ class DataFrame:
             with stage_label(f"join[{','.join(keys)}]") as sids:
                 parts = left._executor.map_pairs(
                     left._parts,
-                    list(right._parts),
+                    _coerce_parts(right, left._executor),
                     lambda lt, rt: _join_aligned(lt, rt, keys, join_type),
                 )
             out = DataFrame(parts, left._executor)
@@ -768,12 +784,36 @@ class DataFrame:
                 left, right, keys, join_type, decisions=dec
             )
 
-        right_table = _concat(
-            [right._executor.materialize(p) for p in right._parts]
-        )
+        from raydp_tpu_torch.dataframe.executor import ClusterExecutor
 
-        def fn(t: pa.Table) -> pa.Table:
-            return _join_aligned(t, right_table, keys, join_type)
+        if isinstance(left._executor, ClusterExecutor) and right._parts:
+            # Build the broadcast table in ONE worker-side task (concat
+            # memoized by partition identity, output holder-owned in the
+            # store): the driver never materializes the build side.
+            broadcast_ref = left._executor.run_coalesced(
+                _coerce_parts(right, left._executor), lambda t: t,
+                pre_concat=True,
+            )
+
+            def fn(t: pa.Table) -> pa.Table:
+                # Resolved worker-side via the ambient resolver (the
+                # broadcast table lives on the driver node; workers on
+                # other nodes pull it from the driver's store agent); only
+                # the tiny ObjectRef travels in the task payload.
+                from raydp_tpu_torch.store.object_store import (
+                    resolve_ambient_table,
+                )
+
+                rt = resolve_ambient_table(broadcast_ref)
+                return _join_aligned(t, rt, keys, join_type)
+
+        else:
+            right_table = _concat(
+                [right._executor.materialize(p) for p in right._parts]
+            )
+
+            def fn(t: pa.Table) -> pa.Table:
+                return _join_aligned(t, right_table, keys, join_type)
 
         out = left._with(fn, _node(
             f"join[{','.join(keys)}]",
@@ -971,16 +1011,19 @@ class DataFrame:
 
     def write_parquet(self, path: str) -> None:
         """Write one ``part-NNNNN.parquet`` file per partition, all
-        partitions concurrently on a thread pool (parquet encoding
-        releases the GIL)."""
+        partitions concurrently: worker-side under the cluster executor
+        (partitions never transit the driver; workers share the
+        filesystem), a thread pool locally (parquet encoding releases
+        the GIL)."""
         import os
 
         import pyarrow.parquet as pq
 
         df = self._flush()
         # Part files are named by partition index: resolve pendings so
-        # the write tasks see real tables in index order.
+        # the write tasks ship real refs/tables in index order.
         df._parts = _resolve_parts(df._parts)
+        # Workers run with their own cwd — anchor relative paths here.
         target_dir = os.path.abspath(path)
         os.makedirs(target_dir, exist_ok=True)
         names = [
@@ -988,12 +1031,76 @@ class DataFrame:
             for i in range(len(df._parts))
         ]
 
+        from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
+        if isinstance(df._executor, ClusterExecutor):
+            from raydp_tpu_torch.cluster.cluster import TaskSpec
+
+            def write_one(ctx, ref, name):
+                table = ctx.get_table(ref)
+                os.makedirs(os.path.dirname(name), exist_ok=True)
+                pq.write_table(table, name)
+                return True
+
+            futures = df._executor.cluster.submit_batch([
+                TaskSpec(
+                    write_one, (ref, name),
+                    worker_id=df._executor._worker_for(i, ref),
+                )
+                for i, (ref, name) in enumerate(zip(df._parts, names))
+            ])
+            for f in futures:
+                f.result()
+            return
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(
             max_workers=min(8, max(1, len(df._parts)))
         ) as pool:
             list(pool.map(pq.write_table, df._parts, names))
+
+    # -- shard handoff --------------------------------------------------
+    def to_object_refs(self, owner_transfer: bool = True) -> List[Any]:
+        """Materialize partitions into the session object store and return
+        refs (the reference's _save_spark_df_to_object_store,
+        dataset.py:198-219)."""
+        df = self._flush()
+        from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
+        if isinstance(df._executor, ClusterExecutor):
+            refs = _resolve_parts(list(df._parts))
+            if owner_transfer:
+                store = df._executor.store
+                refs = [store.transfer_to_holder(r) for r in refs]
+            return refs
+        from raydp_tpu_torch.context import current_session
+
+        session = current_session()
+        if session is None:
+            raise RuntimeError(
+                "to_object_refs without a live session requires cluster "
+                "execution; call raydp_tpu_torch.init() first"
+            )
+        store = session.cluster.master.store
+        return [store.put_arrow_table(t) for t in df.collect_partitions()]
+
+    def _to_block_parts(self, owner_transfer: bool = True):
+        """Streaming twin of :meth:`to_object_refs` for the MLDataset
+        handoff: partitions may still be pending ETL tasks, in which
+        case the owner transfer is chained onto their resolution instead
+        of barriering — the device loader can start ingesting early blocks
+        while late ones are still being produced. Returns ``None`` when
+        this frame is not cluster-executed (caller falls back)."""
+        df = self._flush()
+        from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
+        if not isinstance(df._executor, ClusterExecutor):
+            return None
+        if not owner_transfer:
+            return list(df._parts)
+        store = df._executor.store
+        return [_chain_part(p, store.transfer_to_holder) for p in df._parts]
+
 
 class GroupedData:
     """``df.groupBy(keys).agg(...)`` with distributed partial aggregation."""
@@ -1420,6 +1527,17 @@ def _join_aligned(
     return t.join(rt, keys=keys, join_type=join_type)
 
 
+def _coerce_parts(df: "DataFrame", executor: Executor) -> List[Any]:
+    """``df``'s partitions usable by ``executor`` — binary ops (union,
+    shuffle join) may mix a local frame with a cluster one; materialize
+    and re-put when the executors differ."""
+    if df._executor is executor or type(df._executor) is type(executor):
+        return list(df._parts)
+    return [
+        executor.put(df._executor.materialize(p)) for p in df._parts
+    ]
+
+
 def _key_types_match(a: "DataFrame", b: "DataFrame", keys: List[str]) -> bool:
     """Whether both frames carry the join keys with IDENTICAL arrow
     types. The hash-bucket function picks its algorithm from the key
@@ -1660,7 +1778,7 @@ def _shuffle_join(
         left_schema = {k: sch.field(k).type for k in keys}
         with stage_label(f"exchange[{kstr}]") as sids:
             rparts = left._executor.exchange(
-                list(right._parts),
+                _coerce_parts(right, left._executor),
                 _bucket_splitter(keys, n_out, cast_to=left_schema),
                 n_out,
             )
@@ -1680,7 +1798,7 @@ def _shuffle_join(
         n_out = len(right._parts)
         if n_out > 1:
             metrics.counter_add("shuffle/elided")
-        rparts, r_tmp = list(right._parts), False
+        rparts, r_tmp = _coerce_parts(right, left._executor), False
         sch = right.schema
         right_schema = {k: sch.field(k).type for k in keys}
         with stage_label(f"exchange[{kstr}]") as sids:
@@ -1739,7 +1857,7 @@ def _shuffle_join(
             if plans:
                 rreplan = lambda _bb: plans[0].conform_build_side()
             rparts = left._executor.exchange(
-                list(right._parts),
+                _coerce_parts(right, left._executor),
                 _bucket_splitter(keys, n_out, cast_to=left_schema),
                 n_out,
                 replan=rreplan,

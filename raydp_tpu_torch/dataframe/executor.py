@@ -1,15 +1,26 @@
-"""The DataFrame engine's partition executor: where stages run.
+"""Partition executors: where DataFrame stages actually run.
 
-``LocalExecutor`` keeps partitions as in-memory ``pa.Table``s and runs
-stages on a thread pool (pyarrow kernels release the GIL), like Spark
-``local[n]``. It is the engine's executor when no cluster session is
-live, which in the port is always: the cluster executor, whose
-partitions live in a shared-memory object store and whose stages ship
-to ETL worker processes, comes with the session.
+Two backends with one interface:
+
+  * ``LocalExecutor`` — partitions are in-memory ``pa.Table``s, stages run
+    on a thread pool (pyarrow kernels release the GIL). Like Spark
+    ``local[n]``; the default when no session is live.
+  * ``ClusterExecutor`` — partitions are ``ObjectRef``s in the shm store,
+    stages ship to the session's ETL worker processes through the
+    control plane, as closures (``cluster/closure.py``; the reference's
+    executor-side ``mapPartitions`` over Ray actors,
+    ObjectStoreWriter.scala:93-164). Locality: a partition is routed to a
+    stable worker per index so repeated stages reuse page-cache-warm
+    segments (reference threads locality through getPreferredLocations,
+    RayDatasetRDD.scala:53-55). The default while a session from
+    ``raydp_tpu_torch.init()`` is live.
+
+This module imports no torch: the workers load it to run their tasks.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import threading
 import time
@@ -19,6 +30,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import pyarrow as pa
 
+from raydp_tpu_torch.cluster.cluster import TaskSpec
 from raydp_tpu_torch.dataframe.scheduler import (
     PendingPartition,
     StreamingStage,
@@ -26,6 +38,7 @@ from raydp_tpu_torch.dataframe.scheduler import (
     resolve_one,
     streaming_enabled,
 )
+from raydp_tpu_torch.store.object_store import ObjectRef, ObjectStore
 from raydp_tpu_torch.telemetry.progress import (
     StageStats,
     stage_stats_enabled,
@@ -60,11 +73,14 @@ def stage_label(label: str):
 
 def _part_meta(part: Any) -> "tuple[int, int]":
     """(rows, bytes) of one partition without materializing it; rows is
-    -1 while a pending partition has not landed."""
+    -1 while a pending partition has not landed, and when unknowable
+    (refs stored without a row count)."""
     if isinstance(part, PendingPartition):
         if not part.future.done() or part.future.exception() is not None:
             return -1, 0
         part = part.future.result()
+    if isinstance(part, ObjectRef):
+        return part.num_rows, part.size
     if isinstance(part, pa.Table):
         return part.num_rows, part.nbytes
     return -1, 0
@@ -246,6 +262,25 @@ def _concat_cached(tables: List[pa.Table], key, keepalive=None) -> pa.Table:
             _, (_, _, evicted_cost) = _concat_memo.popitem(last=False)
             total -= evicted_cost
     return out
+
+
+def _fetch_concat_cached(ctx, refs) -> pa.Table:
+    """Worker-side gather for pre_concat coalesced runs: on a memo hit
+    the shm fetches are skipped along with the concat. Only ObjectRefs
+    are memoized — their object ids are globally unique, while id() of
+    a per-task unpickled raw ref could be recycled after GC and alias a
+    stale entry."""
+    if all(isinstance(r, ObjectRef) for r in refs):
+        key = tuple(r.object_id for r in refs)
+        with _concat_memo_lock:
+            ent = _concat_memo.get(key)
+            if ent is not None:
+                _concat_memo.move_to_end(key)
+                return ent[1]
+    else:
+        key = None
+    tables = [ctx.get_table(r) for r in refs]
+    return _concat_cached(tables, key)
 
 
 class Executor:
@@ -540,3 +575,465 @@ def _sample_table(t: pa.Table, column: str, k: int) -> list:
     if not len(series):
         return []
     return series.sample(min(k, len(series)), random_state=0).tolist()
+
+
+class ClusterExecutor(Executor):
+    """Runs stages on the session's ETL workers; partitions live in shm."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        self.store: ObjectStore = cluster.master.store
+        self._put_rr = itertools.count()
+
+    # Stable partition→worker routing, locality-first: a partition ref is
+    # routed to a worker on the node where its bytes already live (zero-copy
+    # shm read), falling back to index round-robin. The reference does the
+    # same via getPreferredLocations (RayDatasetRDD.scala:53-55).
+    def _worker_for(self, index: int, ref=None) -> Optional[str]:
+        workers = self.cluster.alive_workers()
+        if not workers:
+            return None
+        if isinstance(ref, ObjectRef):
+            local = sorted(
+                w.worker_id for w in workers if w.node_id == ref.node_id
+            )
+            if local:
+                return local[index % len(local)]
+        ordered = sorted(w.worker_id for w in workers)
+        return ordered[index % len(ordered)]
+
+    def _stream_narrow(self, op, deps, spec_of):
+        """Event-driven narrow stage: every output's task ships the
+        moment its upstream partitions exist. Each scheduler pump
+        batches ALL simultaneously-ready outputs into ONE submit_batch
+        call, so the one-RunTaskBatch-envelope-per-worker amortization
+        is preserved (the all-concrete case is exactly one batch)."""
+        rec = _StageRecorder(op, [d[0] for d in deps], "cluster",
+                             streaming=True)
+
+        def submit(items):
+            for _i, vals in items:
+                rec.task_input(vals[:1])
+            specs = [spec_of(i, vals) for i, vals in items]
+            return self.cluster.submit_batch(specs)
+
+        stage = StreamingStage(deps, submit, on_output=rec.task_output,
+                               on_close=rec.close_streaming, op=op)
+        metrics.counter_add("df/stages")
+        outs = stage.start()
+        rec.dispatched()
+        return outs
+
+    def map_partitions(self, parts, fn):
+        def task(ctx, ref):
+            table = ctx.get_table(ref)
+            return ctx.put_table(fn(table), holder=True)
+
+        if streaming_enabled() and parts:
+            return self._stream_narrow(
+                "map_partitions", [[p] for p in parts],
+                lambda i, vals: TaskSpec(
+                    task, (vals[0],),
+                    worker_id=self._worker_for(i, vals[0]),
+                ),
+            )
+        parts = resolve(parts)
+        with _stage("map_partitions", parts, "cluster") as rec:
+            # One RunTaskBatch envelope per worker (not per partition):
+            # per-call RPC+pickle overhead amortizes over all of that
+            # worker's partitions, and fn serializes once per envelope.
+            futures = self.cluster.submit_batch([
+                TaskSpec(task, (ref,), worker_id=self._worker_for(i, ref))
+                for i, ref in enumerate(parts)
+            ])
+            rec.dispatched()
+            outs = [f.result() for f in futures]
+            rec.finish(outs)
+            return outs
+
+    def map_partitions_indexed(self, parts, fn):
+        def task(ctx, ref, index):
+            table = ctx.get_table(ref)
+            return ctx.put_table(fn(table, index), holder=True)
+
+        if streaming_enabled() and parts:
+            return self._stream_narrow(
+                "map_partitions_indexed", [[p] for p in parts],
+                lambda i, vals: TaskSpec(
+                    task, (vals[0], i),
+                    worker_id=self._worker_for(i, vals[0]),
+                ),
+            )
+        parts = resolve(parts)
+        with _stage("map_partitions_indexed", parts, "cluster") as rec:
+            futures = self.cluster.submit_batch([
+                TaskSpec(task, (ref, i), worker_id=self._worker_for(i, ref))
+                for i, ref in enumerate(parts)
+            ])
+            rec.dispatched()
+            outs = [f.result() for f in futures]
+            rec.finish(outs)
+            return outs
+
+    def part_nbytes(self, part):
+        part = resolve_one(part)
+        return part.size if isinstance(part, ObjectRef) else part.nbytes
+
+    def discard(self, parts):
+        for ref in parts:
+            if isinstance(ref, PendingPartition):
+                # Free the partition whenever its producer lands; a
+                # failed producer has nothing to free.
+                ref.future.add_done_callback(self._discard_done)
+            elif isinstance(ref, ObjectRef):
+                self.store.delete(ref)
+
+    def _discard_done(self, fut) -> None:
+        if fut.exception() is not None:
+            return
+        ref = fut.result()
+        if isinstance(ref, ObjectRef):
+            try:
+                self.store.delete(ref)
+            except Exception:
+                pass
+
+    def run_coalesced(self, parts, fn, pre_concat=False):
+        # Coalesced runs need every input in one task: barrier here.
+        parts = resolve(list(parts))
+        if pre_concat:
+            def task(ctx, refs):
+                # _fetch_concat_cached is resolved in the WORKER's own
+                # executor module (the carrier ships this closure with
+                # the module's globals by reference), so the memo — and
+                # its lock — live worker-side and never ship.
+                return ctx.put_table(
+                    fn(_fetch_concat_cached(ctx, refs)), holder=True
+                )
+        else:
+            def task(ctx, refs):
+                tables = [ctx.get_table(r) for r in refs]
+                return ctx.put_table(fn(tables), holder=True)
+
+        # Locality: run on the worker whose node holds the most input
+        # bytes (one cross-node fetch per remote partition either way;
+        # majority-resident placement minimizes them).
+        by_node = {}
+        for ref in parts:
+            if isinstance(ref, ObjectRef):
+                by_node[ref.node_id] = by_node.get(ref.node_id, 0) + ref.size
+        worker_id = None
+        if by_node:
+            best = max(by_node, key=by_node.get)
+            workers = sorted(
+                w.worker_id
+                for w in self.cluster.alive_workers()
+                if w.node_id == best
+            )
+            if workers:
+                worker_id = workers[0]
+        parts = list(parts)
+        with _stage("run_coalesced", parts, "cluster") as rec:
+            fut = self.cluster.submit_async(task, parts, worker_id=worker_id)
+            rec.dispatched()
+            out = fut.result()
+            rec.finish([out])
+            return out
+
+    def map_pairs(self, parts_a, parts_b, fn):
+        def task(ctx, ra, rb):
+            ta = ctx.get_table(ra)
+            tb = ctx.get_table(rb)
+            return ctx.put_table(fn(ta, tb), holder=True)
+
+        if streaming_enabled() and parts_a:
+            return self._stream_narrow(
+                "map_pairs",
+                [[a, b] for a, b in zip(parts_a, parts_b)],
+                lambda i, vals: TaskSpec(
+                    task, (vals[0], vals[1]),
+                    worker_id=self._worker_for(i, vals[0]),
+                ),
+            )
+        parts_a = resolve(parts_a)
+        parts_b = resolve(parts_b)
+        with _stage("map_pairs", parts_a, "cluster") as rec:
+            futures = self.cluster.submit_batch([
+                TaskSpec(task, (ra, rb), worker_id=self._worker_for(i, ra))
+                for i, (ra, rb) in enumerate(zip(parts_a, parts_b))
+            ])
+            rec.dispatched()
+            outs = [f.result() for f in futures]
+            rec.finish(outs)
+            return outs
+
+    def _free_refs(self, refs) -> None:
+        for ref in refs:
+            if isinstance(ref, ObjectRef):
+                try:
+                    self.store.delete(ref)
+                except Exception:
+                    pass
+
+    def _merge_worker(self, index: int, refs):
+        """Locality-scheduled merge placement: (worker_id, node_id) of
+        the node already holding the most input bytes for this bucket —
+        those chunks are zero-copy shm reads there, only the minority
+        streams over. Workers on the winning node are spread by bucket
+        index; round-robin fallback when nothing is resident."""
+        by_node: dict = {}
+        for r in refs:
+            if isinstance(r, ObjectRef):
+                # max(size, 1): empty chunks still vote for their node.
+                by_node[r.node_id] = by_node.get(r.node_id, 0) + max(r.size, 1)
+        workers = self.cluster.alive_workers()
+        if by_node and workers:
+            # Sorted iteration breaks byte ties deterministically.
+            best = max(sorted(by_node), key=lambda n: by_node[n])
+            local = sorted(
+                w.worker_id for w in workers if w.node_id == best
+            )
+            if local:
+                return local[index % len(local)], best
+        wid = self._worker_for(index)
+        node = next(
+            (w.node_id for w in workers if w.worker_id == wid), None
+        )
+        return wid, node
+
+    def exchange(self, parts, splitter, n_out, combine=None, replan=None):
+        def split_task(ctx, ref):
+            table = ctx.get_table(ref)
+            return [ctx.put_table(chunk, holder=True) for chunk in splitter(table)]
+
+        def merge_task(ctx, refs):
+            tables = [ctx.get_table(r) for r in refs]
+            merged = _concat(tables)
+            if combine is not None:
+                merged = combine(merged)
+            return ctx.put_table(merged, holder=True)
+
+        def preconcat_task(ctx, refs):
+            # Eager pre-merge: concat only — ``combine`` runs exactly
+            # once per bucket, in the final merge.
+            return ctx.put_table(
+                _concat([ctx.get_table(r) for r in refs]), holder=True
+            )
+
+        # Eager pre-merge threshold: with >= N chunks of a bucket ready
+        # while splits are still running, concat them now so the final
+        # merge starts from partially-reduced inputs. Off by default —
+        # it trades intra-bucket row order (arrival order, not input
+        # order) for overlap, so it is an explicit opt-in.
+        try:
+            eager_min = int(
+                os.environ.get("RAYDP_TPU_EXCHANGE_EAGER_MERGE", "0") or 0
+            )
+        except ValueError:
+            eager_min = 0
+
+        # Wide stage: every split must exist before buckets can close —
+        # resolve pendings up front (the downstream merge dispatch is
+        # already streamed below).
+        parts = resolve(parts)
+        with _stage("exchange", parts, "cluster") as rec:
+            metrics.counter_add("shuffle/exchanges")
+            split_futures = self.cluster.submit_batch([
+                TaskSpec(split_task, (ref,),
+                         worker_id=self._worker_for(i, ref))
+                for i, ref in enumerate(parts)
+            ])
+            # Stream split completions (one envelope per worker resolves
+            # independently) instead of gathering in submission order:
+            # merge planning starts the moment the last chunk EXISTS,
+            # and the eager path can pre-concat hot buckets while slow
+            # splits are still running.
+            from concurrent.futures import FIRST_COMPLETED, wait as _wait
+
+            idx_of = {f: i for i, f in enumerate(split_futures)}
+            chunks_by_part: List[Optional[list]] = [None] * len(parts)
+            avail: List[list] = [[] for _ in range(n_out)]
+            early: List[list] = [[] for _ in range(n_out)]
+            pending = set(split_futures)
+            while pending:
+                done, pending = _wait(pending, return_when=FIRST_COMPLETED)
+                for f in done:
+                    row = f.result()  # raises like the old ordered gather
+                    chunks_by_part[idx_of[f]] = row
+                    if eager_min > 0:
+                        for i, ref in enumerate(row):
+                            avail[i].append(ref)
+                if eager_min > 0 and pending:
+                    for i in range(n_out):
+                        if len(avail[i]) >= eager_min:
+                            batch, avail[i] = avail[i], []
+                            wid, _node = self._merge_worker(i, batch)
+                            fut = self.cluster.submit_async(
+                                preconcat_task, batch, worker_id=wid
+                            )
+                            fut.add_done_callback(
+                                lambda _f, refs=batch: self._free_refs(refs)
+                            )
+                            early[i].append(fut)
+
+            if eager_min > 0:
+                # Arrival order within a bucket (pre-merged blocks first).
+                inputs = [
+                    [f.result() for f in early[i]] + avail[i]
+                    for i in range(n_out)
+                ]
+            else:
+                # Deterministic: chunk i of every input, in input order.
+                inputs = [
+                    [chunks[i] for chunks in chunks_by_part]
+                    for i in range(n_out)
+                ]
+
+            # AQE replan: only over the deterministic layout — the eager
+            # path already traded bucket order for overlap and its refs
+            # are partially pre-merged, so the measured per-bucket sizes
+            # would double-count. Each group of the returned plan becomes
+            # one (or, for splits, k) merge task(s); every split ref is
+            # still consumed by exactly one merge, so the byte counters
+            # and per-merge freeing below are unchanged.
+            plan = None
+            if replan is not None and eager_min == 0:
+                plan = replan([
+                    sum(r.size for r in refs if isinstance(r, ObjectRef))
+                    for refs in inputs
+                ])
+            if plan is None:
+                groups = [("merge", [i]) for i in range(n_out)]
+            else:
+                groups = plan.groups
+
+            specs, merge_inputs, repeats = [], [], []
+            total_b = local_b = 0
+            for g in groups:
+                if g[0] == "merge":
+                    # Bucket-major ref order: singleton groups reproduce
+                    # the static merge exactly.
+                    batches = [[r for i in g[1] for r in inputs[i]]]
+                    rep = 1
+                elif g[0] == "replicate":
+                    batches = [inputs[g[1]]]
+                    rep = g[2]
+                else:  # ("split", id, k): combine is None by contract
+                    batches = _split_groups(inputs[g[1]], g[2])
+                    rep = 1
+                for refs in batches:
+                    wid, node = self._merge_worker(len(specs), refs)
+                    for r in refs:
+                        if isinstance(r, ObjectRef):
+                            total_b += r.size
+                            if node is not None and r.node_id == node:
+                                local_b += r.size
+                    specs.append(
+                        TaskSpec(merge_task, (refs,), worker_id=wid,
+                                 node_id=node)
+                    )
+                    merge_inputs.append(refs)
+                    repeats.append(rep)
+            metrics.counter_add("shuffle/bytes", total_b)
+            metrics.counter_add("shuffle/local_bytes", local_b)
+            merge_futures = self.cluster.submit_batch(specs)
+            rec.dispatched()
+            # Merge i consumes exactly its input refs, so they are dead
+            # the moment that merge lands — free them then, instead of
+            # holding the whole shuffle's intermediates until the full
+            # barrier (peak shm across a shuffle drops to the still-
+            # unmerged buckets).
+            for f, refs in zip(merge_futures, merge_inputs):
+                f.add_done_callback(
+                    lambda fut, rr=refs: self._free_refs(rr)
+                )
+            outs = []
+            for f, rep in zip(merge_futures, repeats):
+                ref = f.result()
+                outs.extend([ref] * rep)
+            rec.finish(outs)
+            return outs
+
+    def materialize(self, part):
+        return self.cluster.resolver.get_arrow_table(resolve_one(part))
+
+    def head(self, part, k):
+        part = resolve_one(part)
+        if not isinstance(part, ObjectRef):
+            return part.slice(0, min(k, part.num_rows))
+
+        def probe(ctx, ref, n):
+            table = ctx.get_table(ref)
+            n = min(n, table.num_rows)
+            # take(), not slice(): a slice pickles its PARENT buffers
+            # (the whole partition would ride the reply); take copies
+            # just the probe rows.
+            return table.take(pa.array(range(n), type=pa.int64()))
+
+        return self.cluster.submit_async(
+            probe, part, k, worker_id=self._worker_for(0, part)
+        ).result()
+
+    def put(self, table):
+        return self._put_async(table).result()
+
+    def put_many(self, tables):
+        # Scatter concurrently: ingest wall-clock is the slowest single
+        # transfer, not the sum. Source frames stay concrete (refs, not
+        # pendings): ingest is driver-local put work, and downstream
+        # consumers — union coercion, to_object_refs, the store feed —
+        # rely on source partitions being addressable refs. Streaming
+        # starts at the first narrow STAGE over these refs.
+        futures = [self._put_async(t) for t in tables]
+        return [f.result() for f in futures]
+
+    def _put_async(self, table):
+        """Ingest a partition: scattered to a worker round-robin so initial
+        placement is distributed across nodes (Spark parallelize lands
+        blocks on executors, not the driver) — without this, every
+        partition would start on the driver node and locality routing
+        would keep all work there. Written holder-owned: base data must
+        survive pool shrinks (kill_worker contract).
+
+        The table itself travels the DATA plane (``data_args``): it is
+        written once into the driver's shm store and the RunTask envelope
+        carries only the ref — a co-located worker re-puts it from a
+        zero-copy mmap view, a remote one streams it from the driver
+        node's agent in bounded chunks. No table bytes ride the control
+        plane."""
+        workers = self.cluster.alive_workers()
+        if not workers:
+            from concurrent.futures import Future
+
+            f = Future()
+            f.set_result(self.store.put_arrow_table(table))
+            return f
+        ordered = sorted(w.worker_id for w in workers)
+        target = ordered[next(self._put_rr) % len(ordered)]
+
+        def ingest(ctx, t):
+            return ctx.put_table(t, holder=True)
+
+        return self.cluster.submit_async(
+            ingest, worker_id=target, data_args=(table,)
+        )
+
+    def num_rows(self, part):
+        part = resolve_one(part)
+        return part.num_rows if isinstance(part, ObjectRef) else -1
+
+    def default_fanout(self) -> int:
+        # 2 shuffle partitions per alive worker keeps every worker busy in
+        # the merge phase and scales with dynamic allocation (no hard cap).
+        return max(8, 2 * len(self.cluster.alive_workers()))
+
+    def sample_column(self, parts, column, k):
+        def task(ctx, ref):
+            return _sample_table(ctx.get_table(ref), column, k)
+
+        parts = resolve(parts)
+        futures = self.cluster.submit_batch([
+            TaskSpec(task, (ref,), worker_id=self._worker_for(i, ref))
+            for i, ref in enumerate(parts)
+        ])
+        return [f.result() for f in futures]

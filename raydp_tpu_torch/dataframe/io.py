@@ -1,8 +1,8 @@
 """DataFrame construction: files, pandas, arrow, ranges.
 
-Every frame runs on a :class:`LocalExecutor` in this process; the
-session that scatters partitions over ETL worker processes (and
-``from_refs`` over its object store) comes with the cluster.
+A frame is built on the session's cluster executor while a session from
+``raydp_tpu_torch.init()`` is live (partitions scattered to the workers,
+files read worker-side), else on a local one.
 """
 from __future__ import annotations
 
@@ -20,23 +20,54 @@ import builtins
 from raydp_tpu_torch.dataframe import aqe as _aqe
 from raydp_tpu_torch.dataframe import expr as E
 from raydp_tpu_torch.dataframe.dataframe import DataFrame, _node, _split_sizes
-from raydp_tpu_torch.dataframe.executor import Executor, LocalExecutor
+from raydp_tpu_torch.dataframe.executor import Executor
 from raydp_tpu_torch.utils.profiling import metrics
 
 
-def _distribute(tables: List[pa.Table],
-                executor: Optional[Executor] = None) -> DataFrame:
-    ex = executor or LocalExecutor()
+def _executor() -> "Executor":
+    from raydp_tpu_torch.dataframe.dataframe import _default_executor
+
+    return _default_executor()
+
+
+def _distribute(tables: List[pa.Table], executor: Optional[Executor] = None) -> DataFrame:
+    ex = executor or _executor()
     return DataFrame(ex.put_many(tables), ex)
+
+
+def _scan_distributed(split_specs, reader) -> Optional[DataFrame]:
+    """Executor-side file scan: under cluster execution each WORKER reads
+    its own split from shared storage (GCS/NFS mount — every node sees
+    the same paths, a multi-host deployment's shape) and stores the table
+    node-locally; only the split spec travels in the task. The
+    reference's counterpart is Spark executors reading their own input
+    splits. Returns None when there is no cluster (driver reads then)."""
+    from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
+    ex = _executor()
+    if not isinstance(ex, ClusterExecutor):
+        return None
+
+    def scan_task(ctx, spec):
+        return ctx.put_table(reader(spec), holder=True)
+
+    futures = [
+        ex.cluster.submit_async(scan_task, spec) for spec in split_specs
+    ]
+    return DataFrame([f.result() for f in futures], ex)
 
 
 def _compact(t: pa.Table) -> pa.Table:
     """Rebuild ``t`` on its own buffers via an IPC round-trip.
 
-    ``Table.slice`` is zero-copy: the slice keeps the PARENT's buffers.
-    The IPC writer truncates buffers to the slice, so one memcpy-speed
-    round-trip makes each partition own exactly its rows (the sizes the
-    adaptive planner measures are then the partition's own)."""
+    ``Table.slice`` is zero-copy: the slice keeps the PARENT's buffers,
+    and pickle serializes those in full — so shipping N slices of one
+    table to the workers moves N× the whole table over the control
+    plane, not 1× (measured: a 4.5 MB slice of a 36 MB table pickles at
+    36 MB; with 8 partitions that is 288 MB of ingest traffic and the
+    driver-side stall that starves worker heartbeats). The IPC writer
+    truncates buffers to the slice, so one memcpy-speed round-trip makes
+    the partition self-contained before it is pickled into a task."""
     sink = pa.BufferOutputStream()
     with pa.ipc.new_stream(sink, t.schema) as w:
         w.write_table(t)
@@ -58,6 +89,35 @@ def from_pandas(df, num_partitions: int = 1) -> DataFrame:
     return from_arrow(
         pa.Table.from_pandas(df, preserve_index=False), num_partitions
     )
+
+
+def from_refs(refs: Sequence[Any]) -> DataFrame:
+    """Build a DataFrame from ObjectRefs already in the session store —
+    the reverse data path (C8): refs/dataset → DataFrame with schema
+    preserved (reference: ray_dataset_to_spark_dataframe,
+    python/raydp/spark/dataset.py:506-577, ObjectStoreReader.scala:32-55).
+
+    Partitions under cluster execution ARE ObjectRefs, so the refs become
+    the frame's partitions directly — no copy; workers resolve them
+    node-locally (or via a store agent) when the next stage runs.
+    """
+    from raydp_tpu_torch.context import current_session
+    from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+    from raydp_tpu_torch.store.object_store import ObjectRef
+
+    refs = list(refs)
+    if not refs:
+        raise ValueError("from_refs needs at least one ref")
+    bad = [r for r in refs if not isinstance(r, ObjectRef)]
+    if bad:
+        raise TypeError(f"from_refs takes ObjectRefs; got {type(bad[0])}")
+    session = current_session()
+    if session is None:
+        raise RuntimeError(
+            "from_refs requires a live session; call raydp_tpu_torch.init() "
+            "first"
+        )
+    return DataFrame(refs, ClusterExecutor(session.cluster))
 
 
 def from_items(rows: List[Dict[str, Any]], num_partitions: int = 1) -> DataFrame:
@@ -85,15 +145,24 @@ def read_csv(
     )
     ts_cols = list(timestamp_columns or [])
 
-    conv = None
-    if schema_types is not None:
-        conv = pa_csv.ConvertOptions(column_types=schema_types)
-    elif ts_cols:
-        conv = pa_csv.ConvertOptions(
-            column_types={c: pa.timestamp("us") for c in ts_cols}
-        )
-    df = _distribute([pa_csv.read_csv(f, convert_options=conv)
-                      for f in files])
+    def _read_csv_split(path_: str) -> pa.Table:
+        # The ONE place CSV convert options are built — the local
+        # fallback and the worker-side scan must never diverge.
+        import pyarrow as _pa
+        import pyarrow.csv as _pa_csv
+
+        conv = None
+        if schema_types is not None:
+            conv = _pa_csv.ConvertOptions(column_types=schema_types)
+        elif ts_cols:
+            conv = _pa_csv.ConvertOptions(
+                column_types={c: _pa.timestamp("us") for c in ts_cols}
+            )
+        return _pa_csv.read_csv(path_, convert_options=conv)
+
+    df = _scan_distributed(files, _read_csv_split)
+    if df is None:
+        df = _distribute([_read_csv_split(f) for f in files])
     if num_partitions is not None and num_partitions != len(files):
         df = df.repartition(num_partitions)
     return df
@@ -319,6 +388,8 @@ class ParquetScanFrame(DataFrame):
 
     # -- realization ----------------------------------------------------
     def _run_scan(self) -> List[Any]:
+        from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
         cols = self._scan_columns
         preds = list(self._predicates)
         conjuncts = _stat_conjuncts(preds)
@@ -402,7 +473,17 @@ class ParquetScanFrame(DataFrame):
                 t = t.select(cols)  # projection order is the contract
             return t
 
-        parts = [_scan(spec) for spec in specs]
+        if isinstance(self._executor, ClusterExecutor):
+            def scan_task(ctx, spec):
+                return ctx.put_table(_scan(spec), holder=True)
+
+            futures = [
+                self._executor.cluster.submit_async(scan_task, spec)
+                for spec in specs
+            ]
+            parts = [f.result() for f in futures]
+        else:
+            parts = [_scan(spec) for spec in specs]
 
         if dropped_cols or preds or pruned_rgs:
             dec = _aqe.Decisions()
@@ -440,22 +521,42 @@ def read_parquet(
             # repartition would be needed the static eager path below
             # keeps its exact partition layout instead.
             return ParquetScanFrame(
-                files, columns, [], split_rg, LocalExecutor()
+                files, columns, [], split_rg, _executor()
             )
-    # One ParquetFile handle per FILE (a handle per row group would
-    # re-parse the footer per row group).
-    tables: List[pa.Table] = []
+    # Split specs from footer METADATA only (cheap driver-side open).
+    specs: List[tuple] = []
     for f in files:
-        pf = pq.ParquetFile(f)
         if split_rg:
-            tables.extend(
-                pf.read_row_group(rg, columns=columns)
-                for rg in builtins.range(pf.metadata.num_row_groups)
-            )
+            n_rg = pq.ParquetFile(f).metadata.num_row_groups
+            specs.extend((f, rg, columns) for rg in builtins.range(n_rg))
         else:
-            tables.append(pf.read(columns=columns))
-    df = _distribute(tables)
-    if num_partitions is not None and len(tables) != num_partitions:
+            specs.append((f, None, columns))
+
+    def _read_parquet_split(spec) -> pa.Table:
+        import pyarrow.parquet as _pq
+
+        f_, rg_, cols_ = spec
+        pf = _pq.ParquetFile(f_)
+        if rg_ is None:
+            return pf.read(columns=cols_)
+        return pf.read_row_group(rg_, columns=cols_)
+
+    df = _scan_distributed(specs, _read_parquet_split)
+    if df is None:
+        # Local fallback: one ParquetFile handle per FILE (a handle per
+        # row-group spec would re-parse the footer per row group).
+        tables: List[pa.Table] = []
+        for f in files:
+            pf = pq.ParquetFile(f)
+            if split_rg:
+                tables.extend(
+                    pf.read_row_group(rg, columns=columns)
+                    for rg in builtins.range(pf.metadata.num_row_groups)
+                )
+            else:
+                tables.append(pf.read(columns=columns))
+        df = _distribute(tables)
+    if num_partitions is not None and len(specs) != num_partitions:
         df = df.repartition(num_partitions)
     return df
 

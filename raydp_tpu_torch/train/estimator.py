@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -61,6 +62,14 @@ from raydp_tpu_torch.models.moe import moe_aux_loss
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
+
+#: Retention cap for mid-epoch checkpoints (``step_mid_<N>.pt``), as the
+#: JAX package's (``raydp_tpu/train/estimator.py:40-49``): beyond this
+#: many, the oldest are pruned after each save. ``0`` disables pruning.
+#: Epoch-end (``step_<E>.pt``) and ``final.pt`` checkpoints are never
+#: pruned.
+CKPT_KEEP_ENV = "RAYDP_TPU_CKPT_KEEP"
+_DEFAULT_CKPT_KEEP = 16
 
 logger = logging.getLogger(__name__)
 
@@ -537,7 +546,30 @@ class Estimator:
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(state, tmp)
         os.replace(tmp, path)  # a reader never sees half a checkpoint
+        _prune_checkpoints(checkpoint_dir)
         return path
+
+    def restore(self, checkpoint_dir: str, step=None,
+                sample_x: Optional[np.ndarray] = None) -> None:
+        """Restore ``step_<step>.pt`` under ``checkpoint_dir``
+        (``final.pt`` without a step), as the JAX estimator resolves its
+        directories. ``sample_x`` is accepted for the JAX signature and
+        unused: the port's model exists from construction."""
+        del sample_x
+        name = f"step_{step}.pt" if step is not None else "final.pt"
+        self.restore_path(os.path.abspath(os.path.join(checkpoint_dir,
+                                                       name)))
+
+    def shutdown(self) -> None:
+        """Drop the model and the optimizer with their device state (the
+        JAX estimator's ``shutdown``; a scan fit's captured step lives
+        only for its fit). The estimator cannot train or predict
+        afterwards."""
+        self._model = None
+        self._optimizer = None
+        self._loss_sum = None
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
 
     def restore_path(self, path: str) -> None:
         """Restore everything :meth:`save` wrote from exactly ``path``."""
@@ -548,6 +580,35 @@ class Estimator:
         self._generator.set_state(state["generator"])
         epoch, batch = int(state["data_epoch"]), int(state["data_batch"])
         self._resume_position = (epoch, batch) if epoch >= 0 else None
+
+
+def _ckpt_keep() -> int:
+    raw = os.environ.get(CKPT_KEEP_ENV, "")
+    try:
+        return max(0, int(raw)) if raw else _DEFAULT_CKPT_KEEP
+    except ValueError:
+        return _DEFAULT_CKPT_KEEP
+
+
+_MID_RE = re.compile(r"^step_mid_(\d+)\.pt$")
+
+
+def _prune_checkpoints(checkpoint_dir: str) -> None:
+    """Remove the oldest ``step_mid_<N>.pt`` beyond the retention cap,
+    ordered by the step in the name, so the newest always survives.
+    Only complete files count: :meth:`Estimator.save` renames a finished
+    file into place, and a ``*.tmp`` never matches."""
+    keep = _ckpt_keep()
+    if keep <= 0:
+        return
+    mids = sorted((int(m.group(1)), os.path.join(checkpoint_dir, n))
+                  for n in os.listdir(checkpoint_dir)
+                  for m in [_MID_RE.match(n)] if m)
+    for _, path in mids[:max(0, len(mids) - keep)]:
+        try:
+            os.remove(path)
+        except FileNotFoundError:
+            pass  # removed by a concurrent prune
 
 
 def _ensure_df(df):

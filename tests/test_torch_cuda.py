@@ -12,7 +12,9 @@ processes on the card serving a bf16 flash classifier, against the
 driver's forward, and a ``cuda`` group refusing to start without a card.
 Slice 7: ``fit_on_df`` from a 4-partition frame on the card against the
 CPU, and the native host library built there, its bucket ids equal to
-the numpy twin's.
+the numpy twin's. Slice 8: a session's ETL workers import no torch and
+see no card, and a scan fit from a frame in the session's object store
+counts every kernel launch.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -882,3 +884,55 @@ def test_native_hash_bucket_equals_its_twin(cuda):
         np.testing.assert_array_equal(
             native.hash_bucket(cols, n_buckets, native=True),
             native.hash_bucket(cols, n_buckets, native=False))
+
+
+# ------------------------------------------------------------- slice 8
+
+@pytest.fixture
+def port_session(cuda):
+    import raydp_tpu_torch
+
+    s = raydp_tpu_torch.init(app_name="cuda-test", num_workers=2,
+                             memory_per_worker="256MB")
+    yield s
+    raydp_tpu_torch.stop()
+
+
+def test_session_workers_see_no_card(port_session):
+    """The ETL workers of a session on a GPU host import no torch
+    and see no CUDA device, while this process holds one."""
+    def probe(ctx):
+        import os
+        import sys
+
+        return ("torch" in sys.modules,
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    cluster = port_session.cluster
+    seen = [cluster.submit(probe, worker_id=w.worker_id)
+            for w in cluster.alive_workers()]
+    assert seen == [(False, "")] * 2
+    assert torch.cuda.device_count() >= 1
+
+
+def test_fit_on_cluster_frame_counts_every_launch(port_session):
+    """A tiny bf16 flash classifier fitted on the scan path from a frame
+    whose partitions live in the session's object store: each kernel
+    launched once per layer a step (the scan path's graph replays
+    included), as 11c counts at bert_base, with finite losses."""
+    import pyarrow as pa
+
+    import raydp_tpu_torch.dataframe as rdf
+    from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+
+    cols = _token_cols(128, 16, 64, seed=5)
+    df = rdf.from_arrow(pa.table(cols), num_partitions=4)
+    assert isinstance(df._executor, ClusterExecutor)
+    est = _graph_estimator(mode="scan")
+    before = _counts()
+    hist = est.fit_on_df(df, num_shards=2)
+    counts = [a - b for a, b in zip(_counts(), before)]
+    assert est.effective_epoch_mode == "scan"
+    assert [h["samples"] for h in hist] == [128, 128]
+    assert counts == [2 * 16] * 4
+    assert all(np.isfinite(h["train_loss"]) for h in hist)

@@ -71,7 +71,22 @@ def test_port_files_exist():
                 "raydp_tpu_torch/dataframe/executor.py",
                 "raydp_tpu_torch/dataframe/expr.py",
                 "raydp_tpu_torch/dataframe/io.py",
-                "raydp_tpu_torch/dataframe/scheduler.py"):
+                "raydp_tpu_torch/dataframe/scheduler.py",
+                "raydp_tpu_torch/context.py",
+                "raydp_tpu_torch/config/config.py",
+                "raydp_tpu_torch/utils/net.py",
+                "raydp_tpu_torch/utils/memory.py",
+                "raydp_tpu_torch/store/shm.py",
+                "raydp_tpu_torch/store/object_store.py",
+                "raydp_tpu_torch/store/directory.py",
+                "raydp_tpu_torch/store/resolver.py",
+                "raydp_tpu_torch/store/agent.py",
+                "raydp_tpu_torch/cluster/closure.py",
+                "raydp_tpu_torch/cluster/placement.py",
+                "raydp_tpu_torch/cluster/launcher.py",
+                "raydp_tpu_torch/cluster/master.py",
+                "raydp_tpu_torch/cluster/worker_main.py",
+                "raydp_tpu_torch/cluster/cluster.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
     assert os.path.exists(os.path.join(ROOT, "raydp_tpu_torch", "native",

@@ -21,6 +21,8 @@ exact arithmetic (it shifts all of a query's scores by one constant), so
 both frameworks feed Adam rounding noise there and Adam moves it by about
 lr per step in the noise's sign; it is held to |difference| <= 2·lr·steps.
 """
+import os
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -378,3 +380,77 @@ def test_estimator_needs_a_card_unless_cpu():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Estimator(model=lambda: torch.nn.Linear(2, 1))
+
+
+# -- checkpoint API (the JAX estimator's restore, shutdown, retention) ----
+
+def _linear_frame(n, parts, seed=0):
+    """``tests/test_estimator.py``'s ``_linear_df`` rows: y = 2a - 3b + 1."""
+    import pandas as pd
+
+    from raydp_tpu_torch.dataframe.io import from_pandas
+
+    rng = np.random.default_rng(seed)
+    a, b = rng.standard_normal(n), rng.standard_normal(n)
+    return from_pandas(pd.DataFrame({"a": a, "b": b, "y": 2 * a - 3 * b + 1}),
+                       num_partitions=parts)
+
+
+def _linear_estimator(seed, **kw):
+    from raydp_tpu_torch.models.mlp import MLP
+
+    return Estimator(
+        model=MLP(2, hidden=(16,), out_dim=1, device="cpu",
+                  generator=torch.Generator().manual_seed(seed)),
+        loss="mse", batch_size=128, feature_columns=["a", "b"],
+        label_column="y", seed=seed, device="cpu", **kw)
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    """``tests/test_estimator.py::test_checkpoint_roundtrip`` on the port:
+    save ``final``, restore it by directory into a second estimator whose
+    weights start elsewhere, and predict the same; ``shutdown`` then drops
+    the model."""
+    est = _linear_estimator(7, num_epochs=2)
+    est.fit_on_df(_linear_frame(512, 4))
+    x = np.array([[0.5, -0.5]], dtype=np.float32)
+    before = est.predict(x)
+    path = est.save(str(tmp_path / "ckpt"))
+    assert os.path.basename(path) == "final.pt"
+
+    est2 = _linear_estimator(8)
+    assert not np.allclose(est2.predict(x), before)
+    est2.restore(str(tmp_path / "ckpt"), sample_x=x)
+    np.testing.assert_allclose(est2.predict(x), before, rtol=1e-6)
+    est.save(str(tmp_path / "ckpt"), step=3)
+    est2.restore(str(tmp_path / "ckpt"), step=3)
+    np.testing.assert_allclose(est2.predict(x), before, rtol=1e-6)
+    est2.shutdown()
+    assert est2.get_model() is None
+
+
+def test_checkpoint_retention_prunes_oldest_resume_survives(tmp_path,
+                                                            monkeypatch):
+    """``tests/test_fault_tolerance.py``'s retention case on the port:
+    with ``RAYDP_TPU_CKPT_KEEP=2``, 2 epochs of 8 steps and a save every
+    2 steps, only ``step_mid_14`` and ``step_mid_16`` survive, the
+    epoch-end checkpoints stay, and the survivor restores."""
+    monkeypatch.setenv("RAYDP_TPU_CKPT_KEEP", "2")
+    ckpt = str(tmp_path)
+    est = _linear_estimator(0, num_epochs=2, shuffle=False,
+                            epoch_mode="stream", checkpoint_dir=ckpt,
+                            save_every_steps=2,
+                            optimizer=lambda p: torch.optim.Adam(p, lr=3e-2))
+    est.fit(MLDataset.from_df(_linear_frame(1024, 2), num_shards=1))
+    assert est._step == 16
+    names = sorted(os.listdir(ckpt))
+    assert [n for n in names if n.startswith("step_mid_")] == [
+        "step_mid_14.pt", "step_mid_16.pt"]
+    assert "step_0.pt" in names and "step_1.pt" in names
+    assert not [n for n in names if n.endswith(".tmp")]
+
+    fresh = _linear_estimator(1)
+    fresh.restore_path(os.path.join(ckpt, "step_mid_16.pt"))
+    want = est.get_model().state_dict()
+    for name, p in fresh.get_model().state_dict().items():
+        torch.testing.assert_close(p, want[name], rtol=0, atol=0)
