@@ -125,13 +125,31 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    SIGKILLed, every ref read back equal (by the driver and a worker)
    once the respawned worker has joined, then ``stop()``: every worker
    exited and no segment of the session left in the shm directory.
+12. Second drivers of a fresh 4-worker session: (a) client mode: a
+   second driver process (:func:`client_main`) attaches with
+   ``raydp_tpu_torch.connect`` and runs 10c's fine-tune through the
+   session (the frame's ETL on the workers, every block read over the
+   store agents' chunked fetch, the fit on the card in that process),
+   twice (the first fit pays the process's first CUDA work): its own
+   counters must read 12 launches of each kernel a step, its losses
+   fall; after it disconnects the workers are alive and the refs
+   it handed to the holder read back in this process; its ms a step and
+   seconds to the first step beside 11c's, and each process's peak
+   device memory. (b) an SPMD gang (``spmd.create_spmd_job``, 2 rank
+   processes on the card) scores 10c's frame, each rank its shard of
+   ``MLDataset.from_df(rank_nodes=job.rank_nodes())`` sent in
+   ``per_rank_args``, with phase 2's classifier (:func:`gang_score`);
+   each rank's logits equal to this process's forward of the same rows, 12 ``flash_fwd`` launches a batch by each rank's own counter,
+   and the ranks' gloo ``all_reduce`` of ``[correct, rows]`` equal to
+   their sums; the gang's sequences/s beside phase 2's.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c and 11c) and read just after; phase 9's replicas are new processes, whose
-counts start at 0 and are read by ``Ping``. The last lines are a ``kernels`` JSON
+10c, 11c, 12a and 12b) and read just after; phase 9's replicas, 12a's
+second driver and 12b's ranks are new processes, whose counts start at
+0 and are read by ``Ping`` or returned in their results. The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -206,6 +224,8 @@ KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",
 FIT_TOL = dict(rtol=6e-2, atol=6e-2)
 # Peak device memory of each fit, (peak, held before it), by (phase, mode).
 PEAK_BYTES = {}
+# Rates one phase measures and a later one is set beside, by name.
+RATES = {}
 # Serve plane (phase 9): the batch group's traffic and knobs, the decode
 # group's prompts and new tokens, and how long a replica may take to come
 # up (a process reaches the card in ~8 s) or a request to be answered.
@@ -808,6 +828,7 @@ def phase_glue(torch, P):
         f"max |flash - dense f32| {err32:.3e} (tol {LOGIT_TOL})")
     log(f"[2] forward ms: flash {fwd_ms:.3f}, dense {dense_ms:.3f} "
         f"({GLUE_BATCH / fwd_ms * 1e3:.1f} sequences/s with flash)")
+    RATES["glue_forward_seq_per_s"] = GLUE_BATCH / fwd_ms * 1e3
     check(logits.shape == (GLUE_BATCH, 2), "logits shape")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     check(launches == 12, f"expected 12 flash launches, saw {launches}")
@@ -2399,7 +2420,7 @@ def phase_glue_etl(torch, P, tag="10c"):
     at bert_base width and depth, batch 64, AdamW, 2 epochs on the path
     "auto" picks: 12 launches of each flash kernel a step, in the
     counters. Returns (launch counts, ms a step of the last epoch,
-    seconds from the call to the first step)."""
+    seconds from the call to the first step, the epochs' train losses)."""
     import numpy as np
     import pyarrow as pa
 
@@ -2444,7 +2465,7 @@ def phase_glue_etl(torch, P, tag="10c"):
     ms_per_step = hist[-1]["time_s"] / per_epoch * 1e3
     del est
     torch.cuda.empty_cache()
-    return counts, ms_per_step, first_s
+    return counts, ms_per_step, first_s, losses
 
 
 def phase_criteo_etl(torch, P):
@@ -2503,7 +2524,7 @@ def phase_etl(torch, P):
         log(f"[10] {lib} {version}")
     phase_native(np)
     taxi_rate = phase_taxi_etl(torch, P)
-    counts, glue_ms, glue_first_s = phase_glue_etl(torch, P)
+    counts, glue_ms, glue_first_s, _ = phase_glue_etl(torch, P)
     phase_criteo_etl(torch, P)
     return counts, {"taxi_rows_per_s": taxi_rate, "glue_ms": glue_ms,
                     "glue_first_s": glue_first_s}
@@ -2545,7 +2566,7 @@ def phase_session(torch, P, ref):
     bert_base fine-tune from a frame on the workers; (d) refs handed to
     the holder survive a SIGKILLed worker and its respawn, and ``stop()``
     leaves no segment. ``ref`` holds 10b's and 10c's numbers. Returns
-    11c's launch counts."""
+    11c's launch counts and its ms a step and seconds to the first step."""
     import signal
     import tempfile
 
@@ -2598,7 +2619,7 @@ def phase_session(torch, P, ref):
     check(all(v == (False, "") for v in seen.values()),
           f"11b: a worker imported torch after the taxi ETL: {seen}")
 
-    counts, ms, first_s = phase_glue_etl(torch, P, tag="11c")
+    counts, ms, first_s, _ = phase_glue_etl(torch, P, tag="11c")
     log(f"[11c] bert_base from a cluster frame: {ms:.2f} ms/step against "
         f"10c's {ref['glue_ms']:.2f} ({ms / ref['glue_ms']:.3f}x); "
         f"{first_s:.3f} s from fit_on_df's call to the first step against "
@@ -2650,7 +2671,295 @@ def phase_session(torch, P, ref):
     check(P.current_session() is None, "11d: a session is live after stop()")
     log(f"[11d] stop() in {stop_s:.3f} s: every worker exited, no segment "
         f"of {namespace} left under {shm.shm_dir()}")
-    return counts
+    return counts, {"glue_ms": ms, "glue_first_s": first_s}
+
+
+# Phase 12: the second driver's time limit, the rows of the frame whose
+# refs it hands to the holder, and the gang's ranks and batch.
+CLIENT_LIMIT_S, CLIENT_REF_ROWS = 600.0, 1000
+GANG_WORLD, GANG_BATCH, GANG_LIMIT_S = 2, 64, 600.0
+# Each rank's logits must equal the single-process forward of the same
+# rows bit for bit: the same kernels, weights and batches. A bf16 bound
+# of 2e-2 could let a misaligned shard of this random-weight classifier
+# pass; the log shows the logits' spread across rows beside the error.
+
+
+def client_main(address: str) -> int:
+    """12a's second driver, run in a process of its own: attaches to the
+    session at ``address`` with ``raydp_tpu_torch.connect``, runs 10c's
+    fine-tune through it (the frame's ETL on the session's workers, the
+    fit on the card here) twice: the first pays this new process's first
+    CUDA work, the second, on a warm process, still reads every block
+    through the store agents. Then it hands a small frame's refs to the
+    holder, disconnects and prints one ``RESULT`` line: the first fit's
+    launch counts, each fit's ms a step, seconds to the first step and
+    losses, the peak device memory and the refs."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import raydp_tpu_torch as P
+    from raydp_tpu_torch import dataframe as rdf
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("12a: the second driver sees no CUDA device")
+    t0 = time.perf_counter()
+    session = P.connect(address)
+    connect_s = time.perf_counter() - t0
+    log(f"[12a] connected to {address} in {connect_s:.3f} s: "
+        f"{len(session.cluster.alive_workers())} workers")
+    torch.cuda.reset_peak_memory_stats()
+    counts, ms, first_s, losses = phase_glue_etl(torch, P, tag="12a")
+    peak = torch.cuda.max_memory_allocated()
+    _, warm_ms, warm_first_s, warm_losses = phase_glue_etl(
+        torch, P, tag="12a warm")
+    frame = rdf.from_arrow(pa.table({"x": np.arange(CLIENT_REF_ROWS)}),
+                           num_partitions=ETL_PARTS)
+    refs = frame.to_object_refs(owner_transfer=True)
+    P.stop()
+    print("RESULT " + json.dumps({
+        "counts": counts, "ms": ms, "first_s": first_s, "losses": losses,
+        "warm_ms": warm_ms, "warm_first_s": warm_first_s,
+        "warm_losses": warm_losses, "connect_s": connect_s,
+        "peak_bytes": peak,
+        "refs": [(r.object_id, r.size, r.owner, r.num_rows, r.node_id)
+                 for r in refs],
+    }), flush=True)
+    return 0
+
+
+def gang_score(ctx, tables, seed, batch):
+    """12b's rank body: phase 2's classifier (:func:`serve_classifier`,
+    bf16, flash) on ``cuda:{local_rank % device_count}`` scores the
+    rank's shard in batches of ``batch`` after one warm-up batch, then
+    joins the gang's gloo group and all-reduces ``[correct, rows]``.
+    The rank imports this file as the module ``chip_smoke``. Returns the
+    logits, the rank's own launch counts, its scoring window on the host
+    clock and its peak device memory."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"12b: rank {ctx.rank} sees no CUDA device")
+    device = f"cuda:{ctx.local_rank % torch.cuda.device_count()}"
+    torch.cuda.set_device(device)
+    model = cs.serve_classifier(seed, device)
+    table = pa.concat_tables(tables)
+    ids = torch.from_numpy(np.stack(
+        [table.column(f"t{i}").to_numpy() for i in range(cs.GLUE_SEQ)],
+        axis=1)).to(device)
+    labels = table.column("label").to_numpy()
+    with torch.inference_mode():
+        model(ids[:batch])  # warm-up: cuBLAS handles, the kernel library
+        torch.cuda.synchronize()
+        cs._reset_counts()
+        start = time.time()
+        logits = torch.cat([model(ids[lo:lo + batch])
+                            for lo in range(0, len(ids), batch)])
+        torch.cuda.synchronize()
+        end = time.time()
+    counts = cs._counts()
+    correct = int((logits.argmax(-1).cpu().numpy() == labels).sum())
+    ctx.init_distributed()
+    total = torch.tensor([correct, len(labels)], dtype=torch.int64)
+    dist.all_reduce(total)
+    return {"rank": ctx.rank, "device": device,
+            "logits": logits.float().cpu().numpy(), "counts": counts,
+            "start": start, "end": end, "correct": correct,
+            "rows": len(labels), "all_reduced": total.tolist(),
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def phase_client(torch, P, session, ref):
+    """12a: a second driver process attached to ``session`` by
+    ``connect`` runs 10c's fine-tune; its own counters must read 12
+    launches of each kernel a step, its losses fall, and once it has
+    disconnected the session's workers are alive and the refs it handed
+    to the holder read back here. ``ref`` holds 11c's numbers."""
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.store.object_store import ObjectRef
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # two processes now share the card
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    address = session.cluster.master.address
+    script = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+              f"sys.exit(chip_smoke.client_main({address!r}))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True,
+                          timeout=CLIENT_LIMIT_S)
+    wall_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if not line.startswith("RESULT "):
+            log(f"  (client) {line}")
+    check(proc.returncode == 0,
+          f"12a: the second driver exited {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    out = json.loads(next(line for line in proc.stdout.splitlines()
+                          if line.startswith("RESULT "))[len("RESULT "):])
+    steps = ETL_GLUE_EPOCHS * ETL_GLUE_ROWS // ETL_GLUE_BATCH
+    want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+    check(out["counts"] == want,
+          f"12a: the client's counters read {out['counts']}, want {want}")
+    for losses in (out["losses"], out["warm_losses"]):
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"12a: train loss did not fall {losses}")
+    alive = session.cluster.alive_workers()
+    check(len(alive) == SESSION_WORKERS,
+          f"12a: {len(alive)} workers alive after the client disconnected")
+    refs = [ObjectRef(*vals) for vals in out["refs"]]
+    back = pa.concat_tables([session.cluster.resolver.get_arrow_table(r)
+                             for r in refs])
+    check(back.column("x").to_pylist() == list(range(CLIENT_REF_ROWS)),
+          "12a: the refs the client handed to the holder read back other "
+          "rows")
+    check(rdf.from_arrow(pa.table({"x": [1, 2, 3]})).to_pandas()["x"]
+          .tolist() == [1, 2, 3], "12a: the session runs no stage after "
+                                  "the client left")
+    log(f"[12a] second driver through connect(): {wall_s:.1f} s in all "
+        f"(process start, imports, connect in {out['connect_s']:.3f} s, "
+        f"the ETL, the fit); {out['ms']:.2f} ms/step against 11c's "
+        f"{ref['glue_ms']:.2f} ({out['ms'] / ref['glue_ms']:.3f}x); "
+        f"{out['first_s']:.3f} s from fit_on_df's call to the first step "
+        f"against 11c's {ref['glue_first_s']:.3f} s (host clock, same run); "
+        f"losses {[round(x, 4) for x in out['losses']]}; launches by the "
+        f"client's counters {out['counts']}")
+    log(f"[12a] the client's second fit, on a warm process: "
+        f"{out['warm_ms']:.2f} ms/step ({out['warm_ms'] / ref['glue_ms']:.3f}x "
+        f"11c's); {out['warm_first_s']:.3f} s to the first step against "
+        f"11c's {ref['glue_first_s']:.3f} s; losses "
+        f"{[round(x, 4) for x in out['warm_losses']]}")
+    log(f"[12a] peak device memory: the client process "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB; this process "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"({held / 2**30:.3f} GiB held before); {SESSION_WORKERS} workers "
+        f"alive after the disconnect, {len(refs)} client refs "
+        f"({back.num_rows} rows) read back by this driver")
+    return out
+
+
+def phase_gang(torch, P, session):
+    """12b: an SPMD gang of 2 ranks on the card scores 10c's frame from
+    the session's object store, each rank its shard of the dataset's
+    locality-aware plan, sent in ``per_rank_args``; each rank's logits
+    held against this process's forward of the same rows, each rank's
+    counter 12 launches a batch, the gloo all_reduce equal to the sums.
+    Returns the ranks' results."""
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    frame = rdf.from_arrow(pa.table(synthetic_glue(np, ETL_GLUE_ROWS,
+                                                   GLUE_SEQ, 30522)),
+                           num_partitions=ETL_PARTS)
+    job = create_spmd_job("smoke-gang", world_size=GANG_WORLD, timeout=60)
+    t0 = time.perf_counter()
+    job.start()
+    start_s = time.perf_counter() - t0
+    try:
+        ds = MLDataset.from_df(frame, num_shards=GANG_WORLD,
+                               rank_nodes=job.rank_nodes())
+        shards = [ds.shard_tables(r) for r in range(GANG_WORLD)]
+        shard_bytes = [sum(t.nbytes for t in s) for s in shards]
+        log(f"[12b] gang of {GANG_WORLD} ranks registered in {start_s:.3f} s "
+            f"(start(), host clock; logs {job.log_paths}); rank nodes "
+            f"{job.rank_nodes()}, block nodes {ds.block_nodes}, locality "
+            f"{ds.locality()}; {ds.rows_per_shard} rows a rank, "
+            f"{[round(b / 2**20, 2) for b in shard_bytes]} MiB of ids a rank "
+            f"in per_rank_args")
+        t0 = time.perf_counter()
+        out = job.run(gang_score, timeout=GANG_LIMIT_S, per_rank_args=[
+            (shards[r], SERVE_SEED, GANG_BATCH) for r in range(GANG_WORLD)])
+        run_s = time.perf_counter() - t0
+    finally:
+        job.stop()
+    check([o["rank"] for o in out] == list(range(GANG_WORLD)),
+          f"12b: results out of rank order {[o['rank'] for o in out]}")
+    batches = -(-ds.rows_per_shard // GANG_BATCH)
+    for o in out:
+        check(o["counts"]["flash_fwd"] == 12 * batches,
+              f"12b: rank {o['rank']} counted {o['counts']['flash_fwd']} "
+              f"flash_fwd launches, want {12 * batches}")
+    sums = [sum(o["correct"] for o in out), sum(o["rows"] for o in out)]
+    check(all(o["all_reduced"] == sums for o in out),
+          f"12b: all_reduce gave {[o['all_reduced'] for o in out]}, the "
+          f"ranks' sums are {sums}")
+
+    model = serve_classifier(SERVE_SEED, "cuda")
+    errs, exact, spread = [], [], []
+    with torch.inference_mode():
+        for r, o in enumerate(out):
+            table = pa.concat_tables(shards[r])
+            ids = torch.from_numpy(np.stack(
+                [table.column(f"t{i}").to_numpy() for i in range(GLUE_SEQ)],
+                axis=1)).cuda()
+            want = torch.cat([model(ids[lo:lo + GANG_BATCH])
+                              for lo in range(0, len(ids), GANG_BATCH)])
+            got = torch.from_numpy(o["logits"]).cuda()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"12b: rank {r} logits {tuple(got.shape)}")
+            errs.append((got - want.float()).abs().max().item())
+            exact.append(torch.equal(got, want.float()))
+            spread.append(round((got - got.mean(0)).abs().max().item(), 4))
+        one_ms = time_ms(torch, lambda: model(ids[:GANG_BATCH]), iters=20)
+    check(all(exact),
+          f"12b: rank logits differ from the single-process forward by "
+          f"{errs} (required: equal)")
+    window = max(o["end"] for o in out) - min(o["start"] for o in out)
+    rate = sums[1] / window
+    base = RATES["glue_forward_seq_per_s"]
+    log(f"[12b] {sums[1]} rows scored by {GANG_WORLD} ranks on "
+        f"{sorted({o['device'] for o in out})} in a {window:.3f} s window "
+        f"(host clock, first start to last end): {rate:.1f} sequences/s "
+        f"against phase 2's {base:.1f} in one process at batch "
+        f"{GLUE_BATCH} ({rate / base:.3f}x) and this process's "
+        f"{GANG_BATCH / one_ms * 1e3:.1f} at batch {GANG_BATCH} (CUDA "
+        f"events); each rank's own window "
+        f"{[round(o['end'] - o['start'], 3) for o in out]} s; run() "
+        f"{run_s:.1f} s with the ranks' imports and model builds")
+    log(f"[12b] max |rank - single-process| logits {errs} (equal: "
+        f"{exact}; max |logit - its column's mean| over each rank's rows "
+        f"{spread}); flash_fwd "
+        f"launches by rank {[o['counts']['flash_fwd'] for o in out]}; "
+        f"all_reduce [correct, rows] {out[0]['all_reduced']} "
+        f"(accuracy {sums[0] / sums[1]:.4f}, random weights); peak device "
+        f"memory by rank "
+        f"{[round(o['peak_bytes'] / 2**30, 3) for o in out]} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_second_drivers(torch, P, ref):
+    """12: a fresh 4-worker session driven from a second driver process
+    (12a) and from an SPMD gang (12b); ``ref`` holds 11c's numbers.
+    Returns 12a's result and 12b's launches."""
+    from raydp_tpu_torch.store import shm
+
+    session = P.init(app_name="chip-smoke-12", num_workers=SESSION_WORKERS)
+    namespace = session.cluster.namespace
+    try:
+        client = phase_client(torch, P, session, ref)
+        ranks = phase_gang(torch, P, session)
+    finally:
+        P.stop()
+    left = shm.list_segments(f"rdp-{namespace}-")
+    check(not left, f"12: {len(left)} segments left after stop()")
+    rank_launches = [o["counts"]["flash_fwd"] for o in ranks]
+    return client, {"launches": sum(rank_launches),
+                    "rank_launches": rank_launches}
 
 
 def main() -> int:
@@ -2699,18 +3008,21 @@ def main() -> int:
     decode_replica_launches = phase_serve_decode(torch, P)
     serve_f32_driver = _counts()["flash_fwd"]
     etl_counts, etl_ref = phase_etl(torch, P)
-    session_counts = phase_session(torch, P, etl_ref)
+    session_counts, session_ref = phase_session(torch, P, etl_ref)
+    client, gang = phase_second_drivers(torch, P, session_ref)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
             "remat fine-tune": remat_counts, "MoE": moe_counts,
             "fine-tune from a DataFrame": etl_counts,
-            "fine-tune from a cluster frame": session_counts}
+            "fine-tune from a cluster frame": session_counts,
+            "fine-tune through connect()": client["counts"]}
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())
         if name == "flash_fwd":
-            e["launches"] += glue_launches + decode_launches + serve_launches
+            e["launches"] += (glue_launches + decode_launches
+                              + serve_launches + gang["launches"])
         check(e["launches"] > 0, f"the main path launched no {name}")
     log(f"[main path] flash_fwd launches: GLUE forward {glue_launches}, "
         f"decode server and its reference {decode_launches} (the f32 "
@@ -2721,7 +3033,9 @@ def main() -> int:
         f"the end of the clean run and of the serve_kill run), the "
         f"driver's bf16 flash forward {serve_bf16_driver} (the in-process "
         f"rate), decode replica {decode_replica_launches}, the driver's "
-        f"f32 reference_decode {serve_f32_driver}")
+        f"f32 reference_decode {serve_f32_driver}; the SPMD gang's ranks "
+        f"{' + '.join(map(str, gang['rank_launches']))} (each rank's own "
+        f"counter, returned in its result)")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(gpu_line())

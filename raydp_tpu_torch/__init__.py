@@ -27,7 +27,12 @@ Slice 8 is the session and its ETL worker cluster: ``init()`` starts
 the AppMaster and worker processes (``cluster/``), partitions live in
 the shared-memory object store (``store/``), the engine's stages ship to
 the workers as closures (``cluster/closure.py``), and ``stop()`` tears
-it down.
+it down. Slice 9 is client mode and the SPMD gang runner:
+``connect(address)`` attaches a second driver process to a live session
+(``cluster/client.py``), ``spmd.create_spmd_job`` starts a gang of rank
+processes that run shipped functions and join ``torch.distributed``
+(``spmd/``), and ``MLDataset`` plans shards by node over object-store
+blocks.
 
 The package imports its parts lazily (PEP 562): ``import
 raydp_tpu_torch`` and the DataFrame engine load no torch, so an ETL
@@ -40,6 +45,7 @@ import importlib
 
 # Public name -> the module that defines it, imported at first use.
 _EXPORTS = {
+    "connect": "raydp_tpu_torch.context",
     "current_session": "raydp_tpu_torch.context",
     "init": "raydp_tpu_torch.context",
     "stop": "raydp_tpu_torch.context",
@@ -90,8 +96,8 @@ _EXPORTS = {
     "set_exact_float32": "raydp_tpu_torch.utils",
 }
 _SUBPACKAGES = ("cluster", "config", "context", "data", "dataframe",
-                "fault", "models", "native", "ops", "serve", "store",
-                "telemetry", "train", "utils")
+                "fault", "models", "native", "ops", "serve", "spmd",
+                "store", "telemetry", "train", "utils")
 
 __all__ = sorted(_EXPORTS)
 

@@ -9,8 +9,9 @@ the object store after the ETL workers are torn down (ownership transfer —
 the holder outlives the cluster).
 
 ``init`` starts processes and the object store and does no device work,
-so it takes no ``device=``; the fits keep theirs. Client mode
-(``connect``) is not ported yet.
+so it takes no ``device=``; the fits keep theirs. ``connect`` attaches
+this process to another process's session as a second driver (client
+mode); its ``stop()`` only disconnects.
 """
 from __future__ import annotations
 
@@ -107,6 +108,25 @@ def init(
         )
         _session = Session(cfg)
         return _session
+
+
+def connect(master_address: str):
+    """Attach THIS process as a remote driver to a live AppMaster
+    (client mode — reference: every test runs under ``ray://`` too,
+    conftest.py:42-49). The DataFrame/MLDataset/estimator surface works
+    unchanged; ``stop()`` merely disconnects."""
+    global _session
+    with _lock:
+        if _session is not None and not _session.stopped:
+            raise RuntimeError(
+                "a raydp_tpu_torch session is already active in this "
+                "process; call raydp_tpu_torch.stop() first"
+            )
+        from raydp_tpu_torch.cluster.client import ClientSession
+
+        session = ClientSession(master_address)
+        _session = session
+        return session
 
 
 def stop(del_obj_holder: bool = True) -> None:

@@ -1,17 +1,22 @@
 """Sharded ML dataset: the DataFrame → trainer handoff.
 
-The counterpart of ``raydp_tpu/data/ml_dataset.py`` for one trainer
-process. A block is a ``pyarrow.Table`` (a DataFrame partition; a dict of
-equal-length numpy columns is stored as one), or a partition the
+The counterpart of ``raydp_tpu/data/ml_dataset.py``. A block is a
+``pyarrow.Table`` (a DataFrame partition; a dict of equal-length numpy
+columns is stored as one), an ``ObjectRef`` of a table in a session's
+object store (read through the session's resolver), or a partition the
 DataFrame engine's streaming executor is still producing
 (:class:`~raydp_tpu_torch.dataframe.scheduler.PendingPartition`).
 :meth:`MLDataset.from_df` hands a frame's partitions over in partition
 order as they are, pending or landed, as the JAX package's session
 branch does: the shard plan waits for every block's size, and the
 loader's epoch-0 prefix streamer serves the first landed blocks before
-it exists. The shard plan is the JAX package's: every shard yields
-exactly ``ceil(total_rows / num_shards)`` rows per epoch, padding by
-reuse.
+it exists. Each block is read into a table once, by whichever consumer
+reaches it first (zero-copy from a segment of this node, chunked fetches
+from a client); the table takes the block's place and a ref's node is
+kept for ``block_nodes``. The shard plan is the JAX package's: every
+shard yields exactly ``ceil(total_rows / num_shards)`` rows per epoch,
+padding by reuse; given the node of each rank (``rank_nodes``), each
+rank drains the blocks of its own node first (``divide_blocks_local``).
 """
 from __future__ import annotations
 
@@ -21,17 +26,23 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Uni
 
 import numpy as np
 
-from raydp_tpu_torch.dataframe.scheduler import chain, is_pending, resolve_one
-from raydp_tpu_torch.utils.sharding import BlockSlice, divide_blocks
+from raydp_tpu_torch.dataframe.scheduler import is_pending, resolve_one
+from raydp_tpu_torch.store.object_store import ObjectRef
+from raydp_tpu_torch.utils.sharding import (
+    BlockSlice,
+    divide_blocks,
+    divide_blocks_local,
+    locality_fraction,
+)
 
 Columns = Dict[str, np.ndarray]
 
 
 def _checked(block):
     """A block as stored: a dict of numpy columns of one length becomes
-    a ``pyarrow.Table``; tables and pending partitions are kept as they
-    are."""
-    if is_pending(block):
+    a ``pyarrow.Table``; tables, refs and pending partitions are kept as
+    they are."""
+    if is_pending(block) or isinstance(block, ObjectRef):
         return block
     import pyarrow as pa
 
@@ -43,8 +54,9 @@ def _checked(block):
                 f"block columns differ in length: {sorted(lengths)}")
         return pa.table(cols)
     if not isinstance(block, pa.Table):
-        raise TypeError(f"a block is a dict of numpy columns or a "
-                        f"pyarrow.Table, got {type(block).__name__}")
+        raise TypeError(f"a block is a dict of numpy columns, a "
+                        f"pyarrow.Table or an ObjectRef, got "
+                        f"{type(block).__name__}")
     return block
 
 
@@ -52,22 +64,34 @@ class MLDataset:
     """An immutable list of blocks and a shard plan over them."""
 
     def __init__(self, blocks: Sequence, num_shards: int,
-                 shuffle: bool = False, shuffle_seed: Optional[int] = None):
+                 shuffle: bool = False, shuffle_seed: Optional[int] = None,
+                 store=None, rank_nodes: Optional[Sequence[str]] = None):
+        """``store`` reads ``ObjectRef`` blocks (a session's resolver;
+        without one, the process's ambient resolver or store);
+        ``rank_nodes`` (one node id per shard rank) turns on
+        locality-preferring shard plans."""
         if not blocks:
             raise ValueError("MLDataset needs at least one block")
         if len(blocks) < num_shards:
             raise ValueError(f"{len(blocks)} blocks cannot feed {num_shards} "
                              "shards; split the data into more blocks")
         self._blocks: List = [_checked(b) for b in blocks]
+        # One lock a block: a block is read into a table once, whichever
+        # consumer (prefix streamer, plan, schema) reaches it first.
+        self._block_mu = [threading.Lock() for _ in self._blocks]
+        self._nodes: List[Optional[str]] = [None] * len(self._blocks)
         self.num_shards = num_shards
         self.shuffle = shuffle
         self.shuffle_seed = shuffle_seed
+        self._store = store
+        self.rank_nodes = list(rank_nodes) if rank_nodes is not None else None
+        self.block_nodes: Optional[List[Optional[str]]] = None
         # The plan needs every block's size, so it waits until a
         # consumer asks (_ensure_plan); the epoch-0 prefix streamer reads
         # only the monotone lower bound in _known and never waits on it.
         self._plan_mu = threading.Lock()
         self._known: List[Optional[int]] = [
-            None if is_pending(b) else b.num_rows for b in self._blocks]
+            None if is_pending(b) else _rows(b) for b in self._blocks]
         self._block_sizes: Optional[List[int]] = None
         self._shard_plan: Optional[Dict[int, List[BlockSlice]]] = None
         for i, b in enumerate(self._blocks):
@@ -80,7 +104,8 @@ class MLDataset:
     # -- constructors ---------------------------------------------------
     @staticmethod
     def from_df(df, num_shards: int, shuffle: bool = False,
-                shuffle_seed: Optional[int] = None) -> "MLDataset":
+                shuffle_seed: Optional[int] = None,
+                rank_nodes: Optional[Sequence[str]] = None) -> "MLDataset":
         """From a :class:`raydp_tpu_torch.dataframe.DataFrame`, one block
         per partition in partition order; repartitions up to
         ``num_shards`` if short.
@@ -88,9 +113,11 @@ class MLDataset:
         A frame on a live session's cluster hands over its partitions as
         the JAX package's does (``raydp_tpu/data/ml_dataset.py:209-228``):
         each ``ObjectRef`` is transferred to the holder and read by the
-        session's resolver, a zero-copy table over the mapped segment; a
-        partition still being produced stays pending and is read when
-        it lands. A local frame's partitions are taken as they are."""
+        session's resolver (a zero-copy table over the mapped segment on
+        this node, chunked fetches from a client); a partition still
+        being produced stays pending. A local frame's partitions are
+        taken as they are. ``rank_nodes`` (one node id per shard rank)
+        turns on locality-preferring shard plans."""
         if df.num_partitions < num_shards:
             df = df.repartition(num_shards)
         from raydp_tpu_torch.context import current_session
@@ -98,11 +125,25 @@ class MLDataset:
         session = current_session()
         parts = df._to_block_parts() if session is not None else None
         if parts is None:
-            parts = list(df._flush()._parts)
-        else:
-            read = session.cluster.resolver.get_arrow_table
-            parts = [chain(p, read) for p in parts]
-        return MLDataset(parts, num_shards, shuffle, shuffle_seed)
+            return MLDataset(list(df._flush()._parts), num_shards, shuffle,
+                             shuffle_seed, rank_nodes=rank_nodes)
+        return MLDataset(parts, num_shards, shuffle, shuffle_seed,
+                         store=session.cluster.resolver,
+                         rank_nodes=rank_nodes)
+
+    @staticmethod
+    def from_refs(refs: Sequence[ObjectRef], num_shards: int,
+                  shuffle: bool = False, shuffle_seed: Optional[int] = None,
+                  rank_nodes: Optional[Sequence[str]] = None) -> "MLDataset":
+        """Directly from ObjectRefs (parity with the reference's
+        ``ray.data.from_arrow_refs`` entry, dataset.py:470-480), read
+        through the live session's node-aware resolver."""
+        from raydp_tpu_torch.context import require_session
+
+        session = require_session()
+        return MLDataset(list(refs), num_shards, shuffle, shuffle_seed,
+                         store=session.cluster.resolver,
+                         rank_nodes=rank_nodes)
 
     @staticmethod
     def from_parquet(paths: Union[str, Sequence[str]], num_shards: int,
@@ -150,39 +191,85 @@ class MLDataset:
         """``(block_index, block)`` in block order, waiting on each
         pending block in turn: the dataset's prefix streams out while
         later blocks are still being produced."""
-        for i, b in enumerate(list(self._blocks)):
-            block = resolve_one(b)
-            with self._plan_mu:
-                if self._known[i] is None:
-                    self._known[i] = block.num_rows
-            yield i, block
+        for i in range(len(self._blocks)):
+            yield i, self._table(i)
 
     def _note_block(self, i: int, fut) -> None:
         """Done-callback of pending block ``i``: record its row count
         the moment it lands (feeds ``known_rows``)."""
         if fut.exception() is not None:
             return
+        rows = _rows(fut.result())
+        if rows is None:
+            return  # unknowable without a read; prefix iteration fills it
         with self._plan_mu:
             if self._known[i] is None:
-                self._known[i] = fut.result().num_rows
+                self._known[i] = rows
 
     def _ensure_plan(self) -> None:
         """Wait for every block and build the shard plan; every shard
         accessor comes through here."""
         if self._shard_plan is not None:
             return
-        # Resolve outside the lock; a racing consumer re-resolves the
-        # same futures.
-        blocks = [resolve_one(b) for b in self._blocks]
+        # Read outside the plan lock; blocks the prefix streamer has
+        # read already are tables by now.
+        blocks = [self._table(i) for i in range(len(self._blocks))]
         sizes = [b.num_rows for b in blocks]
         with self._plan_mu:
             if self._shard_plan is not None:
                 return
-            self._blocks = blocks
+            nodes = list(self._nodes)
             self._block_sizes = sizes
             self._known = list(sizes)
-            self._shard_plan = divide_blocks(sizes, self.num_shards,
-                                             self.shuffle, self.shuffle_seed)
+            self.block_nodes = nodes
+            # Locality-aware division when the consumer topology is
+            # known and the blocks carry their nodes (reference:
+            # locality-preferring shard selection, dataset.py:411-443).
+            if self.rank_nodes is not None and any(
+                    n is not None for n in nodes):
+                self._shard_plan = divide_blocks_local(
+                    sizes, self.num_shards, [n or "node-0" for n in nodes],
+                    self.rank_nodes, self.shuffle, self.shuffle_seed)
+            else:
+                self._shard_plan = divide_blocks(
+                    sizes, self.num_shards, self.shuffle, self.shuffle_seed)
+
+    def _table(self, i: int):
+        """Block ``i`` as a table, read at most once: waits for a pending
+        partition and reads a ref through the dataset's store (else the
+        process's ambient resolver or store), then keeps the table in
+        the block's place and the ref's node in ``_nodes``."""
+        with self._block_mu[i]:
+            block = self._blocks[i]
+            if not (is_pending(block) or isinstance(block, ObjectRef)):
+                return block
+            block = resolve_one(block)
+            node = None
+            if isinstance(block, ObjectRef):
+                node = block.node_id
+                if self._store is not None:
+                    block = self._store.get_arrow_table(block)
+                else:
+                    from raydp_tpu_torch.store.object_store import (
+                        resolve_ambient_table,
+                    )
+
+                    block = resolve_ambient_table(block)
+            with self._plan_mu:
+                self._nodes[i] = node
+                self._blocks[i] = block
+                if self._known[i] is None:
+                    self._known[i] = block.num_rows
+            return block
+
+    def locality(self) -> Optional[float]:
+        """Fraction of planned samples that are node-local (None when no
+        topology was supplied)."""
+        if self.rank_nodes is None:
+            return None
+        self._ensure_plan()
+        nodes = [n or "node-0" for n in self.block_nodes]
+        return locality_fraction(self._shard_plan, nodes, self.rank_nodes)
 
     # -- introspection --------------------------------------------------
     @property
@@ -209,6 +296,11 @@ class MLDataset:
     def rows_per_shard(self) -> int:
         return math.ceil(self.total_rows / self.num_shards)
 
+    def schema(self):
+        """The ``pyarrow.Schema`` of the blocks; reads only block 0 and
+        never waits for the whole plan."""
+        return self._table(0).schema
+
     # -- shard access ---------------------------------------------------
     def shard_global_indices(self, rank: int) -> np.ndarray:
         """The dataset row index (block order, then row order in a block)
@@ -228,21 +320,25 @@ class MLDataset:
             return np.empty((0,), dtype=np.int64)
         return np.concatenate(parts)
 
+    def shard_tables(self, rank: int) -> List:
+        """The (sliced) blocks of ``rank``'s plan, as tables."""
+        plan = self.shard_plan
+        if rank not in plan:
+            raise IndexError(f"rank {rank} out of {self.num_shards}")
+        blocks = [self._blocks[s.block_index] for s in plan[rank]]
+        return [b if s.offset == 0 and s.num_samples == b.num_rows
+                else b.slice(s.offset, s.num_samples)
+                for s, b in zip(plan[rank], blocks)]
+
     def shard_columns(self, rank: int,
                       columns: Optional[List[str]] = None) -> Columns:
         """Shard ``rank`` materialised as contiguous numpy columns. Table
         slices are concatenated as tables first, as the JAX package does,
         so a column's numpy dtype is the one it gives."""
-        plan = self.shard_plan
-        if rank not in plan:
-            raise IndexError(f"rank {rank} out of {self.num_shards}")
-        blocks = [self._blocks[s.block_index] for s in plan[rank]]
         import pyarrow as pa
 
+        parts = self.shard_tables(rank)
         names = columns or self._blocks[0].column_names
-        parts = [b if s.offset == 0 and s.num_samples == b.num_rows
-                 else b.slice(s.offset, s.num_samples)
-                 for s, b in zip(plan[rank], blocks)]
         merged = (pa.concat_tables(parts, promote_options="default")
                   if len(parts) > 1 else parts[0])
         return {n: merged.column(n).to_numpy(zero_copy_only=False)
@@ -265,3 +361,9 @@ class MLDataset:
             label_dtype=label_dtype, prefetch=prefetch, device=device,
             drop_last=drop_last, transfer_coalesce=transfer_coalesce,
         )
+
+
+def _rows(block) -> Optional[int]:
+    """A landed block's row count, None where a ref does not carry it."""
+    rows = block.num_rows
+    return None if rows is None or rows < 0 else int(rows)

@@ -57,7 +57,7 @@ from raydp_tpu_torch.serve.replica_main import (
     SERVE_DRIVER_SERVICE,
 )
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
-from raydp_tpu_torch.utils.env import _env_float, _env_int
+from raydp_tpu_torch.utils.env import _env_float, _env_int, child_pythonpath
 from raydp_tpu_torch.utils.profiling import metrics
 
 logger = logging.getLogger(__name__)
@@ -179,10 +179,7 @@ class _ReplicaSlot:
                 ENV_SERVE_DRIVER_ADDR: g._driver_addr,
                 # The child resolves the model by reference: it sees
                 # every module this process can import.
-                "PYTHONPATH": os.pathsep.join(
-                    os.path.abspath(p) if p else os.getcwd()
-                    for p in sys.path
-                ),
+                "PYTHONPATH": child_pythonpath(),
             }
         )
         cmd = [sys.executable, "-m", "raydp_tpu_torch.serve.replica_main"]

@@ -1,0 +1,309 @@
+"""SPMD job worker process (the port's copy of
+``raydp_tpu/spmd/worker_main.py``).
+
+One rank of the gang launched by :class:`raydp_tpu_torch.spmd.job.SPMDJob`.
+Registers with the driver, then executes shipped functions on a dedicated
+runner thread in strict ``func_id`` order (the reference's TaskRunner with
+monotonic-id check, reference: python/raydp/mpi/mpi_worker.py:63-96).
+
+Functions receive an :class:`SPMDWorkerContext`; for collective work they
+call ``ctx.init_distributed()``, which joins ``torch.distributed`` (gloo)
+at the driver-provisioned rank-0 coordinator — the role MPI collectives
+play in the reference and ``jax.distributed`` in the JAX package.
+
+The process imports no torch until a shipped function does (nor any
+other library of the card): functions arrive through the closure carrier
+(``cluster/closure.py``), and this module loads only the RPC layer and
+the store's fetch protocol. The reference's telemetry (shipped metrics,
+spans, flight recorder, watchdog, debug endpoint), its profile capture
+and its fault plan's preemption and heartbeat hooks are not ported yet.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import sys
+import threading
+import traceback
+from typing import Callable, Optional
+
+from raydp_tpu_torch.cluster import closure
+from raydp_tpu_torch.cluster.rpc import RpcClient, RpcServer
+from raydp_tpu_torch.spmd.job import (
+    DRIVER_SERVICE,
+    ENV_COORDINATOR,
+    ENV_DRIVER_ADDR,
+    ENV_JOB_NAME,
+    ENV_PROCS_PER_NODE,
+    ENV_RANK,
+    ENV_WORLD_SIZE,
+    WORKER_SERVICE,
+)
+from raydp_tpu_torch.utils.net import local_ip
+
+logger = logging.getLogger(__name__)
+
+# Seconds between heartbeats, and beats missed before a rank decides its
+# driver is gone.
+HEARTBEAT_S = 5.0
+MISSED_BEATS = 3
+# How long rank 0 waits for the gang at the coordinator.
+DISTRIBUTED_TIMEOUT_S = 300.0
+
+
+class SPMDWorkerContext:
+    """First argument to every shipped function
+    (reference: WorkerContext, mpi/mpi_worker.py:45-60)."""
+
+    def __init__(self, job_name: str, rank: int, world_size: int,
+                 local_rank: int, node_ip: str, coordinator_address: str,
+                 fail_job: Optional[Callable[[str], None]] = None):
+        self.job_name = job_name
+        self.rank = rank
+        self.world_size = world_size
+        self.local_rank = local_rank
+        self.node_ip = node_ip
+        self.coordinator_address = coordinator_address
+        self._fail_job = fail_job
+        self._dist_initialized = False
+
+    def init_distributed(self) -> None:
+        """Join the gang's ``torch.distributed`` process group (gloo) at
+        ``coordinator_address``, where rank 0's ``TCPStore`` listens;
+        afterwards collectives span every rank. Idempotent per process
+        (the counterpart of the JAX package's ``init_jax_distributed``,
+        as in its ``examples/spmd_job.py:52-67``).
+
+        A rank that cannot join (rank 0's store cannot bind the port,
+        which another process took after the driver probed it) fails
+        the whole gang at once with a reason naming the port: the other
+        ranks would otherwise wait out the store's timeout."""
+        if self._dist_initialized:
+            return
+        import datetime
+
+        import torch.distributed as dist
+
+        host, _, port = self.coordinator_address.rpartition(":")
+        timeout = datetime.timedelta(seconds=DISTRIBUTED_TIMEOUT_S)
+        try:
+            store = dist.TCPStore(host, int(port), self.world_size,
+                                  is_master=self.rank == 0, timeout=timeout,
+                                  wait_for_workers=False)
+            dist.init_process_group(backend="gloo", store=store,
+                                    world_size=self.world_size,
+                                    rank=self.rank, timeout=timeout)
+        except Exception as exc:
+            reason = (f"rank {self.rank}: cannot join the gang's process "
+                      f"group at coordinator {self.coordinator_address} "
+                      f"(port {port}): {type(exc).__name__}: {exc}")
+            if self._fail_job is not None:
+                self._fail_job(reason)
+            raise RuntimeError(reason) from exc
+        self._dist_initialized = True
+
+
+class SPMDWorker:
+    def __init__(self):
+        self.job_name = os.environ[ENV_JOB_NAME]
+        self.rank = int(os.environ[ENV_RANK])
+        self.world_size = int(os.environ[ENV_WORLD_SIZE])
+        procs_per_node = int(os.environ.get(ENV_PROCS_PER_NODE, "1"))
+        self.ctx = SPMDWorkerContext(
+            self.job_name,
+            self.rank,
+            self.world_size,
+            local_rank=self.rank % procs_per_node,
+            node_ip=local_ip(),
+            coordinator_address=os.environ[ENV_COORDINATOR],
+            fail_job=self._fail_job,
+        )
+        driver_addr = os.environ[ENV_DRIVER_ADDR]
+        self.driver = RpcClient(driver_addr, DRIVER_SERVICE)
+        self._queue: "queue.Queue[Optional[dict]]" = queue.Queue()
+        self._stop_event = threading.Event()
+        self._last_func_id = 0
+        # Mirror the driver's multi-host binding: a remote driver must be
+        # able to reach this rank's service across the network.
+        multihost = not driver_addr.startswith("127.0.0.1")
+        self._server = RpcServer(
+            WORKER_SERVICE,
+            {"RunFunction": self._on_run_function, "Stop": self._on_stop},
+            host="0.0.0.0" if multihost else "127.0.0.1",
+        )
+        self._advertise = (
+            f"{self.ctx.node_ip}:{self._server.port}" if multihost
+            else self._server.address
+        )
+
+    def _fail_job(self, reason: str) -> None:
+        self.driver.try_call("JobFailed", {"reason": reason}, timeout=5.0)
+
+    def _on_run_function(self, req: dict) -> dict:
+        self._queue.put(req)
+        return {"queued": req["func_id"]}
+
+    def _on_stop(self, req: dict) -> dict:
+        self._stop_event.set()
+        self._queue.put(None)
+        return {"stopping": True}
+
+    def _payload_blob(self, item: dict, key: str) -> Optional[bytes]:
+        """Bytes for ``key`` (``fn`` / ``args``) of a queued dispatch.
+
+        Inline payloads ride the envelope; oversize payloads arrive as
+        ``<key>_ref`` and are pulled back from the driver's staging store
+        in bounded chunks — the same FetchObjectChunk protocol (and
+        chunk-size env) the cross-host data plane uses, so a large
+        closure never has to fit one RPC message.
+        """
+        blob = item.get(key)
+        if blob is not None:
+            return blob
+        object_id = item.get(f"{key}_ref")
+        if object_id is None:
+            return None
+        from raydp_tpu_torch.store.resolver import _fetch_chunk_bytes
+        from raydp_tpu_torch.utils.profiling import metrics as _metrics
+
+        chunk = max(1024 * 1024, _fetch_chunk_bytes())
+        reply = self.driver.call(
+            "FetchObjectChunk",
+            {"object_id": object_id, "offset": 0, "length": chunk},
+            timeout=120.0,
+        )
+        total = int(reply["size"])
+        first = reply["data"]
+        buf = bytearray(total)
+        buf[: len(first)] = first
+        offset = len(first)
+        while offset < total:
+            part = self.driver.call(
+                "FetchObjectChunk",
+                {"object_id": object_id, "offset": offset, "length": chunk},
+                timeout=120.0,
+            )["data"]
+            if not part:
+                raise RuntimeError(
+                    f"short read fetching dispatch blob {object_id}: "
+                    f"{offset}/{total} bytes"
+                )
+            buf[offset: offset + len(part)] = part
+            offset += len(part)
+        expect = int(item.get(f"{key}_size") or total)
+        if offset != expect:
+            raise RuntimeError(
+                f"dispatch blob {object_id} size mismatch: fetched "
+                f"{offset}, expected {expect}"
+            )
+        _metrics.counter_add("spmd/blob_fetches")
+        _metrics.counter_add("spmd/blob_fetch_bytes", total)
+        return bytes(buf)
+
+    def _runner(self) -> None:
+        while not self._stop_event.is_set():
+            item = self._queue.get()
+            if item is None:
+                return
+            func_id = item["func_id"]
+            if func_id <= self._last_func_id:
+                # Duplicate delivery — the driver's ids only move forward.
+                continue
+            self._last_func_id = func_id
+            value, error = None, None
+            try:
+                fn = closure.loads(self._payload_blob(item, "fn"))
+                args_blob = self._payload_blob(item, "args")
+                args = (closure.loads(args_blob)
+                        if args_blob is not None else ())
+                value = fn(self.ctx, *args)
+            except Exception:
+                error = traceback.format_exc()
+            reply = self.driver.try_call(
+                "FuncResult",
+                {
+                    "func_id": func_id,
+                    "rank": self.rank,
+                    "value": value,
+                    "error": error,
+                },
+                timeout=10.0,
+            )
+            if reply is None:
+                logger.warning(
+                    "rank %d: driver unreachable posting result %d; exiting",
+                    self.rank, func_id,
+                )
+                self._stop_event.set()
+                return
+
+    def _heartbeat(self) -> None:
+        """Detect a dead driver while idle — without this, a SIGKILLed
+        driver would orphan the whole gang (and the cards it holds)
+        forever; result-posting only notices mid-function."""
+        missed = 0
+        while not self._stop_event.wait(HEARTBEAT_S):
+            if self.driver.try_call("Ping", {"rank": self.rank},
+                                    timeout=5.0) is None:
+                missed += 1
+                if missed >= MISSED_BEATS:
+                    logger.warning(
+                        "rank %d: driver unreachable for %d beats; exiting",
+                        self.rank, missed,
+                    )
+                    self._stop_event.set()
+                    self._queue.put(None)
+                    return
+            else:
+                missed = 0
+
+    def run(self) -> int:
+        self.driver.call(
+            "RegisterWorker",
+            {
+                "rank": self.rank,
+                "address": self._advertise,
+                "host": self.ctx.node_ip,
+                "pid": os.getpid(),
+            },
+        )
+        runner = threading.Thread(target=self._runner, daemon=True)
+        runner.start()
+        threading.Thread(target=self._heartbeat, daemon=True).start()
+        self._stop_event.wait()
+        runner.join(timeout=2.0)
+        self._server.stop()
+        self.driver.close()
+        return 0
+
+
+def main() -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"[spmd-{os.environ.get(ENV_RANK, '?')}] %(levelname)s "
+               f"%(message)s",
+    )
+    try:
+        return SPMDWorker().run()
+    except Exception:
+        traceback.print_exc()
+        # Best-effort failure report so the driver fails fast rather than
+        # timing out (reference: mpirun watcher failed_callback,
+        # mpi/mpi_job.py:265-271).
+        try:
+            RpcClient(
+                os.environ[ENV_DRIVER_ADDR], DRIVER_SERVICE
+            ).try_call(
+                "JobFailed",
+                {"reason": f"rank {os.environ.get(ENV_RANK)}: "
+                           f"{traceback.format_exc(limit=3)}"},
+                timeout=2.0,
+            )
+        except Exception:
+            pass
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

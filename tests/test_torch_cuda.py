@@ -14,7 +14,8 @@ Slice 7: ``fit_on_df`` from a 4-partition frame on the card against the
 CPU, and the native host library built there, its bucket ids equal to
 the numpy twin's. Slice 8: a session's ETL workers import no torch and
 see no card, and a scan fit from a frame in the session's object store
-counts every kernel launch.
+counts every kernel launch. Slice 9: a gang of 2 SPMD ranks on the card,
+each launching the flash forward once a layer by its own counter.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -936,3 +937,44 @@ def test_fit_on_cluster_frame_counts_every_launch(port_session):
     assert [h["samples"] for h in hist] == [128, 128]
     assert counts == [2 * 16] * 4
     assert all(np.isfinite(h["train_loss"]) for h in hist)
+
+
+# ------------------------------------------------------------- slice 9
+
+def _gang_forward(ctx, seed):
+    """Rank body: a tiny bf16 flash classifier from ``seed`` on the
+    rank's card, one forward; the rank's own flash_fwd launches."""
+    import torch
+
+    from raydp_tpu_torch.models.transformer import (
+        SequenceClassifier,
+        tiny_transformer,
+    )
+    from raydp_tpu_torch.ops.flash_attention import flash_attention
+
+    device = f"cuda:{ctx.local_rank % torch.cuda.device_count()}"
+    cfg = tiny_transformer(attention_impl="flash", dtype=torch.bfloat16)
+    model = SequenceClassifier(
+        cfg, device=device,
+        generator=torch.Generator().manual_seed(seed)).eval()
+    ids = torch.randint(0, cfg.vocab_size, (4, 64),
+                        generator=torch.Generator().manual_seed(1))
+    before = flash_attention.launches
+    with torch.inference_mode():
+        logits = model(ids.to(device))
+    torch.cuda.synchronize()
+    return (flash_attention.launches - before, cfg.n_layers,
+            logits.float().cpu().numpy())
+
+
+def test_spmd_gang_on_card_counts_a_launch_a_layer(cuda):
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    with create_spmd_job("cuda-gang", world_size=2, timeout=60) as job:
+        out = job.run(_gang_forward, per_rank_args=[(3,), (3,)],
+                      timeout=300)
+    launches, layers, _ = out[0]
+    assert [o[0] for o in out] == [layers] * 2 and layers == 2
+    ref = _gang_forward(type("Ctx", (), {"local_rank": 0})(), 3)[2]
+    for _, _, logits in out:
+        np.testing.assert_allclose(logits, ref, **TOL[torch.bfloat16])

@@ -4,7 +4,11 @@ Blocks come from numpy with a fixed seed; the JAX side gets them as
 pyarrow tables, the port as dicts of numpy columns. Shard plans, shard
 columns and every batch of every epoch must be equal exactly: the port
 copies the shard math and the epoch permutation, and the batches are the
-same rows cast to the same dtypes.
+same rows cast to the same dtypes. The locality-preferring plans
+(``divide_blocks_local``) and their scores (``locality_fraction``) equal
+the JAX functions' over a grid of block sizes, node layouts and world
+sizes, and every case of ``tests/test_locality.py`` runs against the
+port (``tests/torch_port_cases.py``).
 """
 import numpy as np
 import pyarrow as pa
@@ -12,9 +16,16 @@ import pytest
 import torch
 
 from raydp_tpu.data.ml_dataset import MLDataset as JaxMLDataset
+from raydp_tpu.utils import sharding as jax_sharding
 from raydp_tpu.utils.sharding import divide_blocks as jax_divide_blocks
 from raydp_tpu_torch.data import MLDataset
+from raydp_tpu_torch.utils import sharding
 from raydp_tpu_torch.utils.sharding import divide_blocks
+from torch_port_cases import cases, load_port_module, run_case, time_limit
+
+LOCALITY = load_port_module("test_locality.py")
+LOCALITY_CASES = cases(
+    LOCALITY, [n for n in vars(LOCALITY) if n.startswith("test_")])
 
 FEATURES = ["a", "b", "c"]
 
@@ -138,3 +149,105 @@ def test_loader_needs_a_card_unless_cpu():
     ours, _ = _datasets([10], 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ours.to_torch(FEATURES, "label")
+
+
+# -- locality-preferring plans ---------------------------------------------
+
+LOCAL_SIZES = {
+    "even": [100, 100, 100, 100],
+    "skewed": [300, 300, 100, 100],
+    "ragged": [9, 0, 4, 13, 2, 31, 7, 1],
+    "one_big": [500, 3, 3, 3, 3, 3],
+}
+LOCAL_LAYOUTS = {
+    "one_node": lambda n: ["node-0"] * n,
+    "two_nodes": lambda n: [f"node-{i % 2}" for i in range(n)],
+    "halves": lambda n: ["node-0"] * (n // 2) + ["node-1"] * (n - n // 2),
+    "three_nodes": lambda n: [f"node-{i % 3}" for i in range(n)],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(LOCAL_LAYOUTS))
+@pytest.mark.parametrize("sizes", sorted(LOCAL_SIZES))
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_divide_blocks_local_matches_jax(world, sizes, layout):
+    blocks = LOCAL_SIZES[sizes]
+    nodes = LOCAL_LAYOUTS[layout](len(blocks))
+    for ranks in ([f"node-{r % 2}" for r in range(world)],
+                  [f"node-{r % 3}" for r in range(world)],
+                  ["node-9"] * world):
+        for shuffle in (False, True):
+            got = sharding.divide_blocks_local(blocks, world, nodes, ranks,
+                                               shuffle, 7)
+            want = jax_sharding.divide_blocks_local(blocks, world, nodes,
+                                                    ranks, shuffle, 7)
+            assert _plan(got) == _plan(want)
+            assert sharding.locality_fraction(got, nodes, ranks) == \
+                jax_sharding.locality_fraction(want, nodes, ranks)
+            assert sharding.assignment_sample_counts(got) == \
+                jax_sharding.assignment_sample_counts(want)
+
+
+@pytest.mark.parametrize("name,params",
+                         [(n, p) for _, n, p in LOCALITY_CASES],
+                         ids=[i for i, _, _ in LOCALITY_CASES])
+def test_locality_case_on_port(name, params, request):
+    with time_limit(120):  # one case starts a session
+        run_case(LOCALITY, name, params, request)
+
+
+def test_locality_cases_cover_the_reference_module():
+    assert len(LOCALITY_CASES) == 6
+
+
+def test_local_plan_from_rank_nodes_matches_jax():
+    """A dataset of in-memory blocks carries no nodes: a topology leaves
+    the plan as ``divide_blocks``' and ``locality()`` reads the blocks
+    as the driver node's, as the JAX dataset does."""
+    ours, theirs = _datasets([7, 3, 11, 5], 2)
+    ranks = ["node-0", "node-1"]
+    ranked = MLDataset(_blocks([7, 3, 11, 5]), 2, rank_nodes=ranks)
+    jax_ranked = JaxMLDataset([pa.table(b) for b in _blocks([7, 3, 11, 5])],
+                              2, rank_nodes=ranks)
+    assert _plan(ranked.shard_plan) == _plan(ours.shard_plan)
+    assert _plan(jax_ranked.shard_plan) == _plan(ours.shard_plan)
+    assert ranked.block_nodes == jax_ranked.block_nodes == [None] * 4
+    assert ranked.locality() == jax_ranked.locality() == 0.5
+    assert ours.locality() is None and theirs.locality() is None
+
+
+def test_each_ref_block_is_read_once():
+    """Pending partitions that land as refs: the prefix streamer reads
+    each block, and the plan, ``schema``, ``shard_tables`` and
+    ``locality`` then use those tables; no block is read twice. The
+    refs' nodes become ``block_nodes`` and drive the local plan."""
+    from concurrent.futures import Future
+
+    from raydp_tpu_torch.dataframe.scheduler import PendingPartition
+    from raydp_tpu_torch.store.object_store import ObjectRef
+
+    sizes, layout = [7, 3, 11, 5], ["node-0", "node-1", "node-1", "node-0"]
+    tables = {f"{i:032x}": pa.table(b)
+              for i, b in enumerate(_blocks(sizes))}
+    reads = []
+
+    class Reader:
+        def get_arrow_table(self, ref):
+            reads.append(ref.object_id)
+            return tables[ref.object_id]
+
+    futures = [Future() for _ in sizes]
+    ranks = ["node-0", "node-1"]
+    ds = MLDataset([PendingPartition(f, i) for i, f in enumerate(futures)],
+                   2, store=Reader(), rank_nodes=ranks)
+    for (oid, t), node, f in zip(tables.items(), layout, futures):
+        f.set_result(ObjectRef(oid, t.nbytes, "holder", t.num_rows, node))
+    streamed = [b for _, b in ds.iter_prefix_tables()]
+    assert [t.num_rows for t in streamed] == sizes
+    want = sharding.divide_blocks_local(sizes, 2, layout, ranks)
+    assert _plan(ds.shard_plan) == _plan(want)
+    assert ds.block_nodes == layout
+    assert ds.locality() == sharding.locality_fraction(want, layout, ranks)
+    assert ds.schema() == streamed[0].schema
+    assert sum(t.num_rows for t in ds.shard_tables(1)) == ds.rows_per_shard
+    assert sorted(reads) == sorted(tables)

@@ -86,7 +86,11 @@ def test_port_files_exist():
                 "raydp_tpu_torch/cluster/launcher.py",
                 "raydp_tpu_torch/cluster/master.py",
                 "raydp_tpu_torch/cluster/worker_main.py",
-                "raydp_tpu_torch/cluster/cluster.py"):
+                "raydp_tpu_torch/cluster/cluster.py",
+                "raydp_tpu_torch/cluster/client.py",
+                "raydp_tpu_torch/spmd/__init__.py",
+                "raydp_tpu_torch/spmd/job.py",
+                "raydp_tpu_torch/spmd/worker_main.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
     assert os.path.exists(os.path.join(ROOT, "raydp_tpu_torch", "native",

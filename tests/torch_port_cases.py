@@ -11,18 +11,25 @@ parametrise over :func:`cases`. The loaded modules are not in
 port's worker processes by value (``raydp_tpu_torch/cluster/closure.py``).
 """
 import ast
+import contextlib
 import functools
 import inspect
 import itertools
 import os
 import re
+import signal
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Modules of the JAX package whose port the cases run against.
 PORTED = ("dataframe", "telemetry.progress", "utils.profiling", "context",
-          "cluster", "store", "config", "utils.net", "utils.memory")
+          "cluster", "store", "config", "utils.net", "utils.memory",
+          "utils.sharding", "spmd", "data")
+# Test modules whose cases run whole programs in subprocesses, with the
+# package named inside string literals: every ``raydp_tpu`` name in them
+# points at the port, and their selected cases use ported modules only.
+WHOLE_PACKAGE = ("test_client_mode.py",)
 
 _TESTS_IMPORT = re.compile(r"^from tests\.(\w+) import (.+)$", re.MULTILINE)
 
@@ -60,6 +67,8 @@ def load_port_module(filename: str, only=None) -> types.ModuleType:
         src = _only(src, set(only))
     for mod in PORTED:
         src = src.replace(f"raydp_tpu.{mod}", f"raydp_tpu_torch.{mod}")
+    if filename in WHOLE_PACKAGE:
+        src = re.sub(r"\braydp_tpu\b", "raydp_tpu_torch", src)
     src = re.sub(r"^import raydp_tpu$", "import raydp_tpu_torch as raydp_tpu",
                  src, flags=re.MULTILINE)
     src = _TESTS_IMPORT.sub(
@@ -138,3 +147,20 @@ def run_case(module, name, params, request, fixtures=None) -> None:
     finally:
         for gen in reversed(generators):
             next(gen, None)  # the fixture's teardown
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Raise ``TimeoutError`` in the main thread (the test's) once
+    ``seconds`` have passed inside the block: a test that starts
+    processes fails on its own limit instead of hanging the run."""
+    def expire(signum, frame):
+        raise TimeoutError(f"test exceeded its {seconds} s limit")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
