@@ -142,14 +142,37 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    each rank's logits equal to this process's forward of the same rows, 12 ``flash_fwd`` launches a batch by each rank's own counter,
    and the ranks' gloo ``all_reduce`` of ``[correct, rows]`` equal to
    their sums; the gang's sequences/s beside phase 2's.
+13. Windows, query profiling and ``fit_spmd`` on a fresh 4-worker
+   session: (a) 500,000 Criteo-shaped rows (13 dense, 26 categorical
+   columns of zipf-like ids over at most 100,000 values) through the
+   reference notebook's id assignment on the workers (``posexplode``,
+   ``groupBy("column_id", "data").count()``, ``row_number().over(
+   Window.partitionBy("column_id").orderBy(desc("count"), "data")) - 1``),
+   every column's ids equal to numpy's ranking; its
+   ``explain(analyze=True)`` (footer counts, every stage ``[cluster]``
+   with ``workers=``), ``profile()``'s rows against the frames' and a
+   converged ``Cluster.progress_report()``; the ids joined back per
+   column, equal to numpy's for every row, feeding
+   ``PackedDLRM(criteo_dlrm())`` through ``fit_on_df`` (stream, phase
+   5's batches); ETL rows/s, stage seconds and skew. (b) ``fit_spmd`` of
+   10c's bf16 flash classifier over a gang of 2 ranks on the card, each
+   reading its plan's slices of 2,048 GLUE rows from the object store,
+   batch 32 a rank, 2 epochs: the backend the rule picks, the ranks'
+   losses equal and their final parameters identical, 12 launches of
+   each kernel a step by each rank's counters, a falling loss, and the
+   gang's checkpoint restored into a single-process estimator with
+   equal parameters; each rank's step ms and its gradient exchange's
+   share (CUDA events), peak memory, ``start()`` seconds and the first
+   step's seconds after the call.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a and 12b) and read just after; phase 9's replicas, 12a's
-second driver and 12b's ranks are new processes, whose counts start at
-0 and are read by ``Ping`` or returned in their results. The last lines are a ``kernels`` JSON
+10c, 11c, 12a, 12b, 13a and 13b) and read just after; phase 9's
+replicas, 12a's second driver and 12b's and 13b's ranks are new
+processes, whose counts start at 0 and are read by ``Ping`` or returned
+in their results. The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -2764,7 +2787,7 @@ def gang_score(ctx, tables, seed, batch):
         end = time.time()
     counts = cs._counts()
     correct = int((logits.argmax(-1).cpu().numpy() == labels).sum())
-    ctx.init_distributed()
+    ctx.init_distributed(device="cpu")  # the tally lives on the host
     total = torch.tensor([correct, len(labels)], dtype=torch.int64)
     dist.all_reduce(total)
     return {"rank": ctx.rank, "device": device,
@@ -2962,6 +2985,416 @@ def phase_second_drivers(torch, P, ref):
                     "rank_launches": rank_launches}
 
 
+# Phase 13: the window DLRM id pipeline on the session's workers (13a)
+# and fit_spmd of 10c's classifier over a gang of 2 ranks (13b).
+WINDOW_ROWS, WINDOW_DENSE, WINDOW_TABLES = 500_000, 13, 26
+WINDOW_VOCAB, WINDOW_PARTS = 100_000, 8
+GANG_FIT_ROWS, GANG_FIT_BATCH, GANG_FIT_EPOCHS = 2048, 32, 2
+GANG_FIT_LIMIT_S = 900.0
+
+
+def window_criteo_table(np, n, seed=13):
+    """Criteo-shaped rows: ``WINDOW_DENSE`` gamma dense features
+    ``I<i>``, ``WINDOW_TABLES`` categorical columns ``C<t>`` of
+    Pareto-skewed (zipf-like) raw ids folded into at most
+    ``WINDOW_VOCAB`` values, a logistic label of I0, I1 and C0's parity,
+    and a row id ``rid``."""
+    rng = np.random.default_rng(seed)
+    cols = {"rid": np.arange(n, dtype=np.int64)}
+    for i in range(WINDOW_DENSE):
+        cols[f"I{i}"] = rng.gamma(1.5, 2.0, n).astype(np.float32)
+    for t in range(WINDOW_TABLES):
+        cols[f"C{t}"] = ((rng.pareto(1.2, n) * 17).astype(np.int64)
+                         * (t + 1) + t) % WINDOW_VOCAB
+    logit = (-1.2 + 0.35 * cols["I0"] - 0.2 * cols["I1"]
+             + 0.3 * (cols["C0"] % 2))
+    cols["label"] = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(
+        np.float32)
+    return cols
+
+
+def window_ids(rdf, df, cat):
+    """The reference notebook's ``assign_id_with_window``: every
+    categorical value's id is its frequency rank within its column, 0
+    for the most frequent (ties by the value), from ``posexplode`` ->
+    ``groupBy("column_id", "data").count()`` -> ``row_number().over(
+    Window.partitionBy("column_id").orderBy(desc("count"), "data")) - 1``.
+    Returns the (column_id, data, count, id) frame."""
+    melted = df.posexplode(cat, pos_name="column_id", value_name="data")
+    counts = melted.groupBy("column_id", "data").count()
+    w = rdf.Window.partitionBy("column_id").orderBy(rdf.desc("count"),
+                                                    "data")
+    return counts.withColumn("id", rdf.row_number().over(w) - 1)
+
+
+def window_ids_numpy(np, values):
+    """The same ranking of one column's values in numpy: (values sorted,
+    their ids)."""
+    vals, cnt = np.unique(values, return_counts=True)
+    order = np.lexsort((vals, -cnt))
+    ids = np.empty(len(vals), dtype=np.int64)
+    ids[order] = np.arange(len(vals))
+    return vals, ids
+
+
+def window_first_rows(rdf, df, cat):
+    """The ``row_number() == 1`` dedup idiom over the exploded values:
+    every (column, value) pair once, with the id of its first row
+    (``row_number().over(Window.partitionBy("column_id", "data")
+    .orderBy("rid")) == 1``). The exploded frame, three int64 columns of
+    ``WINDOW_ROWS * WINDOW_TABLES`` rows, is far above the exchange's
+    coalesce size, so this window runs as a hash exchange on the workers
+    and sorts each bucket there (the id pipeline's window gets a small
+    frame of counts, gathered into one task)."""
+    melted = df.posexplode(cat, pos_name="column_id", value_name="data",
+                           keep=["rid"])
+    w = rdf.Window.partitionBy("column_id", "data").orderBy("rid")
+    return melted.filter(rdf.row_number().over(w) == 1)
+
+
+def join_ids(rdf, df, ids, cat):
+    """Each categorical column replaced by its id: one join a column
+    against that column's slice of ``ids`` (the reference notebook's
+    join back per column)."""
+    for t, c in enumerate(cat):
+        table = ids.filter(rdf.col("column_id") == t).select(
+            rdf.col("data").alias(c), rdf.col("id").alias(f"{c}__id"))
+        df = df.join(table, on=c).drop(c).withColumnRenamed(f"{c}__id", c)
+    return df
+
+
+def phase_window_dlrm(torch, P, session):
+    """13a: the window id pipeline on the session's 4 workers over
+    ``WINDOW_ROWS`` Criteo-shaped rows, held against numpy; its
+    ``explain(analyze=True)``, ``profile()`` and the cluster's progress
+    report; the ids joined back into the frame, which feeds
+    ``PackedDLRM(criteo_dlrm())`` through ``fit_on_df`` on the stream
+    path (phase 5's batch, steps and epochs)."""
+    import re
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.dataframe.executor import ClusterExecutor
+    from raydp_tpu_torch.telemetry.progress import stage_store
+
+    cat = [f"C{t}" for t in range(WINDOW_TABLES)]
+    dense = [f"I{i}" for i in range(WINDOW_DENSE)]
+    cols = window_criteo_table(np, WINDOW_ROWS)
+    t0 = time.perf_counter()
+    df = rdf.from_arrow(pa.table(cols), num_partitions=WINDOW_PARTS)
+    check(isinstance(df._executor, ClusterExecutor),
+          f"13a: the frame runs on {type(df._executor).__name__}")
+    last0 = stage_store.last_id()
+    ids = window_ids(rdf, df, cat).persist()
+    plan = ids.explain(analyze=True, quiet=True)
+    id_s = time.perf_counter() - t0
+    prof = ids.profile()
+    table = ids.to_arrow()
+    n_ids = table.num_rows
+    want_pairs = 0
+    bad = []
+    for t, c in enumerate(cat):
+        vals, want = window_ids_numpy(np, cols[c])
+        want_pairs += len(vals)
+        mine = table.filter(pc.equal(table.column("column_id"), t))
+        got_vals = mine.column("data").to_numpy()
+        order = np.argsort(got_vals)
+        if not (np.array_equal(got_vals[order], vals) and np.array_equal(
+                mine.column("id").to_numpy()[order], want)):
+            bad.append(c)
+    check(not bad, f"13a: window ids differ from numpy's ranking in {bad}")
+    check(n_ids == want_pairs,
+          f"13a: {n_ids} (column, value) pairs, numpy has {want_pairs}")
+    log("[13a] explain(analyze=True) of the id pipeline:\n" + plan)
+    footer = re.search(r"== Exchanges == ran: (\d+), elided: (\d+), "
+                       r"coalesced: (\d+)", plan)
+    check(footer is not None, "13a: no exchange footer in the plan")
+    ran, elided, coalesced = map(int, footer.groups())
+    annotations = [n["annotation"] for n in ids._lineage]
+    check(ran == sum(a.startswith("hash exchange") for a in annotations)
+          and coalesced == sum(a.startswith("coalesced:")
+                               for a in annotations)
+          and elided == 0 and ran + coalesced >= 1,
+          f"13a: footer ran {ran}, elided {elided}, coalesced {coalesced} "
+          f"against the plan's annotations {annotations} (want them to "
+          f"agree, the groupBy's rows co-located, nothing elided)")
+    stage_lines = [ln for ln in plan.splitlines()
+                   if re.match(r"\s+stage \d+", ln)]
+    check(stage_lines and all("[cluster]" in ln and "workers=" in ln
+                              for ln in stage_lines),
+          f"13a: stages not all attributed to the cluster: {stage_lines}")
+    stats = [s for node in prof["plan"] for s in node["stats"]]
+    check(stats[0]["rows_in"] == WINDOW_ROWS
+          and stats[-1]["rows_out"] == n_ids
+          and all(s["rows_out"] == sum(r for r in s["part_rows"] if r > 0)
+                  for s in stats),
+          f"13a: profile() rows {[(s['op'], s['rows_in'], s['rows_out']) for s in stats]}"
+          f" against the frame's {WINDOW_ROWS} rows and {n_ids} ids")
+    report = session.cluster.progress_report()
+    mine = [st for st in report["recent"] if st["stage_id"] > last0]
+    check(not [st for st in report["active"] if st["stage_id"] > last0]
+          and mine and all(st["done"] >= st["total"] for st in mine),
+          f"13a: progress report not converged: {report['active']}")
+    for s in ids.stage_stats:
+        log(f"[13a] stage {s.op} [{s.executor}]: {s.wall_s:.3f} s wall "
+            f"(dispatch {s.dispatch_s:.3f}, queue {s.queue_s:.3f}), rows "
+            f"{s.rows_in} -> {s.rows_out}, skew {s.skew:.2f}, tasks by "
+            f"worker {s.workers}")
+    log(f"[13a] id pipeline: {WINDOW_ROWS} rows x {WINDOW_TABLES} columns "
+        f"({WINDOW_ROWS * WINDOW_TABLES} exploded values) -> {n_ids} ids "
+        f"in {id_s:.3f} s ({WINDOW_ROWS / id_s:.0f} input rows/s, host "
+        f"clock, explain's run included); progress: "
+        f"{report['stages_done']} stages done, {len(mine)} of this query, "
+        f"none in flight")
+
+    # The same window engine at the exploded size: a hash exchange on
+    # (column_id, data) across the workers, each bucket sorted by rid.
+    t0 = time.perf_counter()
+    first = window_first_rows(rdf, df, cat).persist()
+    first_plan = first.explain(analyze=True, quiet=True)
+    dedup_s = time.perf_counter() - t0
+    got = first.to_arrow()
+    bad = []
+    for t, c in enumerate(cat):
+        vals, first_rid = np.unique(cols[c], return_index=True)
+        mine = got.filter(pc.equal(got.column("column_id"), t))
+        data = mine.column("data").to_numpy()
+        order = np.argsort(data)
+        if not (np.array_equal(data[order], vals) and np.array_equal(
+                mine.column("rid").to_numpy()[order], first_rid)):
+            bad.append(c)
+    check(not bad and got.num_rows == n_ids,
+          f"13a: first rows by the window differ from numpy's in {bad} "
+          f"({got.num_rows} rows, {n_ids} pairs)")
+    win_nodes = [n for n in first._lineage
+                 if n["annotation"].startswith("hash exchange (window)")]
+    win_stats = [st for node in win_nodes
+                 for st in map(stage_store.get, node["stage_ids"])
+                 if st is not None]
+    check(len(win_nodes) == 1 and win_stats
+          and len(win_stats[-1].workers) >= 2,
+          f"13a: the dedup window's exchange did not run as a hash exchange "
+          f"on 2 or more workers: {[n['annotation'] for n in first._lineage]}"
+          f", {[(s.op, s.workers) for s in win_stats]}")
+    log("[13a] explain(analyze=True) of the dedup window:\n" + first_plan)
+    for s in first.stage_stats:
+        log(f"[13a] dedup stage {s.op} [{s.executor}]: {s.wall_s:.3f} s "
+            f"wall, rows {s.rows_in} -> {s.rows_out}, skew {s.skew:.2f}, "
+            f"tasks by worker {s.workers}")
+    log(f"[13a] dedup window over {WINDOW_ROWS * WINDOW_TABLES} exploded "
+        f"values -> {got.num_rows} first rows in {dedup_s:.3f} s (host "
+        f"clock, explain's run included), equal to numpy's")
+    del first, got
+
+    t0 = time.perf_counter()
+    joined = join_ids(rdf, df, ids, cat).persist()
+    n_joined = joined.count()
+    join_s = time.perf_counter() - t0
+    check(n_joined == WINDOW_ROWS,
+          f"13a: {n_joined} rows after the joins, want {WINDOW_ROWS}")
+    got = joined.select("rid", *cat).to_arrow()
+    order = np.argsort(got.column("rid").to_numpy())
+    bad = []
+    for c in cat:
+        vals, want = window_ids_numpy(np, cols[c])
+        expect = want[np.searchsorted(vals, cols[c])]
+        if not np.array_equal(got.column(c).to_numpy()[order], expect):
+            bad.append(c)
+    check(not bad, f"13a: joined ids differ from numpy's in {bad}")
+    etl_s = id_s + join_s
+    log(f"[13a] {WINDOW_TABLES} joins back in {join_s:.3f} s; the ETL "
+        f"{etl_s:.3f} s in all: {WINDOW_ROWS / etl_s:.0f} rows/s (host "
+        f"clock)")
+
+    cfg = P.criteo_dlrm()
+    est = P.Estimator(
+        model=P.PackedDLRM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(12)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3, weight_decay=1e-2),
+        loss="bce", metrics=["accuracy"], num_epochs=DLRM_EPOCHS,
+        batch_size=DLRM_BATCH, feature_columns=dense + cat,
+        label_column="label", seed=0, shuffle=False, epoch_mode="stream",
+        device="cuda")
+    _reset_counts()
+    hist, first_s = fit_timed(est, lambda: est.fit_on_df(
+        joined.limit(DLRM_BATCH * DLRM_STEPS)))
+    counts = _counts()
+    losses = [h["train_loss"] for h in hist]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"13a: train loss did not fall {losses}")
+    check(counts == {k: 0 for k in KERNEL_SYMBOLS},
+          f"13a: the DLRM fit launched flash kernels {counts}")
+    log(f"[13a] PackedDLRM(criteo_dlrm()) fit_on_df of {DLRM_STEPS} "
+        f"batches of {DLRM_BATCH} window-id rows (stream): losses "
+        f"{[round(v, 4) for v in losses]}, "
+        f"{hist[-1]['samples_per_sec']:.0f} samples/s in the last epoch "
+        f"(host clock); {first_s:.3f} s from the call to the first step")
+    del est
+    torch.cuda.empty_cache()
+
+
+def gang_fit_factory(checkpoint_dir):
+    """13b's estimator factory, run in each rank after it joined the
+    gang (``fit_spmd`` ships it by value; it imports this file as the
+    module ``chip_smoke`` for what it uses): 10c's bf16 flash classifier
+    at bert_base width and depth, batch ``GANG_FIT_BATCH`` a rank, AdamW
+    2e-5, the stream path, a checkpoint each epoch. Its callback adds the
+    rank's flash launch counts and peak device memory to every epoch's
+    metrics (the class is made in the rank: the closure carrier ships no
+    class of this file)."""
+    def make_estimator():
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        import chip_smoke as cs
+        import raydp_tpu_torch as P
+
+        class RankProbe(P.TrainingCallback):
+            def on_epoch_end(self, epoch, metrics):
+                metrics["launches"] = cs._counts()
+                metrics["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+        cs._reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                          max_len=cs.GLUE_SEQ)
+        return P.Estimator(
+            model=P.SequenceClassifier(
+                cfg, device="cuda",
+                generator=torch.Generator().manual_seed(9)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5,
+                                                  weight_decay=1e-4),
+            loss="softmax_ce", num_epochs=cs.GANG_FIT_EPOCHS,
+            batch_size=cs.GANG_FIT_BATCH,
+            feature_columns=[f"t{i}" for i in range(cs.GLUE_SEQ)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, mesh=P.MeshSpec(dp=dist.get_world_size()),
+            seed=0, epoch_mode="stream", checkpoint_dir=checkpoint_dir,
+            callbacks=[RankProbe()], device="cuda")
+
+    return make_estimator
+
+
+def phase_gang_fit(torch, P, session):
+    """13b: ``fit_spmd`` of 10c's classifier over a gang of 2 ranks on
+    the card, each reading its plan's slices of the GLUE frame from the
+    session's object store. Holds the ranks' histories and parameters
+    equal, each rank's 12 launches a step of each kernel, a falling loss,
+    and the gang's checkpoint restored into a single-process estimator.
+    Returns each rank's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.spmd.worker_main import collective_backend
+    from raydp_tpu_torch.store.object_store import DEFAULT_NODE, ObjectRef
+
+    frame = rdf.from_arrow(pa.table(synthetic_glue(np, GANG_FIT_ROWS,
+                                                   GLUE_SEQ, 30522)),
+                           num_partitions=ETL_PARTS)
+    ds = MLDataset.from_df(frame, num_shards=GANG_WORLD,
+                           rank_nodes=[DEFAULT_NODE] * GANG_WORLD)
+    check(all(isinstance(b, ObjectRef) for b in ds.blocks),
+          "13b: the GLUE frame's blocks are not in the object store")
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-13b-")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        called = time.time()
+        t0 = time.perf_counter()
+        out = P.fit_spmd(gang_fit_factory(ckpt), ds, world_size=GANG_WORLD,
+                         timeout=GANG_FIT_LIMIT_S)
+        fit_s = time.perf_counter() - t0
+        check(all(isinstance(b, ObjectRef) for b in ds.blocks),
+              "13b: the driver read the blocks (store mode ships plans)")
+        ranks = out["per_rank_history"]
+        steps = GANG_FIT_EPOCHS * ds.rows_per_shard // GANG_FIT_BATCH
+        want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+        for r, hist in enumerate(ranks):
+            check(hist[-1]["launches"] == want,
+                  f"13b: rank {r} counted {hist[-1]['launches']}, want "
+                  f"{want}")
+        losses = [[h["train_loss"] for h in hist] for hist in ranks]
+        check(all(np.allclose(lo, losses[0], rtol=1e-6, atol=0)
+                  for lo in losses),
+              f"13b: the ranks' losses differ: {losses}")
+        check(all(np.isfinite(losses[0])) and losses[0][-1] < losses[0][0],
+              f"13b: train loss did not fall {losses[0]}")
+        check(len(set(out["per_rank_params_sha256"])) == 1,
+              f"13b: the ranks' final parameters differ (digests "
+              f"{out['per_rank_params_sha256']})")
+        check(out["backend"] == collective_backend(GANG_WORLD, "cuda"),
+              f"13b: backend {out['backend']}, the rule says "
+              f"{collective_backend(GANG_WORLD, 'cuda')}")
+        cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                          max_len=GLUE_SEQ)
+        fresh = P.Estimator(model=P.SequenceClassifier(cfg, device="cuda"),
+                            optimizer=lambda p: torch.optim.AdamW(
+                                p, lr=2e-5, weight_decay=1e-4),
+                            device="cuda")
+        fresh.restore(ckpt, step=GANG_FIT_EPOCHS - 1)
+        restored = fresh.get_model().state_dict()
+        differ = [k for k, v in out["params"].items()
+                  if not torch.equal(restored[k].float().cpu(),
+                                     torch.from_numpy(v).float())]
+        check(not differ, f"13b: the restored checkpoint differs from the "
+                          f"gang's parameters in {differ[:5]}")
+        del fresh, restored
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    last = [hist[-1] for hist in ranks]
+    first_at = min(hist[0]["first_step_at"] for hist in ranks)
+    samples = sum(h["samples"] for h in last)
+    rate = samples / max(h["time_s"] for h in last)
+    log(f"[13b] fit_spmd: {GANG_WORLD} ranks, backend {out['backend']} "
+        f"(the rule for {GANG_WORLD} ranks on {torch.cuda.device_count()} "
+        f"card(s)), {ds.rows_per_shard} rows a rank, batch "
+        f"{GANG_FIT_BATCH} a rank ({GANG_FIT_BATCH * GANG_WORLD} global), "
+        f"{steps} steps; start() {out['start_s']:.3f} s; first step "
+        f"{first_at - called:.3f} s after the call; fit_spmd {fit_s:.1f} s "
+        f"in all (host clock)")
+    for r, h in enumerate(last):
+        log(f"[13b] rank {r}: {h['step_ms']:.2f} ms a step, "
+            f"{h['allreduce_ms']:.2f} ms of it in the gradient exchange "
+            f"({h['allreduce_ms'] / h['step_ms']:.3f} of the step; CUDA "
+            f"events, last epoch's mean), peak device memory "
+            f"{h['peak_bytes'] / 2**30:.3f} GiB, launches {h['launches']}")
+    log(f"[13b] the gang's last epoch: {samples} samples in "
+        f"{max(h['time_s'] for h in last):.3f} s -> {rate:.1f} samples/s "
+        f"(host clock); losses {[round(v, 4) for v in losses[0]]} on every "
+        f"rank; final parameters equal on both ranks (digest "
+        f"{out['per_rank_params_sha256'][0][:16]}) and in the restored "
+        f"checkpoint")
+    return [hist[-1]["launches"] for hist in ranks]
+
+
+def phase_window_and_gang(torch, P):
+    """13: a fresh 4-worker session: the window id pipeline into a DLRM
+    fit (13a), then fit_spmd over the gang (13b). Returns 13b's
+    per-rank launch counts."""
+    from raydp_tpu_torch.store import shm
+
+    session = P.init(app_name="chip-smoke-13", num_workers=SESSION_WORKERS)
+    namespace = session.cluster.namespace
+    try:
+        phase_window_dlrm(torch, P, session)
+        rank_counts = phase_gang_fit(torch, P, session)
+    finally:
+        P.stop()
+    left = shm.list_segments(f"rdp-{namespace}-")
+    check(not left, f"13: {len(left)} segments left after stop()")
+    return rank_counts
+
+
 def main() -> int:
     import torch
 
@@ -3010,6 +3443,7 @@ def main() -> int:
     etl_counts, etl_ref = phase_etl(torch, P)
     session_counts, session_ref = phase_session(torch, P, etl_ref)
     client, gang = phase_second_drivers(torch, P, session_ref)
+    gang_fit = phase_window_and_gang(torch, P)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
@@ -3017,6 +3451,8 @@ def main() -> int:
             "fine-tune from a DataFrame": etl_counts,
             "fine-tune from a cluster frame": session_counts,
             "fine-tune through connect()": client["counts"]}
+    for r, counts in enumerate(gang_fit):
+        fits[f"fit_spmd rank {r}"] = counts
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

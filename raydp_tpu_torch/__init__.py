@@ -32,7 +32,12 @@ it down. Slice 9 is client mode and the SPMD gang runner:
 (``cluster/client.py``), ``spmd.create_spmd_job`` starts a gang of rank
 processes that run shipped functions and join ``torch.distributed``
 (``spmd/``), and ``MLDataset`` plans shards by node over object-store
-blocks.
+blocks. Slice 10 completes the engine with window functions
+(``dataframe/window.py``) and query profiling (``DataFrame.explain``,
+``profile``, ``stage_stats``; ``telemetry/progress.py``), and trains
+across the gang: ``train.fit_spmd`` runs an ``Estimator`` in each rank
+over its own shard, gradients all-reduced (``parallel.MeshSpec``, data
+parallel).
 
 The package imports its parts lazily (PEP 562): ``import
 raydp_tpu_torch`` and the DataFrame engine load no torch, so an ETL
@@ -49,6 +54,20 @@ _EXPORTS = {
     "current_session": "raydp_tpu_torch.context",
     "init": "raydp_tpu_torch.context",
     "stop": "raydp_tpu_torch.context",
+    "Window": "raydp_tpu_torch.dataframe",
+    "WindowSpec": "raydp_tpu_torch.dataframe",
+    "asc": "raydp_tpu_torch.dataframe",
+    "desc": "raydp_tpu_torch.dataframe",
+    "row_number": "raydp_tpu_torch.dataframe",
+    "rank": "raydp_tpu_torch.dataframe",
+    "dense_rank": "raydp_tpu_torch.dataframe",
+    "lag": "raydp_tpu_torch.dataframe",
+    "lead": "raydp_tpu_torch.dataframe",
+    "window_sum": "raydp_tpu_torch.dataframe",
+    "window_min": "raydp_tpu_torch.dataframe",
+    "window_max": "raydp_tpu_torch.dataframe",
+    "window_mean": "raydp_tpu_torch.dataframe",
+    "window_count": "raydp_tpu_torch.dataframe",
     "MLDataset": "raydp_tpu_torch.data",
     "ShardLoader": "raydp_tpu_torch.data",
     "DLRM": "raydp_tpu_torch.models",
@@ -91,13 +110,15 @@ _EXPORTS = {
     "GBTEstimator": "raydp_tpu_torch.train",
     "TFEstimator": "raydp_tpu_torch.train",
     "TrainingCallback": "raydp_tpu_torch.train",
+    "fit_spmd": "raydp_tpu_torch.train",
+    "MeshSpec": "raydp_tpu_torch.parallel",
     "metrics": "raydp_tpu_torch.utils",
     "resolve_device": "raydp_tpu_torch.utils",
     "set_exact_float32": "raydp_tpu_torch.utils",
 }
 _SUBPACKAGES = ("cluster", "config", "context", "data", "dataframe",
-                "fault", "models", "native", "ops", "serve", "spmd",
-                "store", "telemetry", "train", "utils")
+                "fault", "models", "native", "ops", "parallel", "serve",
+                "spmd", "store", "telemetry", "train", "utils")
 
 __all__ = sorted(_EXPORTS)
 

@@ -188,6 +188,12 @@ class _RemoteMaster:
             "master ClusterResources",
         )
 
+    def progress_report(self) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("ProgressReport", {}),
+            "master ProgressReport",
+        )["report"]
+
     def mark_worker_dead(self, worker_id: str, reason: str = "") -> None:
         # Best-effort: the real master's own monitors are authoritative;
         # a client merely stops routing to the worker.
@@ -245,6 +251,17 @@ class RemoteCluster:
 
     def cluster_resources(self) -> dict:
         return self.master.cluster_resources()
+
+    def progress_report(self) -> dict:
+        """Stage progress as seen from THIS client (DataFrame stages
+        run on the submitting driver), with the cluster-owning
+        process's report attached under ``"cluster"``."""
+        from raydp_tpu_torch.telemetry.progress import progress, stage_store
+
+        report = progress.report()
+        report["stage_totals"] = stage_store.snapshot()["totals"]
+        report["cluster"] = self.master.progress_report()
+        return report
 
     # -- task submission ------------------------------------------------
     def submit(self, fn, *args, worker_id=None, timeout=300.0, **kwargs):

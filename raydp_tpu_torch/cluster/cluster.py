@@ -519,6 +519,17 @@ class Cluster:
     def cluster_resources(self) -> dict:
         return self.master.cluster_resources()
 
+    def progress_report(self) -> dict:
+        """Live stage progress — in-flight stages with done/total task
+        counts, recently completed stages, and stage-store totals."""
+        if self.master is not None:
+            return self.master.progress_report()
+        from raydp_tpu_torch.telemetry.progress import progress, stage_store
+
+        report = progress.report()
+        report["stage_totals"] = stage_store.snapshot()["totals"]
+        return report
+
     # -- task submission --------------------------------------------------
     def submit(
         self,

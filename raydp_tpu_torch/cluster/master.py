@@ -89,6 +89,7 @@ class AppMaster:
             "DeleteObject": self._on_delete_object,
             "ListWorkers": self._on_list_workers,
             "ClusterResources": self._on_cluster_resources,
+            "ProgressReport": self._on_progress_report,
             "Ping": lambda req: {"pong": True, "namespace": self.namespace},
         }
         # The master doubles as the driver node's store agent (no extra
@@ -282,6 +283,21 @@ class AppMaster:
 
     def _on_cluster_resources(self, req: dict) -> dict:
         return self.cluster_resources()
+
+    def _on_progress_report(self, req: dict) -> dict:
+        return {"report": self.progress_report()}
+
+    def progress_report(self) -> dict:
+        """Live stage progress: the driver-process tracker (DataFrame
+        stages run driver-side; workers only execute their tasks) plus
+        recent completed-stage stats from the stage store."""
+        from raydp_tpu_torch.telemetry.progress import progress, stage_store
+
+        report = progress.report()
+        store_snap = stage_store.snapshot()
+        report["stage_totals"] = store_snap["totals"]
+        report["recent_stage_stats"] = store_snap["stages"][-16:]
+        return report
 
     def cluster_resources(self) -> dict:
         """Resource introspection (reference:

@@ -10,10 +10,13 @@ DataFrame engine's streaming executor is still producing
 order as they are, pending or landed, as the JAX package's session
 branch does: the shard plan waits for every block's size, and the
 loader's epoch-0 prefix streamer serves the first landed blocks before
-it exists. Each block is read into a table once, by whichever consumer
-reaches it first (zero-copy from a segment of this node, chunked fetches
-from a client); the table takes the block's place and a ref's node is
-kept for ``block_nodes``. The shard plan is the JAX package's: every
+it exists. The plan needs only each block's row count, which a ref
+carries, so a ref is not read for it. Each block is read into a table
+at most once, by whichever consumer reaches it first (zero-copy from a
+segment of this node, chunked fetches from a client); the table takes
+the block's place, and ``blocks`` keeps returning the refs of blocks
+nobody read. A ref's node is kept for ``block_nodes``. Ranks of a gang
+read their own slices of the refs with :func:`resolve_plan_tables`. The shard plan is the JAX package's: every
 shard yields exactly ``ceil(total_rows / num_shards)`` rows per epoch,
 padding by reuse; given the node of each rank (``rank_nodes``), each
 rank drains the blocks of its own node first (``divide_blocks_local``).
@@ -79,7 +82,9 @@ class MLDataset:
         # One lock a block: a block is read into a table once, whichever
         # consumer (prefix streamer, plan, schema) reaches it first.
         self._block_mu = [threading.Lock() for _ in self._blocks]
-        self._nodes: List[Optional[str]] = [None] * len(self._blocks)
+        self._nodes: List[Optional[str]] = [
+            b.node_id if isinstance(b, ObjectRef) else None
+            for b in self._blocks]
         self.num_shards = num_shards
         self.shuffle = shuffle
         self.shuffle_seed = shuffle_seed
@@ -171,7 +176,7 @@ class MLDataset:
         from raydp_tpu_torch.dataframe.io import _distribute
 
         self._ensure_plan()
-        return _distribute(list(self._blocks))
+        return _distribute([self._table(i) for i in range(len(self._blocks))])
 
     # -- pending blocks -------------------------------------------------
     def has_pending_blocks(self) -> bool:
@@ -211,10 +216,13 @@ class MLDataset:
         accessor comes through here."""
         if self._shard_plan is not None:
             return
-        # Read outside the plan lock; blocks the prefix streamer has
-        # read already are tables by now.
-        blocks = [self._table(i) for i in range(len(self._blocks))]
-        sizes = [b.num_rows for b in blocks]
+        # Outside the plan lock: wait for pending blocks, and read only
+        # those whose row count is still unknown (a ref without one).
+        sizes = []
+        for i in range(len(self._blocks)):
+            rows = self._landed(i)
+            sizes.append(rows if rows is not None
+                         else self._table(i).num_rows)
         with self._plan_mu:
             if self._shard_plan is not None:
                 return
@@ -233,6 +241,25 @@ class MLDataset:
             else:
                 self._shard_plan = divide_blocks(
                     sizes, self.num_shards, self.shuffle, self.shuffle_seed)
+
+    def _landed(self, i: int) -> Optional[int]:
+        """Wait for block ``i`` if it is pending and put what landed (a
+        table or a ref, unread) in its place; returns its row count where
+        known without a read."""
+        with self._block_mu[i]:
+            block = self._blocks[i]
+            if is_pending(block):
+                block = resolve_one(block)
+                with self._plan_mu:
+                    self._blocks[i] = block
+                    if isinstance(block, ObjectRef):
+                        self._nodes[i] = block.node_id
+            rows = _rows(block)
+            if rows is not None:
+                with self._plan_mu:
+                    if self._known[i] is None:
+                        self._known[i] = rows
+            return rows
 
     def _table(self, i: int):
         """Block ``i`` as a table, read at most once: waits for a pending
@@ -274,7 +301,8 @@ class MLDataset:
     # -- introspection --------------------------------------------------
     @property
     def blocks(self) -> List:
-        """The landed blocks (waits for pending ones)."""
+        """The landed blocks (waits for pending ones): tables, and the
+        refs of blocks no consumer has read."""
         self._ensure_plan()
         return list(self._blocks)
 
@@ -325,7 +353,7 @@ class MLDataset:
         plan = self.shard_plan
         if rank not in plan:
             raise IndexError(f"rank {rank} out of {self.num_shards}")
-        blocks = [self._blocks[s.block_index] for s in plan[rank]]
+        blocks = [self._table(s.block_index) for s in plan[rank]]
         return [b if s.offset == 0 and s.num_samples == b.num_rows
                 else b.slice(s.offset, s.num_samples)
                 for s, b in zip(plan[rank], blocks)]
@@ -338,7 +366,7 @@ class MLDataset:
         import pyarrow as pa
 
         parts = self.shard_tables(rank)
-        names = columns or self._blocks[0].column_names
+        names = columns or self._table(0).column_names
         merged = (pa.concat_tables(parts, promote_options="default")
                   if len(parts) > 1 else parts[0])
         return {n: merged.column(n).to_numpy(zero_copy_only=False)
@@ -367,3 +395,41 @@ def _rows(block) -> Optional[int]:
     """A landed block's row count, None where a ref does not carry it."""
     rows = block.num_rows
     return None if rows is None or rows < 0 else int(rows)
+
+
+def resolve_plan_tables(master_address: str, namespace: str,
+                        blocks: Sequence[ObjectRef], plan: Sequence[BlockSlice],
+                        node_id: Optional[str] = None) -> List:
+    """A gang rank's shard straight from a session's object store: only
+    the block slices of this rank's ``plan`` (``MLDataset.shard_plan[r]``)
+    are read, each block once, zero-copy for segments on this node
+    (``node_id``, default the driver's ``node-0``) and through the store
+    agents' chunked ``FetchObjectChunk`` for the rest, as the JAX
+    package's ``resolve_plan_tables`` reads them
+    (``raydp_tpu/train/torch_estimator.py:171-220``). A segment missing
+    here falls back to an agent fetch, so a wrong node identity costs
+    remote reads, not a failure. Imports no torch."""
+    from raydp_tpu_torch.cluster.rpc import RpcClient
+    from raydp_tpu_torch.store.object_store import DEFAULT_NODE, ObjectStore
+    from raydp_tpu_torch.store.resolver import ObjectResolver
+
+    client = RpcClient(master_address, "raydp.AppMaster")
+    store = ObjectStore(namespace=namespace, node_id=node_id or DEFAULT_NODE)
+
+    def meta(object_id):
+        reply = client.call("GetObjectMeta", {"object_id": object_id})
+        return reply.get("ref"), reply.get("agent")
+
+    resolver = ObjectResolver(store, meta)
+    try:
+        tables, cache = [], {}
+        for s in plan:
+            t = cache.get(s.block_index)
+            if t is None:
+                t = resolver.get_arrow_table(blocks[s.block_index])
+                cache[s.block_index] = t
+            tables.append(t.slice(s.offset, s.num_samples))
+        return tables
+    finally:
+        resolver.close()
+        client.close()

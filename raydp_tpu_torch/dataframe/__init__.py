@@ -51,6 +51,22 @@ from raydp_tpu_torch.dataframe.io import (
     read_csv,
     read_parquet,
 )
+from raydp_tpu_torch.dataframe.window import (
+    Window,
+    WindowSpec,
+    asc,
+    dense_rank,
+    desc,
+    lag,
+    lead,
+    rank,
+    row_number,
+    window_count,
+    window_max,
+    window_mean,
+    window_min,
+    window_sum,
+)
 
 __all__ = [
     "DataFrame", "GroupedData", "Expr", "Col", "Lit", "CaseWhen",
@@ -61,4 +77,7 @@ __all__ = [
     "monotonically_increasing_id",
     "from_arrow", "from_items", "from_pandas", "from_refs", "range",
     "read_csv", "read_parquet",
+    "Window", "WindowSpec", "asc", "desc",
+    "row_number", "rank", "dense_rank", "lag", "lead",
+    "window_sum", "window_min", "window_max", "window_mean", "window_count",
 ]

@@ -28,13 +28,15 @@ barrier, so the streaming pipelining of narrow stages is unaffected:
 
 Every decision is recorded through :class:`Decisions` — exactly one
 ``aqe[<rule>]`` plan-annotation marker per ``aqe/replans/<rule>``
-counter bump. ``RAYDP_TPU_AQE=0`` disables every rule and restores the
-static planner bit-for-bit.
+counter bump, which is the parity invariant ``explain(analyze=True)``
+holds (:func:`rule_counts`). ``RAYDP_TPU_AQE=0`` disables every rule and
+restores the static planner bit-for-bit.
 """
 from __future__ import annotations
 
 import math
 import os
+import re
 from typing import Dict, List, Optional, Tuple
 
 from raydp_tpu_torch.utils.profiling import metrics
@@ -55,6 +57,7 @@ __all__ = [
     "ExchangePlan",
     "plan_exchange",
     "plan_rebalance",
+    "rule_counts",
 ]
 
 AQE_ENV = "RAYDP_TPU_AQE"
@@ -64,6 +67,8 @@ SALT_K_ENV = "RAYDP_TPU_AQE_SALT_K"
 MIN_EXCHANGE_MB_ENV = "RAYDP_TPU_AQE_MIN_EXCHANGE_MB"
 
 RULES = ("coalesce", "salt", "join", "scan")
+
+_MARKER = re.compile(r"aqe\[(\w+)\]")
 
 
 def aqe_enabled() -> bool:
@@ -285,6 +290,15 @@ def plan_rebalance(
         if part_rows[i] >= k:
             plan[i] = k
     return plan or None
+
+
+def rule_counts(text: str) -> Dict[str, int]:
+    """Count ``aqe[<rule>]`` markers in rendered plan text — the
+    explain side of the annotation↔counter parity invariant."""
+    out: Dict[str, int] = {}
+    for m in _MARKER.finditer(text):
+        out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
 
 
 def measured_frame_bytes(executor, parts, lineage=None) -> Tuple[int, str]:

@@ -29,9 +29,12 @@ from raydp_tpu_torch.dataframe.executor import (
 from raydp_tpu_torch.dataframe.scheduler import (
     all_settled as _all_settled,
     chain as _chain_part,
+    is_pending as _is_pending,
     resolve as _resolve_parts,
     when_settled as _when_settled,
 )
+from raydp_tpu_torch.dataframe.window import find_window_exprs, keys_cover
+from raydp_tpu_torch.telemetry.progress import stage_store
 from raydp_tpu_torch.utils.profiling import metrics
 
 ColumnLike = Union[str, E.Expr]
@@ -90,21 +93,6 @@ def _default_executor() -> Executor:
     return LocalExecutor()
 
 
-def keys_cover(existing, needed) -> bool:
-    """Whether a frame hash-partitioned on ``existing`` is already
-    co-located for a grouping op on ``needed`` (groupBy keys, distinct
-    subset).
-
-    A hash exchange on K puts every row with equal K-values in one
-    partition, so any grouping whose key set is a SUPERSET of K is
-    automatically co-located too (each finer group lies wholly inside
-    one coarse group). The co-partitioning planner uses this to elide
-    shuffles; zipped joins do NOT go through here — they additionally
-    need identical bucket functions (exact key order, dtypes, fanout)
-    on both sides."""
-    return bool(existing) and set(existing) <= set(needed)
-
-
 class DataFrame:
     def __init__(
         self,
@@ -116,7 +104,7 @@ class DataFrame:
         self._executor = executor or _default_executor()
         self._pending = list(pending or [])
         # Keys this frame is currently hash-partitioned on (co-located
-        # groups); lets chained grouping ops skip re-shuffles.
+        # groups); lets chained window ops on one spec skip re-shuffles.
         self._exchange_keys: Optional[tuple] = None
         # Lazy small-data coalesce (adaptive exchange): when set, _flush
         # concatenates all partitions in ONE task and runs the pending
@@ -187,7 +175,8 @@ class DataFrame:
             if self._pending_gather and len(self._parts) > 1:
                 # pre_concat: the executor memoizes the gathered table by
                 # partition identity, so a repeated query over the same
-                # stored partitions reuses buffers.
+                # stored partitions reuses buffers (and with them the
+                # window engine's sorted-frame cache).
                 parts = [
                     self._executor.run_coalesced(
                         self._parts, run, pre_concat=True
@@ -216,13 +205,44 @@ class DataFrame:
         keeps_keys: Optional[Callable[[tuple], bool]] = None,
         op: str = "project",
     ) -> "DataFrame":
-        """Run a projection stage with full expression semantics:
-        partition-indexed expressions (monotonically_increasing_id) bind
-        the partition index.
+        """Run a projection stage with full expression semantics: window
+        expressions force a hash exchange on their partition keys (elided
+        when already partitioned on them), and partition-indexed
+        expressions (monotonically_increasing_id) bind the index.
 
         ``keeps_keys(keys)`` says whether the stage preserves the key
-        columns (so hash co-location survives it)."""
+        columns (for exchange-elision on chained window ops)."""
+        wins = [w for e in exprs for w in find_window_exprs(e)]
+        keys: Optional[tuple] = None
         base = self
+        annotation = ""
+        if wins:
+            keys = tuple(wins[0].spec.partition_keys)
+            for w in wins[1:]:
+                if set(w.spec.partition_keys) != set(keys):
+                    raise ValueError(
+                        "all window functions in one projection must share "
+                        f"partition keys; got {list(keys)} and "
+                        f"{w.spec.partition_keys}"
+                    )
+            if keys_cover(self._exchange_keys, keys):
+                # Already hash-partitioned on a subset of the window keys
+                # → every window partition is whole inside one physical
+                # partition; the window fn fuses into the pending
+                # pipeline with no shuffle.
+                if len(self._parts) > 1 and not self._pending_gather:
+                    metrics.counter_add("shuffle/elided")
+                    annotation = (
+                        "window exchange elided: co-partitioned on "
+                        f"{list(self._exchange_keys)}"
+                    )
+                else:
+                    annotation = f"window over {list(keys)}"
+            else:
+                base = self._exchange_by_keys(
+                    list(keys), reason="window"
+                )
+                annotation = f"window over {list(keys)}"
 
         if any(E.find_nodes(e, E.MonotonicId) for e in exprs):
             df = base._flush()
@@ -239,12 +259,17 @@ class DataFrame:
                     df._parts, indexed
                 )
             out = DataFrame(parts, df._executor)
-            out._lineage = df._lineage + [_node(op, stage_ids=sids)]
+            out._lineage = df._lineage + [
+                _node(op, annotation=annotation, stage_ids=sids)
+            ]
         else:
-            out = base._with(fn, _node(op, lazy=True))
+            out = base._with(
+                fn, _node(op, annotation=annotation, lazy=True)
+            )
 
-        # The partitioning of the evaluated base survives iff the stage
-        # preserves its key columns.
+        # Propagate the ACTUAL partitioning of the evaluated base (which
+        # may be finer than the window keys when the exchange was elided):
+        # it survives iff the stage preserves those key columns.
         actual = base._exchange_keys
         out._exchange_keys = (
             actual
@@ -302,7 +327,7 @@ class DataFrame:
         self, keys: List[str], reason: str = "exchange"
     ) -> "DataFrame":
         """Hash-exchange so rows with equal key values land on the same
-        partition (the shuffle behind distinct and grouped maps).
+        partition (the shuffle behind window functions and distinct).
 
         Elided entirely when the frame is already hash-partitioned on a
         subset of ``keys`` (co-partitioning planner): equal key tuples
@@ -978,6 +1003,64 @@ class DataFrame:
     def show(self, n: int = 20) -> None:
         print(self.limit(n).to_pandas().to_string())
 
+    # -- query profiling -------------------------------------------------
+    def explain(self, analyze: bool = False, quiet: bool = False) -> str:
+        """Render the logical plan with physical exchange decisions
+        (hash exchange / elided / coalesced / broadcast).
+
+        ``analyze=True`` EXECUTES the plan first (EXPLAIN ANALYZE) and
+        renders per-stage runtime stats under each node: rows and bytes
+        in/out, wall/dispatch/queue seconds, worker attribution, and the
+        partition-skew ratio. Returns the rendered text (and prints it
+        unless ``quiet``)."""
+        df = self._flush() if analyze else self
+        if analyze:
+            # Streaming stages record their StageStats when the LAST
+            # task lands; resolving the partitions guarantees that has
+            # happened before stats render.
+            df._parts = _resolve_parts(df._parts)
+        text = _render_plan(df._lineage, analyze=analyze)
+        if not quiet:
+            print(text)
+        return text
+
+    def profile(self) -> Dict[str, Any]:
+        """Execute the plan and return its profile as data: lineage
+        nodes with their attached :class:`StageStats` dicts, plus the
+        rendered EXPLAIN ANALYZE text. The structured form is what the
+        adaptive planner (and tests) consume."""
+        df = self._flush()
+        df._parts = _resolve_parts(df._parts)  # stats land on completion
+        nodes = []
+        for node in df._lineage:
+            stats = [
+                s.to_dict()
+                for s in (stage_store.get(i) for i in node["stage_ids"])
+                if s is not None
+            ]
+            nodes.append({**node, "stats": stats})
+        return {
+            "plan": nodes,
+            "explain": _render_plan(df._lineage, analyze=True),
+        }
+
+    @property
+    def stage_stats(self) -> List[Any]:
+        """StageStats records for every stage this frame's lineage has
+        executed so far (lazy nodes contribute after a flush)."""
+        # Streaming stages record their stats when the last task lands,
+        # not when the stage is dispatched — settle in-flight partitions
+        # first so a post-flush read sees completed stages.
+        if any(_is_pending(p) for p in self._parts):
+            self._parts = _resolve_parts(self._parts)
+        out = []
+        for node in self._lineage:
+            for sid in node["stage_ids"]:
+                s = stage_store.get(sid)
+                if s is not None:
+                    out.append(s)
+        return out
+
     @property
     def columns(self) -> List[str]:
         return list(self.schema.names)
@@ -1525,6 +1608,83 @@ def _join_aligned(
                 rt.column_names.index(k), k, pc.cast(rt.column(k), lt_type)
             )
     return t.join(rt, keys=keys, join_type=join_type)
+
+
+def _fmt_bytes(n: int) -> str:
+    x = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(x) < 1024.0 or unit == "TiB":
+            return f"{x:.1f}{unit}" if unit != "B" else f"{int(x)}B"
+        x /= 1024.0
+    return f"{int(n)}B"
+
+
+def _render_plan(lineage: List[Dict[str, Any]], analyze: bool) -> str:
+    """EXPLAIN [ANALYZE] text for a lineage list (see _node)."""
+    lines = [
+        "== Physical Plan ==" if analyze else "== Logical Plan =="
+    ]
+    exchanges = elided = coalesced = 0
+    for i, node in enumerate(lineage):
+        ann = node.get("annotation", "")
+        if ann.startswith("hash exchange") or ann.startswith(
+            "range exchange"
+        ) or ann.startswith("even-slice exchange"):
+            exchanges += 2 if "both sides" in ann else 1
+            if "exchange elided" in ann:  # one-sided shuffle join
+                elided += 1
+        elif "2 exchanges elided" in ann:
+            elided += 2
+        elif ann.startswith("elided") or "exchange elided" in ann:
+            elided += 1
+        elif ann.startswith("coalesced:"):
+            coalesced += 1
+        prefix = "" if i == 0 else " +- "
+        text = node["op"]
+        if ann:
+            text += f" ({ann})"
+        if node.get("lazy"):
+            text += " [pending]"
+        lines.append(prefix + text)
+        if analyze:
+            for sid in node["stage_ids"]:
+                s = stage_store.get(sid)
+                if s is None:
+                    lines.append(f"      stage {sid}: (evicted)")
+                    continue
+                workers = len(s.workers)
+                lines.append(
+                    f"      stage {s.stage_id} [{s.executor}]"
+                    f" rows {s.rows_in:,} -> {s.rows_out:,}"
+                    f"  bytes {_fmt_bytes(s.bytes_in)} ->"
+                    f" {_fmt_bytes(s.bytes_out)}"
+                    f"  wall {s.wall_s:.3f}s"
+                    f" (dispatch {s.dispatch_s:.3f}s,"
+                    f" queue {s.queue_s:.3f}s)"
+                    f"  skew {s.skew:.2f}"
+                    + (f"  workers={workers}" if workers else "")
+                )
+    lines.append(
+        f"== Exchanges == ran: {exchanges}, elided: {elided},"
+        f" coalesced: {coalesced}"
+    )
+    # AQE footer: marker counts per rule, rendered ONLY when a replan
+    # fired so static plans (and RAYDP_TPU_AQE=0 runs) are unchanged.
+    # Counting the aqe[...] markers — not a separate tally — keeps the
+    # footer structurally equal to the raydp_aqe_replans_total counters.
+    aqe_counts = _aqe.rule_counts(
+        "\n".join(n.get("annotation", "") for n in lineage)
+    )
+    if aqe_counts:
+        lines.append(
+            "== AQE == "
+            + ", ".join(
+                f"{rule}: {aqe_counts[rule]}"
+                for rule in _aqe.RULES
+                if rule in aqe_counts
+            )
+        )
+    return "\n".join(lines)
 
 
 def _coerce_parts(df: "DataFrame", executor: Executor) -> List[Any]:

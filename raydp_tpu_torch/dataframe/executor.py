@@ -41,6 +41,7 @@ from raydp_tpu_torch.dataframe.scheduler import (
 from raydp_tpu_torch.store.object_store import ObjectRef, ObjectStore
 from raydp_tpu_torch.telemetry.progress import (
     StageStats,
+    progress,
     stage_stats_enabled,
     stage_store,
 )
@@ -51,10 +52,11 @@ StageFn = Callable[[pa.Table], pa.Table]
 
 # -- per-stage runtime statistics ------------------------------------------
 # The planner names the stage it is about to run (``stage_label``); the
-# executor records a StageStats per stage into ``stage_store``. The
-# label context also collects the stage ids it covered, which is how
-# DataFrame plan nodes find their runtime numbers again (the AQE reads
-# recorded output bytes through them).
+# executor records a StageStats per stage into ``stage_store`` and
+# streams done/total task counts into ``progress``. The label context
+# also collects the stage ids it covered, which is how DataFrame plan
+# nodes re-associate runtime numbers with themselves for EXPLAIN
+# ANALYZE, ``profile()`` and the AQE.
 _stage_ctx = threading.local()
 
 
@@ -90,10 +92,13 @@ class _StageRecorder:
     """Accumulates one :class:`StageStats` while a stage runs.
 
     Cheap when disabled (``RAYDP_TPU_STAGE_STATS=0``): every method
-    no-ops after one boolean check."""
+    no-ops after one boolean check. ``task_meta`` doubles as the
+    ``meta_sink`` callback of ``Cluster.submit_batch``/``submit_async``
+    so worker-side exec seconds and per-worker attribution ride the
+    existing task replies."""
 
     def __init__(self, op: str, parts_in: Sequence[Any], kind: str,
-                 streaming: bool = False):
+                 total_tasks: Optional[int] = None, streaming: bool = False):
         self.enabled = stage_stats_enabled()
         cur = getattr(_stage_ctx, "cur", None)
         self.op = cur[0] if cur else op
@@ -103,6 +108,8 @@ class _StageRecorder:
         self.streaming = bool(streaming)
         self._t0 = time.perf_counter()
         self._dispatch_s = 0.0
+        self._exec_s = 0.0
+        self._workers: dict = {}
         self._mu = threading.Lock()
         self._outs: Optional[List[Any]] = None
         self._rows_in = self._bytes_in = 0
@@ -129,11 +136,29 @@ class _StageRecorder:
                     rows += r
                 nbytes += b
             self._rows_in, self._bytes_in = rows, nbytes
+        total = total_tasks if total_tasks is not None else len(parts_in)
+        progress.stage_begin(self.stage_id, self.op, total)
 
     def dispatched(self) -> None:
         """Mark the end of submission (dispatch time)."""
         if self.enabled:
             self._dispatch_s = time.perf_counter() - self._t0
+
+    def task_meta(self, index: int, worker_id: Optional[str],
+                  exec_s: float) -> None:
+        """Per-task completion: worker attribution + measured exec
+        seconds (``meta_sink`` shape)."""
+        if not self.enabled:
+            return
+        with self._mu:
+            self._exec_s += float(exec_s or 0.0)
+            wid = worker_id or "?"
+            self._workers[wid] = self._workers.get(wid, 0) + 1
+        progress.task_done(self.stage_id)
+
+    def task_done(self, n: int = 1) -> None:
+        if self.enabled:
+            progress.task_done(self.stage_id, n)
 
     def finish(self, parts_out: Sequence[Any]) -> None:
         if self.enabled:
@@ -190,6 +215,9 @@ class _StageRecorder:
     def _emit(self, part_rows: List[int], part_bytes: List[int],
               parts_out: int) -> None:
         wall = time.perf_counter() - self._t0
+        # Queue time: stage wall minus dispatch minus measured worker
+        # execution — the time tasks sat waiting for a slot.
+        queue_s = max(0.0, wall - self._dispatch_s - self._exec_s)
         rows_out = sum(r for r in part_rows if r > 0)
         bytes_out = sum(part_bytes)
         stats = StageStats(
@@ -204,10 +232,13 @@ class _StageRecorder:
             parts_out=parts_out,
             wall_s=wall,
             dispatch_s=self._dispatch_s,
+            queue_s=queue_s if self.kind == "cluster" else 0.0,
+            workers=dict(self._workers),
             part_rows=part_rows,
             part_bytes=part_bytes,
         )
         stage_store.record(stats)
+        progress.stage_end(self.stage_id)
         if self._ids_sink is not None and not self._ids_sunk:
             self._ids_sink.append(self.stage_id)
         metrics.counter_add(f"stage/rows_in/{self.op}", self._rows_in)
@@ -218,9 +249,10 @@ class _StageRecorder:
 
 
 @contextlib.contextmanager
-def _stage(op: str, parts_in: Sequence[Any], executor: str):
+def _stage(op: str, parts_in: Sequence[Any], executor: str,
+           total_tasks: Optional[int] = None):
     """Counter + StageStats recording around one stage."""
-    rec = _StageRecorder(op, parts_in, executor)
+    rec = _StageRecorder(op, parts_in, executor, total_tasks)
     metrics.counter_add("df/stages")
     try:
         yield rec
@@ -428,11 +460,13 @@ class LocalExecutor(Executor):
         task runs the moment its upstream partitions exist; callers get
         pending partitions immediately."""
         rec = _StageRecorder(op, [d[0] for d in deps], "local",
-                             streaming=True)
+                             total_tasks=len(deps), streaming=True)
 
         def run_one(i, vals):
             rec.task_input(vals[:1])
-            return call_of(i, vals)
+            out = call_of(i, vals)
+            rec.task_done()
+            return out
 
         def submit(items):
             return [self._pool.submit(run_one, i, vals)
@@ -453,7 +487,12 @@ class LocalExecutor(Executor):
             )
         parts = resolve(parts)
         with _stage("map_partitions", parts, "local") as rec:
-            outs = list(self._pool.map(fn, parts))
+            def run(t):
+                out = fn(t)
+                rec.task_done()
+                return out
+
+            outs = list(self._pool.map(run, parts))
             rec.finish(outs)
             return outs
 
@@ -465,7 +504,12 @@ class LocalExecutor(Executor):
             )
         parts = resolve(parts)
         with _stage("map_partitions_indexed", parts, "local") as rec:
-            outs = list(self._pool.map(fn, parts, range(len(parts))))
+            def run(t, i):
+                out = fn(t, i)
+                rec.task_done()
+                return out
+
+            outs = list(self._pool.map(run, parts, range(len(parts))))
             rec.finish(outs)
             return outs
 
@@ -479,7 +523,12 @@ class LocalExecutor(Executor):
         parts_a = resolve(parts_a)
         parts_b = resolve(parts_b)
         with _stage("map_pairs", parts_a, "local") as rec:
-            outs = list(self._pool.map(fn, parts_a, parts_b))
+            def run(ta, tb):
+                out = fn(ta, tb)
+                rec.task_done()
+                return out
+
+            outs = list(self._pool.map(run, parts_a, parts_b))
             rec.finish(outs)
             return outs
 
@@ -487,9 +536,11 @@ class LocalExecutor(Executor):
         # Wide stage: every input partition feeds every output bucket,
         # so this is a true barrier — resolve pendings up front.
         parts = resolve(parts)
-        with _stage("exchange", parts, "local") as rec:
+        with _stage("exchange", parts, "local",
+                    total_tasks=len(parts) + n_out) as rec:
             metrics.counter_add("shuffle/exchanges")
             chunked = list(self._pool.map(splitter, parts))
+            rec.task_done(len(parts))
             rec.dispatched()
             moved = sum(
                 c.nbytes for chunks in chunked for c in chunks
@@ -508,6 +559,7 @@ class LocalExecutor(Executor):
                 for i in range(n_out):
                     merged = _concat([chunks[i] for chunks in chunked])
                     outs.append(combine(merged) if combine else merged)
+                    rec.task_done()
                 rec.finish(outs)
                 return outs
             for g in plan.groups:
@@ -527,6 +579,7 @@ class LocalExecutor(Executor):
                         [chunks[g[1]] for chunks in chunked], g[2]
                     ):
                         outs.append(_concat(grp))
+                rec.task_done()
             rec.finish(outs)
             return outs
 
@@ -535,7 +588,7 @@ class LocalExecutor(Executor):
 
     def run_coalesced(self, parts, fn, pre_concat=False):
         parts = resolve(list(parts))
-        with _stage("run_coalesced", parts, "local") as rec:
+        with _stage("run_coalesced", parts, "local", total_tasks=1) as rec:
             if not pre_concat:
                 out = fn(parts)
             else:
@@ -609,13 +662,13 @@ class ClusterExecutor(Executor):
         call, so the one-RunTaskBatch-envelope-per-worker amortization
         is preserved (the all-concrete case is exactly one batch)."""
         rec = _StageRecorder(op, [d[0] for d in deps], "cluster",
-                             streaming=True)
+                             total_tasks=len(deps), streaming=True)
 
         def submit(items):
             for _i, vals in items:
                 rec.task_input(vals[:1])
             specs = [spec_of(i, vals) for i, vals in items]
-            return self.cluster.submit_batch(specs)
+            return self.cluster.submit_batch(specs, meta_sink=rec.task_meta)
 
         stage = StreamingStage(deps, submit, on_output=rec.task_output,
                                on_close=rec.close_streaming, op=op)
@@ -645,7 +698,7 @@ class ClusterExecutor(Executor):
             futures = self.cluster.submit_batch([
                 TaskSpec(task, (ref,), worker_id=self._worker_for(i, ref))
                 for i, ref in enumerate(parts)
-            ])
+            ], meta_sink=rec.task_meta)
             rec.dispatched()
             outs = [f.result() for f in futures]
             rec.finish(outs)
@@ -669,7 +722,7 @@ class ClusterExecutor(Executor):
             futures = self.cluster.submit_batch([
                 TaskSpec(task, (ref, i), worker_id=self._worker_for(i, ref))
                 for i, ref in enumerate(parts)
-            ])
+            ], meta_sink=rec.task_meta)
             rec.dispatched()
             outs = [f.result() for f in futures]
             rec.finish(outs)
@@ -733,8 +786,11 @@ class ClusterExecutor(Executor):
             if workers:
                 worker_id = workers[0]
         parts = list(parts)
-        with _stage("run_coalesced", parts, "cluster") as rec:
-            fut = self.cluster.submit_async(task, parts, worker_id=worker_id)
+        with _stage("run_coalesced", parts, "cluster",
+                    total_tasks=1) as rec:
+            fut = self.cluster.submit_async(
+                task, parts, worker_id=worker_id, meta_sink=rec.task_meta
+            )
             rec.dispatched()
             out = fut.result()
             rec.finish([out])
@@ -761,7 +817,7 @@ class ClusterExecutor(Executor):
             futures = self.cluster.submit_batch([
                 TaskSpec(task, (ra, rb), worker_id=self._worker_for(i, ra))
                 for i, (ra, rb) in enumerate(zip(parts_a, parts_b))
-            ])
+            ], meta_sink=rec.task_meta)
             rec.dispatched()
             outs = [f.result() for f in futures]
             rec.finish(outs)
@@ -836,13 +892,14 @@ class ClusterExecutor(Executor):
         # resolve pendings up front (the downstream merge dispatch is
         # already streamed below).
         parts = resolve(parts)
-        with _stage("exchange", parts, "cluster") as rec:
+        with _stage("exchange", parts, "cluster",
+                    total_tasks=len(parts) + n_out) as rec:
             metrics.counter_add("shuffle/exchanges")
             split_futures = self.cluster.submit_batch([
                 TaskSpec(split_task, (ref,),
                          worker_id=self._worker_for(i, ref))
                 for i, ref in enumerate(parts)
-            ])
+            ], meta_sink=rec.task_meta)
             # Stream split completions (one envelope per worker resolves
             # independently) instead of gathering in submission order:
             # merge planning starts the moment the last chunk EXISTS,
@@ -936,7 +993,9 @@ class ClusterExecutor(Executor):
                     repeats.append(rep)
             metrics.counter_add("shuffle/bytes", total_b)
             metrics.counter_add("shuffle/local_bytes", local_b)
-            merge_futures = self.cluster.submit_batch(specs)
+            merge_futures = self.cluster.submit_batch(
+                specs, meta_sink=rec.task_meta
+            )
             rec.dispatched()
             # Merge i consumes exactly its input refs, so they are dead
             # the moment that merge lands — free them then, instead of

@@ -15,7 +15,8 @@ Differences from the reference:
 * The collective fabric inside shipped functions is ``torch.distributed``,
   not MPI. The driver provisions the rank-0 coordinator address and every
   :class:`~raydp_tpu_torch.spmd.worker_main.SPMDWorkerContext` exposes
-  ``init_distributed()``, which joins a gloo group there.
+  ``init_distributed()``, which joins a group there (NCCL where every
+  rank on a host has a card of its own, else gloo).
 * One wire protocol: the port's RPC layer (``cluster/rpc.py``), with
   functions and arguments carried by the closure carrier
   (``cluster/closure.py``), as the session's tasks are.
@@ -54,7 +55,10 @@ ENV_RANK = "RAYDP_SPMD_RANK"
 ENV_WORLD_SIZE = "RAYDP_SPMD_WORLD_SIZE"
 ENV_DRIVER_ADDR = "RAYDP_SPMD_DRIVER_ADDR"
 ENV_COORDINATOR = "RAYDP_SPMD_COORDINATOR"
-ENV_PROCS_PER_NODE = "RAYDP_SPMD_PROCS_PER_NODE"
+# A rank's index among the ranks on its host, and how many ranks its
+# host runs (:func:`host_layout`).
+ENV_LOCAL_RANK = "RAYDP_SPMD_LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "RAYDP_SPMD_LOCAL_WORLD_SIZE"
 # Registration barrier (driver side): the soft window is the job's
 # ``timeout`` and resets on every new rank registration; alive-but-slow
 # workers (cold imports on a busy host) are waited on up to the hard cap,
@@ -73,6 +77,25 @@ _DEFAULT_INLINE_CAP_MB = 64.0
 _DEFAULT_HARD_CAP_MB = 448.0  # headroom under the 512 MB frame limit
 
 _LOCAL_HOSTS = ("127.0.0.1", "localhost")
+
+
+def host_layout(world_size: int, hosts: List[str],
+                num_procs_per_node: int) -> List[tuple]:
+    """``(local_rank, local_world_size)`` of every rank: its index among
+    the ranks on its host and how many ranks that host runs. Ranks fill
+    hosts in order, ``num_procs_per_node`` per host, wrapping round when
+    the gang outnumbers the slots (as :meth:`SPMDJob.rank_nodes` places
+    them); the loopback names are one host."""
+    keys = []
+    for r in range(world_size):
+        host = hosts[(r // num_procs_per_node) % len(hosts)]
+        keys.append("127.0.0.1" if host in _LOCAL_HOSTS else host)
+    seen: Dict[str, int] = {}
+    local_ranks = []
+    for key in keys:
+        local_ranks.append(seen.get(key, 0))
+        seen[key] = local_ranks[-1] + 1
+    return [(lr, seen[key]) for lr, key in zip(local_ranks, keys)]
 
 
 def _env_mb(name: str, default_mb: float) -> int:
@@ -297,6 +320,8 @@ class SPMDJob:
         )
         os.makedirs(log_dir, exist_ok=True)
         self._log_paths = []
+        layout = host_layout(self.world_size, self.hosts,
+                             self.num_procs_per_node)
         for rank in range(self.world_size):
             # Ranks keep the driver's cwd and import what it can (shipped
             # functions go by reference to its modules).
@@ -309,7 +334,8 @@ class SPMDJob:
                     ENV_WORLD_SIZE: str(self.world_size),
                     ENV_DRIVER_ADDR: driver_addr,
                     ENV_COORDINATOR: coordinator,
-                    ENV_PROCS_PER_NODE: str(self.num_procs_per_node),
+                    ENV_LOCAL_RANK: str(layout[rank][0]),
+                    ENV_LOCAL_WORLD_SIZE: str(layout[rank][1]),
                 }
             )
             cmd = prefix + [sys.executable, "-m",

@@ -7,9 +7,11 @@ runner thread in strict ``func_id`` order (the reference's TaskRunner with
 monotonic-id check, reference: python/raydp/mpi/mpi_worker.py:63-96).
 
 Functions receive an :class:`SPMDWorkerContext`; for collective work they
-call ``ctx.init_distributed()``, which joins ``torch.distributed`` (gloo)
-at the driver-provisioned rank-0 coordinator — the role MPI collectives
-play in the reference and ``jax.distributed`` in the JAX package.
+call ``ctx.init_distributed()``, which joins ``torch.distributed`` at the
+driver-provisioned rank-0 coordinator — the role MPI collectives play in
+the reference and ``jax.distributed`` in the JAX package. Its backend
+follows :func:`collective_backend`: NCCL where every rank on a host has
+a card of its own, gloo where ranks share a card or run on the CPU.
 
 The process imports no torch until a shipped function does (nor any
 other library of the card): functions arrive through the closure carrier
@@ -35,7 +37,8 @@ from raydp_tpu_torch.spmd.job import (
     ENV_COORDINATOR,
     ENV_DRIVER_ADDR,
     ENV_JOB_NAME,
-    ENV_PROCS_PER_NODE,
+    ENV_LOCAL_RANK,
+    ENV_LOCAL_WORLD_SIZE,
     ENV_RANK,
     ENV_WORLD_SIZE,
     WORKER_SERVICE,
@@ -52,38 +55,94 @@ MISSED_BEATS = 3
 DISTRIBUTED_TIMEOUT_S = 300.0
 
 
+def collective_backend(local_world_size: int, device: str = "cuda") -> str:
+    """The ``torch.distributed`` backend for a gang whose collectives run
+    on ``device``, with ``local_world_size`` ranks on each host, decided
+    before the group is joined (never by retrying after a failure):
+
+    * ``"nccl"`` when the device is a card and every rank on a host has
+      one of its own (``local_world_size <= torch.cuda.device_count()``;
+      local rank r on ``cuda:r``);
+    * ``"gloo"`` when ranks share a card (NCCL refuses two ranks on one
+      device) or run on the CPU. Gloo all-reduces and broadcasts CUDA
+      tensors by staging them through the host.
+
+    A card's gang on a host with no card raises. Every host is taken to
+    have as many cards as this one."""
+    if not str(device).startswith("cuda"):
+        return "gloo"
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards == 0:
+        raise RuntimeError(
+            f"collectives on {device!r} asked for, but this host has no "
+            "CUDA device (pass device='cpu' for a gang on the CPU)")
+    return "nccl" if local_world_size <= cards else "gloo"
+
+
 class SPMDWorkerContext:
     """First argument to every shipped function
     (reference: WorkerContext, mpi/mpi_worker.py:45-60)."""
 
     def __init__(self, job_name: str, rank: int, world_size: int,
                  local_rank: int, node_ip: str, coordinator_address: str,
-                 fail_job: Optional[Callable[[str], None]] = None):
+                 fail_job: Optional[Callable[[str], None]] = None,
+                 local_world_size: int = 1):
         self.job_name = job_name
         self.rank = rank
         self.world_size = world_size
         self.local_rank = local_rank
+        # Ranks on this rank's host (``job.host_layout``).
+        self.local_world_size = local_world_size
         self.node_ip = node_ip
         self.coordinator_address = coordinator_address
         self._fail_job = fail_job
         self._dist_initialized = False
+        # The backend the gang's process group runs, once joined.
+        self.backend: Optional[str] = None
 
-    def init_distributed(self) -> None:
-        """Join the gang's ``torch.distributed`` process group (gloo) at
+    def device(self, device: str = "cuda") -> str:
+        """This rank's device for a gang on ``device``: ``"cpu"``, or
+        ``cuda:<local_rank mod the visible cards>`` (one card a rank
+        where there are enough, else ranks share them)."""
+        if not str(device).startswith("cuda"):
+            return "cpu"
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"rank {self.rank}: a CUDA gang's rank sees no CUDA device")
+        return f"cuda:{self.local_rank % torch.cuda.device_count()}"
+
+    def init_distributed(self, backend: Optional[str] = None,
+                         device: str = "cuda") -> str:
+        """Join the gang's ``torch.distributed`` process group at
         ``coordinator_address``, where rank 0's ``TCPStore`` listens;
         afterwards collectives span every rank. Idempotent per process
         (the counterpart of the JAX package's ``init_jax_distributed``,
-        as in its ``examples/spmd_job.py:52-67``).
+        as in its ``examples/spmd_job.py:52-67``). ``device`` is where
+        the collectives' tensors live: ``"cuda"`` (the default) raises
+        on a host with no card, ``"cpu"`` runs them on the host. The
+        backend follows :func:`collective_backend` unless ``backend``
+        names one (for NCCL the rank's card becomes the current
+        device). Returns the backend.
 
         A rank that cannot join (rank 0's store cannot bind the port,
         which another process took after the driver probed it) fails
         the whole gang at once with a reason naming the port: the other
         ranks would otherwise wait out the store's timeout."""
         if self._dist_initialized:
-            return
+            return self.backend
         import datetime
 
+        import torch
         import torch.distributed as dist
+
+        if backend is None:
+            backend = collective_backend(self.local_world_size, device)
+        if backend == "nccl":
+            torch.cuda.set_device(self.device("cuda"))
 
         host, _, port = self.coordinator_address.rpartition(":")
         timeout = datetime.timedelta(seconds=DISTRIBUTED_TIMEOUT_S)
@@ -91,7 +150,7 @@ class SPMDWorkerContext:
             store = dist.TCPStore(host, int(port), self.world_size,
                                   is_master=self.rank == 0, timeout=timeout,
                                   wait_for_workers=False)
-            dist.init_process_group(backend="gloo", store=store,
+            dist.init_process_group(backend=backend, store=store,
                                     world_size=self.world_size,
                                     rank=self.rank, timeout=timeout)
         except Exception as exc:
@@ -102,6 +161,10 @@ class SPMDWorkerContext:
                 self._fail_job(reason)
             raise RuntimeError(reason) from exc
         self._dist_initialized = True
+        self.backend = backend
+        logger.info("rank %d joined the gang's process group (%s, %d "
+                    "ranks)", self.rank, backend, self.world_size)
+        return backend
 
 
 class SPMDWorker:
@@ -109,15 +172,15 @@ class SPMDWorker:
         self.job_name = os.environ[ENV_JOB_NAME]
         self.rank = int(os.environ[ENV_RANK])
         self.world_size = int(os.environ[ENV_WORLD_SIZE])
-        procs_per_node = int(os.environ.get(ENV_PROCS_PER_NODE, "1"))
         self.ctx = SPMDWorkerContext(
             self.job_name,
             self.rank,
             self.world_size,
-            local_rank=self.rank % procs_per_node,
+            local_rank=int(os.environ[ENV_LOCAL_RANK]),
             node_ip=local_ip(),
             coordinator_address=os.environ[ENV_COORDINATOR],
             fail_job=self._fail_job,
+            local_world_size=int(os.environ[ENV_LOCAL_WORLD_SIZE]),
         )
         driver_addr = os.environ[ENV_DRIVER_ADDR]
         self.driver = RpcClient(driver_addr, DRIVER_SERVICE)

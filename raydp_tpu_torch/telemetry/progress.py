@@ -1,37 +1,70 @@
-"""Per-stage runtime statistics of the DataFrame engine.
+"""Query-profiling substrate: per-stage runtime stats + live progress
+(the port's copy of ``raydp_tpu/telemetry/progress.py``).
 
-The part of the JAX package's ``telemetry/progress.py`` the engine
-needs: :data:`stage_store`, a :class:`StageStatsStore` of
-:class:`StageStats` records, one per executed DataFrame stage (map,
-exchange, coalesce), with rows and bytes in and out, wall and dispatch
-seconds and the per-partition output layout. The adaptive planner
-(:mod:`raydp_tpu_torch.dataframe.aqe`) reads measured output bytes
-back through ``output_bytes``.
+Two driver-side singletons feed EXPLAIN ANALYZE, ``profile()``,
+``Cluster.progress_report()``, and the cost-based adaptive planner
+(:mod:`raydp_tpu_torch.dataframe.aqe` reads measured layouts back
+through ``StageStatsStore.output_bytes``/``output_layout``):
 
-``RAYDP_TPU_STAGE_STATS=0`` turns recording off;
-``RAYDP_TPU_STAGE_STATS_KEEP`` sizes the ring (default 512).
+* :data:`stage_store` — a :class:`StageStatsStore` of
+  :class:`StageStats` records, one per executed DataFrame stage
+  (map / exchange / coalesce), carrying rows and bytes in/out,
+  wall/dispatch/queue seconds, per-worker task attribution, and the
+  per-partition output layout the skew ratio (max/mean rows) is
+  computed from. Executors record into it as stages complete;
+  materialized ``DataFrame``s keep the ids of the stages that built
+  them, so ``df.stage_stats`` / ``df.explain(analyze=True)`` can
+  re-associate numbers with plan nodes after the fact.
+* :data:`progress` — a :class:`ProgressTracker` of live stage
+  task-completion counts (done/total), served by
+  ``Cluster.progress_report()``.
+
+Env knobs:
+
+* ``RAYDP_TPU_STAGE_STATS=0`` — kill switch; stages still run their
+  spans but record no stats (the <5% overhead guarantee's escape
+  hatch).
+* ``RAYDP_TPU_STAGE_STATS_KEEP`` — ring size of retained stage records
+  (default 512).
+* ``RAYDP_TPU_STATS_DIR`` (falls back to ``RAYDP_TPU_TELEMETRY_DIR``)
+  — when set, every record is also appended to
+  ``stats-<pid>.jsonl`` there, so CI can ship the stats store as an
+  artifact from a process that already exited. Nothing prunes old
+  shards there.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 __all__ = [
     "STAGE_STATS_ENV",
+    "STATS_DIR_ENV",
     "StageStats",
     "StageStatsStore",
-    "stage_stats_enabled",
+    "ProgressTracker",
     "stage_store",
+    "progress",
+    "stage_stats_enabled",
 ]
 
 STAGE_STATS_ENV = "RAYDP_TPU_STAGE_STATS"
+STATS_DIR_ENV = "RAYDP_TPU_STATS_DIR"
 
 
 def stage_stats_enabled() -> bool:
     return os.environ.get(STAGE_STATS_ENV, "1") not in ("0", "false")
+
+
+def _stats_dir() -> Optional[str]:
+    return os.environ.get(STATS_DIR_ENV) or os.environ.get(
+        "RAYDP_TPU_TELEMETRY_DIR"
+    )
 
 
 @dataclass
@@ -40,7 +73,7 @@ class StageStats:
 
     stage_id: int
     op: str                       # plan-node label, e.g. "exchange[k]"
-    executor: str                 # "local"
+    executor: str                 # "local" | "cluster"
     rows_in: int = 0
     rows_out: int = 0
     bytes_in: int = 0
@@ -48,15 +81,47 @@ class StageStats:
     parts_in: int = 0
     parts_out: int = 0
     wall_s: float = 0.0
-    dispatch_s: float = 0.0       # submission time
+    dispatch_s: float = 0.0       # driver-side submit time
+    queue_s: float = 0.0          # wall - worker exec, cluster stages
+    workers: Dict[str, int] = field(default_factory=dict)  # wid -> tasks
     part_rows: List[int] = field(default_factory=list)     # output layout
     part_bytes: List[int] = field(default_factory=list)
 
+    @property
+    def skew(self) -> float:
+        """Partition-skew ratio max/mean over output rows (>= 1.0); 1.0
+        for empty or perfectly balanced output."""
+        rows = [r for r in self.part_rows if r >= 0]
+        if not rows or sum(rows) == 0:
+            return 1.0
+        mean = sum(rows) / len(rows)
+        return max(rows) / mean if mean > 0 else 1.0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "stage_id": self.stage_id,
+            "op": self.op,
+            "executor": self.executor,
+            "rows_in": self.rows_in,
+            "rows_out": self.rows_out,
+            "bytes_in": self.bytes_in,
+            "bytes_out": self.bytes_out,
+            "parts_in": self.parts_in,
+            "parts_out": self.parts_out,
+            "wall_s": round(self.wall_s, 6),
+            "dispatch_s": round(self.dispatch_s, 6),
+            "queue_s": round(self.queue_s, 6),
+            "workers": dict(self.workers),
+            "part_rows": list(self.part_rows),
+            "part_bytes": list(self.part_bytes),
+            "skew": round(self.skew, 4),
+        }
+
 
 class StageStatsStore:
-    """Bounded ring of completed-stage stats, keyed by a process-
-    monotonic stage id. Thread-safe: streaming stages complete on the
-    executor's pool threads while the planner reads."""
+    """Bounded driver-side ring of completed-stage stats, keyed by a
+    process-monotonic stage id. Thread-safe: cluster stages complete on
+    waiter threads while the planner records local ones."""
 
     def __init__(self, keep: Optional[int] = None):
         if keep is None:
@@ -65,6 +130,7 @@ class StageStatsStore:
         self._mu = threading.Lock()
         self._stats: "OrderedDict[int, StageStats]" = OrderedDict()
         self._next_id = 0
+        self._shard_path: Optional[str] = None
 
     def next_id(self) -> int:
         with self._mu:
@@ -79,7 +145,33 @@ class StageStatsStore:
             self._stats[stats.stage_id] = stats
             while len(self._stats) > self._keep:
                 self._stats.popitem(last=False)
+        self._append_shard(stats)
         return stats.stage_id
+
+    def get(self, stage_id: int) -> Optional[StageStats]:
+        with self._mu:
+            return self._stats.get(stage_id)
+
+    def last_id(self) -> int:
+        with self._mu:
+            return self._next_id
+
+    def recent(self, n: int = 32) -> List[StageStats]:
+        with self._mu:
+            return list(self._stats.values())[-n:]
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._mu:
+            stats = list(self._stats.values())
+        return {
+            "stages": [s.to_dict() for s in stats],
+            "totals": {
+                "stages": len(stats),
+                "rows_out": sum(s.rows_out for s in stats),
+                "bytes_out": sum(s.bytes_out for s in stats),
+                "wall_s": round(sum(s.wall_s for s in stats), 6),
+            },
+        }
 
     # -- stats feedback (the AQE's read path) --------------------------
     def output_bytes(self, stage_ids: List[int]) -> Optional[int]:
@@ -96,5 +188,99 @@ class StageStatsStore:
                     return s.bytes_out
         return None
 
+    def output_layout(self, stage_ids: List[int]) -> Optional[List[int]]:
+        """Per-partition output bytes of the last recorded stage among
+        ``stage_ids`` (same selection as :meth:`output_bytes`) — the
+        skew evidence replan rules consume."""
+        with self._mu:
+            for sid in sorted(stage_ids, reverse=True):
+                s = self._stats.get(sid)
+                if s is not None:
+                    return list(s.part_bytes)
+        return None
+
+    def clear(self) -> None:
+        with self._mu:
+            self._stats.clear()
+
+    def _append_shard(self, stats: StageStats) -> None:
+        directory = _stats_dir()
+        if not directory:
+            return
+        try:
+            if self._shard_path is None or not self._shard_path.startswith(
+                directory
+            ):
+                os.makedirs(directory, exist_ok=True)
+                self._shard_path = os.path.join(
+                    directory, f"stats-{os.getpid()}.jsonl"
+                )
+            with open(self._shard_path, "a") as f:
+                f.write(json.dumps(stats.to_dict()) + "\n")
+        except OSError:
+            pass  # artifact shipping must never fail a stage
+
+
+class ProgressTracker:
+    """Live done/total task counts per in-flight stage.
+
+    ``stage_begin`` → n×``task_done`` → ``stage_end``; executors drive
+    it as they dispatch and collect. Finished stages move to a bounded
+    recent list so a progress report shows what just happened, not
+    just what is happening."""
+
+    def __init__(self, keep_recent: int = 64):
+        self._mu = threading.Lock()
+        self._active: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
+        self._recent: List[Dict[str, Any]] = []
+        self._keep_recent = keep_recent
+        self._done_stages = 0
+
+    def stage_begin(self, stage_id: int, op: str, total: int) -> None:
+        now = time.time()
+        with self._mu:
+            self._active[stage_id] = {
+                "stage_id": stage_id,
+                "op": op,
+                "done": 0,
+                "total": int(total),
+                "started_wall": now,
+            }
+
+    def task_done(self, stage_id: int, n: int = 1) -> None:
+        with self._mu:
+            st = self._active.get(stage_id)
+            if st is not None:
+                st["done"] += n
+
+    def stage_end(self, stage_id: int) -> None:
+        now = time.time()
+        with self._mu:
+            st = self._active.pop(stage_id, None)
+            if st is None:
+                return
+            st["done"] = max(st["done"], st["total"])
+            st["seconds"] = round(now - st.pop("started_wall"), 6)
+            self._recent.append(st)
+            del self._recent[: -self._keep_recent]
+            self._done_stages += 1
+
+    def report(self) -> Dict[str, Any]:
+        now = time.time()
+        with self._mu:
+            active = []
+            for st in self._active.values():
+                entry = dict(st)
+                entry["age_s"] = round(now - entry.pop("started_wall"), 3)
+                active.append(entry)
+            return {
+                "active": active,
+                "recent": list(self._recent),
+                "stages_done": self._done_stages,
+                "tasks_done": sum(s["done"] for s in self._recent)
+                + sum(s["done"] for s in active),
+            }
+
 
 stage_store = StageStatsStore()
+progress = ProgressTracker()

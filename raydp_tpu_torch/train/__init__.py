@@ -1,7 +1,9 @@
-"""Training: the estimator, its losses and metrics, gradient-boosted
-trees and the keras wire-format estimator."""
+"""Training: the estimator, its losses and metrics, the multi-process
+``fit_spmd``, gradient-boosted trees and the keras wire-format
+estimator."""
 from raydp_tpu_torch.train.estimator import Estimator, TrainingCallback
 from raydp_tpu_torch.train.gbt import GBTEstimator
+from raydp_tpu_torch.train.spmd_fit import fit_spmd
 from raydp_tpu_torch.train.losses import (
     LOSSES,
     METRICS,
@@ -23,6 +25,7 @@ __all__ = [
     "METRICS",
     "TFEstimator",
     "TrainingCallback",
+    "fit_spmd",
     "parse_keras_model",
     "parse_keras_optimizer",
     "resolve_loss",

@@ -40,9 +40,31 @@ Differences from the JAX estimator, each deliberate:
   matches JAX's only unshuffled and without dropout.
 * Checkpoints are ``torch.save`` files (model, optimizer, step, data
   position, generator state), not orbax directories.
-* One process, one device: the mesh, parameter sharding, multi-process
-  fits, step retries, fault and preemption hooks, telemetry and the
-  device-phase plane are later slices (ROADMAP Queue A, slice 2 rest).
+* Step retries, fault and preemption hooks, telemetry and the
+  device-phase plane are later slices (ROADMAP Queue A items 5, 6).
+
+**Multi-process mode** (``raydp_tpu/train/estimator.py:532-575,
+930-949, 1365-1406``): when ``torch.distributed`` is initialised with a
+world larger than 1 (a gang rank of
+:func:`~raydp_tpu_torch.train.spmd_fit.fit_spmd`), every rank feeds
+``batch_size`` rows of its own shard, so the global batch is
+``batch_size × world``, and a fit always streams (a CUDA graph cannot
+capture a gloo collective). Rank 0's parameters and buffers are
+broadcast before the first step. Each step backpropagates its rank's
+loss summed over its rows, all-reduces the gradients (in buckets, with
+the rows and the loss sum riding the first) and divides by the global
+rows, so a ragged last batch weighs by rows, not by ranks, and the
+update is the one for the mean over the global batch; the
+reported ``train_loss`` is that global mean, the same on every rank.
+Dropout draws from a generator seeded from ``seed`` and the rank. Every
+rank enters :meth:`Estimator.save`; rank 0 writes the file (with every
+rank's generator state) and prunes, then all wait at a barrier. The
+mesh is data parallel only (:class:`~raydp_tpu_torch.parallel.MeshSpec`),
+so ``shard_params`` and ``logical_rules`` change nothing, as with a
+dp-only mesh in the JAX package. Each epoch's metrics add ``step_ms``
+and ``allreduce_ms`` (means over its steps: CUDA events on a card, the
+host clock on the CPU) and ``first_step_at`` (the wall-clock time the
+fit's first step finished, epoch 0 only).
 """
 from __future__ import annotations
 
@@ -59,6 +81,7 @@ from torch import nn
 from raydp_tpu_torch.data.ml_dataset import MLDataset
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
+from raydp_tpu_torch.parallel.mesh import DEFAULT_LOGICAL_RULES, MeshSpec
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
@@ -76,6 +99,118 @@ logger = logging.getLogger(__name__)
 # Eager steps before the scan path captures its step: real steps of the
 # first epoch, counted in its history.
 CAPTURE_WARMUP_STEPS = 3
+
+# Gradient bytes per all_reduce of a multi-process fit (DDP's default
+# bucket size).
+BUCKET_CAP_MB = 25
+
+
+def _dist_world() -> "tuple[int, int]":
+    """(rank, world size) of an initialised ``torch.distributed`` group,
+    else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _rank_seed(seed: int, rank: int) -> int:
+    """The dropout seed of ``rank``: JAX's ``seed + 1`` on rank 0, a
+    distinct stream on every other rank."""
+    return seed + 1 + 7919 * rank
+
+
+class _StepClock:
+    """Per-step timestamps of a multi-process fit: CUDA events on a card
+    (read once an epoch, after its loss sync), the host clock on the
+    CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.steps: List[tuple] = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _ms(self, a, b) -> float:
+        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+
+    def epoch_means(self) -> Dict[str, float]:
+        """``step_ms`` and ``allreduce_ms`` (the gradient exchange: bucket
+        copies, all_reduce and the division) over the steps since the
+        last call (the device has finished them by now)."""
+        steps, self.steps = self.steps, []
+        if not steps:
+            return {"step_ms": 0.0, "allreduce_ms": 0.0}
+        n = len(steps)
+        return {"step_ms": sum(self._ms(s[0], s[3]) for s in steps) / n,
+                "allreduce_ms": sum(self._ms(s[1], s[2]) for s in steps) / n}
+
+
+class _GradAllReduce:
+    """The data-parallel gradient exchange of a multi-process fit: one
+    ``all_reduce`` (sum) per bucket of at most ``BUCKET_CAP_MB`` of
+    gradients of one dtype, in parameter order, the rank's row count and
+    loss sum riding the first float32 bucket (a float64 pair of their
+    own where there is none). Every rank ends with the same bytes, so
+    the same optimizer keeps the ranks' parameters equal."""
+
+    def __init__(self, params):
+        self.params = [p for p in params if p.requires_grad]
+        cap = BUCKET_CAP_MB << 20
+        self.buckets: List[List[nn.Parameter]] = []
+        cur: List[nn.Parameter] = []
+        cur_bytes = 0
+        for p in self.params:
+            nbytes = p.numel() * p.element_size()
+            if cur and (cur[0].dtype != p.dtype or cur_bytes + nbytes > cap):
+                self.buckets.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(p)
+            cur_bytes += nbytes
+        if cur:
+            self.buckets.append(cur)
+        self.stats_bucket = next(
+            (i for i, b in enumerate(self.buckets)
+             if b[0].dtype == torch.float32), None)
+
+    def __call__(self, loss_sum: torch.Tensor, rows: int) -> torch.Tensor:
+        """All-reduce the gradients and ``[loss_sum, rows]``; divide the
+        gradients by the global rows. Returns the global mean loss."""
+        import torch.distributed as dist
+
+        stats = torch.stack([loss_sum.float(), torch.tensor(
+            float(rows), device=loss_sum.device)])
+        flats = []
+        for i, bucket in enumerate(self.buckets):
+            parts = [p.grad.reshape(-1) if p.grad is not None
+                     else torch.zeros(p.numel(), dtype=p.dtype,
+                                      device=p.device)
+                     for p in bucket]
+            if i == self.stats_bucket:
+                parts.append(stats)
+            flats.append(torch.cat(parts))
+        if self.stats_bucket is None:
+            flats.append(stats.double())
+        for flat in flats:
+            dist.all_reduce(flat)
+        total = (flats[self.stats_bucket][-2:] if self.stats_bucket
+                 is not None else flats[-1]).clone()
+        n_global = total[1]
+        for i, (bucket, flat) in enumerate(zip(self.buckets, flats)):
+            offset = 0
+            for p in bucket:
+                n = p.numel()
+                if p.grad is not None:
+                    p.grad = flat[offset:offset + n].view_as(p).div_(
+                        n_global.to(flat.dtype))
+                offset += n
+        return (total[0] / n_global).float()
 
 
 class TrainingCallback:
@@ -116,6 +251,7 @@ class Estimator:
         label_column: Optional[str] = None,
         feature_dtype=np.float32,
         label_dtype=np.float32,
+        mesh: Optional[MeshSpec] = None,
         seed: int = 0,
         shuffle: bool = True,
         callbacks: Sequence[TrainingCallback] = (),
@@ -127,6 +263,8 @@ class Estimator:
         drop_last: bool = False,
         epoch_mode: str = "auto",
         scan_threshold_bytes: int = 2 << 30,
+        shard_params: bool = True,
+        logical_rules: Optional[Sequence] = None,
         aux_losses: bool = False,
         device: DeviceLike = "cuda",
     ):
@@ -152,6 +290,13 @@ class Estimator:
         self.label_column = label_column
         self.feature_dtype = feature_dtype
         self.label_dtype = label_dtype
+        # Data parallel only (MeshSpec raises for pp/sp/tp > 1): with a
+        # dp-only mesh the JAX package's shard_params and logical rules
+        # shard nothing, and neither do they here.
+        self.mesh_spec = mesh or MeshSpec()
+        self.shard_params = shard_params
+        self.logical_rules = list(logical_rules if logical_rules is not None
+                                  else DEFAULT_LOGICAL_RULES)
         self.seed = seed
         self.shuffle = shuffle
         self.callbacks = list(callbacks)
@@ -176,6 +321,10 @@ class Estimator:
         self._step = 0
         self._resume_position: Optional[tuple] = None
         self.history: List[Dict[str, float]] = []
+        # Multi-process fits: the gradient exchange and the step clock,
+        # live while a fit runs.
+        self._allreduce: Optional[_GradAllReduce] = None
+        self._clock: Optional[_StepClock] = None
 
     @property
     def optimizer(self) -> torch.optim.Optimizer:
@@ -219,12 +368,27 @@ class Estimator:
                 "feature_columns and label_column must be configured "
                 "(label_column may be omitted with self_supervised=True)")
         epochs = num_epochs if num_epochs is not None else self.num_epochs
+        rank, world = _dist_world()
+        if self.mesh_spec.size > world:
+            # An explicitly requested mesh that doesn't fit is a
+            # misconfiguration (the JAX package's _ensure_mesh).
+            raise ValueError(
+                f"mesh {self.mesh_spec.axis_sizes} needs "
+                f"{self.mesh_spec.size} devices but only {world} are "
+                "visible (one card a process)")
         if self._use_scan(train_ds) and resume_from is None:
             self.effective_epoch_mode = "scan"
             self._fit_scan(train_ds, evaluate_ds, epochs)
         else:
             self.effective_epoch_mode = "stream"
-            self._fit_stream(train_ds, evaluate_ds, epochs, resume_from)
+            if world > 1:
+                self._generator.manual_seed(_rank_seed(self.seed, rank))
+                self._allreduce = _GradAllReduce(self._model.parameters())
+                self._clock = _StepClock(self.device)
+            try:
+                self._fit_stream(train_ds, evaluate_ds, epochs, resume_from)
+            finally:
+                self._allreduce = self._clock = None
         for cb in self.callbacks:
             cb.on_train_end(self.history)
         return self.history
@@ -236,12 +400,24 @@ class Estimator:
         it: the stream path eagerly, the scan path as a CUDA graph on a
         card."""
         opt = self.optimizer
+        clock = self._clock
+        t0 = clock.mark() if clock is not None else None
         opt.zero_grad(set_to_none=True)
         loss = self._loss_fn(self._model(x), self._target(x, y))
         if self.aux_losses:
             loss = loss + moe_aux_loss(self._model)
-        loss.backward()
+        if self._allreduce is not None:
+            # The rank's rows weigh its loss: the reduced gradient over
+            # the global rows is the global batch mean's.
+            (loss * len(x)).backward()
+            t1 = clock.mark()
+            loss = self._allreduce(loss.detach() * len(x), len(x))
+            t2 = clock.mark()
+        else:
+            loss.backward()
         opt.step()
+        if clock is not None:
+            clock.steps.append((t0, t1, t2, clock.mark()))
         loss = loss.detach()
         self._loss_sum += loss
         return loss
@@ -256,6 +432,9 @@ class Estimator:
             self.restore_path(resume_from)
             if self._resume_position is not None:
                 start_epoch, skip_batches = self._resume_position
+        if self._allreduce is not None:
+            self._broadcast_state()
+        first_step_at = None
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             self._model.train()
@@ -269,6 +448,10 @@ class Estimator:
                 if i < to_skip:
                     continue
                 loss = self._train_step(x, y)
+                if self._clock is not None and first_step_at is None:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    first_step_at = time.time()
                 n_batches += 1
                 b_idx += 1
                 self._step += 1
@@ -281,7 +464,23 @@ class Estimator:
                     logger.info("epoch %d step %d loss %.5f", epoch,
                                 n_batches, float(loss))  # sync: opt-in
             train_loss = float(self._loss_sum) / max(1, n_batches)  # one sync
-            self._finish_epoch(epoch, t0, train_loss, n_samples, evaluate_ds)
+            extra = None
+            if self._clock is not None:
+                extra = self._clock.epoch_means()
+                if epoch == start_epoch and first_step_at is not None:
+                    extra["first_step_at"] = first_step_at
+            self._finish_epoch(epoch, t0, train_loss, n_samples, evaluate_ds,
+                               extra)
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters and buffers to every rank, before the
+        first step of a multi-process fit."""
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            for t in list(self._model.parameters()) + list(
+                    self._model.buffers()):
+                dist.broadcast(t.data, src=0)
 
     # -- scan path --------------------------------------------------------
     def _use_scan(self, train_ds) -> bool:
@@ -291,6 +490,15 @@ class Estimator:
         cannot be captured into a CUDA graph
         (:func:`~raydp_tpu_torch.utils.graphed.capture_refusal`)."""
         if self.epoch_mode == "stream":
+            return False
+        if _dist_world()[1] > 1:
+            # A multi-process fit streams per-rank shards: the scan path
+            # would materialize the whole dataset per process, and a
+            # CUDA graph cannot capture a gloo collective.
+            if self.epoch_mode == "scan":
+                logger.warning(
+                    "epoch_mode='scan' requested but this is a "
+                    "multi-process fit; streaming per-rank shards instead")
             return False
         try:
             n_rows = train_ds.total_rows
@@ -409,7 +617,9 @@ class Estimator:
         return self.fit(train_ds, eval_ds, num_epochs)
 
     def _finish_epoch(self, epoch: int, t0: float, train_loss: float,
-                      n_samples: int, evaluate_ds) -> Dict[str, float]:
+                      n_samples: int, evaluate_ds,
+                      extra: Optional[Dict[str, float]] = None
+                      ) -> Dict[str, float]:
         dt = time.perf_counter() - t0
         metrics: Dict[str, float] = {
             "epoch": epoch,
@@ -418,6 +628,7 @@ class Estimator:
             "samples": n_samples,
             "samples_per_sec": n_samples / max(1e-9, dt),
         }
+        metrics.update(extra or {})
         if evaluate_ds is not None:
             metrics.update(self.evaluate(evaluate_ds, prefix="eval_"))
         self.history.append(metrics)
@@ -530,23 +741,42 @@ class Estimator:
              data_position: Optional[tuple] = None) -> str:
         """Write ``step_<step>.pt`` (``final.pt`` without a step): model,
         optimizer, step count, ``data_position=(epoch, batch)`` and the
-        dropout generator's state. Returns the path."""
-        os.makedirs(checkpoint_dir, exist_ok=True)
+        dropout generator's state. Returns the path.
+
+        In a multi-process fit every rank must enter (as every rank
+        enters orbax's save in the JAX package): the ranks' generator
+        states are gathered, rank 0 writes the file and prunes, and all
+        ranks leave together after a barrier, so none reads a file that
+        is not there yet."""
+        import torch.distributed as dist
+
+        rank, world = _dist_world()
         name = f"step_{step}.pt" if step is not None else "final.pt"
         path = os.path.abspath(os.path.join(checkpoint_dir, name))
-        epoch, batch = data_position if data_position is not None else (-1, -1)
-        state = {
-            "model": self._model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "step": self._step,
-            "data_epoch": epoch,
-            "data_batch": batch,
-            "generator": self._generator.get_state(),
-        }
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)  # a reader never sees half a checkpoint
-        _prune_checkpoints(checkpoint_dir)
+        generators = None
+        if world > 1:
+            generators = [None] * world
+            dist.all_gather_object(generators, self._generator.get_state())
+        if rank == 0:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            epoch, batch = (data_position if data_position is not None
+                            else (-1, -1))
+            state = {
+                "model": self._model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self._step,
+                "data_epoch": epoch,
+                "data_batch": batch,
+                "generator": self._generator.get_state(),
+            }
+            if generators is not None:
+                state["rank_generators"] = generators
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)  # a reader never sees half a checkpoint
+            _prune_checkpoints(checkpoint_dir)
+        if world > 1:
+            dist.barrier()
         return path
 
     def restore(self, checkpoint_dir: str, step=None,
@@ -577,7 +807,13 @@ class Estimator:
         self._model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self._step = int(state["step"])
-        self._generator.set_state(state["generator"])
+        rank, world = _dist_world()
+        generators = state.get("rank_generators")
+        if generators is not None and len(generators) == world:
+            # The same gang's rank resumes its own dropout stream.
+            self._generator.set_state(generators[rank])
+        else:
+            self._generator.set_state(state["generator"])
         epoch, batch = int(state["data_epoch"]), int(state["data_batch"])
         self._resume_position = (epoch, batch) if epoch >= 0 else None
 

@@ -1,0 +1,260 @@
+"""Multi-process distributed fit: an ``Estimator`` across a supervised
+SPMD gang (the port's ``raydp_tpu/train/spmd_fit.py``).
+
+The reference's multi-worker story is Ray Train wiring worker processes
+with torch DDP (``torch/estimator.py:276-297``). Here each gang rank
+(``raydp_tpu_torch.spmd``) joins ``torch.distributed`` — NCCL where
+every rank on a host has a card of its own, gloo where ranks share one
+or run on the CPU
+(:func:`~raydp_tpu_torch.spmd.worker_main.collective_backend`)
+— builds the estimator from the caller's factory, and trains on its own
+shard; the estimator's multi-process mode all-reduces the gradients
+(``raydp_tpu_torch/train/estimator.py``).
+
+Shards reach the ranks in one of two ways, as in the JAX package:
+
+* **store mode**, when a session holds the dataset's blocks as object
+  refs: each rank gets only its ``shard_plan[r]`` and reads its slices
+  itself (:func:`~raydp_tpu_torch.data.ml_dataset.resolve_plan_tables`:
+  zero-copy for segments on its node, the store agents' chunked fetch
+  for the rest); the driver reads no data;
+* **in-memory**: the driver slices each rank's tables and ships them.
+
+Supervision: rank death or a registration timeout tears the gang down
+and relaunches it with jittered exponential backoff under a budget of
+``max_restarts`` (env ``RAYDP_TPU_MAX_RESTARTS``, default 3), resuming
+from the newest complete checkpoint in ``checkpoint_dir``.
+
+Left for later items of ROADMAP Queue A, each raising
+``NotImplementedError`` where a caller asks for it: ``elastic=True``
+(item 5, elastic resize, with the preemption drain and its
+``step_emergency_`` checkpoints), and the control plane's gang lease
+(item 7, when ``RAYDP_TPU_SCHED_CAPACITY`` turns arbitration on). The
+JAX package's accounting scope, events and flight recorder (item 6) are
+not kept.
+"""
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import random
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["fit_spmd"]
+
+SCHED_CAPACITY_ENV = "RAYDP_TPU_SCHED_CAPACITY"
+
+
+def _newest_checkpoint(checkpoint_dir: Optional[str]) -> Optional[str]:
+    """Newest complete checkpoint file (``step_*.pt`` or ``final.pt``)
+    under ``checkpoint_dir``. :meth:`Estimator.save` renames a finished
+    file into place, so a rank that died mid-save leaves only a
+    ``*.tmp``, which never counts."""
+    if not checkpoint_dir or not os.path.isdir(checkpoint_dir):
+        return None
+    best, best_mtime = None, -1.0
+    for name in os.listdir(checkpoint_dir):
+        if not name.endswith(".pt") or not (
+                name.startswith("step_") or name == "final.pt"):
+            continue
+        path = os.path.join(checkpoint_dir, name)
+        mtime = os.path.getmtime(path)
+        if mtime > best_mtime:
+            best, best_mtime = path, mtime
+    return best
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
+def _params_digest(state: Dict[str, Any]) -> str:
+    """SHA-256 over a state dict's names, dtypes, shapes and bytes: two
+    ranks' digests are equal exactly when their tensors are."""
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in state.items():
+        t = t.detach().cpu().contiguous()
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def fit_spmd(
+    make_estimator: Callable[[], Any],
+    train_ds,
+    world_size: int,
+    num_procs_per_node: int = 1,
+    hosts: Optional[List[str]] = None,
+    env: Optional[Dict[str, str]] = None,
+    timeout: float = 600.0,
+    max_restarts: Optional[int] = None,
+    restart_backoff_s: Optional[float] = None,
+    checkpoint_dir: Optional[str] = None,
+    elastic: bool = False,
+    min_world_size: int = 1,
+    device: DeviceLike = "cuda",
+) -> Dict[str, Any]:
+    """Train ``make_estimator()`` data-parallel over ``world_size``
+    processes. ``train_ds`` (an :class:`MLDataset`) must have
+    ``num_shards == world_size``; rank r trains on shard r. Returns rank
+    0's history and its parameters as numpy arrays (the ranks hold equal
+    ones).
+
+    The factory runs INSIDE each rank (shipped by the closure carrier,
+    ``cluster/closure.py``) after the rank has joined the gang's process
+    group and, on a card, made its card the current device; build the
+    ``MeshSpec`` there (``MeshSpec(dp=torch.distributed.get_world_size())``).
+    ``device`` is the ranks' device: ``"cuda"`` (the default) raises
+    here without a card, and a rank that finds none fails the gang;
+    ``"cpu"`` trains on the CPU over gloo.
+
+    Supervision: on rank death or a registration timeout the gang is
+    torn down and relaunched (jittered exponential backoff from
+    ``restart_backoff_s``, env ``RAYDP_TPU_RESTART_BACKOFF_S``, default
+    1 s) under a budget of ``max_restarts`` relaunches, resuming from
+    the newest checkpoint in ``checkpoint_dir``. Give the factory's
+    estimator the SAME ``checkpoint_dir`` (and ``save_every_steps`` to
+    bound the replay). Without ``checkpoint_dir`` a relaunch trains from
+    scratch.
+
+    The result has the JAX package's keys (``history``, ``params``,
+    ``per_rank_history``, ``restarts``, ``world_size``) and three of the
+    port's: ``backend`` (the process group's), ``start_s`` (seconds the
+    last launch's ``start()`` took) and ``per_rank_params_sha256`` (a
+    digest of each rank's final parameters and buffers)."""
+    from raydp_tpu_torch.context import current_session
+    from raydp_tpu_torch.spmd import create_spmd_job
+    from raydp_tpu_torch.spmd.job import SPMDJobError
+    from raydp_tpu_torch.store.object_store import ObjectRef
+
+    if elastic:
+        raise NotImplementedError(
+            "fit_spmd(elastic=True): elastic resize, with the preemption "
+            "drain and its step_emergency_ checkpoints, is not ported yet "
+            "(ROADMAP Queue A item 5)")
+    if train_ds.num_shards != world_size:
+        raise ValueError(
+            f"train_ds must have num_shards == world_size "
+            f"({train_ds.num_shards} != {world_size})")
+    if min_world_size < 1:
+        raise ValueError("min_world_size must be >= 1")
+    if os.environ.get(SCHED_CAPACITY_ENV):
+        raise NotImplementedError(
+            f"{SCHED_CAPACITY_ENV} is set, but the control plane's gang "
+            "lease is not ported yet (ROADMAP Queue A item 7)")
+    device = str(resolve_device(device))
+    if max_restarts is None:
+        max_restarts = int(_env_float("RAYDP_TPU_MAX_RESTARTS", 3))
+    if restart_backoff_s is None:
+        restart_backoff_s = _env_float("RAYDP_TPU_RESTART_BACKOFF_S", 1.0)
+
+    session = current_session()
+    store_mode = session is not None and all(
+        isinstance(b, ObjectRef) for b in train_ds.blocks)
+    if store_mode:
+        cluster = session.cluster
+        master = getattr(cluster, "master_address", None) or (
+            cluster.master.address)
+        namespace = cluster.namespace
+        blocks = list(train_ds.blocks)
+        payloads = [(train_ds.shard_plan[r],) for r in range(world_size)]
+    else:
+        master = namespace = blocks = None
+        # In-memory blocks: the driver slices each rank's shard tables
+        # and ships only those rows.
+        payloads = [(train_ds.shard_tables(r),) for r in range(world_size)]
+
+    job = create_spmd_job(job_name="torch-fit-spmd", world_size=world_size,
+                          num_procs_per_node=num_procs_per_node, hosts=hosts,
+                          env=env, timeout=60.0)
+    restarts = 0
+    start_s = 0.0
+    while True:
+        resume = _newest_checkpoint(checkpoint_dir)
+
+        def work(ctx, payload, resume_from=resume, _device=device,
+                 _store_mode=store_mode, _master=master,
+                 _namespace=namespace, _blocks=blocks):
+            import torch
+
+            from raydp_tpu_torch.data.ml_dataset import (
+                MLDataset,
+                resolve_plan_tables,
+            )
+            from raydp_tpu_torch.train.spmd_fit import _params_digest
+
+            if _device.startswith("cuda"):
+                torch.cuda.set_device(ctx.device("cuda"))
+            backend = ctx.init_distributed(device=_device)
+            tables = (resolve_plan_tables(_master, _namespace, _blocks,
+                                          payload)
+                      if _store_mode else payload)
+            est = make_estimator()
+            history = est.fit(MLDataset(list(tables), num_shards=1),
+                              resume_from=resume_from)
+            state = est.get_model().state_dict()
+            out = {"rank": ctx.rank, "history": history,
+                   "backend": backend, "digest": _params_digest(state)}
+            if ctx.rank == 0:
+                out["params"] = {
+                    k: (v.detach().float() if v.dtype == torch.bfloat16
+                        else v.detach()).cpu().numpy()
+                    for k, v in state.items()}
+            return out
+
+        try:
+            if restarts:
+                logger.warning(
+                    "fit_spmd: relaunching gang (restart %d/%d, world "
+                    "%d%s)", restarts, max_restarts, world_size,
+                    f", resume {os.path.basename(resume)}" if resume
+                    else ", from scratch")
+            t0 = time.perf_counter()
+            job.start()
+            start_s = time.perf_counter() - t0
+            results = job.run(work, timeout=timeout,
+                              per_rank_args=payloads)
+            break
+        except SPMDJobError as exc:
+            err_text = str(exc)
+            if restarts >= max_restarts:
+                raise SPMDJobError(
+                    f"fit_spmd: restart budget exhausted ({max_restarts} "
+                    f"restarts); last failure: {err_text}") from exc
+            restarts += 1
+            delay = restart_backoff_s * (2 ** (restarts - 1))
+            delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
+            logger.warning(
+                "fit_spmd: gang failed (%s); backing off %.1fs before "
+                "restart %d/%d", err_text.splitlines()[0][:160], delay,
+                restarts, max_restarts)
+            time.sleep(delay)
+        finally:
+            # Tear down between attempts and after the last one; the
+            # job restarts after stop().
+            job.stop()
+    rank0 = next(r for r in results if r["rank"] == 0)
+    return {
+        "history": rank0["history"],
+        "params": rank0.get("params"),
+        "per_rank_history": [r["history"] for r in results],
+        "restarts": restarts,
+        "world_size": world_size,
+        "backend": rank0["backend"],
+        "start_s": start_s,
+        "per_rank_params_sha256": [r["digest"] for r in results],
+    }

@@ -15,7 +15,9 @@ CPU, and the native host library built there, its bucket ids equal to
 the numpy twin's. Slice 8: a session's ETL workers import no torch and
 see no card, and a scan fit from a frame in the session's object store
 counts every kernel launch. Slice 9: a gang of 2 SPMD ranks on the card,
-each launching the flash forward once a layer by its own counter.
+each launching the flash forward once a layer by its own counter. Slice 10:
+a two-rank ``fit_spmd`` of a tiny flash classifier whose ranks end with
+equal parameters, and the collective backend rule.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -978,3 +980,48 @@ def test_spmd_gang_on_card_counts_a_launch_a_layer(cuda):
     ref = _gang_forward(type("Ctx", (), {"local_rank": 0})(), 3)[2]
     for _, _, logits in out:
         np.testing.assert_allclose(logits, ref, **TOL[torch.bfloat16])
+
+
+# ------------------------------------------------------------ slice 10
+
+def _spmd_estimator():
+    """Rank body's factory: the tiny flash classifier of
+    ``_graph_estimator`` on the stream path, over the gang's dp mesh."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import MeshSpec
+
+    return _graph_estimator(mode="stream",
+                            mesh=MeshSpec(dp=dist.get_world_size()))
+
+
+def test_fit_spmd_on_card_ranks_hold_equal_parameters(cuda):
+    """A two-rank ``fit_spmd`` of a small transformer on the card: the
+    ranks' histories and final parameters equal (same digest, the same
+    all-reduced gradients through the same AdamW), the backend the rule
+    picks for this machine, finite losses."""
+    from raydp_tpu_torch.spmd.worker_main import collective_backend
+    from raydp_tpu_torch.train import fit_spmd
+
+    ds = MLDataset([_token_cols(64, 16, 64, seed=6),
+                    _token_cols(64, 16, 64, seed=7)], 2)
+    out = fit_spmd(_spmd_estimator, ds, world_size=2, timeout=300)
+    assert out["backend"] == collective_backend(2, "cuda")
+    assert len(set(out["per_rank_params_sha256"])) == 1
+    first, second = out["per_rank_history"]
+    assert [h["train_loss"] for h in first] == [h["train_loss"]
+                                                for h in second]
+    assert all(np.isfinite(h["train_loss"]) for h in first)
+    assert [h["samples"] for h in first] == [64, 64]
+
+
+def test_collective_backend_rule_on_card(cuda):
+    """NCCL only where every rank on a host has a card of its own;
+    gloo where ranks share one or run on the CPU."""
+    from raydp_tpu_torch.spmd.worker_main import collective_backend
+
+    n = torch.cuda.device_count()
+    assert collective_backend(1, "cuda") == "nccl"
+    assert collective_backend(n, "cuda") == "nccl"
+    assert collective_backend(n + 1, "cuda") == "gloo"
+    assert collective_backend(2, "cpu") == "gloo"

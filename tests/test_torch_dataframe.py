@@ -273,7 +273,9 @@ def _assert_same_partitions(ours, theirs, keys=None):
         assert o.num_partitions == t.num_partitions
         po, pt = o.collect_partitions(), t.collect_partitions()
         assert [p.num_rows for p in po] == [p.num_rows for p in pt]
-        frame_keys = keys[i] if isinstance(keys, list) else keys
+        # ``keys``: one list of sort keys for every frame, or a list of
+        # such lists, one a frame.
+        frame_keys = keys[i] if keys and isinstance(keys[0], list) else keys
         for a, b in zip(po, pt):
             _same_table(a, b, frame_keys)
 

@@ -90,7 +90,10 @@ def test_port_files_exist():
                 "raydp_tpu_torch/cluster/client.py",
                 "raydp_tpu_torch/spmd/__init__.py",
                 "raydp_tpu_torch/spmd/job.py",
-                "raydp_tpu_torch/spmd/worker_main.py"):
+                "raydp_tpu_torch/spmd/worker_main.py",
+                "raydp_tpu_torch/dataframe/window.py",
+                "raydp_tpu_torch/parallel/mesh.py",
+                "raydp_tpu_torch/train/spmd_fit.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
     assert os.path.exists(os.path.join(ROOT, "raydp_tpu_torch", "native",

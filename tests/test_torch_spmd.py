@@ -78,8 +78,8 @@ def _sum_ranks(ctx):
     import torch
     import torch.distributed as dist
 
-    ctx.init_distributed()
-    ctx.init_distributed()  # idempotent
+    ctx.init_distributed(device="cpu")
+    ctx.init_distributed(device="cpu")  # idempotent
     x = torch.tensor([float(ctx.rank + 1), 1.0])
     dist.all_reduce(x)
     return x.tolist(), dist.get_world_size(), dist.get_backend()
@@ -102,7 +102,8 @@ def test_taken_coordinator_port_names_the_port():
         with create_spmd_job("t-port", world_size=2, timeout=45,
                              coordinator_port=port) as job:
             with pytest.raises(SPMDJobError, match=f"port {port}"):
-                job.run(lambda ctx: ctx.init_distributed(), timeout=60)
+                job.run(lambda ctx: ctx.init_distributed(device="cpu"),
+                        timeout=60)
             with pytest.raises(SPMDJobError, match="failed"):
                 job.run(lambda ctx: ctx.rank)
 

@@ -3,7 +3,8 @@
 The module's source is loaded a second time with its ``raydp_tpu.``
 imports pointed at ``raydp_tpu_torch.``, so each of its test functions
 holds the port to the expectations it holds the JAX package to: a bare
-``import raydp_tpu`` becomes the port's package, and ``from tests.<m>
+``import raydp_tpu`` becomes the port's package, ``from raydp_tpu import
+<m>`` the port's ``<m>`` where it is ported, and ``from tests.<m>
 import ...`` takes the names from ``<m>`` loaded the same way. Not a
 test module itself (no ``test_`` prefix); the ``test_torch_*`` files
 parametrise over :func:`cases`. The loaded modules are not in
@@ -70,6 +71,11 @@ def load_port_module(filename: str, only=None) -> types.ModuleType:
     if filename in WHOLE_PACKAGE:
         src = re.sub(r"\braydp_tpu\b", "raydp_tpu_torch", src)
     src = re.sub(r"^import raydp_tpu$", "import raydp_tpu_torch as raydp_tpu",
+                 src, flags=re.MULTILINE)
+    src = re.sub(r"^(\s*)from raydp_tpu import (\w+)",
+                 lambda m: (f"{m.group(1)}from raydp_tpu_torch import "
+                            f"{m.group(2)}" if m.group(2) in PORTED
+                            else m.group(0)),
                  src, flags=re.MULTILINE)
     src = _TESTS_IMPORT.sub(
         lambda m: (f"{m.group(2)} = _port_names({m.group(1)!r}, "
