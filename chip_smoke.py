@@ -164,15 +164,39 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    equal parameters; each rank's step ms and its gradient exchange's
    share (CUDA events), peak memory, ``start()`` seconds and the first
    step's seconds after the call.
+14. Fault tolerance of training on a fresh 4-worker session holding
+   1,024 of 10c's GLUE rows (store mode), 13b's classifier
+   (:func:`ft_factory`): (a) a clean in-process ``Estimator.fit`` (batch
+   64, 2 epochs, 32 steps), then ``fit_spmd(world_size=1)`` of the same
+   under ``kill:rank=0,step=8`` with ``save_every_steps=8``: one
+   restart, ``step_mid_8.pt``, 0 replayed steps, the last epoch's loss
+   and the final parameters equal to the clean fit's (``torch.equal``);
+   the recovery seconds (the supervisor seeing the exit to the resumed
+   run's first step, the backoff apart) and each checkpoint's bytes and
+   write seconds. (b) ``fit_spmd(world_size=2)``, batch 32 a rank, one
+   epoch, clean and under ``preempt:step=6,grace=0``: both ranks drain
+   after step 6 into ``step_emergency_6.pt`` (``data_world`` 2, position
+   (0, 6)), one restart, ``preemptions/total`` and ``restarts/total`` up
+   by one in this process, the resumed ranks equal to each other and to
+   the clean gang; drain and recovery seconds, peak memory a rank; then
+   ``SPMDJob.request_preemption()`` on a running 2-rank gang
+   (:func:`gang_train_until_preempted`): both ranks drain after the same
+   step into one emergency checkpoint, the call inside the grace. (c)
+   that ``step_emergency_6.pt`` alone in a fresh directory, resumed by
+   ``fit_spmd(world_size=1, elastic=True)`` over the same 2-shard
+   dataset: the skip rescaled from 6 to 12 batches, 20 steps of 32 rows,
+   a finite loss. Every fit runs 12 launches of each kernel a step by
+   its process's counters; ``stop()`` leaves no segment.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a and 13b) and read just after; phase 9's
-replicas, 12a's second driver and 12b's and 13b's ranks are new
-processes, whose counts start at 0 and are read by ``Ping`` or returned
-in their results. The last lines are a ``kernels`` JSON
+10c, 11c, 12a, 12b, 13a, 13b and each fit of 14) and read just after;
+phase 9's replicas, 12a's second driver and 12b's, 13b's and 14's ranks
+are new processes, whose counts start at 0 and are read by ``Ping`` or
+returned in their results (a rank that is killed or drains returns
+none). The last lines are a ``kernels`` JSON
 line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -3395,6 +3419,438 @@ def phase_window_and_gang(torch, P):
     return rank_counts
 
 
+# Phase 14: fault tolerance of training on the card, over 10c's GLUE rows
+# in a fresh session's object store: a rank killed at a checkpoint step
+# (14a), a preemption drained by a gang of 2 (14b, and the driver's
+# notice to a running gang), an elastic resume onto one rank (14c).
+FT_ROWS, FT_SAVE_EVERY = 1024, 8
+FT_BATCH, FT_EPOCHS = 64, 2  # 14a: 10c's batch, 16 steps an epoch
+FT_GANG_BATCH, FT_GANG_EPOCHS = 32, 1  # 14b, 14c: 16 steps a rank at world 2
+FT_KILL_STEP, FT_PREEMPT_STEP = 8, 6
+FT_KILL_PLAN = f"kill:rank=0,step={FT_KILL_STEP}"
+FT_PREEMPT_PLAN = f"preempt:step={FT_PREEMPT_STEP},grace=0"
+FT_GRACE_S = 30.0  # RAYDP_TPU_PREEMPT_GRACE_S's default
+FT_LIMIT_S = 600.0
+_DRAINED_RE = r"preempted at step (\d+) \(epoch \d+, batch \d+\); emergency " \
+              r"checkpoint: \S+ \(drained in ([0-9.]+) s\)"
+
+
+def ft_factory(checkpoint_dir, batch, epochs, save_every_steps=0):
+    """14's estimator factory, run in a rank (``fit_spmd`` ships it by
+    value) or in this process: 13b's bf16 flash classifier at bert_base
+    width and depth, AdamW 2e-5, the stream path, dropout 0.1. Its
+    callback adds to every epoch's metrics the process's flash launch
+    counts and peak device memory, the wall-clock time its fit's first
+    step finished (``probe_first_step_at``, after a synchronize), the
+    per-rank batches the fit skipped on resume (``resume_skip``) and each
+    checkpoint written so far with its seconds and bytes (``saves``)."""
+    def make_estimator():
+        import os
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        import chip_smoke as cs
+        import raydp_tpu_torch as P
+
+        saves, first = [], []
+
+        class RankProbe(P.TrainingCallback):
+            def on_epoch_end(self, epoch, metrics):
+                metrics["launches"] = cs._counts()
+                metrics["peak_bytes"] = torch.cuda.max_memory_allocated()
+                metrics["probe_first_step_at"] = first[0] if first else None
+                metrics["resume_skip"] = est.resume_skip
+                metrics["saves"] = list(saves)
+
+        cs._reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                          max_len=cs.GLUE_SEQ)
+        est = P.Estimator(
+            model=P.SequenceClassifier(
+                cfg, device="cuda",
+                generator=torch.Generator().manual_seed(9)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5,
+                                                  weight_decay=1e-4),
+            loss="softmax_ce", num_epochs=epochs, batch_size=batch,
+            feature_columns=[f"t{i}" for i in range(cs.GLUE_SEQ)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, mesh=P.MeshSpec(dp=world), seed=0,
+            epoch_mode="stream", checkpoint_dir=checkpoint_dir,
+            save_every_steps=save_every_steps, callbacks=[RankProbe()],
+            device="cuda")
+        step, save = est._train_step, est.save
+
+        def probed_step(x, y):
+            out = step(x, y)
+            if not first:
+                torch.cuda.synchronize()
+                first.append(time.time())
+            return out
+
+        def timed_save(directory, step=None, data_position=None):
+            t0 = time.perf_counter()
+            path = save(directory, step=step, data_position=data_position)
+            saves.append((os.path.basename(path), time.perf_counter() - t0,
+                          os.path.getsize(path)))
+            return path
+
+        est._train_step = probed_step
+        est.save = timed_save
+        return est
+
+    return make_estimator
+
+
+def gang_train_until_preempted(ctx, tables, checkpoint_dir, marker):
+    """14b's rank body for the driver's notice: join the gang, train
+    ``ft_factory``'s classifier on the rank's tables for far more epochs
+    than the phase waits (rank 0 creates ``marker`` once its first step
+    is done), and end by draining the notice (``PreemptionError``)."""
+    import torch
+
+    import chip_smoke as cs
+    from raydp_tpu_torch.data import MLDataset
+
+    torch.cuda.set_device(ctx.device("cuda"))
+    ctx.init_distributed(device="cuda")
+    est = cs.ft_factory(checkpoint_dir, cs.FT_GANG_BATCH, 1000)()
+    step = est._train_step
+
+    def marked_step(x, y):
+        out = step(x, y)
+        if ctx.rank == 0 and not os.path.exists(marker):
+            open(marker, "w").close()
+        return out
+
+    est._train_step = marked_step
+    est.fit(MLDataset(list(tables), num_shards=1))
+
+
+def _drains(failure):
+    """(step, drain seconds) of every rank's ``PreemptionError`` in a
+    supervisor's failure text."""
+    import re
+
+    return [(int(s), float(t))
+            for s, t in re.findall(_DRAINED_RE, failure)]
+
+
+def _params_equal(torch, got, want):
+    """Names of the parameters that differ bit for bit."""
+    return [k for k, w in want.items()
+            if not torch.equal(torch.from_numpy(got[k]),
+                               torch.from_numpy(w))]
+
+
+def _recovery(out, tag):
+    """Recovery seconds of a supervised fit's one failure: from the
+    supervisor seeing it to the resumed run's first step (every rank's
+    probe, the earliest), with the backoff slept in between."""
+    (failure,) = out["failures"]
+    first = min(hist[0]["probe_first_step_at"]
+                for hist in out["per_rank_history"])
+    check(first is not None, f"{tag}: the resumed run took no step")
+    return first - failure["at"], failure["backoff_s"]
+
+
+def phase_ft_kill(torch, P, ds1):
+    """14a: rank 0 of a 1-rank ``fit_spmd`` killed right after
+    ``step_mid_8.pt`` commits; the relaunch resumes there and must end
+    with a clean in-process fit's parameters bit for bit. Returns the
+    launch counts of the clean fit and of the resumed rank."""
+    import shutil
+    import tempfile
+
+    steps = FT_EPOCHS * FT_ROWS // FT_BATCH
+    torch.cuda.synchronize()
+    clean_est = ft_factory(None, FT_BATCH, FT_EPOCHS)()
+    clean_hist = clean_est.fit(ds1)
+    torch.cuda.synchronize()
+    clean_counts = clean_hist[-1]["launches"]
+    want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+    check(clean_counts == want, f"14a: the clean fit counted "
+                                f"{clean_counts}, want {want}")
+    clean = {k: (v.detach().float() if v.dtype == torch.bfloat16
+                 else v.detach()).cpu().numpy()
+             for k, v in clean_est.get_model().state_dict().items()}
+    del clean_est
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-14a-")
+    try:
+        t0 = time.perf_counter()
+        out = P.fit_spmd(ft_factory(ckpt, FT_BATCH, FT_EPOCHS,
+                                    FT_SAVE_EVERY), ds1, world_size=1,
+                         env={"RAYDP_TPU_FAULT_PLAN": FT_KILL_PLAN},
+                         checkpoint_dir=ckpt, timeout=FT_LIMIT_S)
+        fit_s = time.perf_counter() - t0
+        mid = os.path.join(ckpt, f"step_mid_{FT_KILL_STEP}.pt")
+        check(os.path.exists(mid), f"14a: no {os.path.basename(mid)}")
+        mid_bytes = os.path.getsize(mid)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(out["restarts"] == 1, f"14a: {out['restarts']} restarts, want 1")
+    (failure,) = out["failures"]
+    check("exited with code 23" in failure["error"],
+          f"14a: the failure is not the injected kill: "
+          f"{failure['error'][:300]}")
+    hist = out["history"]
+    resumed_steps = sum(h["samples"] for h in hist) // FT_BATCH
+    replayed = FT_KILL_STEP + resumed_steps - steps
+    check(replayed == 0, f"14a: {replayed} steps replayed, want 0")
+    check(hist[-1]["train_loss"] == clean_hist[-1]["train_loss"],
+          f"14a: last epoch's loss {hist[-1]['train_loss']} != the clean "
+          f"fit's {clean_hist[-1]['train_loss']}")
+    differ = _params_equal(torch, out["params"], clean)
+    check(not differ, f"14a: the resumed fit's parameters differ from the "
+                      f"clean fit's in {len(differ)} tensors, e.g. "
+                      f"{differ[:4]}")
+    counts = hist[-1]["launches"]
+    want = {k: 12 * resumed_steps for k in KERNEL_SYMBOLS}
+    check(counts == want, f"14a: the resumed rank counted {counts}, want "
+                          f"{want}")
+    recovery, backoff = _recovery(out, "14a")
+    log(f"[14a] kill:rank=0,step={FT_KILL_STEP} under fit_spmd(world_size="
+        f"1): {FT_ROWS} rows, batch {FT_BATCH}, {FT_EPOCHS} epochs ({steps} "
+        f"steps), save_every_steps={FT_SAVE_EVERY}; restarts "
+        f"{out['restarts']}, replayed steps {replayed}; recovery "
+        f"{recovery:.3f} s from the supervisor seeing the rank's exit to "
+        f"the resumed run's first step, {backoff:.3f} s of it the backoff "
+        f"(host clock); fit_spmd {fit_s:.1f} s in all; final parameters "
+        f"equal to the clean in-process fit's (torch.equal), last epoch's "
+        f"loss {hist[-1]['train_loss']:.6f} on both; "
+        f"{os.path.basename(mid)} {mid_bytes / 2**30:.3f} GiB")
+    for name, secs, nbytes in hist[-1]["saves"]:
+        log(f"[14a] the resumed rank wrote {name}: {nbytes / 2**30:.3f} GiB "
+            f"in {secs:.3f} s ({nbytes / 2**30 / secs:.2f} GiB/s, host "
+            f"clock)")
+    log(f"[14a] peak device memory: rank {hist[-1]['peak_bytes'] / 2**30:.3f} "
+        f"GiB, the clean fit {clean_hist[-1]['peak_bytes'] / 2**30:.3f} GiB")
+    return clean_counts, counts
+
+
+def phase_ft_preempt(torch, P, ds2):
+    """14b: ``preempt:step=6,grace=0`` under a 2-rank ``fit_spmd``: both
+    ranks drain after step 6 to ``step_emergency_6.pt``, the supervisor
+    counts a preemption and a restart, and the resumed gang ends equal to
+    a clean gang run; then ``SPMDJob.request_preemption()`` on a running
+    gang. Returns (the emergency checkpoint's bytes, the clean run's
+    epoch loss, launch counts by tag, the copied checkpoint's path)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from raydp_tpu_torch.spmd import create_spmd_job
+    from raydp_tpu_torch.spmd.job import SPMDJobError
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    steps = FT_GANG_EPOCHS * ds2.rows_per_shard // FT_GANG_BATCH
+    counts = {}
+    clean = P.fit_spmd(ft_factory(None, FT_GANG_BATCH, FT_GANG_EPOCHS), ds2,
+                       world_size=GANG_WORLD, timeout=FT_LIMIT_S)
+    check(clean["restarts"] == 0, "14b: the clean gang restarted")
+    for r, hist in enumerate(clean["per_rank_history"]):
+        counts[f"14b clean rank {r}"] = hist[-1]["launches"]
+    before = metrics.snapshot().get("counters", {})
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-14b-")
+    keep = tempfile.mkdtemp(prefix="chip-smoke-14c-")
+    try:
+        t0 = time.perf_counter()
+        out = P.fit_spmd(ft_factory(ckpt, FT_GANG_BATCH, FT_GANG_EPOCHS),
+                         ds2, world_size=GANG_WORLD,
+                         env={"RAYDP_TPU_FAULT_PLAN": FT_PREEMPT_PLAN},
+                         checkpoint_dir=ckpt, timeout=FT_LIMIT_S)
+        fit_s = time.perf_counter() - t0
+        emergency = os.path.join(ckpt, f"step_emergency_{FT_PREEMPT_STEP}.pt")
+        check(os.path.exists(emergency), f"14b: no {emergency}")
+        state = torch.load(emergency, map_location="cpu", weights_only=True)
+        where = (state["data_world"], state["data_epoch"], state["data_batch"])
+        check(where == (GANG_WORLD, 0, FT_PREEMPT_STEP),
+              f"14b: the emergency checkpoint records (world, epoch, batch) "
+              f"{where}")
+        del state
+        emergency_bytes = os.path.getsize(emergency)
+        shutil.copy(emergency, keep)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    after = metrics.snapshot()["counters"]
+    grew = {n: after.get(n, 0) - before.get(n, 0)
+            for n in ("preemptions/total", "restarts/total")}
+    check(out["restarts"] == 1 and grew == {"preemptions/total": 1,
+                                            "restarts/total": 1},
+          f"14b: restarts {out['restarts']}, counters grew by {grew}")
+    (failure,) = out["failures"]
+    drains = _drains(failure["error"])
+    check(failure["preempted"] and [s for s, _ in drains]
+          == [FT_PREEMPT_STEP] * GANG_WORLD,
+          f"14b: the ranks drained at {drains}, want step "
+          f"{FT_PREEMPT_STEP} on {GANG_WORLD} ranks: "
+          f"{failure['error'][:400]}")
+    check(len(set(out["per_rank_params_sha256"])) == 1,
+          "14b: the resumed ranks' parameters differ")
+    differ = _params_equal(torch, out["params"], clean["params"])
+    check(not differ, f"14b: the resumed gang's parameters differ from the "
+                      f"clean gang's in {len(differ)} tensors, e.g. "
+                      f"{differ[:4]}")
+    resumed = steps - FT_PREEMPT_STEP
+    for r, hist in enumerate(out["per_rank_history"]):
+        want = {k: 12 * resumed for k in KERNEL_SYMBOLS}
+        check(hist[-1]["launches"] == want,
+              f"14b: resumed rank {r} counted {hist[-1]['launches']}, want "
+              f"{want}")
+        counts[f"14b resumed rank {r}"] = hist[-1]["launches"]
+    recovery, backoff = _recovery(out, "14b")
+    log(f"[14b] {FT_PREEMPT_PLAN} under fit_spmd(world_size={GANG_WORLD}): "
+        f"{FT_ROWS} rows, batch {FT_GANG_BATCH} a rank, {steps} steps; both "
+        f"ranks drained after step {FT_PREEMPT_STEP}, drain seconds "
+        f"{[round(t, 3) for _, t in drains]} by rank (the notice at the "
+        f"step boundary to the emergency checkpoint committed, host clock; "
+        f"the grace is {FT_GRACE_S:.0f} s by default) for "
+        f"{emergency_bytes / 2**30:.3f} GiB; recovery {recovery:.3f} s "
+        f"from the supervisor seeing the drain to the resumed gang's first "
+        f"step, {backoff:.3f} s of it the backoff; fit_spmd {fit_s:.1f} s; "
+        f"counters grew by {grew}; the resumed ranks equal to each other "
+        f"and to the clean gang (torch.equal)")
+    for r, (c, o) in enumerate(zip(clean["per_rank_history"],
+                                   out["per_rank_history"])):
+        log(f"[14b] rank {r}: peak device memory {c[-1]['peak_bytes'] / 2**30:.3f} "
+            f"GiB (clean), {o[-1]['peak_bytes'] / 2**30:.3f} GiB (resumed); "
+            f"{c[-1]['step_ms']:.2f} ms a step (clean, CUDA events)")
+
+    # The driver's notice to a running gang (the real notice path).
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-14b-notice-")
+    marker = os.path.join(ckpt, "training")
+    job = create_spmd_job("smoke-preempt", world_size=GANG_WORLD, timeout=60)
+    outcome = {}
+
+    def run():
+        try:
+            job.run(gang_train_until_preempted, timeout=FT_LIMIT_S,
+                    per_rank_args=[(ds2.shard_tables(r), ckpt, marker)
+                                   for r in range(GANG_WORLD)])
+            outcome["error"] = "the gang finished without a notice"
+        except SPMDJobError as exc:
+            outcome["error"] = str(exc)
+
+    try:
+        job.start()
+        runner = threading.Thread(target=run, daemon=True)
+        runner.start()
+        deadline = time.monotonic() + FT_LIMIT_S
+        while not os.path.exists(marker) and runner.is_alive():
+            check(time.monotonic() < deadline, "14b: the gang never trained")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        job.request_preemption()
+        call_s = time.perf_counter() - t0
+        runner.join(FT_LIMIT_S)
+        check(not runner.is_alive(), "14b: the gang did not drain the notice")
+        notice_drains = _drains(outcome["error"])
+        files = sorted(n for n in os.listdir(ckpt) if n.endswith(".pt"))
+    finally:
+        job.stop()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(len(notice_drains) == GANG_WORLD
+          and len({s for s, _ in notice_drains}) == 1,
+          f"14b: request_preemption drained {notice_drains}: "
+          f"{outcome['error'][:400]}")
+    check(files == [f"step_emergency_{notice_drains[0][0]}.pt"],
+          f"14b: request_preemption left {files}")
+    check(call_s < FT_GRACE_S, f"14b: request_preemption took {call_s:.1f} s")
+    log(f"[14b] SPMDJob.request_preemption() on a running {GANG_WORLD}-rank "
+        f"gang returned in {call_s * 1e3:.1f} ms; both ranks drained after "
+        f"step {notice_drains[0][0]} in {[round(t, 3) for _, t in notice_drains]} "
+        f"s into {files[0]}")
+    clean_loss = clean["history"][-1]["train_loss"]
+    return clean_loss, counts, os.path.join(keep, os.path.basename(emergency))
+
+
+def phase_ft_elastic(torch, P, ds2, emergency, clean_loss):
+    """14c: 14b's ``step_emergency_6.pt`` alone in a fresh directory,
+    resumed by ``fit_spmd(world_size=1, elastic=True)`` over the same
+    2-shard dataset: the skip rescaled from 6 batches at world 2 to 12 at
+    world 1, 20 steps of 32 rows trained. Returns the rank's counts."""
+    import shutil
+
+    import numpy as np
+
+    ckpt = os.path.dirname(emergency)
+    try:
+        called = time.time()
+        out = P.fit_spmd(ft_factory(None, FT_GANG_BATCH, FT_GANG_EPOCHS), ds2,
+                         world_size=1, elastic=True, checkpoint_dir=ckpt,
+                         timeout=FT_LIMIT_S)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(out["world_size"] == 1 and out["restarts"] == 0,
+          f"14c: world {out['world_size']}, restarts {out['restarts']}")
+    (h,) = out["history"]
+    skip = FT_PREEMPT_STEP * GANG_WORLD
+    steps = FT_ROWS // FT_GANG_BATCH - skip
+    check(h["resume_skip"] == skip, f"14c: skipped {h['resume_skip']} "
+                                    f"batches, want {skip}")
+    check(h["samples"] == steps * FT_GANG_BATCH,
+          f"14c: trained {h['samples']} rows, want {steps * FT_GANG_BATCH}")
+    want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+    check(h["launches"] == want, f"14c: counted {h['launches']}, want {want}")
+    check(np.isfinite(h["train_loss"]), f"14c: loss {h['train_loss']}")
+    log(f"[14c] fit_spmd(world_size=1, elastic=True) from "
+        f"{os.path.basename(emergency)}: skip rescaled from "
+        f"{FT_PREEMPT_STEP} batches at world {GANG_WORLD} to "
+        f"{h['resume_skip']} at world 1, {steps} steps of {FT_GANG_BATCH} "
+        f"rows ({h['samples']}); epoch loss {h['train_loss']:.4f} (the "
+        f"resumed part; 14b's clean epoch {clean_loss:.4f}); "
+        f"{h['probe_first_step_at'] - called:.3f} s from the call to the "
+        f"first step (host clock); peak device memory "
+        f"{h['peak_bytes'] / 2**30:.3f} GiB")
+    return h["launches"]
+
+
+def phase_fault_tolerance(torch, P):
+    """14: a fresh 4-worker session holding 10c's GLUE rows; 14a, 14b
+    and 14c over them (store mode). Returns launch counts by tag."""
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.store import shm
+    from raydp_tpu_torch.store.object_store import DEFAULT_NODE, ObjectRef
+
+    t0 = time.perf_counter()
+    session = P.init(app_name="chip-smoke-14", num_workers=SESSION_WORKERS)
+    namespace = session.cluster.namespace
+    try:
+        frame = rdf.from_arrow(pa.table(synthetic_glue(np, FT_ROWS, GLUE_SEQ,
+                                                       30522)),
+                               num_partitions=ETL_PARTS)
+        ds1 = MLDataset.from_df(frame, num_shards=1)
+        ds2 = MLDataset.from_df(frame, num_shards=GANG_WORLD,
+                                rank_nodes=[DEFAULT_NODE] * GANG_WORLD)
+        check(all(isinstance(b, ObjectRef) for b in ds2.blocks),
+              "14: the GLUE frame's blocks are not in the object store")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks share the card
+        clean_counts, kill_counts = phase_ft_kill(torch, P, ds1)
+        counts = {"14a clean fit": clean_counts,
+                  "14a resumed rank 0": kill_counts}
+        clean_loss, preempt_counts, emergency = phase_ft_preempt(torch, P,
+                                                                 ds2)
+        counts.update(preempt_counts)
+        counts["14c rank 0"] = phase_ft_elastic(torch, P, ds2, emergency,
+                                                clean_loss)
+    finally:
+        P.stop()
+    left = shm.list_segments(f"rdp-{namespace}-")
+    check(not left, f"14: {len(left)} segments left after stop()")
+    log(f"[14] fault tolerance: {time.perf_counter() - t0:.1f} s in all "
+        f"(host clock)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3444,6 +3900,7 @@ def main() -> int:
     session_counts, session_ref = phase_session(torch, P, etl_ref)
     client, gang = phase_second_drivers(torch, P, session_ref)
     gang_fit = phase_window_and_gang(torch, P)
+    ft_counts = phase_fault_tolerance(torch, P)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
@@ -3453,6 +3910,7 @@ def main() -> int:
             "fine-tune through connect()": client["counts"]}
     for r, counts in enumerate(gang_fit):
         fits[f"fit_spmd rank {r}"] = counts
+    fits.update(ft_counts)
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

@@ -16,9 +16,12 @@ shm object store and return ObjectRefs.
 
 The process imports no torch: its launch env hides every CUDA device
 (``CUDA_VISIBLE_DEVICES=""``), and the engine's modules it loads import
-pyarrow and numpy only. The reference's telemetry riders (spans, job
-accounting, flight recorder, watchdog, shipped metrics) and its fault
-plan's task and heartbeat hooks are not ported yet.
+pyarrow and numpy only. The fault plan's hooks run here as in the
+reference (``raydp_tpu/cluster/worker_main.py:289-295, 435-441``): every
+task start is counted and offered to ``kill worker=…,task=K``, and an
+``hb_stall`` clause skips heartbeats. The reference's telemetry riders
+(spans, job accounting, flight recorder, watchdog, shipped metrics) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import time
 import traceback
 from collections import OrderedDict
 
+from raydp_tpu_torch import fault
 from raydp_tpu_torch.cluster import closure
 from raydp_tpu_torch.cluster.rpc import RpcClient, RpcServer
 from raydp_tpu_torch.store.object_store import ObjectStore
@@ -120,6 +124,8 @@ class Worker:
         # driver side.
         self._busy = 0
         self._busy_lock = threading.Lock()
+        # Tasks started by this process, for the fault plan's task=K.
+        self._task_seq = 0
         # At-most-once execution for id-carrying tasks: request_id ->
         # {"done": Event, "reply": dict | None, "error": str | None}.
         # A retry that re-delivers an envelope this process already saw
@@ -262,6 +268,7 @@ class Worker:
             # the tables are resolved here (zero-copy from local shm when
             # co-located with the submitter, chunked agent fetch if not).
             data = self._resolve_data_refs(req.get("data_refs", ()))
+            self._fault_task_hook()
             metrics.counter_add("worker/tasks")
             t0 = time.perf_counter()
             with metrics.timer("worker/task").time():
@@ -274,6 +281,15 @@ class Worker:
 
     def _resolve_data_refs(self, refs):
         return [self.ctx.get_table(r) for r in refs]
+
+    def _fault_task_hook(self) -> None:
+        """Count a task start (0-based, per process) and offer it to the
+        fault plan (``kill worker=…,task=K``)."""
+        with self._busy_lock:
+            seq = self._task_seq
+            self._task_seq += 1
+        if fault.active():
+            fault.on_task(self.worker_id, seq)
 
     def _pool(self):
         with self._task_pool_lock:
@@ -312,6 +328,7 @@ class Worker:
                     args = task.get("args", ())
                     kwargs = task.get("kwargs", {})
                     data = self._resolve_data_refs(task.get("data_refs", ()))
+                    self._fault_task_hook()
                     t0 = time.perf_counter()
                     with metrics.timer("worker/task").time():
                         value = fn(self.ctx, *args, *data, **kwargs)
@@ -342,7 +359,14 @@ class Worker:
     def run(self) -> None:
         self.register()
         missed = 0
+        beat_index = 0
         while not self._stop_event.wait(2.0):
+            beat_index += 1
+            # A plan's hb_stall clause skips this beat, so the master's
+            # liveness monitor sees a partitioned host.
+            if fault.active() and fault.on_heartbeat(beat_index - 1,
+                                                     worker=self.worker_id):
+                continue
             reply = self.master.try_call(
                 "Heartbeat", {"worker_id": self.worker_id}, timeout=8.0
             )

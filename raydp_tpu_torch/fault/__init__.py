@@ -1,25 +1,40 @@
-"""Deterministic fault injection and preemption notices: the serve subset.
+"""Deterministic fault injection and preemption notices.
 
-The counterpart of ``raydp_tpu/fault/`` for the serve plane. A seeded,
-env-driven plan (``RAYDP_TPU_FAULT_PLAN``, the same grammar in both
-packages) says which replica dies or stalls at which request, or which
-RPC is delayed or dropped. Hooks (all no-ops when no plan is set):
+The counterpart of ``raydp_tpu/fault/``. A seeded, env-driven plan
+(``RAYDP_TPU_FAULT_PLAN``, the same grammar in both packages) says which
+rank or worker dies at which step or task, which rank is preempted,
+which heartbeats are skipped, which replica dies or stalls at which
+request, or which RPC is delayed or dropped. Hooks (all no-ops when no
+plan is set):
 
+* :func:`on_train_step`: the estimator's step boundary (``kill`` /
+  ``preempt``);
+* :func:`on_task`: an ETL worker's task start (``kill``);
+* :func:`on_heartbeat`: a rank's or worker's heartbeat loop
+  (``hb_stall``);
 * :func:`on_serve_request`: a serving replica's request boundary
   (``serve_kill`` / ``latency``);
 * :func:`on_rpc`: an RPC client send (``rpc_delay`` / ``rpc_drop``).
 
-A real SIGTERM lands in :func:`preemption_requested` through
-:func:`install_sigterm_drain`; the replica drains and exits cleanly.
+Preemption notices are independent of the plan: a real SIGTERM (through
+:func:`install_sigterm_drain`) or a gang rank's ``Preempt`` RPC lands in
+the same :func:`preemption_requested` flag as the injected ``preempt``
+clause, so the estimator drains to an emergency checkpoint and raises
+:class:`PreemptionError` the same way for all of them.
 """
 from raydp_tpu_torch.fault.inject import (
     PREEMPT_GRACE_ENV,
+    PreemptionError,
     active,
+    ambient_rank,
     ambient_replica,
     install_sigterm_drain,
     mark_drained,
+    on_heartbeat,
     on_rpc,
     on_serve_request,
+    on_task,
+    on_train_step,
     plan_clauses,
     preemption_requested,
     request_preemption,
@@ -39,12 +54,17 @@ __all__ = [
     "PREEMPT_GRACE_ENV",
     "FaultClause",
     "FaultPlanError",
+    "PreemptionError",
     "active",
+    "ambient_rank",
     "ambient_replica",
     "install_sigterm_drain",
     "mark_drained",
+    "on_heartbeat",
     "on_rpc",
     "on_serve_request",
+    "on_task",
+    "on_train_step",
     "parse_plan",
     "plan_clauses",
     "preemption_requested",

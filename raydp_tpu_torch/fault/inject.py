@@ -1,17 +1,27 @@
-"""Process-local fault hooks and preemption state: the serve and RPC subset.
+"""Process-local fault hooks and preemption state.
 
-The counterpart of ``raydp_tpu/fault/inject.py`` for what the serve plane
-runs: :func:`on_serve_request` (``serve_kill``, ``latency``),
-:func:`on_rpc` (``rpc_delay``, ``rpc_drop``) and the preemption drain
-(:func:`request_preemption`, :func:`mark_drained`,
-:func:`install_sigterm_drain`). All hooks are cheap no-ops unless
-``RAYDP_TPU_FAULT_PLAN`` is set. The parsed plan is cached per plan
-string; each armed clause fires at most once per process.
+The counterpart of ``raydp_tpu/fault/inject.py``: the training hooks
+:func:`on_train_step` (``kill rank=…,step=K``, ``preempt``),
+:func:`on_task` (``kill worker=…,task=K``) and :func:`on_heartbeat`
+(``hb_stall``), the serve hook :func:`on_serve_request`
+(``serve_kill``, ``latency``), :func:`on_rpc` (``rpc_delay``,
+``rpc_drop``) and the preemption drain (:func:`request_preemption`,
+:func:`mark_drained`, :func:`install_sigterm_drain`). All hooks are
+cheap no-ops unless ``RAYDP_TPU_FAULT_PLAN`` is set. The parsed plan is
+cached per plan string; each armed clause fires at most once per
+process.
 
-Preemption is a process-wide flag: a real SIGTERM (via
-:func:`install_sigterm_drain`) sets it and arms a grace-deadline
-force-exit timer; the replica drains its in-flight work and calls
-:func:`mark_drained`, which cancels the timer.
+Preemption is a process-wide flag: the injected ``preempt`` clause, a
+real SIGTERM (via :func:`install_sigterm_drain`) and a gang rank's
+``Preempt`` RPC all set it and arm a grace-deadline force-exit timer.
+The training loop drains at a step boundary (an emergency checkpoint,
+then :class:`PreemptionError`); a serving replica drains its in-flight
+work. Either calls :func:`mark_drained`, which cancels the timer.
+
+Not ported: ``job=`` targeting reads the accounting plane's ambient job,
+which the port does not have yet, so a ``job=`` clause never fires here
+(as in the JAX package when no job is in scope); ``on_spawn`` belongs to
+the autoscaler, which is not ported either.
 """
 from __future__ import annotations
 
@@ -31,9 +41,24 @@ from raydp_tpu_torch.fault.plan import (
 from raydp_tpu_torch.utils import clock as _clock
 
 PREEMPT_GRACE_ENV = "RAYDP_TPU_PREEMPT_GRACE_S"
+# The gang rank's index in its environment (``spmd/job.py``'s
+# ``ENV_RANK``; this module stays free of the gang's imports).
+ENV_RANK = "RAYDP_SPMD_RANK"
 
 _DEFAULT_GRACE_S = 30.0
 _PREEMPT_EXIT_CODE = 143  # 128 + SIGTERM, what an undrained preemption looks like
+
+
+class PreemptionError(RuntimeError):
+    """Raised by a training loop after draining a preemption notice.
+
+    ``checkpoint_path`` is the emergency checkpoint written during the
+    drain, or ``None`` if no checkpoint directory was configured.
+    """
+
+    def __init__(self, message: str, checkpoint_path: Optional[str] = None):
+        super().__init__(message)
+        self.checkpoint_path = checkpoint_path
 
 
 class _State:
@@ -86,6 +111,87 @@ def _die(clause: FaultClause, what: str) -> None:
         flush=True,
     )
     os._exit(clause.code)
+
+
+def ambient_rank() -> Optional[int]:
+    """The SPMD rank of this process, if launched as a gang member."""
+    raw = os.environ.get(ENV_RANK)
+    if raw is None:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
+
+
+def on_train_step(step: int, rank: Optional[int] = None) -> bool:
+    """Hook at each estimator train-step boundary.
+
+    ``step`` is 1-based (the step that just completed). ``rank``
+    defaults to the ambient SPMD rank. A ``kill`` clause dies with its
+    code; a ``preempt`` clause delivers a notice
+    (:func:`request_preemption` with the clause's grace). Returns True
+    when a ``preempt`` clause without ``rank=`` fired: every rank of a
+    gang evaluates the same plan at the same step, so every rank got
+    this notice at this step, and the ranks may drain here without
+    agreeing first.
+    """
+    clauses = _clauses()
+    if not clauses:
+        return False
+    if rank is None:
+        rank = ambient_rank()
+    gang_wide = False
+    for c in clauses:
+        # No job is ever in scope here (module docstring): a job=
+        # clause never matches.
+        if not c.armed or c.fired or not c.matches_job(None, None):
+            continue
+        if c.kind == "kill" and c.step is not None and c.step == step:
+            if c.matches_rank(rank):
+                c.fired = True
+                _die(c, f"rank {rank} at train step {step}")
+        elif c.kind == "preempt" and c.step == step and c.matches_rank(rank):
+            c.fired = True
+            gang_wide = gang_wide or c.rank is None
+            request_preemption(grace_s=c.grace)
+    return gang_wide
+
+
+def on_task(worker_id: str, task_index: int) -> None:
+    """Hook when an ETL worker begins its ``task_index``-th task
+    (0-based, counted per process)."""
+    clauses = _clauses()
+    if not clauses:
+        return
+    for c in clauses:
+        if not c.armed or c.fired or not c.matches_job(None, None):
+            continue
+        if c.kind == "kill" and c.task is not None and c.task == task_index:
+            if c.matches_worker(worker_id):
+                c.fired = True
+                _die(c, f"worker {worker_id} at task {task_index}")
+
+
+def on_heartbeat(beat_index: int, rank: Optional[int] = None,
+                 worker: Optional[str] = None) -> bool:
+    """Hook per heartbeat; returns True when this beat must be skipped
+    (an ``hb_stall`` window covers ``beat_index``)."""
+    clauses = _clauses()
+    if not clauses:
+        return False
+    if rank is None and worker is None:
+        rank = ambient_rank()
+    for c in clauses:
+        if c.kind != "hb_stall" or not c.armed:
+            continue
+        if c.rank is not None and not c.matches_rank(rank):
+            continue
+        if c.worker is not None and not c.matches_worker(worker):
+            continue
+        if c.after <= beat_index < c.after + c.beats:
+            return True
+    return False
 
 
 def ambient_replica() -> Optional[int]:
@@ -174,7 +280,9 @@ def request_preemption(grace_s: Optional[float] = None) -> None:
 
     Sets the drain flag and arms a force-exit timer: if the process has
     not called :func:`mark_drained` within the grace window, it
-    hard-exits with code 143. ``grace_s <= 0`` disables the deadline.
+    hard-exits with code 143, as an undrained preemption does.
+    ``grace_s <= 0`` disables the deadline. ``grace_s`` None reads
+    ``RAYDP_TPU_PREEMPT_GRACE_S`` (default 30 s).
     """
     if grace_s is None:
         raw = os.environ.get(PREEMPT_GRACE_ENV)

@@ -22,13 +22,14 @@ Differences from the reference:
   (``cluster/closure.py``), as the session's tasks are.
 
 The reference's gang telemetry (trace and job context, events, flight
-recorder, watchdog, shipped metrics and the reports built on them), its
-arbiter admission and ``request_preemption`` are not ported yet.
+recorder, watchdog, shipped metrics and the reports built on them) and
+its arbiter admission are not ported yet.
 """
 from __future__ import annotations
 
 import logging
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -608,6 +609,30 @@ class SPMDJob:
                     self._blob_store.delete(object_id)
                 except Exception:
                     pass
+
+    def request_preemption(self) -> None:
+        """Deliver a preemption notice to every live rank
+        (``raydp_tpu/spmd/job.py:844-881``): each rank's ``Preempt``
+        handler sets its drain flag, so a training function finishes its
+        step, writes an emergency checkpoint and raises
+        ``PreemptionError``. A rank that does not answer gets SIGTERM
+        (which its drain handler routes the same way); a rank that has
+        exited is skipped. Each rank's grace is its
+        ``RAYDP_TPU_PREEMPT_GRACE_S``. Advisory: never raises."""
+        notified = set()
+        for rank, stub in list(self._stubs.items()):
+            try:
+                if stub.try_call("Preempt", {}, timeout=5.0) is not None:
+                    notified.add(rank)
+            except Exception:
+                pass
+        for rank, proc in enumerate(list(self._procs)):
+            if rank in notified or proc.poll() is not None:
+                continue
+            try:
+                proc.send_signal(signal.SIGTERM)
+            except OSError:
+                pass
 
     def get_rank_addresses(self) -> List[str]:
         """Host of each rank, rank-ordered (reference: mpi_job.py:337-339)."""

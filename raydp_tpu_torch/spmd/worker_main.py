@@ -15,10 +15,17 @@ a card of its own, gloo where ranks share a card or run on the CPU.
 
 The process imports no torch until a shipped function does (nor any
 other library of the card): functions arrive through the closure carrier
-(``cluster/closure.py``), and this module loads only the RPC layer and
-the store's fetch protocol. The reference's telemetry (shipped metrics,
-spans, flight recorder, watchdog, debug endpoint), its profile capture
-and its fault plan's preemption and heartbeat hooks are not ported yet.
+(``cluster/closure.py``), and this module loads only the RPC layer, the
+store's fetch protocol and the fault plane.
+
+Preemption (``raydp_tpu/spmd/worker_main.py:127-139, 431``): the
+driver's ``Preempt`` RPC and a SIGTERM (routed by
+:func:`~raydp_tpu_torch.fault.install_sigterm_drain` before the runner
+starts) both set the process's drain flag; a training function drains
+at its next step boundary. A plan's ``hb_stall`` clause silences this
+rank's heartbeats. The reference's telemetry (shipped metrics, spans,
+flight recorder, watchdog, debug endpoint) and its profile capture are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import threading
 import traceback
 from typing import Callable, Optional
 
+from raydp_tpu_torch import fault
 from raydp_tpu_torch.cluster import closure
 from raydp_tpu_torch.cluster.rpc import RpcClient, RpcServer
 from raydp_tpu_torch.spmd.job import (
@@ -192,7 +200,8 @@ class SPMDWorker:
         multihost = not driver_addr.startswith("127.0.0.1")
         self._server = RpcServer(
             WORKER_SERVICE,
-            {"RunFunction": self._on_run_function, "Stop": self._on_stop},
+            {"RunFunction": self._on_run_function, "Stop": self._on_stop,
+             "Preempt": self._on_preempt},
             host="0.0.0.0" if multihost else "127.0.0.1",
         )
         self._advertise = (
@@ -211,6 +220,17 @@ class SPMDWorker:
         self._stop_event.set()
         self._queue.put(None)
         return {"stopping": True}
+
+    def _on_preempt(self, req: dict) -> dict:
+        """The driver's preemption notice: sets the drain flag a SIGTERM
+        would (:func:`~raydp_tpu_torch.fault.request_preemption`, with
+        the request's ``grace_s`` or the environment's), so a training
+        function finishes its step, writes an emergency checkpoint and
+        raises ``PreemptionError``."""
+        grace = req.get("grace_s")
+        fault.request_preemption(
+            grace_s=float(grace) if grace is not None else None)
+        return {"preempting": True, "rank": self.rank}
 
     def _payload_blob(self, item: dict, key: str) -> Optional[bytes]:
         """Bytes for ``key`` (``fn`` / ``args``) of a queued dispatch.
@@ -306,7 +326,14 @@ class SPMDWorker:
         driver would orphan the whole gang (and the cards it holds)
         forever; result-posting only notices mid-function."""
         missed = 0
+        beat_index = 0
         while not self._stop_event.wait(HEARTBEAT_S):
+            beat_index += 1
+            # A plan's hb_stall clause skips this beat: no ping leaves,
+            # as from a partitioned host.
+            if fault.active() and fault.on_heartbeat(beat_index - 1,
+                                                     rank=self.rank):
+                continue
             if self.driver.try_call("Ping", {"rank": self.rank},
                                     timeout=5.0) is None:
                 missed += 1
@@ -347,6 +374,8 @@ def main() -> int:
         format=f"[spmd-{os.environ.get(ENV_RANK, '?')}] %(levelname)s "
                f"%(message)s",
     )
+    # SIGTERM drains a training function instead of killing the rank.
+    fault.install_sigterm_drain()
     try:
         return SPMDWorker().run()
     except Exception:

@@ -39,9 +39,44 @@ Differences from the JAX estimator, each deliberate:
   device. Neither reproduces ``jax.random``'s bits, so a scan fit
   matches JAX's only unshuffled and without dropout.
 * Checkpoints are ``torch.save`` files (model, optimizer, step, data
-  position, generator state), not orbax directories.
-* Step retries, fault and preemption hooks, telemetry and the
-  device-phase plane are later slices (ROADMAP Queue A items 5, 6).
+  position, writing world, generator state), not orbax directories.
+* There is no buffer donation. ``donate_state`` keeps the JAX package's
+  defaulting rules and says here that a step updates the parameters and
+  the optimizer state in place, so only a failure raised before the
+  update may be retried (below).
+* Telemetry and the device-phase plane are a later slice (ROADMAP
+  Queue A item 6).
+
+**Step retries** (``raydp_tpu/train/estimator.py:838-870``): with
+``donate_state=False`` (what an explicit ``max_failures > 0`` turns on),
+a step that raises before its update begins (forward, loss, backward;
+in a gang, before the rank enters the gradient exchange) is run again on
+the same batch, with the dropout generator put back, up to
+``max_failures`` times a fit: the retried step leaves the parameters a
+step that never failed would leave. A failure at or after the exchange
+or ``opt.step()`` has touched the state and re-raises at once, as does
+every failure with ``donate_state=True`` (the default); the supervisor's
+relaunch (:func:`~raydp_tpu_torch.train.spmd_fit.fit_spmd`) recovers
+those from the newest checkpoint. The scan path's unit is the step too:
+its eager steps (the CPU's, and the card's warm-up steps before the
+capture) retry the same way; a failed capture or replay of the CUDA
+graph re-raises. Most device faults (an illegal address, a failed
+launch) poison the CUDA context, so no retry in the same process can
+succeed: the budget helps with host-side and allocation errors, and the
+relaunch is the real recovery.
+
+**Preemption** (``:636-683, 902-910``): after each stream step and any
+scheduled save, :func:`raydp_tpu_torch.fault.on_train_step` runs when a
+fault plan is set, and a pending notice (an injected ``preempt``, a
+SIGTERM, a gang rank's ``Preempt`` RPC) drains:
+:meth:`Estimator._drain_preemption` writes ``step_emergency_<N>.pt`` at
+the exact data position, marks the drain done and raises
+:class:`~raydp_tpu_torch.fault.PreemptionError`. A gang's ranks drain
+after the same step, since ``save`` is collective: each rank's notice
+rides the ``[loss_sum, rows]`` stats of the gradient exchange, and all
+drain after the first step whose exchange carried one; a ``preempt``
+clause without ``rank=`` reaches every rank at the same step and drains
+there.
 
 **Multi-process mode** (``raydp_tpu/train/estimator.py:532-575,
 930-949, 1365-1406``): when ``torch.distributed`` is initialised with a
@@ -78,6 +113,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from raydp_tpu_torch import fault
 from raydp_tpu_torch.data.ml_dataset import MLDataset
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
@@ -86,9 +122,10 @@ from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
 
-#: Retention cap for mid-epoch checkpoints (``step_mid_<N>.pt``), as the
-#: JAX package's (``raydp_tpu/train/estimator.py:40-49``): beyond this
-#: many, the oldest are pruned after each save. ``0`` disables pruning.
+#: Retention cap for step-encoded checkpoints (``step_mid_<N>.pt`` and
+#: ``step_emergency_<N>.pt``), as the JAX package's
+#: (``raydp_tpu/train/estimator.py:40-49``): beyond this many, the oldest
+#: are pruned after each save. ``0`` disables pruning.
 #: Epoch-end (``step_<E>.pt``) and ``final.pt`` checkpoints are never
 #: pruned.
 CKPT_KEEP_ENV = "RAYDP_TPU_CKPT_KEEP"
@@ -113,6 +150,12 @@ def _dist_world() -> "tuple[int, int]":
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def _data_world() -> int:
+    """The world size a checkpoint records and a resume compares with:
+    the process group's size, 1 outside a gang."""
+    return _dist_world()[1]
 
 
 def _rank_seed(seed: int, rank: int) -> int:
@@ -155,10 +198,11 @@ class _StepClock:
 class _GradAllReduce:
     """The data-parallel gradient exchange of a multi-process fit: one
     ``all_reduce`` (sum) per bucket of at most ``BUCKET_CAP_MB`` of
-    gradients of one dtype, in parameter order, the rank's row count and
-    loss sum riding the first float32 bucket (a float64 pair of their
-    own where there is none). Every rank ends with the same bytes, so
-    the same optimizer keeps the ranks' parameters equal."""
+    gradients of one dtype, in parameter order, the rank's loss sum, row
+    count and preemption vote riding the first float32 bucket (a float64
+    triple of their own where there is none). Every rank ends with the
+    same bytes, so the same optimizer keeps the ranks' parameters equal,
+    and every rank reads the same count of votes."""
 
     def __init__(self, params):
         self.params = [p for p in params if p.requires_grad]
@@ -178,14 +222,18 @@ class _GradAllReduce:
         self.stats_bucket = next(
             (i for i, b in enumerate(self.buckets)
              if b[0].dtype == torch.float32), None)
+        # The last exchange's count of ranks that had a preemption notice.
+        self._votes: Optional[torch.Tensor] = None
 
-    def __call__(self, loss_sum: torch.Tensor, rows: int) -> torch.Tensor:
-        """All-reduce the gradients and ``[loss_sum, rows]``; divide the
-        gradients by the global rows. Returns the global mean loss."""
+    def __call__(self, loss_sum: torch.Tensor, rows: int,
+                 preempt: bool = False) -> torch.Tensor:
+        """All-reduce the gradients and ``[loss_sum, rows, preempt]``;
+        divide the gradients by the global rows. Returns the global mean
+        loss."""
         import torch.distributed as dist
 
-        stats = torch.stack([loss_sum.float(), torch.tensor(
-            float(rows), device=loss_sum.device)])
+        stats = torch.cat([loss_sum.float().reshape(1), torch.tensor(
+            [float(rows), float(preempt)], device=loss_sum.device)])
         flats = []
         for i, bucket in enumerate(self.buckets):
             parts = [p.grad.reshape(-1) if p.grad is not None
@@ -199,8 +247,9 @@ class _GradAllReduce:
             flats.append(stats.double())
         for flat in flats:
             dist.all_reduce(flat)
-        total = (flats[self.stats_bucket][-2:] if self.stats_bucket
+        total = (flats[self.stats_bucket][-3:] if self.stats_bucket
                  is not None else flats[-1]).clone()
+        self._votes = total[2]
         n_global = total[1]
         for i, (bucket, flat) in enumerate(zip(self.buckets, flats)):
             offset = 0
@@ -211,6 +260,13 @@ class _GradAllReduce:
                         n_global.to(flat.dtype))
                 offset += n
         return (total[0] / n_global).float()
+
+    def preempt_votes(self) -> int:
+        """How many ranks entered the last exchange with a preemption
+        notice (the same on every rank). Reading it waits for the step on
+        a card: free under gloo, whose exchange already waited for the
+        backward on the host; one sync a step under NCCL."""
+        return 0 if self._votes is None else int(self._votes.item())
 
 
 class TrainingCallback:
@@ -266,6 +322,8 @@ class Estimator:
         shard_params: bool = True,
         logical_rules: Optional[Sequence] = None,
         aux_losses: bool = False,
+        max_failures: Optional[int] = None,
+        donate_state: Optional[bool] = None,
         device: DeviceLike = "cuda",
     ):
         if epoch_mode not in ("auto", "stream", "scan"):
@@ -309,6 +367,29 @@ class Estimator:
         self.epoch_mode = epoch_mode
         self.scan_threshold_bytes = scan_threshold_bytes
         self.aux_losses = aux_losses
+        # The step retry budget and donate_state, with the JAX package's
+        # defaulting rules (raydp_tpu/train/estimator.py:241-273): an
+        # explicit budget above 0 with donate_state unset turns "donation"
+        # off so the retries happen; unset, the budget is 3 and inert.
+        # Here "donation" means the in-place update (module docstring).
+        explicit_retries = max_failures is not None
+        self.max_failures = 3 if max_failures is None else max_failures
+        if donate_state is None:
+            donate_state = not (explicit_retries and self.max_failures > 0)
+            if not donate_state:
+                logger.warning(
+                    "max_failures=%d requested: a step that fails before "
+                    "its update is retried (pass donate_state=True to "
+                    "re-raise every failure at once)", self.max_failures)
+        elif donate_state and explicit_retries and self.max_failures > 0:
+            logger.warning(
+                "donate_state=True makes the max_failures=%d retry budget "
+                "inert: a failed step re-raises at once", self.max_failures)
+        self.donate_state = bool(donate_state)
+        self._failures = 0
+        # Set by _train_step once the step starts to change the state (the
+        # gradient exchange or opt.step()): a failure after it is final.
+        self._update_begun = False
         # Set by fit(): which epoch path ran ('scan' or 'stream').
         self.effective_epoch_mode: Optional[str] = None
         # The training generator (dropout masks), seeded as JAX seeds its
@@ -320,6 +401,10 @@ class Estimator:
         self._loss_sum = torch.zeros((), device=self.device)
         self._step = 0
         self._resume_position: Optional[tuple] = None
+        # World size that wrote the restored checkpoint (None: unknown),
+        # and the per-rank batches the last resumed fit skipped.
+        self._resume_world: Optional[int] = None
+        self.resume_skip = 0
         self.history: List[Dict[str, float]] = []
         # Multi-process fits: the gradient exchange and the step clock,
         # live while a fit runs.
@@ -368,6 +453,7 @@ class Estimator:
                 "feature_columns and label_column must be configured "
                 "(label_column may be omitted with self_supervised=True)")
         epochs = num_epochs if num_epochs is not None else self.num_epochs
+        self._failures = 0
         rank, world = _dist_world()
         if self.mesh_spec.size > world:
             # An explicitly requested mesh that doesn't fit is a
@@ -411,10 +497,13 @@ class Estimator:
             # the global rows is the global batch mean's.
             (loss * len(x)).backward()
             t1 = clock.mark()
-            loss = self._allreduce(loss.detach() * len(x), len(x))
+            self._update_begun = True
+            loss = self._allreduce(loss.detach() * len(x), len(x),
+                                   fault.preemption_requested())
             t2 = clock.mark()
         else:
             loss.backward()
+            self._update_begun = True
         opt.step()
         if clock is not None:
             clock.steps.append((t0, t1, t2, clock.mark()))
@@ -422,8 +511,82 @@ class Estimator:
         self._loss_sum += loss
         return loss
 
+    def _run_step(self, step: Callable, x: torch.Tensor,
+                  y: Optional[torch.Tensor]) -> torch.Tensor:
+        """``step(x, y)`` under the retry budget (the module docstring):
+        an eager step that failed before its update runs again on the same
+        batch, the dropout generator put back, while the fit's failures
+        stay within ``max_failures``; any other failure re-raises."""
+        if self.donate_state or self.max_failures <= 0:
+            return step(x, y)
+        # A capture or replay of the CUDA graph is one launch that holds
+        # the update: never retried.
+        eager = not isinstance(step, CapturedStep) or (
+            step.warmed < step.warmup)
+        while True:
+            self._update_begun = not eager
+            saved = self._generator.get_state() if eager else None
+            try:
+                return step(x, y)
+            except Exception:
+                if self._update_begun:
+                    raise
+                self._failures += 1
+                if self._failures > self.max_failures:
+                    raise
+                logger.warning("train step failed before its update "
+                               "(%d/%d); retrying the batch",
+                               self._failures, self.max_failures,
+                               exc_info=True)
+                self._generator.set_state(saved)
+
+    def _preempt_due(self, gang_wide: bool) -> bool:
+        """Whether this step boundary drains. One process drains on its
+        own notice; a gang's ranks must drain after the same step, so a
+        rank drains when the step's exchange counted a notice, or when a
+        plan's ``preempt`` clause without ``rank=`` fired (every rank
+        gets it at this step)."""
+        if self._allreduce is None:
+            return fault.preemption_requested()
+        return gang_wide or self._allreduce.preempt_votes() > 0
+
+    def _drain_preemption(self, step: int, epoch: int, b_idx: int) -> None:
+        """A preemption notice landed: write ``step_emergency_<step>.pt``
+        at the data position ``(epoch, b_idx)`` (when ``checkpoint_dir``
+        is set), cancel the notice's force-exit deadline and raise
+        :class:`~raydp_tpu_torch.fault.PreemptionError`. Runs at a step
+        boundary, so the state saved is a finished optimizer step; in a
+        gang every rank enters it after the same step (``save`` is
+        collective)."""
+        t0 = time.perf_counter()
+        path = None
+        if self.checkpoint_dir:
+            path = self.save(self.checkpoint_dir, step=f"emergency_{step}",
+                             data_position=(epoch, b_idx))
+            logger.warning("preemption drain: emergency checkpoint at %s "
+                           "(step %d, epoch %d, batch %d)", path, step,
+                           epoch, b_idx)
+        else:
+            logger.warning("preemption drain: no checkpoint_dir "
+                           "configured; exiting without an emergency "
+                           "checkpoint")
+        drain_s = time.perf_counter() - t0
+        fault.mark_drained()
+        raise fault.PreemptionError(
+            f"preempted at step {step} (epoch {epoch}, batch {b_idx}); "
+            f"emergency checkpoint: {path or 'none'} (drained in "
+            f"{drain_s:.3f} s)", checkpoint_path=path)
+
     def _fit_stream(self, train_ds, evaluate_ds, epochs: int,
                     resume_from: Optional[str]) -> None:
+        """The stream epochs. A resume continues at the checkpoint's data
+        position; a checkpoint written by another world size has its
+        per-rank batch index rescaled by saved/current, as in the JAX
+        package (``raydp_tpu/train/estimator.py:761-780``): the same
+        global position lands on another per-rank index, rounding to
+        the nearest batch, and which rows follow is the new world's
+        shard plan, so a resize replays or skips at most about a batch
+        (approximate across worlds)."""
         loaders = self._loaders(train_ds, self.feature_columns,
                                 self.label_column, self.shuffle,
                                 self.drop_last)
@@ -432,6 +595,14 @@ class Estimator:
             self.restore_path(resume_from)
             if self._resume_position is not None:
                 start_epoch, skip_batches = self._resume_position
+                saved_world, cur_world = self._resume_world, _data_world()
+                if saved_world and saved_world != cur_world:
+                    skip_batches = int(round(skip_batches * saved_world
+                                             / cur_world))
+                    logger.info("elastic resume: world %d -> %d, per-rank "
+                                "skip rescaled to %d batches", saved_world,
+                                cur_world, skip_batches)
+        self.resume_skip = skip_batches
         if self._allreduce is not None:
             self._broadcast_state()
         first_step_at = None
@@ -447,7 +618,7 @@ class Estimator:
             for i, (x, y) in enumerate(self._batches(loaders)):
                 if i < to_skip:
                     continue
-                loss = self._train_step(x, y)
+                loss = self._run_step(self._train_step, x, y)
                 if self._clock is not None and first_step_at is None:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -460,6 +631,13 @@ class Estimator:
                         and self._step % self.save_every_steps == 0):
                     self.save(self.checkpoint_dir, step=f"mid_{self._step}",
                               data_position=(epoch, b_idx))
+                # The fault plane fires at this boundary, after the step
+                # and any scheduled save, and a notice drains here, so the
+                # emergency checkpoint holds a finished step.
+                gang_wide = (fault.on_train_step(self._step)
+                             if fault.active() else False)
+                if self._preempt_due(gang_wide):
+                    self._drain_preemption(self._step, epoch, b_idx)
                 if self.log_every and n_batches % self.log_every == 0:
                     logger.info("epoch %d step %d loss %.5f", epoch,
                                 n_batches, float(loss))  # sync: opt-in
@@ -590,7 +768,8 @@ class Estimator:
                 ye = None if yd is None else yd.index_select(0, perm)
             self._loss_sum.zero_()
             for i in range(0, n_steps * batch, batch):
-                step(xe[i:i + batch], None if ye is None else ye[i:i + batch])
+                self._run_step(step, xe[i:i + batch],
+                               None if ye is None else ye[i:i + batch])
             self._step += n_steps
             # The mean over the fused steps, padded rows included, as
             # JAX's losses.mean(); samples count the true rows.
@@ -740,8 +919,9 @@ class Estimator:
     def save(self, checkpoint_dir: str, step=None,
              data_position: Optional[tuple] = None) -> str:
         """Write ``step_<step>.pt`` (``final.pt`` without a step): model,
-        optimizer, step count, ``data_position=(epoch, batch)`` and the
-        dropout generator's state. Returns the path.
+        optimizer, step count, ``data_position=(epoch, batch)``, the
+        writing world size (``data_world``) and the dropout generator's
+        state. Returns the path.
 
         In a multi-process fit every rank must enter (as every rank
         enters orbax's save in the JAX package): the ranks' generator
@@ -767,6 +947,7 @@ class Estimator:
                 "step": self._step,
                 "data_epoch": epoch,
                 "data_batch": batch,
+                "data_world": _data_world(),
                 "generator": self._generator.get_state(),
             }
             if generators is not None:
@@ -802,14 +983,26 @@ class Estimator:
             torch.cuda.empty_cache()
 
     def restore_path(self, path: str) -> None:
-        """Restore everything :meth:`save` wrote from exactly ``path``."""
+        """Restore everything :meth:`save` wrote from exactly ``path``.
+
+        The dropout generator: a rank of the world size that wrote the
+        file resumes its own stream (``rank_generators`` in a gang, the
+        one ``generator`` outside); under another world size each rank
+        starts the stream a fresh rank of this world starts
+        (``_rank_seed``). A file without ``data_world`` (0: unknown, as
+        older files) restores as before: the rank's stream where the
+        gang's size matches, else rank 0's."""
         state = torch.load(path, map_location="cpu", weights_only=True)
         self._model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self._step = int(state["step"])
         rank, world = _dist_world()
+        saved_world = int(state.get("data_world", 0))
+        self._resume_world = saved_world if saved_world > 0 else None
         generators = state.get("rank_generators")
-        if generators is not None and len(generators) == world:
+        if self._resume_world not in (None, world):
+            self._generator.manual_seed(_rank_seed(self.seed, rank))
+        elif generators is not None and len(generators) == world:
             # The same gang's rank resumes its own dropout stream.
             self._generator.set_state(generators[rank])
         else:
@@ -826,20 +1019,22 @@ def _ckpt_keep() -> int:
         return _DEFAULT_CKPT_KEEP
 
 
-_MID_RE = re.compile(r"^step_mid_(\d+)\.pt$")
+_STEP_RE = re.compile(r"^step_(?:mid|emergency)_(\d+)\.pt$")
 
 
 def _prune_checkpoints(checkpoint_dir: str) -> None:
-    """Remove the oldest ``step_mid_<N>.pt`` beyond the retention cap,
+    """Remove the oldest step-encoded checkpoints (``step_mid_<N>.pt``
+    and ``step_emergency_<N>.pt`` together) beyond the retention cap,
     ordered by the step in the name, so the newest always survives.
     Only complete files count: :meth:`Estimator.save` renames a finished
-    file into place, and a ``*.tmp`` never matches."""
+    file into place, and a ``*.tmp`` never matches. Epoch-end and
+    ``final.pt`` files are never pruned."""
     keep = _ckpt_keep()
     if keep <= 0:
         return
     mids = sorted((int(m.group(1)), os.path.join(checkpoint_dir, n))
                   for n in os.listdir(checkpoint_dir)
-                  for m in [_MID_RE.match(n)] if m)
+                  for m in [_STEP_RE.match(n)] if m)
     for _, path in mids[:max(0, len(mids) - keep)]:
         try:
             os.remove(path)

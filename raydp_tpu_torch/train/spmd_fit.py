@@ -20,18 +20,28 @@ Shards reach the ranks in one of two ways, as in the JAX package:
   for the rest); the driver reads no data;
 * **in-memory**: the driver slices each rank's tables and ships them.
 
-Supervision: rank death or a registration timeout tears the gang down
-and relaunches it with jittered exponential backoff under a budget of
-``max_restarts`` (env ``RAYDP_TPU_MAX_RESTARTS``, default 3), resuming
-from the newest complete checkpoint in ``checkpoint_dir``.
+Supervision (``raydp_tpu/train/spmd_fit.py:158-221, 333-391``): rank
+death or a registration timeout tears the gang down and relaunches it
+with jittered exponential backoff under a budget of ``max_restarts``
+(env ``RAYDP_TPU_MAX_RESTARTS``, default 3), resuming from the newest
+complete checkpoint in ``checkpoint_dir``. A preemption notice (an
+injected ``preempt`` clause, a SIGTERM, or
+:meth:`~raydp_tpu_torch.spmd.job.SPMDJob.request_preemption`) drains
+every rank after the same step to a ``step_emergency_<N>.pt``
+checkpoint (the estimator's drain), so the relaunch loses nothing. A
+failure that names ``PreemptionError`` counts ``preemptions/total`` and
+every relaunch ``restarts/total`` in the process's metrics registry
+(``utils/profiling.py``). With ``elastic=True`` the gang may run on a
+world other than the dataset's shard count, the same blocks re-planned
+over it, and a registration shortfall of G of W ranks
+(``min_world_size <= G < W``) relaunches on G ranks; the estimator
+rescales its resume position to the new world.
 
-Left for later items of ROADMAP Queue A, each raising
-``NotImplementedError`` where a caller asks for it: ``elastic=True``
-(item 5, elastic resize, with the preemption drain and its
-``step_emergency_`` checkpoints), and the control plane's gang lease
-(item 7, when ``RAYDP_TPU_SCHED_CAPACITY`` turns arbitration on). The
-JAX package's accounting scope, events and flight recorder (item 6) are
-not kept.
+Left for later items of ROADMAP Queue A: the control plane's gang lease
+(item 7, raising ``NotImplementedError`` when
+``RAYDP_TPU_SCHED_CAPACITY`` turns arbitration on), and the JAX
+package's accounting scope, events, flight recorder and ``replay/steps``
+counter (item 6).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import hashlib
 import logging
 import os
 import random
+import re
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -49,6 +60,11 @@ logger = logging.getLogger(__name__)
 __all__ = ["fit_spmd"]
 
 SCHED_CAPACITY_ENV = "RAYDP_TPU_SCHED_CAPACITY"
+
+# "job X: only 2/4 ranks registered within 30s ...": the registration
+# shortfall SPMDJob raises when ranks never come up; elastic mode
+# shrinks the world to the ranks that did register.
+_REGISTERED_RE = re.compile(r"only (\d+)/(\d+) ranks registered")
 
 
 def _newest_checkpoint(checkpoint_dir: Optional[str]) -> Optional[str]:
@@ -110,9 +126,9 @@ def fit_spmd(
 ) -> Dict[str, Any]:
     """Train ``make_estimator()`` data-parallel over ``world_size``
     processes. ``train_ds`` (an :class:`MLDataset`) must have
-    ``num_shards == world_size``; rank r trains on shard r. Returns rank
-    0's history and its parameters as numpy arrays (the ranks hold equal
-    ones).
+    ``num_shards == world_size`` unless ``elastic``; rank r trains on
+    shard r. Returns rank 0's history and its parameters as numpy arrays
+    (the ranks hold equal ones).
 
     The factory runs INSIDE each rank (shipped by the closure carrier,
     ``cluster/closure.py``) after the rank has joined the gang's process
@@ -129,24 +145,32 @@ def fit_spmd(
     the newest checkpoint in ``checkpoint_dir``. Give the factory's
     estimator the SAME ``checkpoint_dir`` (and ``save_every_steps`` to
     bound the replay). Without ``checkpoint_dir`` a relaunch trains from
-    scratch.
+    scratch. A preempted gang (a failure naming ``PreemptionError``)
+    relaunches the same way, from its emergency checkpoint.
+
+    ``elastic=True``: ``train_ds``'s blocks are re-planned over the
+    gang's world when its shard count differs (store mode re-plans each
+    rank's slices of the same refs; ``rank_nodes`` is dropped), and a
+    registration shortfall of G of W ranks with
+    ``min_world_size <= G < W`` relaunches the gang on G ranks.
 
     The result has the JAX package's keys (``history``, ``params``,
-    ``per_rank_history``, ``restarts``, ``world_size``) and three of the
-    port's: ``backend`` (the process group's), ``start_s`` (seconds the
-    last launch's ``start()`` took) and ``per_rank_params_sha256`` (a
-    digest of each rank's final parameters and buffers)."""
+    ``per_rank_history``, ``restarts``, ``world_size``: the world that
+    finished) and four of the port's: ``backend`` (the process group's),
+    ``start_s`` (seconds the last launch's ``start()`` took),
+    ``per_rank_params_sha256`` (a digest of each rank's final parameters
+    and buffers) and ``failures``: one entry per failed launch, with its
+    ``error`` text, the wall-clock time the supervisor saw it (``at``),
+    whether it was a ``preempted`` drain, its ``world_size`` and the
+    ``backoff_s`` slept before the relaunch."""
     from raydp_tpu_torch.context import current_session
+    from raydp_tpu_torch.data.ml_dataset import MLDataset
     from raydp_tpu_torch.spmd import create_spmd_job
     from raydp_tpu_torch.spmd.job import SPMDJobError
     from raydp_tpu_torch.store.object_store import ObjectRef
+    from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
-    if elastic:
-        raise NotImplementedError(
-            "fit_spmd(elastic=True): elastic resize, with the preemption "
-            "drain and its step_emergency_ checkpoints, is not ported yet "
-            "(ROADMAP Queue A item 5)")
-    if train_ds.num_shards != world_size:
+    if not elastic and train_ds.num_shards != world_size:
         raise ValueError(
             f"train_ds must have num_shards == world_size "
             f"({train_ds.num_shards} != {world_size})")
@@ -171,20 +195,39 @@ def fit_spmd(
             cluster.master.address)
         namespace = cluster.namespace
         blocks = list(train_ds.blocks)
-        payloads = [(train_ds.shard_plan[r],) for r in range(world_size)]
     else:
         master = namespace = blocks = None
+
+    def _payloads(cur_world: int) -> List[tuple]:
+        ds = train_ds
+        if ds.num_shards != cur_world:
+            # The same blocks over the new world (elastic); rank_nodes
+            # named the old world's ranks, so it is dropped.
+            ds = MLDataset(list(train_ds.blocks), num_shards=cur_world,
+                           shuffle=train_ds.shuffle,
+                           shuffle_seed=train_ds.shuffle_seed,
+                           store=getattr(train_ds, "_store", None))
+        if store_mode:
+            return [(ds.shard_plan[r],) for r in range(cur_world)]
         # In-memory blocks: the driver slices each rank's shard tables
         # and ships only those rows.
-        payloads = [(train_ds.shard_tables(r),) for r in range(world_size)]
+        return [(ds.shard_tables(r),) for r in range(cur_world)]
 
-    job = create_spmd_job(job_name="torch-fit-spmd", world_size=world_size,
-                          num_procs_per_node=num_procs_per_node, hosts=hosts,
-                          env=env, timeout=60.0)
+    cur_world = world_size
+    job = job_world = None
     restarts = 0
     start_s = 0.0
+    failures: List[Dict[str, Any]] = []
     while True:
         resume = _newest_checkpoint(checkpoint_dir)
+        if job is None or job_world != cur_world:
+            # A new world needs a new gang definition; a relaunch at the
+            # same world reuses the job.
+            job = create_spmd_job(job_name="torch-fit-spmd",
+                                  world_size=cur_world,
+                                  num_procs_per_node=num_procs_per_node,
+                                  hosts=hosts, env=env, timeout=60.0)
+            job_world = cur_world
 
         def work(ctx, payload, resume_from=resume, _device=device,
                  _store_mode=store_mode, _master=master,
@@ -220,24 +263,43 @@ def fit_spmd(
             if restarts:
                 logger.warning(
                     "fit_spmd: relaunching gang (restart %d/%d, world "
-                    "%d%s)", restarts, max_restarts, world_size,
+                    "%d%s)", restarts, max_restarts, cur_world,
                     f", resume {os.path.basename(resume)}" if resume
                     else ", from scratch")
             t0 = time.perf_counter()
             job.start()
             start_s = time.perf_counter() - t0
             results = job.run(work, timeout=timeout,
-                              per_rank_args=payloads)
+                              per_rank_args=_payloads(cur_world))
             break
         except SPMDJobError as exc:
             err_text = str(exc)
+            failure = {"error": err_text, "at": time.time(),
+                       "preempted": "PreemptionError" in err_text,
+                       "world_size": cur_world, "backoff_s": 0.0}
+            failures.append(failure)
+            if failure["preempted"]:
+                _metrics.counter_add("preemptions/total")
             if restarts >= max_restarts:
                 raise SPMDJobError(
                     f"fit_spmd: restart budget exhausted ({max_restarts} "
                     f"restarts); last failure: {err_text}") from exc
             restarts += 1
+            _metrics.counter_add("restarts/total")
+            # Elastic shrink: a registration shortfall means ranks are
+            # gone; continue on those that came up (the job's count, else
+            # the message's).
+            m = _REGISTERED_RE.search(err_text)
+            if elastic and m:
+                got = (job.last_registered if job.last_registered
+                       is not None else int(m.group(1)))
+                if min_world_size <= got < cur_world:
+                    logger.warning("fit_spmd: elastic resize %d -> %d "
+                                   "ranks", cur_world, got)
+                    cur_world = got
             delay = restart_backoff_s * (2 ** (restarts - 1))
             delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
+            failure["backoff_s"] = delay
             logger.warning(
                 "fit_spmd: gang failed (%s); backing off %.1fs before "
                 "restart %d/%d", err_text.splitlines()[0][:160], delay,
@@ -253,8 +315,9 @@ def fit_spmd(
         "params": rank0.get("params"),
         "per_rank_history": [r["history"] for r in results],
         "restarts": restarts,
-        "world_size": world_size,
+        "world_size": cur_world,
         "backend": rank0["backend"],
         "start_s": start_s,
         "per_rank_params_sha256": [r["digest"] for r in results],
+        "failures": failures,
     }

@@ -17,7 +17,10 @@ see no card, and a scan fit from a frame in the session's object store
 counts every kernel launch. Slice 9: a gang of 2 SPMD ranks on the card,
 each launching the flash forward once a layer by its own counter. Slice 10:
 a two-rank ``fit_spmd`` of a tiny flash classifier whose ranks end with
-equal parameters, and the collective backend rule.
+equal parameters, and the collective backend rule. Slice 11: a 1-rank
+``fit_spmd`` killed at a checkpoint step and resumed, equal to a clean
+run, and a 2-rank injected preemption whose emergency checkpoint
+restores.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -1025,3 +1028,74 @@ def test_collective_backend_rule_on_card(cuda):
     assert collective_backend(n, "cuda") == "nccl"
     assert collective_backend(n + 1, "cuda") == "gloo"
     assert collective_backend(2, "cpu") == "gloo"
+
+
+# ------------------------------------------------------------ slice 11
+
+def _ft_factory(checkpoint_dir=None, save_every_steps=0):
+    """A rank's factory for the fault-tolerance tests: ``_spmd_estimator``
+    with checkpoints."""
+    def make_estimator():
+        import torch.distributed as dist
+
+        from raydp_tpu_torch.parallel import MeshSpec
+
+        return _graph_estimator(mode="stream",
+                                mesh=MeshSpec(dp=dist.get_world_size()),
+                                checkpoint_dir=checkpoint_dir,
+                                save_every_steps=save_every_steps)
+
+    return make_estimator
+
+
+def _assert_same_params(got, want):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert np.array_equal(got[k], v), k
+
+
+def test_fit_spmd_on_card_killed_and_resumed_equals_clean(cuda, tmp_path):
+    """A 1-rank ``fit_spmd`` of the tiny flash classifier (dropout 0.1)
+    killed right after ``step_mid_4.pt``: one relaunch resumes there and
+    ends with a clean run's parameters bit for bit."""
+    from raydp_tpu_torch.train import fit_spmd
+
+    ds = MLDataset([_token_cols(128, 16, 64, seed=6)], 1)
+    clean = fit_spmd(_ft_factory(), ds, world_size=1, timeout=300)
+    ckpt = str(tmp_path)
+    out = fit_spmd(_ft_factory(ckpt, 4), ds, world_size=1, timeout=300,
+                   env={"RAYDP_TPU_FAULT_PLAN": "kill:rank=0,step=4"},
+                   checkpoint_dir=ckpt, restart_backoff_s=0.1)
+    assert clean["restarts"] == 0 and out["restarts"] == 1
+    assert os.path.exists(os.path.join(ckpt, "step_mid_4.pt"))
+    assert out["history"][-1]["train_loss"] == (
+        clean["history"][-1]["train_loss"])
+    _assert_same_params(out["params"], clean["params"])
+
+
+def test_fit_spmd_on_card_preemption_drains_and_restores(cuda, tmp_path):
+    """``preempt:step=2,grace=0`` under a 2-rank ``fit_spmd``: both ranks
+    drain after step 2 into ``step_emergency_2.pt``, which restores into
+    a single-process estimator on the card; the resumed gang ends with a
+    clean gang's parameters."""
+    from raydp_tpu_torch.train import fit_spmd
+
+    ds = MLDataset([_token_cols(64, 16, 64, seed=6),
+                    _token_cols(64, 16, 64, seed=7)], 2)
+    clean = fit_spmd(_ft_factory(), ds, world_size=2, timeout=300)
+    ckpt = str(tmp_path)
+    out = fit_spmd(_ft_factory(ckpt), ds, world_size=2, timeout=300,
+                   env={"RAYDP_TPU_FAULT_PLAN": "preempt:step=2,grace=0"},
+                   checkpoint_dir=ckpt, restart_backoff_s=0.1)
+    (failure,) = out["failures"]
+    assert failure["preempted"] and out["restarts"] == 1
+    assert failure["error"].count("preempted at step 2 ") == 2
+    path = os.path.join(ckpt, "step_emergency_2.pt")
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    assert (state["step"], state["data_world"]) == (2, 2)
+    est = _graph_estimator(mode="stream")
+    est.restore_path(path)
+    for k, v in est.get_model().state_dict().items():
+        assert torch.equal(v.cpu(), state["model"][k]), k
+    assert est._resume_position == (0, 2) and est._resume_world == 2
+    _assert_same_params(out["params"], clean["params"])

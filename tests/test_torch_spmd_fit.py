@@ -15,8 +15,8 @@ gloo.
   the session's blocks itself (the driver reads none) and trains exactly
   as the in-memory run does.
 * ``num_shards != world_size`` raises as in the JAX package; the
-  default ``device="cuda"`` raises on a host with no card;
-  ``elastic=True`` and a mesh with tp > 1 raise ``NotImplementedError``.
+  default ``device="cuda"`` raises on a host with no card; a mesh with
+  tp > 1 raises ``NotImplementedError``.
 * Checkpoints written inside the gang (every rank enters ``save``)
   restore into a fresh single-process ``Estimator`` with the gang's
   parameters.
@@ -191,9 +191,12 @@ def test_fit_spmd_defaults_to_the_card(monkeypatch):
 
 
 def test_fit_spmd_elastic_and_wide_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=2,
-                 elastic=True, device="cpu")
+    """``elastic=True`` is ported (``tests/test_torch_fault_tolerance.py``
+    runs it): it lifts the shard/world check but still validates
+    ``min_world_size``. A mesh wider than data parallel is not ported."""
+    with pytest.raises(ValueError, match="min_world_size must be >= 1"):
+        fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=1,
+                 elastic=True, min_world_size=0, device="cpu")
     for axes in ({"tp": 2}, {"pp": 2}, {"sp": 2}):
         with pytest.raises(NotImplementedError, match="Queue A item 9"):
             MeshSpec(**axes)

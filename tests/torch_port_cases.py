@@ -24,7 +24,7 @@ import types
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Modules of the JAX package whose port the cases run against.
-PORTED = ("dataframe", "telemetry.progress", "utils.profiling", "context",
+PORTED = ("dataframe", "fault", "telemetry.progress", "utils.profiling", "context",
           "cluster", "store", "config", "utils.net", "utils.memory",
           "utils.sharding", "spmd", "data")
 # Test modules whose cases run whole programs in subprocesses, with the
