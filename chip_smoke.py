@@ -187,13 +187,43 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    dataset: the skip rescaled from 6 to 12 batches, 20 steps of 32 rows,
    a finite loss. Every fit runs 12 launches of each kernel a step by
    its process's counters; ``stop()`` leaves no segment.
+15. Telemetry, one run traced, billed and watched: ``RAYDP_TPU_TELEMETRY_DIR``
+   and ``RAYDP_TPU_POSTMORTEM_DIR`` set to fresh directories before a
+   fresh 4-worker ``init`` (the workers and ranks inherit them); 1,024
+   of 10c's GLUE rows through a ``mapPartitions`` stage and a
+   ``groupBy("label").count()`` exchange on the workers under an
+   ``etl`` job, then ``fit_spmd(world_size=2)`` of 13b's classifier,
+   one epoch, batch 32 a rank (16 steps a rank), store mode. Held: the
+   merged shards are one trace (the driver, the master's events, two or
+   more ETL workers' ``worker/task`` spans, both ranks' 16 ``train/step``
+   spans, every record the session's ``trace_id``, no rank span a root);
+   the Chrome trace loads and every record's aligned start lies in the
+   phase's wall window; ``trace_report()``'s critical path, its skew
+   table of 2 ranks x 16 steps and its data-wait/compute split, and the
+   ``analyze`` CLI; the ``fit-spmd`` job's chip-seconds in the gang's
+   and the session's ``usage_report()`` equal to the ranks' epoch wall
+   times summed (each epoch bills its own interval, so this holds that
+   shipping lost nothing), those epochs between half and all of 2 x the
+   launch's ``run()`` on the driver's clock, the ``etl`` job's
+   task-seconds and the shuffle or staged bytes it moved;
+   the Prometheus exposition's task, step-timer and ``raydp_job_*``
+   families and each rank's ``hbm/peak_bytes`` within 10% of its
+   ``max_memory_allocated``, ``/metrics`` and ``/healthz`` answering
+   200; the gang's events in order under the fit's job; a healthy
+   ``health_report()``, then a SIGTERMed ETL worker's postmortem bundle
+   (its event tail, every thread's stack), its respawn and its name in
+   ``dead_workers``; 12 launches of each kernel a step in each rank;
+   no segment left. Prints each process's spans and dropped spans, the
+   shard bytes, and the ranks' ms a step beside 13b's and 4b's beside
+   their earlier runs'.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a, 13b and each fit of 14) and read just after;
-phase 9's replicas, 12a's second driver and 12b's, 13b's and 14's ranks
+10c, 11c, 12a, 12b, 13a, 13b, each fit of 14 and 15) and read just
+after; phase 9's replicas, 12a's second driver and 12b's, 13b's, 14's
+and 15's ranks
 are new processes, whose counts start at 0 and are read by ``Ping`` or
 returned in their results (a rank that is killed or drains returns
 none). The last lines are a ``kernels`` JSON
@@ -1264,12 +1294,13 @@ def phase_finetune(torch, P):
     eager = fits["stream"][0]
     eager.get_model().train()
     stream_ms = time_ms(torch, lambda: eager._train_step(x, y), iters=10)
+    RATES["4b_stream_ms"] = stream_ms
     log(f"[4b] one stream train step (CUDA events, 10 steps): "
         f"{stream_ms:.3f} ms -> {GLUE_BATCH / stream_ms * 1e3:.1f} samples/s")
     device_profile(torch, "bert_base fine-tune, one stream train step",
                    lambda: eager._train_step(x, y), top=8)
-    graph_step_report(torch, "4b", est, x, y,
-                      {k: 12 for k in KERNEL_SYMBOLS})
+    RATES["4b_scan_ms"] = graph_step_report(torch, "4b", est, x, y,
+                                            {k: 12 for k in KERNEL_SYMBOLS})
     counts = [c for _, _, c in fits.values()]
     scan_losses = [h["train_loss"] for h in fits["scan"][1]]
     del fits, est, eager
@@ -3260,12 +3291,13 @@ def phase_window_dlrm(torch, P, session):
     torch.cuda.empty_cache()
 
 
-def gang_fit_factory(checkpoint_dir):
+def gang_fit_factory(checkpoint_dir, epochs=GANG_FIT_EPOCHS):
     """13b's estimator factory, run in each rank after it joined the
     gang (``fit_spmd`` ships it by value; it imports this file as the
     module ``chip_smoke`` for what it uses): 10c's bf16 flash classifier
     at bert_base width and depth, batch ``GANG_FIT_BATCH`` a rank, AdamW
-    2e-5, the stream path, a checkpoint each epoch. Its callback adds the
+    2e-5, the stream path, ``epochs`` epochs, a checkpoint each epoch
+    when ``checkpoint_dir`` is set (15 sets none). Its callback adds the
     rank's flash launch counts and peak device memory to every epoch's
     metrics (the class is made in the rank: the closure carrier ships no
     class of this file)."""
@@ -3292,7 +3324,7 @@ def gang_fit_factory(checkpoint_dir):
                 generator=torch.Generator().manual_seed(9)),
             optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5,
                                                   weight_decay=1e-4),
-            loss="softmax_ce", num_epochs=cs.GANG_FIT_EPOCHS,
+            loss="softmax_ce", num_epochs=epochs,
             batch_size=cs.GANG_FIT_BATCH,
             feature_columns=[f"t{i}" for i in range(cs.GLUE_SEQ)],
             label_column="label", feature_dtype=np.int32,
@@ -3376,6 +3408,8 @@ def phase_gang_fit(torch, P, session):
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     last = [hist[-1] for hist in ranks]
+    RATES["13b_step_ms"] = [h["step_ms"] for h in last]
+    RATES["13b_epoch0_step_ms"] = [hist[0]["step_ms"] for hist in ranks]
     first_at = min(hist[0]["first_step_at"] for hist in ranks)
     samples = sum(h["samples"] for h in last)
     rate = samples / max(h["time_s"] for h in last)
@@ -3851,6 +3885,350 @@ def phase_fault_tolerance(torch, P):
     return counts
 
 
+# Phase 15: the trace, accounting and health planes of telemetry over one
+# run: a fresh session's ETL on its workers into a 2-rank fit_spmd of
+# 13b's classifier, traced, billed and watched.
+TELEMETRY_ROWS = 1024  # of 10c's 8,192: 16 steps a rank at batch 32
+TELEMETRY_LIMIT_S = 600.0
+# Each rank's shipped hbm/peak_bytes against its allocator peak.
+BILLING_TOL = 0.10
+# The fit's chip-seconds are its ranks' epoch seconds by construction
+# (each epoch bills its own wall interval), so 15 holds them equal to
+# the histories' and, on the driver's own clock, between this share of
+# the world times the launch's run() and all of it: the rest of a run
+# is its set-up (building bert_base, joining the group, reading the
+# plan).
+RUN_SHARE_MIN = 0.5
+# Seconds the shards and the merged view are given to catch up: a worker
+# beats every 2 s, a rank every 5 s.
+TELEMETRY_WAIT_S = 30.0
+# The step times of earlier runs of this script that 15 prints beside
+# this run's (PERF.md's figures; H100 80GB HBM3, 700.00 W): 13b's ms a
+# step, and 4b's on the stream and the scan path.
+EARLIER_13B_STEP_MS = "531.9-532.3"
+EARLIER_4B_STREAM_MS, EARLIER_4B_SCAN_MS = "28.3-30.0", "14.10-14.12"
+
+
+def telemetry_stage(table):
+    """15's narrow stage, run on the workers: the rows whose label is a
+    class (all of 10c's)."""
+    import pyarrow.compute as pc
+
+    return table.filter(pc.greater_equal(table["label"], 0))
+
+
+def _wait_for(predicate, timeout_s=TELEMETRY_WAIT_S, interval_s=0.5):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = predicate()
+        if value or time.monotonic() >= deadline:
+            return value
+        time.sleep(interval_s)
+
+
+def _http_status(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10.0) as resp:
+            return resp.status
+    except urllib.error.HTTPError as err:
+        return err.code
+
+
+def _check_one_trace(records, ranks, workers):
+    """15's trace holds: one root, every record in its trace, the
+    driver (and the master it hosts), two or more ETL workers and both
+    ranks present, 16 steps a rank, no rank span a root of its own.
+    Returns the trace id and the rank processes' pids."""
+    roots = [r for r in records if r["name"] == "cluster/job"]
+    check(len(roots) == 1, f"15: {len(roots)} session roots in the shards")
+    trace_id, driver = roots[0]["trace_id"], roots[0]["pid"]
+    stray = sorted({r["name"] for r in records
+                    if r.get("trace_id") != trace_id})
+    check(not stray, f"15: records outside the session's trace: {stray}")
+    check(any(r["pid"] == driver and r["name"].startswith("cluster/worker_")
+              for r in records),
+          "15: no span of the master (worker lifecycle) in the shards")
+    task_workers = {r["attrs"].get("worker_id") for r in records
+                    if r["name"] == "worker/task"}
+    check(len(task_workers & set(workers)) >= 2,
+          f"15: worker/task spans from {sorted(task_workers)} only")
+    rank_pids = {r["attrs"]["rank"]: r["pid"] for r in records
+                 if r["name"] == "spmd/func"}
+    check(sorted(rank_pids) == list(range(GANG_WORLD)),
+          f"15: spmd/func spans of ranks {sorted(rank_pids)}")
+    for rank, pid in rank_pids.items():
+        steps = sum(r["name"] == "train/step" and r["pid"] == pid
+                    for r in records)
+        check(steps == ranks, f"15: rank {rank} has {steps} train/step "
+                              f"spans, want {ranks}")
+        roots = [r["name"] for r in records
+                 if r["pid"] == pid and r.get("parent_id") is None]
+        check(not roots, f"15: rank {rank} started traces: {roots[:5]}")
+    return trace_id, rank_pids
+
+
+def phase_telemetry(torch, P):
+    """15: one run traced, billed and watched (module docstring). Returns
+    each rank's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.store import shm
+    from raydp_tpu_torch.store.object_store import DEFAULT_NODE, ObjectRef
+    from raydp_tpu_torch.telemetry import (
+        accounting,
+        analyze,
+        chrome_trace,
+        export,
+        flight_recorder,
+        recorder,
+        render_prometheus,
+        serve_prometheus,
+    )
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    tdir = tempfile.mkdtemp(prefix="chip-smoke-15-telemetry-")
+    pdir = tempfile.mkdtemp(prefix="chip-smoke-15-postmortem-")
+    env = {export.TELEMETRY_DIR_ENV: tdir,
+           flight_recorder.POSTMORTEM_DIR_ENV: pdir}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    # This process's span ring holds the earlier phases' spans (other
+    # traces) and its default job is an earlier phase's ETL job: 15
+    # starts from neither, so its shards hold one run and the fit is an
+    # accounting root of its own.
+    recorder.clear()
+    accounting.set_process_job(None)
+    t0, wall0 = time.perf_counter(), time.time()
+    session = P.init(app_name="chip-smoke-15", num_workers=SESSION_WORKERS)
+    namespace = session.cluster.namespace
+    server = None
+    try:
+        cl = session.cluster
+        workers = sorted(w.worker_id for w in cl.alive_workers())
+        etl_job = accounting.mint_job("etl")
+        with accounting.job_scope(etl_job):
+            frame = rdf.from_arrow(
+                pa.table(synthetic_glue(np, TELEMETRY_ROWS, GLUE_SEQ,
+                                        30522)),
+                num_partitions=ETL_PARTS).mapPartitions(telemetry_stage)
+            labels = frame.groupBy("label").count().to_pandas()
+            check(int(labels["count"].sum()) == TELEMETRY_ROWS,
+                  f"15: the label counts sum to {labels['count'].sum()}")
+            ds = MLDataset.from_df(frame, num_shards=GANG_WORLD,
+                                   rank_nodes=[DEFAULT_NODE] * GANG_WORLD)
+        check(all(isinstance(b, ObjectRef) for b in ds.blocks),
+              "15: the frame's blocks are not in the object store")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks share the card
+        steps = ds.rows_per_shard // GANG_FIT_BATCH
+        _reset_counts()
+        out = P.fit_spmd(gang_fit_factory(None, epochs=1), ds,
+                         world_size=GANG_WORLD, timeout=TELEMETRY_LIMIT_S)
+        driver_counts = _counts()
+        fit_id = out["job_id"]
+        last = [hist[-1] for hist in out["per_rank_history"]]
+        want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+        for r, h in enumerate(last):
+            check(h["launches"] == want, f"15: rank {r} counted "
+                                         f"{h['launches']}, want {want}")
+        check(not any(driver_counts.values()),
+              f"15: the driver launched kernels {driver_counts}")
+
+        # One trace: the workers flush their rings on their beats.
+        def flushed():
+            recs = chrome_trace.load_span_records(tdir)
+            ids = {r["attrs"].get("worker_id") for r in recs
+                   if r["name"] == "worker/task"}
+            return recs if len(ids & set(workers)) >= 2 else None
+
+        report = cl.trace_report()  # flushes this process's ring first
+        records = _wait_for(flushed) or chrome_trace.load_span_records(tdir)
+        trace_id, rank_pids = _check_one_trace(records, steps, workers)
+        wall1 = time.time()
+        out_path = chrome_trace.write_chrome_trace(tdir)
+        with open(out_path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        offsets = chrome_trace.clock_offsets(records)
+        outside = [r["name"] for r in records
+                   if not wall0 - 1.0
+                   <= chrome_trace.aligned_interval(r, offsets)[0]
+                   <= wall1 + 1.0]
+        check(not outside, f"15: records outside the phase's wall window: "
+                           f"{outside[:5]}")
+        offset_spread = max(offsets.values()) - min(offsets.values())
+
+        # analyze: the critical path, the skew table, data against compute.
+        check(report is not None and report["critical_path"],
+              "15: trace_report() gave no critical path")
+        skew = report["step_skew"]["ranks"]
+        check({k: v["steps"] for k, v in skew.items()
+               if k.startswith("rank")}
+              == {f"rank {r}": steps for r in range(GANG_WORLD)},
+              f"15: the skew table {skew}")
+        split = report["data_compute"]
+        check(all(split.get(f"rank {r}", {}).get("compute_s", 0) > 0
+                  and split[f"rank {r}"]["data_s"] > 0
+                  for r in range(GANG_WORLD)),
+              f"15: data-wait against compute {split}")
+        cli = subprocess.run(
+            [sys.executable, "-m", "raydp_tpu_torch.telemetry.analyze",
+             tdir], cwd=ROOT, capture_output=True, text=True, timeout=120)
+        check(cli.returncode == 0, f"15: the analyze CLI exited "
+                                   f"{cli.returncode}: {cli.stderr[-500:]}")
+
+        # Billing: the gang's and the session's ledgers, exactly the
+        # ranks' epochs (shipping loses nothing), and inside the world
+        # times the launch's run() on the driver's clock.
+        wall_s = sum(h["time_s"] for h in last)
+        run_world_s = GANG_WORLD * out["run_s"]
+        session_usage = cl.usage_report()["jobs"]
+        for where, usage in (("gang", out["usage"]["jobs"]),
+                             ("session", session_usage)):
+            chip = usage.get(fit_id, {}).get("usage", {}).get(
+                "chip_seconds", 0.0)
+            check(chip > 0 and chip == wall_s,
+                  f"15: the {where}'s fit-spmd chip-seconds {chip!r}, the "
+                  f"ranks' epochs {wall_s!r} s")
+        check(RUN_SHARE_MIN * run_world_s <= wall_s <= run_world_s,
+              f"15: the ranks' epochs {wall_s} s against {GANG_WORLD} x "
+              f"run() {out['run_s']} s on the driver's clock")
+        etl = session_usage.get(etl_job.job_id, {}).get("usage", {})
+        check(etl.get("task_seconds", 0) > 0
+              and etl.get("shuffle_bytes", 0) + etl.get("staged_bytes", 0)
+              > 0, f"15: the etl job's usage {etl}")
+        fit_usage = session_usage[fit_id]["usage"]
+
+        # The exposition, the gauges, the debug endpoint.
+        view = cl.metrics_snapshot()
+        text = render_prometheus(view)
+        for needle in ('name="worker/task"', 'name="train/step"',
+                       f'raydp_job_chip_seconds_total{{job="{fit_id}"',
+                       "raydp_hbm_bytes"):
+            check(needle in text, f"15: {needle} not in the exposition")
+        for r, h in enumerate(last):
+            got = (out["metrics"]["workers"].get(f"rank-{r}", {})
+                   .get("gauges", {}).get("hbm/peak_bytes", 0.0))
+            check(abs(got - h["peak_bytes"]) <= BILLING_TOL
+                  * h["peak_bytes"],
+                  f"15: rank {r} shipped hbm/peak_bytes {got}, its peak "
+                  f"{h['peak_bytes']}")
+        health = cl.health_report()
+        check(health["healthy"] and not health["stalled_workers"],
+              f"15: health before the kill {health}")
+        server = serve_prometheus(cl.prometheus_metrics, 0,
+                                  host="127.0.0.1", health=cl.health_report)
+        base = f"http://127.0.0.1:{server.port}"
+        codes = {p: _http_status(base + p) for p in ("/metrics", "/healthz")}
+        check(codes == {"/metrics": 200, "/healthz": 200},
+              f"15: the debug endpoint answered {codes}")
+
+        # Events: the gang's lifecycle in order, under the fit's job.
+        timeline = cl.events_report(job=fit_id)["events"]
+        names = [e["name"] for e in timeline]
+        check("gang/launch" in names and "gang/teardown" in names
+              and names.index("gang/launch") < names.index("gang/teardown"),
+              f"15: the fit's events {names}")
+        check(all(e.get("job") == fit_id for e in timeline),
+              "15: an event of the fit's timeline names another job")
+
+        # Spans and drops a process, before the kill.
+        by_pid = {}
+        for r in records:
+            by_pid[r["pid"]] = by_pid.get(r["pid"], 0) + 1
+        labels_by_pid = chrome_trace.process_labels(records)
+        dropped = {"driver": metrics.snapshot()["counters"].get(
+            "spans/dropped", 0.0)}
+        for wid, sec in view["workers"].items():
+            dropped[wid] = sec.get("counters", {}).get("spans/dropped", 0.0)
+        shard_bytes = {}
+        for name in os.listdir(tdir):
+            if not name.endswith(".jsonl"):
+                continue  # trace.json: the merged output, not a shard
+            kind = name.split("-", 1)[0].split(".", 1)[0]
+            shard_bytes[kind] = (shard_bytes.get(kind, 0)
+                                 + os.path.getsize(os.path.join(tdir, name)))
+
+        # Health: SIGTERM a worker; its bundle, its respawn, the report.
+        victim = workers[0]
+        victim_pid = health["workers"][victim]["pid"]
+        cl._procs[victim].terminate()
+        bundles = _wait_for(lambda: [
+            n for n in os.listdir(pdir)
+            if n.startswith(f"postmortem-{victim_pid}-")
+            and n.endswith(".json")])
+        check(bool(bundles), f"15: no postmortem bundle of {victim}")
+        bundle = flight_recorder.read_bundle(os.path.join(pdir, bundles[0]))
+        check(bundle["reason"] == "SIGTERM"
+              and bundle["component"] == "worker"
+              and bundle["events"]
+              and any("MainThread" in k for k in bundle["stacks"]),
+              f"15: the bundle {bundle.get('reason')}, "
+              f"{bundle.get('component')}, {len(bundle.get('events', []))} "
+              f"events, stacks {list(bundle.get('stacks', {}))[:4]}")
+        respawned = _wait_for(lambda: len(
+            [w for w in cl.alive_workers() if w.worker_id != victim])
+            == SESSION_WORKERS, timeout_s=RESPAWN_WAIT_S)
+        check(respawned, f"15: {victim} was not respawned")
+        after = cl.health_report()
+        check(victim in after["dead_workers"],
+              f"15: health_report() does not name {victim}: "
+              f"{after['dead_workers']}")
+    finally:
+        if server is not None:
+            server.close()
+        P.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tdir, ignore_errors=True)
+        shutil.rmtree(pdir, ignore_errors=True)
+    left = shm.list_segments(f"rdp-{namespace}-")
+    check(not left, f"15: {len(left)} segments left after stop()")
+    phase_s = time.perf_counter() - t0
+    log(f"[15] one trace {trace_id}: {len(records)} records from "
+        f"{len(by_pid)} processes; clock offsets spread "
+        f"{offset_spread:.6f} s; the Chrome trace {len(events)} events")
+    for pid, n in sorted(by_pid.items()):
+        log(f"[15] {labels_by_pid.get(pid, pid)} (pid {pid}): {n} spans "
+            f"and events in the shards")
+    log(f"[15] dropped spans by process (counters): {dropped}; shard "
+        f"bytes by kind {shard_bytes}")
+    log(f"[15] fit-spmd job {fit_id}: {fit_usage}; the ranks' epochs "
+        f"{wall_s:.3f} s summed, {wall_s / run_world_s:.4f} of "
+        f"{GANG_WORLD} x run() {out['run_s']:.3f} s; etl job: {etl}")
+    log(f"[15] critical path {[s['name'] for s in report['critical_path']]}; "
+        f"skew {report['step_skew'].get('skew_p50')}; data/compute "
+        f"{ {k: v for k, v in split.items() if k.startswith('rank')} }")
+    nan = [float("nan")] * GANG_WORLD
+    for r, h in enumerate(last):
+        # 15 runs one epoch, so its mean holds the first step; 13b's
+        # epoch 0 does too, its last epoch does not.
+        log(f"[15] rank {r}: {h['step_ms']:.2f} ms a step (CUDA events, "
+            f"telemetry on, one epoch; 13b in this run: epoch 0 "
+            f"{RATES.get('13b_epoch0_step_ms', nan)[r]:.2f}, last epoch "
+            f"{RATES.get('13b_step_ms', nan)[r]:.2f}; earlier runs' 13b "
+            f"{EARLIER_13B_STEP_MS}), peak {h['peak_bytes'] / 2**30:.3f} GiB, "
+            f"launches {h['launches']}")
+    log(f"[15] 4b with the planes on: stream "
+        f"{RATES.get('4b_stream_ms', float('nan')):.3f} ms a step (earlier "
+        f"runs {EARLIER_4B_STREAM_MS}), scan "
+        f"{RATES.get('4b_scan_ms', float('nan')):.3f} (earlier runs "
+        f"{EARLIER_4B_SCAN_MS}; CUDA events)")
+    log(f"[15] telemetry phase {phase_s:.1f} s (host clock)")
+    return [h["launches"] for h in last]
+
+
 def main() -> int:
     import torch
 
@@ -3901,6 +4279,7 @@ def main() -> int:
     client, gang = phase_second_drivers(torch, P, session_ref)
     gang_fit = phase_window_and_gang(torch, P)
     ft_counts = phase_fault_tolerance(torch, P)
+    telemetry_counts = phase_telemetry(torch, P)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
@@ -3911,6 +4290,8 @@ def main() -> int:
     for r, counts in enumerate(gang_fit):
         fits[f"fit_spmd rank {r}"] = counts
     fits.update(ft_counts)
+    for r, counts in enumerate(telemetry_counts):
+        fits[f"15 fit_spmd rank {r}"] = counts
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

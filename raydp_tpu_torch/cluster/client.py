@@ -20,10 +20,17 @@ proxies:
 
 ``raydp_tpu_torch.connect(addr)`` installs a ClientSession as the
 process session, so the DataFrame/MLDataset/estimator surface works
-unchanged. Disconnecting never tears the remote cluster down. The
-reference's report proxies (metrics, Prometheus, trace, health,
-progress, scheduler, usage, events, dashboard, profile capture) read the
-telemetry plane and are not ported yet.
+unchanged. Disconnecting never tears the remote cluster down.
+
+The reports (``raydp_tpu/cluster/client.py:193-233, 293-376``):
+``metrics_snapshot``, ``health_report``, ``usage_report``,
+``events_report`` and ``progress_report`` are the master's, through its
+RPCs; ``prometheus_metrics`` renders the remote view here, and
+``trace_report`` analyses the telemetry dir this client shares with the
+session. Task submissions carry the submitting thread's trace context
+onto the pool threads that send them. Left for later slices:
+``scheduler_report`` (ROADMAP item 7), ``dashboard_report`` (item 6.5)
+and ``capture_profile`` (item 6.4).
 """
 from __future__ import annotations
 
@@ -188,10 +195,42 @@ class _RemoteMaster:
             "master ClusterResources",
         )
 
+    def metrics_snapshot(self) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("MetricsSnapshot", {}),
+            "master MetricsSnapshot",
+        )["snapshot"]
+
+    def health_report(self) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("HealthReport", {}),
+            "master HealthReport",
+        )["report"]
+
     def progress_report(self) -> dict:
         return _retry_idempotent(
             lambda: self._client.call("ProgressReport", {}),
             "master ProgressReport",
+        )["report"]
+
+    def usage_report(self) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("UsageReport", {}),
+            "master UsageReport",
+        )["report"]
+
+    def record_gang(self, gang: str, views: dict) -> None:
+        # Idempotent: the master keys the views by gang and rank.
+        _retry_idempotent(
+            lambda: self._client.call("GangReport",
+                                      {"gang": gang, "views": views}),
+            "master GangReport",
+        )
+
+    def events_report(self, job: Optional[str] = None) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("EventsReport", {"job": job}),
+            "master EventsReport",
         )["report"]
 
     def mark_worker_dead(self, worker_id: str, reason: str = "") -> None:
@@ -252,6 +291,55 @@ class RemoteCluster:
     def cluster_resources(self) -> dict:
         return self.master.cluster_resources()
 
+    def metrics_snapshot(self) -> dict:
+        """The remote master's merged telemetry view (its ``driver`` entry
+        is the session-owning process, not this client)."""
+        return self.master.metrics_snapshot()
+
+    def prometheus_metrics(self) -> str:
+        """The remote view rendered here: only the pickled snapshot
+        crosses the wire."""
+        from raydp_tpu_torch.telemetry import render_prometheus
+
+        return render_prometheus(self.metrics_snapshot())
+
+    def trace_report(self) -> Optional[dict]:
+        """Analyse the merged trace like ``Cluster.trace_report``: useful
+        where this client shares ``RAYDP_TPU_TELEMETRY_DIR`` with the
+        session's host; None where the directory is not set here."""
+        from raydp_tpu_torch.telemetry import (
+            analyze,
+            flush_spans,
+            telemetry_dir,
+        )
+
+        directory = telemetry_dir()
+        if directory is None:
+            return None
+        flush_spans()
+        return analyze.trace_report(directory)
+
+    def health_report(self) -> dict:
+        """The remote master's aggregated health (the shape of
+        ``Cluster.health_report``; its ``driver`` entry is the
+        session-owning process)."""
+        return self.master.health_report()
+
+    def usage_report(self) -> dict:
+        """Per-job usage folded on the session's owner (the shape of
+        ``Cluster.usage_report``)."""
+        return self.master.usage_report()
+
+    def record_gang(self, gang: str, views: dict) -> None:
+        """A finished gang's rank views to the session's master (the
+        shape of ``Cluster.record_gang``)."""
+        self.master.record_gang(gang, views)
+
+    def events_report(self, job: Optional[str] = None) -> dict:
+        """The event timeline and MTTR from the master's shards (the
+        shape of ``Cluster.events_report``)."""
+        return self.master.events_report(job=job)
+
     def progress_report(self) -> dict:
         """Stage progress as seen from THIS client (DataFrame stages
         run on the submitting driver), with the cluster-owning
@@ -300,6 +388,11 @@ class RemoteCluster:
         }
         if staged:
             payload["data_refs"] = staged
+        # The RPC leaves from a pool thread: capture the submitting
+        # thread's trace context (as Cluster.submit_async does).
+        from raydp_tpu_torch.telemetry import propagation as _prop
+
+        trace_ctx = _prop.current_context()
 
         def run():
             preferred = worker_id
@@ -348,7 +441,8 @@ class RemoteCluster:
 
         def run_and_discard():
             try:
-                return run()
+                with _prop.propagated(trace_ctx):
+                    return run()
             finally:
                 self._discard_staged(staged)
 
@@ -365,16 +459,20 @@ class RemoteCluster:
         futures: List[Future] = [Future() for _ in specs]
         if not specs:
             return futures
+        from raydp_tpu_torch.telemetry import propagation as _prop
+
+        trace_ctx = _prop.current_context()
 
         def orchestrate():
-            try:
-                self._run_batch(
-                    list(specs), futures, timeout, retries, meta_sink
-                )
-            except BaseException as exc:  # noqa: BLE001
-                for f in futures:
-                    if not f.done():
-                        f.set_exception(exc)
+            with _prop.propagated(trace_ctx):
+                try:
+                    self._run_batch(
+                        list(specs), futures, timeout, retries, meta_sink
+                    )
+                except BaseException as exc:  # noqa: BLE001
+                    for f in futures:
+                        if not f.done():
+                            f.set_exception(exc)
 
         self._pool.submit(orchestrate)
         return futures

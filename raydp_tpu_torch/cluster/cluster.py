@@ -18,9 +18,20 @@ doRequestTotalExecutors/doKillExecutors): ``request_workers`` /
 death when holder-owned (the external-shuffle-service capability —
 shuffle state outliving executors — reference C16).
 
-The reference's observability (metrics endpoint, time-series and SLO
-planes, trace and job context, flight recorder, reports and gang
-profiling) and its fault plan's spawn hooks are not ported yet.
+Telemetry (``raydp_tpu/cluster/cluster.py:109-204, 644-751``):
+``start`` mints the session's trace root (``cluster/job``) and hands it,
+with the ambient job, to every worker's launch env; it arms the
+driver's flight recorder (no signal handlers: the driver is the user's
+process), logs and watchdog, and serves the merged view at ``/metrics``
+when ``RAYDP_TPU_METRICS_PORT`` is set. Task submissions carry the
+submitting thread's trace context and job onto the pool threads that
+send them. :meth:`Cluster.metrics_snapshot`, :meth:`trace_report`,
+:meth:`usage_report`, :meth:`events_report` and :meth:`health_report`
+read the planes; worker churn lands on the event timeline.
+
+Left for later slices: the time-series and SLO planes and
+``dashboard_report`` (ROADMAP item 6.5), ``capture_profile`` (item 6.4),
+``scheduler_report`` and the fault plan's spawn hooks (item 7).
 """
 from __future__ import annotations
 
@@ -120,6 +131,8 @@ class Cluster:
         self._restart_history: Dict[str, List[float]] = {}
         self._elastic_stop = threading.Event()
         self._elastic_thread: Optional[threading.Thread] = None
+        self._trace_ctx = None
+        self._metrics_server = None
         self._log_dir = os.path.join(
             tempfile.gettempdir(), "raydp_tpu_torch",
             f"{_slug(config.app_name)}-{os.getpid()}",
@@ -128,6 +141,26 @@ class Cluster:
     # -- lifecycle ------------------------------------------------------
     def start(self) -> None:
         os.makedirs(self._log_dir, exist_ok=True)
+        # The session's trace root: every span recorded in this session
+        # (driver threads, master handlers, worker processes) parents
+        # under it, so a whole run is one trace.
+        from raydp_tpu_torch.telemetry import flight_recorder as _flight
+        from raydp_tpu_torch.telemetry import logs as _logs
+        from raydp_tpu_torch.telemetry import propagation as _prop
+        from raydp_tpu_torch.telemetry import watchdog as _watchdog
+
+        self._trace_ctx = _prop.mint_context(
+            "cluster/job",
+            app=self.config.app_name,
+            namespace=self.namespace,
+        )
+        _prop.set_process_context(self._trace_ctx)
+        _flight.install(component="driver", signals=False)
+        _logs.install()
+        _watchdog.ensure_started()
+        _flight.record("state", "cluster_start", namespace=self.namespace,
+                       app=self.config.app_name,
+                       num_workers=self.config.num_workers)
         nodes = (
             pl.detect_nodes(self.config.num_virtual_nodes)
             if self.config.num_virtual_nodes
@@ -166,6 +199,31 @@ class Cluster:
         )
         self._elastic_thread.start()
         self._warm_workers_async()
+        self._serve_metrics()
+
+    def _serve_metrics(self) -> None:
+        """Serve the merged Prometheus view at ``/metrics`` (and the debug
+        routes) when ``RAYDP_TPU_METRICS_PORT`` is set. A taken port does
+        not fail the session's start."""
+        from raydp_tpu_torch.telemetry import (
+            METRICS_PORT_ENV,
+            serve_prometheus,
+        )
+
+        port = os.environ.get(METRICS_PORT_ENV)
+        if not port:
+            return
+        try:
+            self._metrics_server = serve_prometheus(
+                self.prometheus_metrics, int(port),
+                health=self.health_report,
+                progress=self.progress_report,
+                events=self.events_report,
+            )
+            logger.info("prometheus scrape endpoint on :%d/metrics",
+                        self._metrics_server.port)
+        except Exception:
+            logger.exception("metrics endpoint failed to start")
 
     @property
     def log_dir(self) -> str:
@@ -217,6 +275,7 @@ class Cluster:
         Restarts are counted in the metrics registry
         (``worker_restarts/<worker>``).
         """
+        from raydp_tpu_torch.telemetry import events as _events
         from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
         window_s = 600.0
@@ -248,12 +307,18 @@ class Cluster:
                         self._restarts_used += 1
                 if self.master is None:
                     return
+                _events.emit("worker/dead", worker=wid, node=node,
+                             rc=proc.returncode)
                 self.master.mark_worker_dead(
                     wid, reason=f"process exited rc={proc.returncode}"
                 )
                 if allow:
                     _metrics.counter_add(f"worker_restarts/{wid}")
                     new_id = self._spawn_worker(node_id=node)
+                    _events.emit(
+                        "worker/restart", worker=wid, respawned_as=new_id,
+                        node=node, restarts_in_window=len(history),
+                    )
                     with self._lock:
                         # Lineage carry-over: if the respawn crash-loops,
                         # it exhausts this same window, not a fresh one.
@@ -350,6 +415,17 @@ class Cluster:
         bundle = self.pg.bundles[index % len(self.pg.bundles)]
         return bundle.node_id or "node-0"
 
+    def _child_trace_env(self) -> Dict[str, str]:
+        """The trace and the job a child process joins: the session's
+        trace root and the ambient job (no entry where there is none)."""
+        from raydp_tpu_torch.telemetry import accounting as _acct
+        from raydp_tpu_torch.telemetry import propagation as _prop
+
+        return {
+            **_prop.env_for_child(self._trace_ctx),
+            **_acct.env_for_child(),
+        }
+
     def _spawn_worker(self, node_id: Optional[str] = None) -> str:
         seq = next(self._worker_seq)
         worker_id = f"w{seq}"
@@ -374,13 +450,16 @@ class Cluster:
             ],
             node_id=node_id,
             log_path=os.path.join(self._log_dir, f"{worker_id}.log"),
-            env=dict(_CHILD_ENV),
+            env={**_CHILD_ENV, **self._child_trace_env()},
             cwd=_repo_root(),
         )
         proc = self.launcher.launch(spec)
         with self._lock:
             self._procs[worker_id] = proc
             self._worker_nodes[worker_id] = node_id
+        from raydp_tpu_torch.telemetry import events as _events
+
+        _events.emit("worker/spawn", worker=worker_id, node=node_id)
         return worker_id
 
     def shutdown(self, del_obj_holder: bool = True, fast: bool = False) -> None:
@@ -392,6 +471,10 @@ class Cluster:
         so RPCs to/from the master would race executor shutdown.
         """
         self._elastic_stop.set()  # teardown must never trigger respawns
+        from raydp_tpu_torch.telemetry import flight_recorder as _flight
+
+        _flight.record("state", "cluster_shutdown",
+                       namespace=self.namespace, fast=fast)
         with self._lock:
             worker_ids = list(self._procs)
         if fast:
@@ -411,7 +494,15 @@ class Cluster:
         else:
             for worker_id in worker_ids:
                 self._stop_worker(worker_id, kill_objects=False)
+            self._flush_telemetry()
         self._pool.shutdown(wait=False)
+        if self._metrics_server is not None:
+            try:
+                self._metrics_server.close()
+            except Exception:  # pragma: no cover - teardown best-effort
+                pass
+            self._metrics_server = None
+        self._reset_trace_context()
         if self.master is not None:
             if del_obj_holder:
                 self.release_holder()
@@ -419,6 +510,37 @@ class Cluster:
         # objects on remote nodes must remain fetchable until
         # release_holder() (reference: stop_spark(del_obj_holder=False),
         # context.py:208-215).
+
+    def _reset_trace_context(self) -> None:
+        """Drop the session's trace context, if it is still this
+        session's: a driver may start a second session before the first
+        is torn down."""
+        if self._trace_ctx is None:
+            return
+        from raydp_tpu_torch.telemetry import propagation as _prop
+
+        if _prop.process_context() == self._trace_ctx:
+            _prop.set_process_context(None)
+        self._trace_ctx = None
+
+    def _flush_telemetry(self) -> None:
+        """Write the master's lifecycle events and the driver's spans to
+        the telemetry dir on a graceful stop (a no-op without one). The
+        workers have stopped, so their final snapshots are merged."""
+        from raydp_tpu_torch.telemetry import (
+            flush_spans,
+            telemetry_dir,
+            write_events,
+        )
+
+        if telemetry_dir() is None:
+            return
+        try:
+            if self.master is not None:
+                write_events(self.master.telemetry.events())
+            flush_spans()
+        except Exception:  # pragma: no cover - telemetry must not block exit
+            logger.exception("telemetry flush failed")
 
     def release_holder(self) -> None:
         """Unlink holder-owned objects, stop agents + the master service."""
@@ -519,6 +641,74 @@ class Cluster:
     def cluster_resources(self) -> dict:
         return self.master.cluster_resources()
 
+    def metrics_snapshot(self) -> dict:
+        """Merged cluster-wide metrics: per-worker views (heartbeat-shipped
+        deltas, tombstoned final snapshots for dead workers), a cross-worker
+        aggregate, lifecycle events, and the driver's own registry."""
+        if self.master is not None:
+            return self.master.metrics_snapshot()
+        from raydp_tpu_torch.utils.profiling import metrics as _m
+
+        return {"workers": {}, "aggregate": {}, "events": [],
+                "driver": _m.snapshot()}
+
+    def prometheus_metrics(self) -> str:
+        """The merged view as Prometheus text exposition v0.0.4."""
+        from raydp_tpu_torch.telemetry import render_prometheus
+
+        return render_prometheus(self.metrics_snapshot())
+
+    def trace_report(self) -> Optional[dict]:
+        """Critical path, per-rank step skew and data-wait against
+        compute over the run's merged trace
+        (:mod:`raydp_tpu_torch.telemetry.analyze`). Flushes the driver's
+        own spans first; workers' arrive as they flush (each heartbeat
+        and on exit). None unless ``RAYDP_TPU_TELEMETRY_DIR`` is set."""
+        from raydp_tpu_torch.telemetry import (
+            analyze,
+            flush_spans,
+            telemetry_dir,
+        )
+
+        directory = telemetry_dir()
+        if directory is None:
+            return None
+        flush_spans()
+        return analyze.trace_report(directory)
+
+    def usage_report(self) -> dict:
+        """Per-job usage folded from the merged view: chip-seconds (CUDA
+        device seconds here), task-seconds, shuffle/staged/fetched
+        bytes, each billed to the job in scope when the work ran; also
+        exported as the ``raydp_job_*`` Prometheus families."""
+        from raydp_tpu_torch.telemetry import accounting as _acct
+
+        return _acct.usage_report(self.metrics_snapshot())
+
+    def record_gang(self, gang: str, views: dict) -> None:
+        """Bill a finished SPMD gang's final rank views with the session
+        (``fit_spmd`` calls it after each launch; see
+        :meth:`AppMaster.record_gang`)."""
+        self.master.record_gang(gang, views)
+
+    def events_report(self, job: Optional[str] = None) -> dict:
+        """The cluster event timeline and MTTR report; also served at
+        ``/debug/events``."""
+        from raydp_tpu_torch.telemetry import events as _events
+        from raydp_tpu_torch.telemetry import telemetry_dir
+
+        records = _events.load_event_records(telemetry_dir(), job=job)
+        return {"events": records, "mttr": _events.mttr_report(records)}
+
+    def health_report(self) -> Optional[dict]:
+        """Aggregated cluster health: per-worker heartbeat age and the
+        watchdog stall flags shipped on heartbeats, stalled/dead/late
+        worker lists, slowest-rank attribution, and the driver's own
+        watchdog. None before :meth:`start`."""
+        if self.master is None:
+            return None
+        return self.master.health_report()
+
     def progress_report(self) -> dict:
         """Live stage progress — in-flight stages with done/total task
         counts, recently completed stages, and stage-store totals."""
@@ -572,6 +762,15 @@ class Cluster:
         }
         if staged:
             payload["data_refs"] = staged
+        # The RunTask RPC leaves from a pool thread: capture the
+        # submitting thread's trace context and job here, so the task
+        # span parents under e.g. the driver's stage span and the task
+        # bills the submitter's job.
+        from raydp_tpu_torch.telemetry import accounting as _acct
+        from raydp_tpu_torch.telemetry import propagation as _prop
+
+        trace_ctx = _prop.current_context()
+        job_ctx = _acct.current_job()
 
         def run():
             preferred = worker_id
@@ -632,7 +831,8 @@ class Cluster:
 
         def run_and_discard():
             try:
-                return run()
+                with _prop.propagated(trace_ctx), _acct.job_scope(job_ctx):
+                    return run()
             finally:
                 # Staged data_args are scratch: the worker has consumed
                 # them (re-put under its own ownership where needed) by
@@ -685,16 +885,22 @@ class Cluster:
         futures: List[Future] = [Future() for _ in specs]
         if not specs:
             return futures
+        from raydp_tpu_torch.telemetry import accounting as _acct
+        from raydp_tpu_torch.telemetry import propagation as _prop
+
+        trace_ctx = _prop.current_context()
+        job_ctx = _acct.current_job()
 
         def orchestrate():
-            try:
-                self._run_batch(
-                    list(specs), futures, timeout, retries, meta_sink
-                )
-            except BaseException as exc:  # noqa: BLE001 - fan to futures
-                for f in futures:
-                    if not f.done():
-                        f.set_exception(exc)
+            with _prop.propagated(trace_ctx), _acct.job_scope(job_ctx):
+                try:
+                    self._run_batch(
+                        list(specs), futures, timeout, retries, meta_sink
+                    )
+                except BaseException as exc:  # noqa: BLE001 - fan to futures
+                    for f in futures:
+                        if not f.done():
+                            f.set_exception(exc)
 
         self._pool.submit(orchestrate)
         return futures
@@ -882,8 +1088,12 @@ class Cluster:
         ride the control plane."""
         if not tables:
             return []
+        from raydp_tpu_torch.telemetry import accounting as _acct
+
         store = self.master.store
-        return [store.put_arrow_table(t) for t in tables]
+        refs = [store.put_arrow_table(t) for t in tables]
+        _acct.add_usage(_acct.STAGED_BYTES, sum(r.size for r in refs))
+        return refs
 
     def _discard_staged(self, refs: Sequence) -> None:
         if not refs or self.master is None:

@@ -12,12 +12,22 @@ splits this into ObjectRefHolder + a Python holder actor).
 Runs as an RPC service (``cluster/rpc.py``) in a thread of the driver
 process, so holder-owned objects survive worker teardown for the
 driver's lifetime; the service boundary means workers speak to it the
-same way a detached deployment would. The reference's report handlers
-(metrics, health, progress, scheduler, usage, events, dashboard) and its
-lifecycle events belong to the telemetry plane and are not ported yet.
+same way a detached deployment would.
+
+Telemetry (``raydp_tpu/cluster/master.py:328-482``): workers' heartbeat
+deltas merge into :attr:`AppMaster.telemetry` (a worker that dies or
+stops is tombstoned with what it last shipped), worker lifecycle events
+land in its ring and as span events, and the master answers
+``MetricsSnapshot``, ``HealthReport``, ``UsageReport``, ``EventsReport``
+and ``ProgressReport`` for second drivers. The port adds ``GangReport``:
+``fit_spmd`` hands each finished gang's rank views to the session's
+master (:meth:`AppMaster.record_gang`), which bills them with the
+workers'. Left for later slices:
+``SchedulerReport`` (ROADMAP item 7) and ``DashboardReport`` (item 6.5).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import threading
@@ -30,6 +40,8 @@ from raydp_tpu_torch.cluster.rpc import RpcServer
 from raydp_tpu_torch.store.agent import agent_handlers
 from raydp_tpu_torch.store.directory import DirectoryStore
 from raydp_tpu_torch.store.object_store import DEFAULT_NODE, OWNER_HOLDER
+from raydp_tpu_torch.telemetry import ClusterTelemetry
+from raydp_tpu_torch.telemetry import spans as _spans
 
 logger = logging.getLogger(__name__)
 
@@ -52,6 +64,9 @@ class WorkerInfo:
     resources: Dict[str, float]
     state: str = "ALIVE"  # ALIVE | DEAD | STOPPED
     last_heartbeat: float = field(default_factory=time.monotonic)
+    # Watchdog stall flags shipped on the last heartbeat (empty =
+    # healthy): {component: {age_s, since_wall, count, attrs}}.
+    stalls: Dict[str, dict] = field(default_factory=dict)
 
 
 class AppMaster:
@@ -76,6 +91,12 @@ class AppMaster:
         self._agent_event = threading.Event()
         self._expected_agent_nodes: set = set()
         self._monitor_stop = threading.Event()
+        # Cluster-wide metrics view: workers ship registry deltas on
+        # their heartbeats; this merges them keyed by worker id.
+        self.telemetry = ClusterTelemetry()
+        # Finished SPMD gangs' final rank views, "<gang>/rank-<r>" ->
+        # sections (record_gang); kept apart from the workers' views.
+        self._gangs: Dict[str, dict] = {}
         handlers = {
             "RegisterWorker": self._on_register_worker,
             "Heartbeat": self._on_heartbeat,
@@ -89,7 +110,12 @@ class AppMaster:
             "DeleteObject": self._on_delete_object,
             "ListWorkers": self._on_list_workers,
             "ClusterResources": self._on_cluster_resources,
+            "MetricsSnapshot": self._on_metrics_snapshot,
+            "HealthReport": self._on_health_report,
             "ProgressReport": self._on_progress_report,
+            "UsageReport": self._on_usage_report,
+            "EventsReport": self._on_events_report,
+            "GangReport": self._on_gang_report,
             "Ping": lambda req: {"pong": True, "namespace": self.namespace},
         }
         # The master doubles as the driver node's store agent (no extra
@@ -154,6 +180,13 @@ class AppMaster:
             if info is None or info.state != "ALIVE":
                 return
             info.state = "DEAD"
+        # Tombstone, don't drop: the final shipped snapshot is what a
+        # straggler postmortem needs.
+        self.telemetry.tombstone(worker_id)
+        self.telemetry.event("worker/dead", worker_id=worker_id,
+                             reason=reason)
+        _spans.event("cluster/worker_dead", worker_id=worker_id,
+                     reason=reason)
         doomed = self.store.on_owner_died(worker_id)
         logger.warning(
             "worker %s dead (%s); unlinked %d objects",
@@ -183,6 +216,10 @@ class AppMaster:
         with self._lock:
             self._workers[info.worker_id] = info
             self._check_registration_barrier()
+        self.telemetry.event("worker/registered", worker_id=info.worker_id,
+                             node_id=info.node_id, pid=info.pid)
+        _spans.event("cluster/worker_registered", worker_id=info.worker_id,
+                     node_id=info.node_id)
         logger.info("registered worker %s @ %s", info.worker_id, info.address)
         return {"namespace": self.namespace}
 
@@ -192,15 +229,29 @@ class AppMaster:
             self._registration_event.set()
 
     def _on_heartbeat(self, req: dict) -> dict:
+        # The piggybacked metrics delta merges even for a worker this
+        # master wrote off (its last beats still carry data), outside
+        # the worker-table lock (the merged view has its own).
+        delta = req.get("metrics")
+        if delta:
+            self.telemetry.apply(req["worker_id"], delta)
         with self._lock:
             info = self._workers.get(req["worker_id"])
             if info is None:
                 return {"known": False}
             info.last_heartbeat = time.monotonic()
+            # A beat without a health payload means the worker's
+            # watchdog sees no stall: recovery clears the flags.
+            info.stalls = (req.get("health") or {}).get("stalls") or {}
             return {"known": info.state == "ALIVE"}
 
     def _on_worker_stopped(self, req: dict) -> dict:
         worker_id = req["worker_id"]
+        # A graceful exit ships the full final snapshot: merge and
+        # tombstone, so the worker's lifetime totals outlive it.
+        self.telemetry.apply(worker_id, req.get("metrics"), final=True)
+        self.telemetry.event("worker/stopped", worker_id=worker_id)
+        _spans.event("cluster/worker_stopped", worker_id=worker_id)
         with self._lock:
             info = self._workers.get(worker_id)
             if info is not None:
@@ -284,8 +335,53 @@ class AppMaster:
     def _on_cluster_resources(self, req: dict) -> dict:
         return self.cluster_resources()
 
+    def _on_metrics_snapshot(self, req: dict) -> dict:
+        return {"snapshot": self.metrics_snapshot()}
+
+    def _on_health_report(self, req: dict) -> dict:
+        return {"report": self.health_report()}
+
     def _on_progress_report(self, req: dict) -> dict:
         return {"report": self.progress_report()}
+
+    def _on_usage_report(self, req: dict) -> dict:
+        return {"report": self.usage_report()}
+
+    def _on_events_report(self, req: dict) -> dict:
+        return {"report": self.events_report(job=req.get("job"))}
+
+    def _on_gang_report(self, req: dict) -> dict:
+        self.record_gang(req["gang"], req["views"])
+        return {}
+
+    def record_gang(self, gang: str, views: Dict[str, dict]) -> None:
+        """Keep one finished SPMD gang's final per-rank views (``{"rank-<r>":
+        sections}``) as ``<gang>/rank-<r>`` under ``gangs`` in
+        :meth:`metrics_snapshot`: :meth:`usage_report` bills them and the
+        exposition renders them, but they are not workers (no liveness,
+        health or aggregate). ``gang`` names one launch of one fit, so a
+        second fit or a relaunch adds views and overwrites none;
+        re-sending the same report is harmless."""
+        with self._lock:
+            for rank_key, sections in views.items():
+                self._gangs[f"{gang}/{rank_key}"] = {
+                    k: copy.deepcopy(v) for k, v in sections.items()
+                    if k not in ("tombstone", "updated_wall")}
+
+    def usage_report(self) -> dict:
+        """Per-job usage ledger folded over the merged cluster view."""
+        from raydp_tpu_torch.telemetry import accounting as _acct
+
+        return _acct.usage_report(self.metrics_snapshot())
+
+    def events_report(self, job: Optional[str] = None) -> dict:
+        """Cluster event timeline plus MTTR episodes, from the
+        telemetry dir's shards (or this process's ring)."""
+        from raydp_tpu_torch.telemetry import events as _events
+        from raydp_tpu_torch.telemetry import telemetry_dir
+
+        records = _events.load_event_records(telemetry_dir(), job=job)
+        return {"events": records, "mttr": _events.mttr_report(records)}
 
     def progress_report(self) -> dict:
         """Live stage progress: the driver-process tracker (DataFrame
@@ -298,6 +394,92 @@ class AppMaster:
         report["stage_totals"] = store_snap["totals"]
         report["recent_stage_stats"] = store_snap["stages"][-16:]
         return report
+
+    def health_report(self) -> dict:
+        """Aggregated cluster health: per-worker heartbeat age and stall
+        flags, plus slowest-rank attribution from the merged timers.
+
+        Fires before the heartbeat timeout: a wedged task does not stop
+        the worker's heartbeat thread, so the stall flag arrives on the
+        next beat (~2 s), while death detection waits
+        ``HEARTBEAT_TIMEOUT_S``.
+        """
+        from raydp_tpu_torch.telemetry import watchdog as _watchdog
+
+        now = time.monotonic()
+        with self._lock:
+            workers = {
+                wid: {
+                    "state": w.state,
+                    "node_id": w.node_id,
+                    "pid": w.pid,
+                    "heartbeat_age_s": round(now - w.last_heartbeat, 3),
+                    "stalls": dict(w.stalls),
+                }
+                for wid, w in self._workers.items()
+            }
+        stalled = sorted(
+            wid for wid, w in workers.items()
+            if w["stalls"] and w["state"] == "ALIVE"
+        )
+        dead = sorted(
+            wid for wid, w in workers.items() if w["state"] == "DEAD"
+        )
+        late = sorted(
+            wid for wid, w in workers.items()
+            if w["state"] == "ALIVE"
+            and w["heartbeat_age_s"] > HEARTBEAT_TIMEOUT_S / 2
+        )
+        driver = _watchdog.health()
+        return {
+            "healthy": not (stalled or dead or late)
+            and driver.get("healthy", True),
+            "workers": workers,
+            "stalled_workers": stalled,
+            "dead_workers": dead,
+            "late_workers": late,
+            "slowest_rank": self._slowest_rank(),
+            "heartbeat_timeout_s": HEARTBEAT_TIMEOUT_S,
+            "driver": driver,
+        }
+
+    def _slowest_rank(self) -> Optional[dict]:
+        """Straggler attribution from shipped step/task timers (p50:
+        robust to one-off spikes)."""
+        view = self.telemetry.merged()
+        slowest: Optional[dict] = None
+        for wid, sections in (view.get("workers") or {}).items():
+            for key in ("timer/train/step", "timer/worker/task"):
+                sec = sections.get(key)
+                if not sec or not sec.get("p50_s"):
+                    continue
+                if slowest is None or sec["p50_s"] > slowest["p50_s"]:
+                    slowest = {
+                        "worker": wid,
+                        "timer": key[len("timer/"):],
+                        "p50_s": sec["p50_s"],
+                    }
+                break  # prefer train/step when a worker has both
+        return slowest
+
+    def metrics_snapshot(self) -> dict:
+        """Merged cluster metrics: per-worker views (tombstones
+        included), the cross-worker aggregate, lifecycle events,
+        this (driver) process's own registry under ``"driver"``, and the
+        finished gangs' rank views under ``"gangs"`` once there are any
+        (:meth:`record_gang`)."""
+        from raydp_tpu_torch.utils.profiling import metrics as _m
+        from raydp_tpu_torch.utils.profiling import sample_resource_gauges
+
+        # The driver's gauges are sampled now; workers' arrive sampled
+        # on their heartbeats.
+        sample_resource_gauges()
+        view = self.telemetry.merged()
+        view["driver"] = _m.snapshot()
+        with self._lock:
+            if self._gangs:
+                view["gangs"] = copy.deepcopy(self._gangs)
+        return view
 
     def cluster_resources(self) -> dict:
         """Resource introspection (reference:

@@ -28,12 +28,20 @@ before each send (:func:`raydp_tpu_torch.fault.on_rpc`).
 
 ``pickle`` runs whatever a frame names when it is loaded, so a server
 binds the loopback interface by default and talks only to its own
-processes. The reference's telemetry riders (traceparent, job
-attribution, watchdog brackets, flight-recorder records) arrive with the
-port's telemetry plane.
+processes.
+
+Telemetry riders (``raydp_tpu/cluster/rpc.py:131-180, 230-263``): the
+client stamps the caller's ``traceparent`` and job into a copy of each
+request dict (plain strings, so frames stay plain pickles), brackets the
+call for the watchdog (``rpc``, its threshold the call's deadline) and
+leaves a flight record; the server runs each handler inside the
+caller's trace context and job scope and a ``rpc/handler`` watchdog
+bracket (the long threshold for methods that run user code), so spans
+and usage of the handler join the caller's trace and bill its job.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import pickle
 import socket
@@ -45,10 +53,21 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional
 
 from raydp_tpu_torch import fault as _fault
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import flight_recorder as _flight
+from raydp_tpu_torch.telemetry import propagation as _prop
+from raydp_tpu_torch.telemetry import watchdog as _watchdog
+from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
 _HEADER = struct.Struct("!Q")
 # The reference's gRPC message limit.
 MAX_FRAME_BYTES = 512 * 1024 * 1024
+# Handlers that run user code (a task body, a shipped function, a model
+# batch) may take minutes: the watchdog gives them the long threshold.
+_LONG_HANDLER_METHODS = frozenset(
+    {"RunTask", "RunTaskBatch", "RunFunction", "ProfileRequest",
+     "ExecuteBatch"}
+)
 
 
 class RpcError(RuntimeError):
@@ -183,6 +202,33 @@ class RpcServer:
                 self._conns.discard(conn)
             _close(conn)
 
+    @staticmethod
+    def _call_handler(name: str, fn: Callable[[dict], dict],
+                      request: dict) -> dict:
+        """``fn(request)`` inside the caller's trace context, job scope
+        and a watchdog bracket; the reply envelope."""
+        t0 = time.monotonic()
+        try:
+            ctx = _prop.extract(request)
+            jctx = _acct.extract(request)
+            stall_s = (_watchdog.long_stall_s()
+                       if name in _LONG_HANDLER_METHODS else None)
+            with (_prop.propagated(ctx) if ctx is not None
+                  else contextlib.nullcontext()), \
+                    (_acct.job_scope(jctx) if jctx is not None
+                     else contextlib.nullcontext()), \
+                    _watchdog.inflight("rpc/handler", method=name,
+                                       stall_after_s=stall_s):
+                value = fn(request)
+            _flight.record("rpc", name, dir="recv",
+                           duration_s=round(time.monotonic() - t0, 6))
+            return {"ok": True, "value": value}
+        except Exception as exc:  # ship the error to the caller
+            _flight.record("rpc", name, dir="recv", status="error",
+                           error=f"{type(exc).__name__}: {exc}"[:200])
+            return {"ok": False, "error": f"{type(exc).__name__}: {exc}",
+                    "traceback": traceback.format_exc()}
+
     def _run(self, conn, write_mu, call_id, method, request) -> None:
         try:
             service, _, name = method.rpartition(".")
@@ -191,12 +237,7 @@ class RpcServer:
                 reply = {"ok": False, "error": f"unknown method {method}",
                          "traceback": ""}
             else:
-                try:
-                    reply = {"ok": True, "value": fn(request)}
-                except Exception as exc:  # ship the error to the caller
-                    reply = {"ok": False,
-                             "error": f"{type(exc).__name__}: {exc}",
-                             "traceback": traceback.format_exc()}
+                reply = self._call_handler(name, fn, request)
             try:
                 payload = pickle.dumps((call_id, reply),
                                        protocol=pickle.HIGHEST_PROTOCOL)
@@ -273,10 +314,50 @@ class RpcClient:
         qualified = f"{self._service}.{method}"
         eff_timeout = timeout if timeout is not None else self._timeout
         call_id = next(self._ids)
-        payload = pickle.dumps((call_id, qualified, request or {}),
-                               protocol=pickle.HIGHEST_PROTOCOL)
-        # Fault-plan hook: an rpc_delay clause sleeps here; an rpc_drop
-        # clause turns the send into an unavailable peer.
+        t0 = time.monotonic()
+        # The call may stay in flight until its deadline, so the stall
+        # threshold follows the deadline; deadline-less calls take the
+        # long-op threshold.
+        token = _watchdog.tracker.begin(
+            "rpc", method=qualified, peer=self.address,
+            stall_after_s=(eff_timeout if eff_timeout is not None
+                           else _watchdog.long_stall_s()),
+        )
+        try:
+            payload = pickle.dumps(
+                (call_id, qualified,
+                 _acct.inject(_prop.inject(request or {}))),
+                protocol=pickle.HIGHEST_PROTOCOL)
+            # Control-plane envelope size: data moves through the shm
+            # object store, so a fat counter here means a path ships
+            # table bytes through RPC (raydp_rpc_payload_bytes).
+            _metrics.counter_add("rpc/payload_bytes", len(payload))
+            reply = self._round_trip(qualified, call_id, payload,
+                                     eff_timeout)
+        except RpcUnavailable as exc:
+            _flight.record("rpc", qualified, dir="send", peer=self.address,
+                           status="transport-error",
+                           error=f"{type(exc).__name__}"[:200])
+            raise
+        finally:
+            _watchdog.tracker.end(token)
+        _flight.record(
+            "rpc", qualified, dir="send", peer=self.address,
+            duration_s=round(time.monotonic() - t0, 6),
+            **({} if reply.get("ok") else {"status": "remote-error"}),
+        )
+        if not reply.get("ok"):
+            raise RpcError(
+                f"remote {qualified} failed: {reply.get('error')}\n"
+                f"{reply.get('traceback', '')}"
+            )
+        return reply.get("value")
+
+    def _round_trip(self, qualified: str, call_id: int, payload: bytes,
+                    eff_timeout: Optional[float]) -> dict:
+        # Fault-plan hook: an rpc_delay clause sleeps here (inside the
+        # watchdog bracket); an rpc_drop clause turns the send into an
+        # unavailable peer.
         if _fault.active() and _fault.on_rpc(qualified) == "drop":
             raise FaultInjectedRpcError(qualified)
         deadline = (time.monotonic() + eff_timeout
@@ -305,12 +386,7 @@ class RpcClient:
             )
         with self._mu:
             self._idle.append(sock)
-        if not reply.get("ok"):
-            raise RpcError(
-                f"remote {qualified} failed: {reply.get('error')}\n"
-                f"{reply.get('traceback', '')}"
-            )
-        return reply.get("value")
+        return reply
 
     def try_call(self, method: str, request: Optional[dict] = None,
                  timeout: Optional[float] = None):

@@ -19,13 +19,25 @@ The process imports no torch: its launch env hides every CUDA device
 pyarrow and numpy only. The fault plan's hooks run here as in the
 reference (``raydp_tpu/cluster/worker_main.py:289-295, 435-441``): every
 task start is counted and offered to ``kill worker=…,task=K``, and an
-``hb_stall`` clause skips heartbeats. The reference's telemetry riders
-(spans, job accounting, flight recorder, watchdog, shipped metrics) are
-not ported yet.
+``hb_stall`` clause skips heartbeats.
+
+Telemetry (``raydp_tpu/cluster/worker_main.py:31-36, 134, 252-370,
+430-475, 522-562``): the process joins the driver's trace and job from
+its launch env, arms the flight recorder (component ``worker``), the
+trace-stamped JSONL logs and the watchdog; every task runs in a
+``worker/task`` span and watchdog bracket and bills its seconds to the
+caller's job (``task_seconds``); a batch's trace context and job are
+carried onto the task pool's threads. Each heartbeat ships the registry
+sections that changed (rolled back when the beat is missed), the
+watchdog's stall flags, and flushes the span ring to this process's
+shard; ``WorkerStopped`` carries the full final snapshot.
+``RAYDP_TPU_DEBUG_PORT`` serves this worker's ``/metrics``, ``/healthz``
+and ``/debug/*``.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import logging
 import os
 import sys
@@ -38,7 +50,13 @@ from raydp_tpu_torch import fault
 from raydp_tpu_torch.cluster import closure
 from raydp_tpu_torch.cluster.rpc import RpcClient, RpcServer
 from raydp_tpu_torch.store.object_store import ObjectStore
-from raydp_tpu_torch.utils.profiling import metrics
+from raydp_tpu_torch.telemetry import MetricsShipper, flush_spans, span
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import flight_recorder as _flight
+from raydp_tpu_torch.telemetry import logs as _logs
+from raydp_tpu_torch.telemetry import propagation as trace_prop
+from raydp_tpu_torch.telemetry import watchdog as _watchdog
+from raydp_tpu_torch.utils.profiling import metrics, sample_resource_gauges
 
 logger = logging.getLogger(__name__)
 
@@ -137,6 +155,9 @@ class Worker:
         # blob -> loaded function, most recently used last.
         self._fns: "OrderedDict[bytes, object]" = OrderedDict()
         self._fns_lock = threading.Lock()
+        # Each heartbeat carries the registry sections that changed
+        # since the previous beat (a delta-encoded snapshot).
+        self._shipper = MetricsShipper()
         # The RPC server is up before registration completes, and the master
         # lists this worker ALIVE the moment RegisterWorker returns — so a
         # task can arrive while ctx is still being built. Gate on readiness.
@@ -270,10 +291,23 @@ class Worker:
             data = self._resolve_data_refs(req.get("data_refs", ()))
             self._fault_task_hook()
             metrics.counter_add("worker/tasks")
+            _flight.record("task", "start", worker_id=self.worker_id)
+            # The RPC server runs this handler in the caller's trace
+            # context and job scope, so the task span joins the driver's
+            # trace under the submitting stage span, and its seconds
+            # bill to the caller's job. A wedged body shows in the
+            # watchdog as "worker/task", at the long-op threshold.
             t0 = time.perf_counter()
-            with metrics.timer("worker/task").time():
-                result = fn(self.ctx, *args, *data, **kwargs)
+            with _watchdog.inflight(
+                "worker/task", worker_id=self.worker_id,
+                stall_after_s=_watchdog.long_stall_s(),
+            ):
+                with span("worker/task", worker_id=self.worker_id):
+                    with metrics.timer("worker/task").time():
+                        result = fn(self.ctx, *args, *data, **kwargs)
+            _flight.record("task", "end", worker_id=self.worker_id)
             exec_s = time.perf_counter() - t0
+            _acct.add_usage(_acct.TASK_SECONDS, exec_s)
             return {"result": result, "exec_s": exec_s}
         finally:
             with self._busy_lock:
@@ -321,6 +355,13 @@ class Worker:
             tasks = req.get("tasks", ())
             metrics.counter_add("worker/tasks", len(tasks))
             metrics.counter_add("worker/task_batches")
+            _flight.record("task", "batch_start", worker_id=self.worker_id,
+                           tasks=len(tasks))
+            # The task pool's threads do not inherit this handler
+            # thread's trace context and job: carry both over, so each
+            # task's span parents under the driver's stage span.
+            batch_ctx = trace_prop.current_context()
+            batch_job = _acct.current_job()
 
             def run_one(task: dict) -> dict:
                 try:
@@ -330,9 +371,13 @@ class Worker:
                     data = self._resolve_data_refs(task.get("data_refs", ()))
                     self._fault_task_hook()
                     t0 = time.perf_counter()
-                    with metrics.timer("worker/task").time():
-                        value = fn(self.ctx, *args, *data, **kwargs)
-                    exec_s = time.perf_counter() - t0
+                    with trace_prop.propagated(batch_ctx), \
+                            _acct.job_scope(batch_job):
+                        with span("worker/task", worker_id=self.worker_id):
+                            with metrics.timer("worker/task").time():
+                                value = fn(self.ctx, *args, *data, **kwargs)
+                        exec_s = time.perf_counter() - t0
+                        _acct.add_usage(_acct.TASK_SECONDS, exec_s)
                     return {"ok": True, "value": value, "exec_s": exec_s}
                 except Exception as exc:
                     return {
@@ -341,10 +386,16 @@ class Worker:
                         "traceback": traceback.format_exc(),
                     }
 
-            if len(tasks) == 1:
-                results = [run_one(tasks[0])]
-            else:
-                results = list(self._pool().map(run_one, tasks))
+            with _watchdog.inflight(
+                "worker/task", worker_id=self.worker_id,
+                stall_after_s=_watchdog.long_stall_s(),
+            ):
+                if len(tasks) == 1:
+                    results = [run_one(tasks[0])]
+                else:
+                    results = list(self._pool().map(run_one, tasks))
+            _flight.record("task", "batch_end", worker_id=self.worker_id,
+                           tasks=len(tasks))
             return {"results": results}
         finally:
             with self._busy_lock:
@@ -356,8 +407,51 @@ class Worker:
         self._stop_event.set()
         return {"stopping": True}
 
+    def _serve_debug(self):
+        """This worker's ``/metrics``, ``/healthz`` and ``/debug/*`` when
+        ``RAYDP_TPU_DEBUG_PORT`` is set (0: an ephemeral port, logged)."""
+        from raydp_tpu_torch.telemetry import (
+            DEBUG_PORT_ENV,
+            render_prometheus,
+            serve_prometheus,
+        )
+
+        port = os.environ.get(DEBUG_PORT_ENV)
+        if port is None:
+            return None
+        try:
+            return serve_prometheus(
+                lambda: render_prometheus(
+                    {"workers": {self.worker_id: metrics.snapshot()}}
+                ),
+                int(port),
+            )
+        except Exception:
+            logger.exception("worker debug endpoint failed to start")
+            return None
+
+    def _beat(self) -> dict:
+        """A heartbeat's body: the metrics delta and any stall flags."""
+        beat = {"worker_id": self.worker_id}
+        try:
+            sample_resource_gauges()
+        except Exception:
+            metrics.counter_add("telemetry/gauge_errors")
+        delta = self._shipper.delta()
+        if delta:
+            beat["metrics"] = delta
+        # Stall flags reach the master's health_report() on a live beat,
+        # long before a heartbeat timeout: a wedged task does not stop
+        # this thread.
+        health = _watchdog.health()
+        if not health.get("healthy", True):
+            beat["health"] = {"stalls": health.get("stalls", {})}
+        return beat
+
     def run(self) -> None:
         self.register()
+        _flight.record("state", "registered", worker_id=self.worker_id)
+        debug_server = self._serve_debug()
         missed = 0
         beat_index = 0
         while not self._stop_event.wait(2.0):
@@ -367,12 +461,19 @@ class Worker:
             if fault.active() and fault.on_heartbeat(beat_index - 1,
                                                      worker=self.worker_id):
                 continue
-            reply = self.master.try_call(
-                "Heartbeat", {"worker_id": self.worker_id}, timeout=8.0
-            )
+            beat = self._beat()
+            reply = self.master.try_call("Heartbeat", beat, timeout=8.0)
+            # One shard write a beat (a no-op without a telemetry dir):
+            # the driver's trace_report() sees this worker's spans at
+            # heartbeat latency, and a SIGKILL loses at most one beat.
+            flush_spans()
             with self._busy_lock:
                 busy = self._busy > 0
             if reply is None:
+                _flight.record("heartbeat", "missed", missed=missed + 1)
+                # A missed beat must not eat its metrics delta: the
+                # sections ship again on the next beat.
+                self._shipper.rollback(beat.get("metrics"))
                 # Transient master hiccups — including a driver process
                 # saturated by a big shuffle on a small host — are
                 # absorbed; only a sustained outage means exit. And never
@@ -413,9 +514,17 @@ class Worker:
                 logger.warning("worker %s: master disowned us; exiting",
                                self.worker_id)
                 break
+        # The full final snapshot, not a delta: a clean exit leaves the
+        # master's tombstoned view complete even if a delta was lost.
         self.master.try_call(
-            "WorkerStopped", {"worker_id": self.worker_id}, timeout=2.0
+            "WorkerStopped",
+            {"worker_id": self.worker_id, "metrics": self._shipper.full()},
+            timeout=2.0,
         )
+        _flight.record("state", "stopping", worker_id=self.worker_id)
+        flush_spans()
+        if debug_server is not None:
+            debug_server.close()
         with self._task_pool_lock:
             if self._task_pool is not None:
                 self._task_pool.shutdown(wait=False)
@@ -436,6 +545,16 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format=f"[{args.worker_id}] %(levelname)s %(message)s",
     )
+    # Join the driver's trace and job (RAYDP_TPU_TRACEPARENT and
+    # RAYDP_TPU_JOB in the launch env) before any span or usage is
+    # recorded; arm the postmortem bundles (crash, SIGTERM), the JSONL
+    # logs and the watchdog; flush tail spans at interpreter exit.
+    trace_prop.adopt_env_context()
+    _acct.adopt_env_job()
+    _flight.install(component="worker")
+    _logs.install()
+    _watchdog.ensure_started()
+    atexit.register(flush_spans)
     worker = Worker(
         args.worker_id,
         args.master,

@@ -26,11 +26,24 @@ On the CPU the same gather runs into plain host buffers. Epoch 0 of rank
 engine is still producing, streams its prefix: whole chunks of the
 blocks landed so far are served before the shard plan exists
 (:meth:`ShardLoader._prefix_chunks`), as the JAX loader does.
+
+Telemetry (``raydp_tpu/data/loader.py:161-214, 299-420, 495-505``): an
+epoch with no job in scope mints a process-wide ``loader`` job; staging
+the shard is an ``ingest/stage_matrix`` span and bills its bytes
+(``staged_bytes``); each chunk's gather is an ``ingest/chunk`` span and
+watchdog bracket, closed before the chunk is yielded, with a flight
+record; a streamed block is an ``ingest/stream_block`` span under the
+overlap counter; the host-to-device copy of a chunk (the JAX package's
+``ingest/device_put``) is a watchdog bracket under the overlap counter,
+host-side only (the copy stays ``non_blocking``). The prefetch thread
+runs in the consumer's trace context, and the consumer's time blocked
+on it is ``ingest/wait_seconds``.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +51,13 @@ import torch
 
 from raydp_tpu_torch.dataframe.scheduler import streaming_enabled
 from raydp_tpu_torch.native import lib as native
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import flight_recorder as _flight
+from raydp_tpu_torch.telemetry import overlap as _overlap
+from raydp_tpu_torch.telemetry import span
+from raydp_tpu_torch.telemetry import watchdog as _watchdog
+from raydp_tpu_torch.telemetry.propagation import current_context, propagated
+from raydp_tpu_torch.utils.profiling import metrics
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # Auto chunk sizing, as the JAX loader: coalesce batches until a chunk
@@ -134,6 +154,10 @@ class ShardLoader:
     def __iter__(self):
         epoch = self._epoch
         self._epoch += 1
+        # An epoch driven with no job in scope (a bare loader) bills its
+        # ingest to a process-wide job of its own.
+        if _acct.current_job() is None:
+            _acct.set_process_job(_acct.mint_job("loader"))
         return self._epoch_iter(epoch)
 
     # -- staging --------------------------------------------------------
@@ -151,8 +175,17 @@ class ShardLoader:
         if self._staged is None:
             wanted = self.feature_columns + (
                 [self.label_column] if self.label_column else [])
-            self._staged = self._stage_columns(
-                self._dataset.shard_columns(self._rank, wanted))
+            cols = self._dataset.shard_columns(self._rank, wanted)
+            rows = len(cols[wanted[0]]) if wanted else 0
+            with span("ingest/stage_matrix", rank=self._rank, rows=rows,
+                      features=len(self.feature_columns)):
+                feats, labels = self._stage_columns(cols)
+            _acct.add_usage(
+                _acct.STAGED_BYTES,
+                sum(f.nbytes for f in feats)
+                + (labels.nbytes if labels is not None else 0),
+            )
+            self._staged = feats, labels
         return self._staged
 
     def _coalesce_batches(self) -> int:
@@ -249,8 +282,14 @@ class ShardLoader:
         landed: List[dict] = []
         staged = emitted = 0
         for _, block in ds.iter_prefix_tables():
-            landed.append({n: block.column(n).to_numpy(zero_copy_only=False)
-                           for n in wanted})
+            # Staging a landed block is ingest work that overlaps the
+            # still-running ETL tail.
+            with _overlap.tracker.ingest(), \
+                    span("ingest/stream_block", rank=self._rank,
+                         rows=block.num_rows):
+                landed.append({
+                    n: block.column(n).to_numpy(zero_copy_only=False)
+                    for n in wanted})
             staged += len(landed[-1][wanted[0]])
             known, complete = ds.known_rows()
             if complete:
@@ -265,6 +304,7 @@ class ShardLoader:
                 yield feats, labels, np.arange(emitted, emitted + step,
                                                dtype=np.int64)
                 emitted += step
+        metrics.counter_add("ingest/stream_prefix_rows", emitted)
         yield from self._chunks(epoch, start_row=emitted)
 
     def _epoch_iter(self, epoch: int):
@@ -279,19 +319,32 @@ class ShardLoader:
         chunks = (self._prefix_chunks(epoch) if self._streams_prefix(epoch)
                   else self._chunks(epoch))
 
+        rows_meter = metrics.meter("ingest/rows")
+        bytes_meter = metrics.meter("ingest/bytes")
+
         def packed():
             for chunk in chunks:
                 nbytes = self._layout(len(chunk[2]))[1]
                 if ring is None:
-                    out = np.empty(nbytes, dtype=np.uint8)
-                    yield out, self._gather_into(out, chunk)
+                    handle = out = np.empty(nbytes, dtype=np.uint8)
                 else:
-                    slot = ring.acquire(stop)
-                    if slot is None:
+                    handle = ring.acquire(stop)
+                    if handle is None:
                         return
-                    rows = self._gather_into(
-                        ring.bufs[slot].numpy()[:nbytes], chunk)
-                    yield slot, rows
+                    out = ring.bufs[handle].numpy()[:nbytes]
+                # The span and the watchdog bracket close before the
+                # yield: they cover the gather, not the generator's
+                # suspension (which may last a whole step).
+                with _watchdog.inflight("ingest/chunk", epoch=epoch,
+                                        rank=self._rank), \
+                        span("ingest/chunk", epoch=epoch, rank=self._rank,
+                             rows=len(chunk[2])):
+                    rows = self._gather_into(out, chunk)
+                rows_meter.add(rows)
+                bytes_meter.add(nbytes)
+                _flight.record("loader", "chunk", epoch=epoch,
+                               rank=self._rank, rows=rows)
+                yield handle, rows
 
         source = packed()
         if self.prefetch > 0:
@@ -302,11 +355,19 @@ class ShardLoader:
                 if ring is None:
                     buf = torch.from_numpy(handle)
                 else:
-                    stream = torch.cuda.current_stream(self.device)
-                    buf = torch.empty(nbytes, dtype=torch.uint8,
-                                      device=self.device)
-                    buf.copy_(ring.bufs[handle][:nbytes], non_blocking=True)
-                    ring.release(handle, stream)
+                    # A host-to-device copy that never completes is a
+                    # silent hang: bracketed for the watchdog (host-side
+                    # bookkeeping; the copy stays asynchronous).
+                    with _overlap.tracker.ingest(), \
+                            _watchdog.inflight("ingest/device_put",
+                                               rank=self._rank):
+                        stream = torch.cuda.current_stream(self.device)
+                        buf = torch.empty(nbytes, dtype=torch.uint8,
+                                          device=self.device)
+                        buf.copy_(ring.bufs[handle][:nbytes],
+                                  non_blocking=True)
+                        ring.release(handle, stream)
+                    metrics.counter_add("ingest/device_puts")
                 x, y = self._unpack(buf, rows)
                 for lo in range(0, rows, bs):
                     xb = x[lo:lo + bs]
@@ -319,10 +380,13 @@ class ShardLoader:
 def _background(it: Iterator, depth: int, stop: threading.Event):
     """Run ``it`` in a daemon thread, buffering ``depth`` items. Setting
     ``stop`` makes the producer exit promptly; a producer error is raised
-    on the consumer's side at its next pull."""
+    on the consumer's side at its next pull. The producer runs in the
+    consumer's trace context (captured here, inside the epoch span), so
+    its ``ingest/*`` spans nest in the training trace."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     err: List[BaseException] = []
+    trace_ctx = current_context()
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -334,19 +398,25 @@ def _background(it: Iterator, depth: int, stop: threading.Event):
         return False
 
     def producer():
-        try:
-            for item in it:
-                if not put(item):
-                    return
-        except BaseException as exc:  # surfaced on the consumer's side
-            err.append(exc)
-        put(done)
+        with propagated(trace_ctx):
+            try:
+                for item in it:
+                    if not put(item):
+                        return
+            except BaseException as exc:  # surfaced on the consumer's side
+                err.append(exc)
+            put(done)
 
     threading.Thread(target=producer, daemon=True).start()
 
     def consume():
+        # Seconds the training loop sat blocked waiting for data: the
+        # input-wait half of a step.
         while True:
+            t0 = time.perf_counter()
             item = q.get()
+            metrics.counter_add("ingest/wait_seconds",
+                                time.perf_counter() - t0)
             if err:
                 raise err[0]
             if item is done:

@@ -16,6 +16,14 @@ Two backends with one interface:
     ``raydp_tpu_torch.init()`` is live.
 
 This module imports no torch: the workers load it to run their tasks.
+
+Telemetry (``raydp_tpu/dataframe/executor.py:38-93``): every stage runs
+in a ``df/stage`` span (under streaming dispatch the span covers the
+scheduling; the stage's wall lands in its StageStats), the first stage
+of a process with no job in scope mints a process-wide ``etl`` job, and
+each exchange bills its bytes as ``shuffle_bytes``. The reference's
+fair-share ``stage_gate`` around the span waits for the control plane
+(ROADMAP item 7).
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from raydp_tpu_torch.dataframe.scheduler import (
     streaming_enabled,
 )
 from raydp_tpu_torch.store.object_store import ObjectRef, ObjectStore
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import span
 from raydp_tpu_torch.telemetry.progress import (
     StageStats,
     progress,
@@ -248,16 +258,35 @@ class _StageRecorder:
         metrics.counter_add(f"stage/seconds/{self.op}", wall)
 
 
+def _ensure_etl_job() -> None:
+    """A bare pipeline's job: the first stage executed in a process with
+    no job in scope mints a process-wide ``etl`` job. An explicit
+    ``job_scope`` (or a gang's job) takes precedence."""
+    if _acct.current_job() is None:
+        _acct.set_process_job(_acct.mint_job("etl"))
+
+
+@contextlib.contextmanager
+def _stage_span(op: str, n_parts: int, executor: str, **attrs):
+    """Span and counter around one stage execution (driver side: submit
+    and result gather on the cluster backend, the stage's wall as the
+    planner sees it)."""
+    _ensure_etl_job()
+    metrics.counter_add("df/stages")
+    with span("df/stage", op=op, parts=n_parts, executor=executor, **attrs):
+        yield
+
+
 @contextlib.contextmanager
 def _stage(op: str, parts_in: Sequence[Any], executor: str,
            total_tasks: Optional[int] = None):
-    """Counter + StageStats recording around one stage."""
+    """Span, counter and StageStats recording around one stage."""
     rec = _StageRecorder(op, parts_in, executor, total_tasks)
-    metrics.counter_add("df/stages")
-    try:
-        yield rec
-    finally:
-        rec.close()
+    with _stage_span(op, len(parts_in), executor):
+        try:
+            yield rec
+        finally:
+            rec.close()
 
 # Memoized gather-concat for coalesced runs (Spark's analog: shuffle
 # block reuse). Interactive ETL re-runs queries over the SAME stored
@@ -474,9 +503,9 @@ class LocalExecutor(Executor):
 
         stage = StreamingStage(deps, submit, on_output=rec.task_output,
                                on_close=rec.close_streaming, op=op)
-        metrics.counter_add("df/stages")
-        outs = stage.start()
-        rec.dispatched()
+        with _stage_span(op, len(deps), "local", streaming=True):
+            outs = stage.start()
+            rec.dispatched()
         return outs
 
     def map_partitions(self, parts, fn):
@@ -548,6 +577,7 @@ class LocalExecutor(Executor):
             metrics.counter_add("shuffle/bytes", moved)
             # Single host: every chunk is already local to its merge.
             metrics.counter_add("shuffle/local_bytes", moved)
+            _acct.add_usage(_acct.SHUFFLE_BYTES, moved)
             plan = None
             if replan is not None:
                 plan = replan([
@@ -672,9 +702,9 @@ class ClusterExecutor(Executor):
 
         stage = StreamingStage(deps, submit, on_output=rec.task_output,
                                on_close=rec.close_streaming, op=op)
-        metrics.counter_add("df/stages")
-        outs = stage.start()
-        rec.dispatched()
+        with _stage_span(op, len(deps), "cluster", streaming=True):
+            outs = stage.start()
+            rec.dispatched()
         return outs
 
     def map_partitions(self, parts, fn):
@@ -993,6 +1023,7 @@ class ClusterExecutor(Executor):
                     repeats.append(rep)
             metrics.counter_add("shuffle/bytes", total_b)
             metrics.counter_add("shuffle/local_bytes", local_b)
+            _acct.add_usage(_acct.SHUFFLE_BYTES, total_b)
             merge_futures = self.cluster.submit_batch(
                 specs, meta_sink=rec.task_meta
             )

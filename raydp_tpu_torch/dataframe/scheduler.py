@@ -30,6 +30,9 @@ collect-under-lock, dispatch-outside-lock.
 
 Kill switch: ``RAYDP_TPU_STREAMING=0`` restores barriered stage-at-a-
 time semantics everywhere (stages resolve before returning).
+
+Every dispatched task is bracketed for the overlap counter
+(:mod:`raydp_tpu_torch.telemetry.overlap`), as in the reference.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ import os
 import threading
 from concurrent.futures import Future
 from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+from raydp_tpu_torch.telemetry import overlap as _overlap
 
 STREAMING_ENV = "RAYDP_TPU_STREAMING"
 WINDOW_ENV = "RAYDP_TPU_PIPELINE_WINDOW"
@@ -268,11 +273,16 @@ class StreamingStage:
             items = [
                 (i, [resolve_one(d) for d in self._deps[i]]) for i in batch
             ]
+            # ETL tasks in flight, for the overlap counter's ETL side.
+            for _ in batch:
+                _overlap.tracker.etl_begin()
             try:
                 futures = self._submit(items)
             except BaseException as exc:  # noqa: BLE001 - fan to outputs
                 with self._mu:
                     self._inflight -= len(batch)
+                for _ in batch:
+                    _overlap.tracker.etl_end()
                 for i, _vals in items:
                     self._finalize(i, error=exc)
                 continue
@@ -282,6 +292,7 @@ class StreamingStage:
                 )
 
     def _task_done(self, i: int, fut: Future) -> None:
+        _overlap.tracker.etl_end()
         with self._mu:
             self._inflight -= 1
         exc = fut.exception()

@@ -37,6 +37,7 @@ from raydp_tpu_torch.fault.inject import (
     on_train_step,
     plan_clauses,
     preemption_requested,
+    reraise_drained_sigterm,
     request_preemption,
     reset_for_tests,
 )
@@ -68,6 +69,7 @@ __all__ = [
     "parse_plan",
     "plan_clauses",
     "preemption_requested",
+    "reraise_drained_sigterm",
     "request_preemption",
     "reset_for_tests",
 ]

@@ -18,10 +18,19 @@ The training loop drains at a step boundary (an emergency checkpoint,
 then :class:`PreemptionError`); a serving replica drains its in-flight
 work. Either calls :func:`mark_drained`, which cancels the timer.
 
-Not ported: ``job=`` targeting reads the accounting plane's ambient job,
-which the port does not have yet, so a ``job=`` clause never fires here
-(as in the JAX package when no job is in scope); ``on_spawn`` belongs to
-the autoscaler, which is not ported either.
+A ``job=`` clause fires only where the accounting plane's ambient job
+(a thread's scope, the process's job, ``RAYDP_TPU_JOB`` adopted by a
+worker main) matches it by id or name (``raydp_tpu/fault/inject.py:
+81-97``). Every clause that fires lands on the event timeline as
+``fault/clause`` (written through, so it survives a clause that kills
+the process). ``on_spawn`` belongs to the autoscaler, which is not
+ported (ROADMAP item 7).
+
+SIGTERM: :func:`install_sigterm_drain` replaces the handler installed
+before it (a rank's flight recorder) and keeps it. A SIGTERM sets the
+drain flag; once the process has drained and stops,
+:func:`reraise_drained_sigterm` hands the signal to the kept handler,
+which writes the postmortem bundle and dies by the signal.
 """
 from __future__ import annotations
 
@@ -71,6 +80,7 @@ class _State:
         self.grace_timer: Optional[threading.Timer] = None
         self.prev_sigterm = None
         self.sigterm_installed = False
+        self.sigterm_received = False
 
 
 _lock = threading.Lock()
@@ -104,7 +114,36 @@ def plan_clauses() -> List[FaultClause]:
     return _clauses()
 
 
+def _ambient_job() -> tuple:
+    """``(job_id, name)`` of the job this process's work is billed to
+    (the accounting plane's ambient job), or ``(None, None)``."""
+    try:
+        from raydp_tpu_torch.telemetry import accounting as _acct
+
+        ctx = _acct.current_job()
+        if ctx is None:
+            return (None, None)
+        return (ctx.job_id, ctx.name)
+    except Exception:
+        return (None, None)
+
+
+def _emit_clause(clause: FaultClause, what: str) -> None:
+    """A clause that fired, on the event timeline next to the churn it
+    causes (written through: durable even when the clause kills this
+    process)."""
+    try:
+        from raydp_tpu_torch.telemetry import events as _events
+
+        # The attribute must not be named "kind": emit()'s first
+        # positional parameter.
+        _events.emit("fault/clause", clause=clause.kind, what=what)
+    except Exception:
+        pass
+
+
 def _die(clause: FaultClause, what: str) -> None:
+    _emit_clause(clause, what)
     print(
         f"raydp-fault: injected kill: {what} (exit {clause.code})",
         file=sys.stderr,
@@ -141,11 +180,10 @@ def on_train_step(step: int, rank: Optional[int] = None) -> bool:
         return False
     if rank is None:
         rank = ambient_rank()
+    job_id, job_name = _ambient_job()
     gang_wide = False
     for c in clauses:
-        # No job is ever in scope here (module docstring): a job=
-        # clause never matches.
-        if not c.armed or c.fired or not c.matches_job(None, None):
+        if not c.armed or c.fired or not c.matches_job(job_id, job_name):
             continue
         if c.kind == "kill" and c.step is not None and c.step == step:
             if c.matches_rank(rank):
@@ -154,6 +192,7 @@ def on_train_step(step: int, rank: Optional[int] = None) -> bool:
         elif c.kind == "preempt" and c.step == step and c.matches_rank(rank):
             c.fired = True
             gang_wide = gang_wide or c.rank is None
+            _emit_clause(c, f"rank {rank} preempted at train step {step}")
             request_preemption(grace_s=c.grace)
     return gang_wide
 
@@ -164,8 +203,9 @@ def on_task(worker_id: str, task_index: int) -> None:
     clauses = _clauses()
     if not clauses:
         return
+    job_id, job_name = _ambient_job()
     for c in clauses:
-        if not c.armed or c.fired or not c.matches_job(None, None):
+        if not c.armed or c.fired or not c.matches_job(job_id, job_name):
             continue
         if c.kind == "kill" and c.task is not None and c.task == task_index:
             if c.matches_worker(worker_id):
@@ -240,6 +280,8 @@ def on_serve_request(
             _die(c, f"replica {replica} at request {request_index}")
         elif c.kind == "latency" and c.nth == request_index:
             c.fired = True
+            _emit_clause(c, f"replica {replica} stalled {c.delay}s at "
+                            f"request {request_index}")
             _clock.sleep(c.delay)
 
 
@@ -263,9 +305,11 @@ def on_rpc(qualified_method: str) -> Optional[str]:
             continue
         if c.kind == "rpc_delay":
             c.fired = True
+            _emit_clause(c, f"delayed {qualified_method} by {c.delay}s")
             time.sleep(c.delay)
         elif c.kind == "rpc_drop":
             c.fired = True
+            _emit_clause(c, f"dropped {qualified_method}")
             verdict = "drop"
     return verdict
 
@@ -328,9 +372,12 @@ def mark_drained() -> None:
 
 
 def install_sigterm_drain() -> None:
-    """Route SIGTERM into the preemption drain path. No-op off the main
-    thread."""
+    """Route SIGTERM into the preemption drain path, keeping the handler
+    it replaces for :func:`reraise_drained_sigterm`. Install it after
+    the flight recorder. No-op off the main thread."""
     def _handler(signum, frame):  # noqa: ANN001 - signal signature
+        # Only flag-setting here: the frame interrupted may hold locks.
+        _state.sigterm_received = True
         request_preemption()
 
     try:
@@ -342,6 +389,25 @@ def install_sigterm_drain() -> None:
     except ValueError:
         # Not the main thread; preemption notices must then be injected.
         pass
+
+
+def reraise_drained_sigterm() -> None:
+    """After a SIGTERM was drained, hand it to the handler the drain
+    replaced (a flight recorder's writes a postmortem bundle, then dies
+    by the signal; the default just dies by it). A no-op when no SIGTERM
+    arrived or the drain is not installed. Call it once the process has
+    reported its drain and is about to exit."""
+    with _lock:
+        if not (_state.sigterm_received and _state.sigterm_installed):
+            return
+        prev = _state.prev_sigterm
+        _state.sigterm_installed = False
+    try:
+        signal.signal(signal.SIGTERM,
+                      prev if prev is not None else signal.SIG_DFL)
+    except ValueError:
+        return  # not the main thread
+    os.kill(os.getpid(), signal.SIGTERM)
 
 
 def reset_for_tests() -> None:
@@ -361,4 +427,5 @@ def reset_for_tests() -> None:
             except ValueError:
                 pass
         _state.sigterm_installed = False
+        _state.sigterm_received = False
         _state.prev_sigterm = None

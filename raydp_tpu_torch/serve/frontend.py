@@ -10,8 +10,9 @@ Graceful degradation is the contract: a full queue
 with a ``Retry-After`` header derived from the shed ETA; a request that
 misses its deadline becomes **504**. Anything accepted gets exactly one
 reply. Every admitted request's response carries its id in
-``X-RayDP-Request-Id``. The reference's busy-cluster 429 and its
-``traceparent`` echo arrive with the port's control and telemetry planes.
+``X-RayDP-Request-Id``. The reference's busy-cluster 429 waits for the
+control plane (ROADMAP item 7), its ``traceparent`` echo for the serve
+plane's telemetry (the rest of item 6).
 """
 from __future__ import annotations
 

@@ -21,9 +21,20 @@ Differences from the reference:
   functions and arguments carried by the closure carrier
   (``cluster/closure.py``), as the session's tasks are.
 
-The reference's gang telemetry (trace and job context, events, flight
-recorder, watchdog, shipped metrics and the reports built on them) and
-its arbiter admission are not ported yet.
+Telemetry (``raydp_tpu/spmd/job.py:37-41, 208-342, 374-525, 630-688,
+725-740, 859-940``): a gang joins the driver's trace and job (a gang
+inside a session joins the session's trace; a standalone one mints its
+own root and job) and hands both to its ranks' env; the ranks' metric
+deltas on their Pings merge into :attr:`SPMDJob.telemetry`
+(:meth:`SPMDJob.metrics_snapshot`, :meth:`SPMDJob.usage_report`), their
+stall flags into :meth:`SPMDJob.health_report`; each dispatch is an
+``spmd/dispatch`` span and watchdog bracket; ``gang/launch``,
+``rank/dead``, ``gang/failed``, ``preempt/request`` and
+``gang/teardown`` land on the event timeline.
+
+Left for later slices: ``resource_report`` and ``capture_profile`` (the
+device-phase plane, ROADMAP item 6.4) and the arbiter's admission (item
+7).
 """
 from __future__ import annotations
 
@@ -40,6 +51,12 @@ from typing import Any, Callable, Dict, List, Optional
 from raydp_tpu_torch.cluster import closure
 from raydp_tpu_torch.cluster.rpc import RpcClient, RpcServer
 from raydp_tpu_torch.store.object_store import DEFAULT_NODE
+from raydp_tpu_torch.telemetry import ClusterTelemetry, span
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import events as _events
+from raydp_tpu_torch.telemetry import flight_recorder as _flight
+from raydp_tpu_torch.telemetry import propagation as trace_prop
+from raydp_tpu_torch.telemetry import watchdog as _watchdog
 from raydp_tpu_torch.utils.net import find_free_port
 from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
@@ -239,10 +256,23 @@ class SPMDJob:
         self._gen = 0  # incarnation counter scoping watcher threads
         self._stopping = False
         self._log_paths: List[str] = []
+        self._trace_ctx = None
+        self._owns_trace_ctx = False
+        self._job_ctx: Optional[_acct.JobContext] = None
+        self._owns_job_ctx = False
         # Driver-local staging store for oversize dispatch payloads:
         # blobs above the inline cap are parked here and ranks pull
         # them through the chunked FetchObjectChunk path.
         self._blob_store = None
+        # Per-rank metrics merged from the deltas on their Pings; kept
+        # across relaunches (ranks keep their keys).
+        self.telemetry = ClusterTelemetry()
+        # Stall flags from each rank's last Ping (empty = healthy), and
+        # when it last beat; a lock of their own, so Pings never contend
+        # with dispatch bookkeeping.
+        self._health_lock = threading.Lock()
+        self._rank_health: Dict[str, dict] = {}
+        self._rank_beats: Dict[str, float] = {}
 
     def rank_nodes(self) -> List[str]:
         """Node of every rank — ranks fill hosts in order,
@@ -315,6 +345,24 @@ class SPMDJob:
         if self.script_prepare_fn is not None:
             prefix = list(self.script_prepare_fn(ctx) or [])
 
+        # The gang's trace: the driver's ambient context where there is
+        # one (a gang in a session joins the session's trace), else a
+        # root of its own. Its job, the same way: a gang launched under
+        # a job (fit_spmd's) bills there; a standalone gang is its own
+        # accounting root. Ranks inherit both through their env.
+        self._trace_ctx = trace_prop.current_context()
+        self._owns_trace_ctx = self._trace_ctx is None
+        if self._trace_ctx is None:
+            self._trace_ctx = trace_prop.mint_context(
+                "spmd/job", job=self.job_name, world_size=self.world_size)
+            trace_prop.set_process_context(self._trace_ctx)
+        self._job_ctx = _acct.current_job()
+        self._owns_job_ctx = self._job_ctx is None
+        if self._job_ctx is None:
+            self._job_ctx = _acct.mint_job(self.job_name,
+                                           world_size=self.world_size)
+            _acct.set_process_job(self._job_ctx)
+
         log_dir = os.path.join(
             tempfile.gettempdir(), "raydp_tpu_torch", "spmd",
             f"{self.job_name}-{os.getpid()}",
@@ -337,6 +385,8 @@ class SPMDJob:
                     ENV_COORDINATOR: coordinator,
                     ENV_LOCAL_RANK: str(layout[rank][0]),
                     ENV_LOCAL_WORLD_SIZE: str(layout[rank][1]),
+                    **trace_prop.env_for_child(self._trace_ctx),
+                    **_acct.env_for_child(self._job_ctx),
                 }
             )
             cmd = prefix + [sys.executable, "-m",
@@ -370,6 +420,11 @@ class SPMDJob:
             self._stubs[rank] = RpcClient(addr, WORKER_SERVICE, timeout=None)
         self.last_registered = len(self._worker_addrs)
         self._started = True
+        _events.emit(
+            "gang/launch", job=self._job_ctx, gang=self.job_name,
+            world_size=self.world_size, registered=self.last_registered,
+            gen=self._gen,
+        )
         return self
 
     @property
@@ -455,10 +510,16 @@ class SPMDJob:
         restarted gang) must not poison the next one."""
         code = proc.wait()
         if code not in (0, None) and gen == self._gen and not self._stopping:
+            _events.emit("rank/dead", job=self._job_ctx, gang=self.job_name,
+                         rank=rank, rc=code, gen=gen)
             self._fail(f"rank {rank} exited with code {code}")
 
     def _fail(self, reason: str) -> None:
         self._failed = reason
+        _flight.record("error", "spmd_fail", job=self.job_name,
+                       reason=str(reason)[:200])
+        _events.emit("gang/failed", job=self._job_ctx, gang=self.job_name,
+                     reason=str(reason)[:200])
         logger.warning("SPMD job %s failed: %s", self.job_name, reason)
         self._register_barrier.set()  # wake a start() still waiting
         inflight = self._inflight
@@ -488,8 +549,70 @@ class SPMDJob:
 
     def _on_ping(self, req: dict) -> dict:
         # A rank's heartbeat: the answer is its proof that the driver
-        # lives (it exits after missing three).
+        # lives (it exits after missing three). It carries the rank's
+        # metric delta and its watchdog's stall flags; a beat without
+        # flags means the rank sees no stall.
+        rank_key = f"rank-{req.get('rank', '?')}"
+        delta = req.get("metrics")
+        if delta:
+            self.telemetry.apply(rank_key, delta)
+        with self._health_lock:
+            self._rank_health[rank_key] = (
+                (req.get("health") or {}).get("stalls") or {})
+            self._rank_beats[rank_key] = time.monotonic()
         return {"pong": True, "gen": self._gen}
+
+    def metrics_snapshot(self) -> dict:
+        """Merged per-rank metrics view (the deltas shipped on Pings)."""
+        return self.telemetry.merged()
+
+    def usage_report(self) -> dict:
+        """Per-job usage folded from the ranks' shipped counters
+        (chip-seconds, bytes moved): the gang's face of
+        :func:`raydp_tpu_torch.telemetry.accounting.usage_report`."""
+        return _acct.usage_report(self.telemetry.merged())
+
+    # A rank quiet for half this window is late, for all of it dead (the
+    # vocabulary of Cluster.health_report).
+    PING_TIMEOUT_S = 30.0
+
+    def health_report(self) -> dict:
+        """Gang health: per-rank stall flags from the Pings, aged against
+        each rank's last Ping (late, dead), plus the job's failure state.
+        Ranks outside the current world (an elastic restart shrank the
+        gang) are reported as departed."""
+        now = time.monotonic()
+        with self._health_lock:
+            snapshot = dict(self._rank_health)
+            beats = dict(self._rank_beats)
+        ranks: Dict[str, dict] = {}
+        departed: List[str] = []
+        for rid in sorted(snapshot):
+            try:
+                idx = int(rid.rsplit("-", 1)[1])
+            except (IndexError, ValueError):
+                idx = -1
+            if 0 <= idx < self.world_size:
+                ranks[rid] = dict(snapshot[rid])
+            else:
+                departed.append(rid)
+        stalled = sorted(rid for rid, stalls in ranks.items() if stalls)
+        # A rank that has not beaten yet (a gang just launched) ages
+        # from now.
+        dead = sorted(rid for rid in ranks
+                      if now - beats.get(rid, now) > self.PING_TIMEOUT_S)
+        late = sorted(rid for rid in ranks if rid not in dead
+                      and now - beats.get(rid, now) > self.PING_TIMEOUT_S / 2)
+        return {
+            "healthy": not (stalled or dead or late) and not self._failed,
+            "ranks": ranks,
+            "stalled_ranks": stalled,
+            "dead_ranks": dead,
+            "late_ranks": late,
+            "departed_ranks": departed,
+            "failed": self._failed,
+            "world_size": self.world_size,
+        }
 
     # -------------------------------------------------------------------- run
 
@@ -529,77 +652,88 @@ class SPMDJob:
             self._inflight = results
         staged_ids: List[str] = []
         label = f"{self.job_name}/func{func_id}"
+        _flight.record("dispatch", "start", job=self.job_name,
+                       func_id=func_id)
         try:
-            fn_blob = closure.dumps(fn)
-            inline_cap = _env_mb(ENV_INLINE_CAP, _DEFAULT_INLINE_CAP_MB)
-            hard_cap = _env_mb(ENV_PAYLOAD_HARD_CAP, _DEFAULT_HARD_CAP_MB)
-            for rank, stub in self._stubs.items():
-                payload: Dict[str, Any] = {"func_id": func_id}
-                blobs = {"fn": fn_blob}
-                nbytes = len(fn_blob)
-                if per_rank_args is not None:
-                    blob = closure.dumps(tuple(per_rank_args[rank]))
-                    blobs["args"] = blob
-                    nbytes += len(blob)
-                if nbytes > hard_cap:
-                    # Fail fast: retrying an over-the-ceiling payload is
-                    # deterministic waste, so retryable=False.
-                    raise DispatchPayloadError(
-                        f"dispatch payload for rank {rank} is {nbytes} "
-                        f"bytes, over the {ENV_PAYLOAD_HARD_CAP} hard cap "
-                        f"of {hard_cap} bytes",
-                        label=label, payload_bytes=nbytes, retryable=False,
+            # A gang that never reports back (a rank wedged in a
+            # collective) shows as "spmd/dispatch" on the driver; the
+            # dispatch may run to its own deadline, so the threshold is
+            # that deadline.
+            with _watchdog.inflight(
+                "spmd/dispatch", job=self.job_name, func_id=func_id,
+                stall_after_s=timeout or max(self.timeout, 60.0),
+            ), span("spmd/dispatch", job=self.job_name, func_id=func_id,
+                    world_size=self.world_size):
+                fn_blob = closure.dumps(fn)
+                inline_cap = _env_mb(ENV_INLINE_CAP, _DEFAULT_INLINE_CAP_MB)
+                hard_cap = _env_mb(ENV_PAYLOAD_HARD_CAP, _DEFAULT_HARD_CAP_MB)
+                for rank, stub in self._stubs.items():
+                    payload: Dict[str, Any] = {"func_id": func_id}
+                    blobs = {"fn": fn_blob}
+                    nbytes = len(fn_blob)
+                    if per_rank_args is not None:
+                        blob = closure.dumps(tuple(per_rank_args[rank]))
+                        blobs["args"] = blob
+                        nbytes += len(blob)
+                    if nbytes > hard_cap:
+                        # Fail fast: retrying an over-the-ceiling payload is
+                        # deterministic waste, so retryable=False.
+                        raise DispatchPayloadError(
+                            f"dispatch payload for rank {rank} is {nbytes} "
+                            f"bytes, over the {ENV_PAYLOAD_HARD_CAP} hard cap "
+                            f"of {hard_cap} bytes",
+                            label=label, payload_bytes=nbytes, retryable=False,
+                        )
+                    if nbytes > inline_cap:
+                        # Oversize payload: stage in the driver-local store;
+                        # the envelope carries only refs and the rank pulls
+                        # the bytes back in bounded chunks.
+                        for key, blob in blobs.items():
+                            ref = self._blob_store.put(blob)
+                            staged_ids.append(ref.object_id)
+                            payload[f"{key}_ref"] = ref.object_id
+                            payload[f"{key}_size"] = len(blob)
+                        _metrics.counter_add("spmd/oversize_dispatches")
+                        _metrics.counter_add("spmd/staged_bytes", nbytes)
+                        send_bytes = 4096
+                    else:
+                        payload.update(blobs)
+                        send_bytes = nbytes
+                    # Deadline sized to the bytes riding THIS envelope (refs
+                    # make it constant) at a worst-case ~10 MB/s, on top of
+                    # the control default — NOT the whole-job timeout, which
+                    # would let the serial send loop hide failures for
+                    # world×timeout.
+                    try:
+                        stub.call("RunFunction", payload,
+                                  timeout=10.0 + send_bytes / 10e6)
+                    except Exception as exc:
+                        if nbytes <= inline_cap:
+                            raise
+                        raise DispatchPayloadError(
+                            f"oversize dispatch to rank {rank} failed after "
+                            f"staging ({nbytes} bytes): {exc}",
+                            label=label, payload_bytes=nbytes, retryable=True,
+                            server_exception=type(exc).__name__,
+                        ) from exc
+                if not results.done.wait(timeout or max(self.timeout, 60.0)):
+                    raise SPMDJobError(
+                        f"function {func_id} timed out on job {self.job_name}"
                     )
-                if nbytes > inline_cap:
-                    # Oversize payload: stage in the driver-local store;
-                    # the envelope carries only refs and the rank pulls
-                    # the bytes back in bounded chunks.
-                    for key, blob in blobs.items():
-                        ref = self._blob_store.put(blob)
-                        staged_ids.append(ref.object_id)
-                        payload[f"{key}_ref"] = ref.object_id
-                        payload[f"{key}_size"] = len(blob)
-                    _metrics.counter_add("spmd/oversize_dispatches")
-                    _metrics.counter_add("spmd/staged_bytes", nbytes)
-                    send_bytes = 4096
-                else:
-                    payload.update(blobs)
-                    send_bytes = nbytes
-                # Deadline sized to the bytes riding THIS envelope (refs
-                # make it constant) at a worst-case ~10 MB/s, on top of
-                # the control default — NOT the whole-job timeout, which
-                # would let the serial send loop hide failures for
-                # world×timeout.
-                try:
-                    stub.call("RunFunction", payload,
-                              timeout=10.0 + send_bytes / 10e6)
-                except Exception as exc:
-                    if nbytes <= inline_cap:
-                        raise
-                    raise DispatchPayloadError(
-                        f"oversize dispatch to rank {rank} failed after "
-                        f"staging ({nbytes} bytes): {exc}",
-                        label=label, payload_bytes=nbytes, retryable=True,
-                        server_exception=type(exc).__name__,
-                    ) from exc
-            if not results.done.wait(timeout or max(self.timeout, 60.0)):
-                raise SPMDJobError(
-                    f"function {func_id} timed out on job {self.job_name}"
-                )
-            if self._failed:
-                raise SPMDJobError(
-                    f"job {self.job_name} failed mid-function: "
-                    f"{self._failed}"
-                )
-            errors = [
-                f"rank {i}: {e}" for i, e in enumerate(results.errors) if e
-            ]
-            if errors:
-                raise SPMDJobError(
-                    f"function failed on {len(errors)} rank(s):\n"
-                    + "\n".join(errors)
-                )
-            return results.results
+                if self._failed:
+                    raise SPMDJobError(
+                        f"job {self.job_name} failed mid-function: "
+                        f"{self._failed}"
+                    )
+                errors = [
+                    f"rank {i}: {e}" for i, e in enumerate(results.errors) if e
+                ]
+                if errors:
+                    raise SPMDJobError(
+                        f"function failed on {len(errors)} rank(s):\n"
+                        + "\n".join(errors)
+                    )
+                return results.results
         finally:
             self._inflight = None
             # Staged blobs are per-dispatch; every rank has either
@@ -619,6 +753,10 @@ class SPMDJob:
         (which its drain handler routes the same way); a rank that has
         exited is skipped. Each rank's grace is its
         ``RAYDP_TPU_PREEMPT_GRACE_S``. Advisory: never raises."""
+        _events.emit("preempt/request", job=self._job_ctx,
+                     gang=self.job_name, source="scheduler", gen=self._gen)
+        _flight.record("supervisor", "preempt_notice", job=self.job_name,
+                       ranks=len(self._procs))
         notified = set()
         for rank, stub in list(self._stubs.items()):
             try:
@@ -644,6 +782,10 @@ class SPMDJob:
         """Stop workers, reap processes; the job can be start()ed again
         (reference: MPIJob.stop/_reset, mpi/mpi_job.py:341-398)."""
         self._stopping = True
+        if self._started:
+            _events.emit("gang/teardown", job=self._job_ctx,
+                         gang=self.job_name, world_size=self.world_size,
+                         gen=self._gen)
         for stub in self._stubs.values():
             try:
                 stub.call("Stop", {}, timeout=2.0)
@@ -672,6 +814,16 @@ class SPMDJob:
         self._worker_hosts = {}
         self._inflight = None
         self._started = False
+        if self._owns_trace_ctx and self._trace_ctx is not None:
+            if trace_prop.process_context() == self._trace_ctx:
+                trace_prop.set_process_context(None)
+        self._trace_ctx = None
+        self._owns_trace_ctx = False
+        if self._owns_job_ctx and self._job_ctx is not None:
+            if _acct.process_job() == self._job_ctx:
+                _acct.set_process_job(None)
+        self._job_ctx = None
+        self._owns_job_ctx = False
 
     def __enter__(self) -> "SPMDJob":
         if not self._started:

@@ -16,24 +16,43 @@ a card of its own, gloo where ranks share a card or run on the CPU.
 The process imports no torch until a shipped function does (nor any
 other library of the card): functions arrive through the closure carrier
 (``cluster/closure.py``), and this module loads only the RPC layer, the
-store's fetch protocol and the fault plane.
+store's fetch protocol, the fault plane and the telemetry (all of it
+standard library).
 
 Preemption (``raydp_tpu/spmd/worker_main.py:127-139, 431``): the
 driver's ``Preempt`` RPC and a SIGTERM (routed by
 :func:`~raydp_tpu_torch.fault.install_sigterm_drain` before the runner
 starts) both set the process's drain flag; a training function drains
 at its next step boundary. A plan's ``hb_stall`` clause silences this
-rank's heartbeats. The reference's telemetry (shipped metrics, spans,
-flight recorder, watchdog, debug endpoint) and its profile capture are
-not ported yet.
+rank's heartbeats. The drain is installed after the flight recorder
+and chains to it: once the rank has drained and stops, the SIGTERM is
+handed on (:func:`~raydp_tpu_torch.fault.reraise_drained_sigterm`), so
+the rank leaves a postmortem bundle and dies by the signal.
+
+Telemetry (``raydp_tpu/spmd/worker_main.py:40-45, 200-400, 431-440``):
+the rank joins the driver's trace and job from its env, arms the flight
+recorder (component ``spmd-worker``), the JSONL logs and the watchdog;
+each shipped function runs in the dispatch's trace context and job (the
+``traceparent`` and ``job`` keys ride the queued request) inside an
+``spmd/func`` span and watchdog bracket; each heartbeat samples the
+resource gauges, bills ``hbm_byte_seconds``, ships the metric delta
+(rolled back when the Ping is missed) and the stall flags, and flushes
+the span ring; a stopping rank ships its full final snapshot on a last
+Ping (the ETL worker's ``WorkerStopped`` does the same for its master).
+``RAYDP_TPU_DEBUG_PORT`` serves this rank's ``/metrics``
+and ``/healthz``. Left for the device-phase plane (ROADMAP item 6.4):
+the profile capture and the compile accounting.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import logging
 import os
 import queue
 import sys
 import threading
+import time
 import traceback
 from typing import Callable, Optional
 
@@ -51,7 +70,14 @@ from raydp_tpu_torch.spmd.job import (
     ENV_WORLD_SIZE,
     WORKER_SERVICE,
 )
+from raydp_tpu_torch.telemetry import MetricsShipper, flush_spans, span
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import flight_recorder as _flight
+from raydp_tpu_torch.telemetry import logs as _logs
+from raydp_tpu_torch.telemetry import propagation as trace_prop
+from raydp_tpu_torch.telemetry import watchdog as _watchdog
 from raydp_tpu_torch.utils.net import local_ip
+from raydp_tpu_torch.utils.profiling import metrics, sample_resource_gauges
 
 logger = logging.getLogger(__name__)
 
@@ -194,6 +220,8 @@ class SPMDWorker:
         self.driver = RpcClient(driver_addr, DRIVER_SERVICE)
         self._queue: "queue.Queue[Optional[dict]]" = queue.Queue()
         self._stop_event = threading.Event()
+        # Registry deltas for the Pings, and the final full snapshot.
+        self._shipper = MetricsShipper()
         self._last_func_id = 0
         # Mirror the driver's multi-host binding: a remote driver must be
         # able to reach this rank's service across the network.
@@ -295,14 +323,34 @@ class SPMDWorker:
                 continue
             self._last_func_id = func_id
             value, error = None, None
-            try:
-                fn = closure.loads(self._payload_blob(item, "fn"))
-                args_blob = self._payload_blob(item, "args")
-                args = (closure.loads(args_blob)
-                        if args_blob is not None else ())
-                value = fn(self.ctx, *args)
-            except Exception:
-                error = traceback.format_exc()
+            # The RunFunction handler only enqueues; this thread runs the
+            # function, so the dispatch's trace context and job ride the
+            # queued request and are installed here.
+            ctx = trace_prop.extract(item)
+            jctx = _acct.extract(item)
+            _flight.record("func", "start", rank=self.rank, func_id=func_id)
+            # A wedged function (a collective waiting on a dead peer)
+            # shows as "spmd/func", at the long-op threshold: a shipped
+            # function is often a whole training loop.
+            with (trace_prop.propagated(ctx) if ctx is not None
+                  else contextlib.nullcontext()), \
+                    (_acct.job_scope(jctx) if jctx is not None
+                     else contextlib.nullcontext()), \
+                    _watchdog.inflight("spmd/func", rank=self.rank,
+                                       func_id=func_id,
+                                       stall_after_s=_watchdog.long_stall_s()), \
+                    span("spmd/func", rank=self.rank, func_id=func_id) as sp:
+                try:
+                    fn = closure.loads(self._payload_blob(item, "fn"))
+                    args_blob = self._payload_blob(item, "args")
+                    args = (closure.loads(args_blob)
+                            if args_blob is not None else ())
+                    value = fn(self.ctx, *args)
+                except Exception:
+                    error = traceback.format_exc()
+                    sp.status = "error"
+            _flight.record("func", "end", rank=self.rank, func_id=func_id,
+                           **({"status": "error"} if error else {}))
             reply = self.driver.try_call(
                 "FuncResult",
                 {
@@ -325,8 +373,10 @@ class SPMDWorker:
         """Detect a dead driver while idle — without this, a SIGKILLed
         driver would orphan the whole gang (and the cards it holds)
         forever; result-posting only notices mid-function."""
+        shipper = self._shipper
         missed = 0
         beat_index = 0
+        last_mono = time.monotonic()
         while not self._stop_event.wait(HEARTBEAT_S):
             beat_index += 1
             # A plan's hb_stall clause skips this beat: no ping leaves,
@@ -334,8 +384,13 @@ class SPMDWorker:
             if fault.active() and fault.on_heartbeat(beat_index - 1,
                                                      rank=self.rank):
                 continue
-            if self.driver.try_call("Ping", {"rank": self.rank},
-                                    timeout=5.0) is None:
+            beat = self._beat(shipper, last_mono)
+            last_mono = time.monotonic()
+            # One shard write a beat (a no-op without a telemetry dir).
+            flush_spans()
+            if self.driver.try_call("Ping", beat, timeout=5.0) is None:
+                _flight.record("heartbeat", "missed", missed=missed + 1)
+                shipper.rollback(beat.get("metrics"))  # ships next beat
                 missed += 1
                 if missed >= MISSED_BEATS:
                     logger.warning(
@@ -348,6 +403,53 @@ class SPMDWorker:
             else:
                 missed = 0
 
+    def _beat(self, shipper: MetricsShipper, last_mono: float) -> dict:
+        """A Ping's body: the metric delta (after refreshing the resource
+        gauges and billing the device memory held since ``last_mono``)
+        and any stall flags."""
+        beat = {"rank": self.rank}
+        try:
+            sample_resource_gauges()
+        except Exception:
+            metrics.counter_add("telemetry/gauge_errors")
+        # Device-memory byte-seconds: the occupancy gauge integrated at
+        # beat cadence, so the ledger bills memory held.
+        hbm = metrics.gauge_value("hbm/used_bytes")
+        if hbm:
+            _acct.add_usage(_acct.HBM_BYTE_SECONDS,
+                            hbm * (time.monotonic() - last_mono))
+        delta = shipper.delta()
+        if delta:
+            beat["metrics"] = delta
+        # Stall flags reach SPMDJob.health_report() while the function
+        # is still running.
+        health = _watchdog.health()
+        if not health.get("healthy", True):
+            beat["health"] = {"stalls": health.get("stalls", {})}
+        return beat
+
+    def _serve_debug(self):
+        """This rank's ``/metrics`` and ``/healthz`` when
+        ``RAYDP_TPU_DEBUG_PORT`` is set (0: an ephemeral port, logged)."""
+        from raydp_tpu_torch.telemetry import (
+            DEBUG_PORT_ENV,
+            render_prometheus,
+            serve_prometheus,
+        )
+
+        port = os.environ.get(DEBUG_PORT_ENV)
+        if port is None:
+            return None
+        try:
+            return serve_prometheus(
+                lambda: render_prometheus(
+                    {"workers": {f"rank-{self.rank}": metrics.snapshot()}}),
+                int(port),
+            )
+        except Exception:
+            logger.exception("rank debug endpoint failed to start")
+            return None
+
     def run(self) -> int:
         self.driver.call(
             "RegisterWorker",
@@ -358,11 +460,24 @@ class SPMDWorker:
                 "pid": os.getpid(),
             },
         )
+        _flight.record("state", "registered", rank=self.rank)
+        debug_server = self._serve_debug()
         runner = threading.Thread(target=self._runner, daemon=True)
         runner.start()
         threading.Thread(target=self._heartbeat, daemon=True).start()
         self._stop_event.wait()
         runner.join(timeout=2.0)
+        # The full final snapshot on one last Ping: the driver waits for
+        # the ranks to exit before it closes its server, so a function's
+        # last usage (an epoch's chip-seconds billed as it ends) reaches
+        # SPMDJob.telemetry without waiting for a beat.
+        self.driver.try_call(
+            "Ping", {"rank": self.rank, "metrics": self._shipper.full()},
+            timeout=2.0)
+        _flight.record("state", "stopping", rank=self.rank)
+        flush_spans()  # the tail of a clean stop (atexit is the backstop)
+        if debug_server is not None:
+            debug_server.close()
         self._server.stop()
         self.driver.close()
         return 0
@@ -374,10 +489,23 @@ def main() -> int:
         format=f"[spmd-{os.environ.get(ENV_RANK, '?')}] %(levelname)s "
                f"%(message)s",
     )
-    # SIGTERM drains a training function instead of killing the rank.
+    # Join the driver's trace and job before any span or usage is
+    # recorded; arm the postmortem bundles, the JSONL logs and the
+    # watchdog; flush tail spans at interpreter exit.
+    trace_prop.adopt_env_context()
+    _acct.adopt_env_job()
+    _flight.install(component="spmd-worker")
+    # After the flight recorder, and chained to it: SIGTERM drains a
+    # training function to an emergency checkpoint instead of killing
+    # the rank; the signal is handed on once the rank stops.
     fault.install_sigterm_drain()
+    _logs.install()
+    _watchdog.ensure_started()
+    atexit.register(flush_spans)
     try:
-        return SPMDWorker().run()
+        code = SPMDWorker().run()
+        fault.reraise_drained_sigterm()
+        return code
     except Exception:
         traceback.print_exc()
         # Best-effort failure report so the driver fails fast rather than

@@ -1,6 +1,6 @@
 """Node-aware object resolution: local shm read or remote agent fetch (the
-port's copy of ``raydp_tpu/store/resolver.py``, without its job
-accounting).
+port's copy of ``raydp_tpu/store/resolver.py``). A remote fetch bills
+its bytes to the job in scope (``fetched_bytes``).
 
 An ObjectRef resolves anywhere in the cluster: the reference gets this from
 Ray's distributed object store (any node can ``ray.get`` any ref —
@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional, Tuple
 import pyarrow as pa
 
 from raydp_tpu_torch.store.object_store import ObjectRef, ObjectStore
+from raydp_tpu_torch.telemetry import accounting as _acct
 from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
 # meta_fn(object_id) -> (ref, agent) where agent = {"address","service"}|None
@@ -109,6 +110,7 @@ class ObjectResolver:
         first = reply["data"]
         _metrics.counter_add("store/remote_fetch_bytes", total)
         _metrics.counter_add("store/remote_fetches")
+        _acct.add_usage(_acct.FETCHED_BYTES, total)
         if len(first) >= total:
             return first
         out = bytearray(total)

@@ -31,6 +31,9 @@ Env knobs:
   ``stats-<pid>.jsonl`` there, so CI can ship the stats store as an
   artifact from a process that already exited. Nothing prunes old
   shards there.
+
+Left for ROADMAP Queue A 6.3: the reference's opt-in progress logger
+(``RAYDP_TPU_PROGRESS_LOG``) and its pruning of ``stats-<pid>.jsonl``.
 """
 from __future__ import annotations
 

@@ -44,8 +44,23 @@ Differences from the JAX estimator, each deliberate:
   defaulting rules and says here that a step updates the parameters and
   the optimizer state in place, so only a failure raised before the
   update may be retried (below).
-* Telemetry and the device-phase plane are a later slice (ROADMAP
-  Queue A item 6).
+* The device-phase plane (step phases, MFU, anomaly sentinels) is a
+  later slice (ROADMAP item 6.4).
+
+**Telemetry** (``raydp_tpu/train/estimator.py:594, 649-683, 710,
+823-840, 1094-1102, 1399, 1588``): a fit is a ``train/fit`` span, each
+epoch a ``train/epoch`` span and, on the stream path, each step a
+``train/step`` span inside a watchdog bracket (the first step of an
+epoch at the long threshold), its duration observed by the
+``train/step`` timer. Both are host-side bookkeeping and add no device
+sync: the step span times the step's dispatch, as in the JAX package,
+where the device may still be computing. The scan path brackets its
+epoch (``train/epoch``, long threshold). Each epoch bills
+``chip_seconds`` (its wall time times the one card a process uses),
+counts ``train/epochs`` and ``train/samples``, leaves flight records
+and flushes the span ring; checkpoints, prunes and a preemption drain
+land on the event timeline (``checkpoint/complete``,
+``checkpoint/prune``, ``preempt/drain``, ``checkpoint/emergency``).
 
 **Step retries** (``raydp_tpu/train/estimator.py:838-870``): with
 ``donate_state=False`` (what an explicit ``max_failures > 0`` turns on),
@@ -118,9 +133,15 @@ from raydp_tpu_torch.data.ml_dataset import MLDataset
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
 from raydp_tpu_torch.parallel.mesh import DEFAULT_LOGICAL_RULES, MeshSpec
+from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import events as _events
+from raydp_tpu_torch.telemetry import flight_recorder as _flight
+from raydp_tpu_torch.telemetry import flush_spans, span
+from raydp_tpu_torch.telemetry import watchdog as _watchdog
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
+from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
 #: Retention cap for step-encoded checkpoints (``step_mid_<N>.pt`` and
 #: ``step_emergency_<N>.pt``), as the JAX package's
@@ -132,6 +153,10 @@ CKPT_KEEP_ENV = "RAYDP_TPU_CKPT_KEEP"
 _DEFAULT_CKPT_KEEP = 16
 
 logger = logging.getLogger(__name__)
+
+# Cards a training process holds: one (a gang runs a process per card),
+# so an epoch bills its wall time once as chip-seconds.
+_CARDS_PER_PROCESS = 1
 
 # Eager steps before the scan path captures its step: real steps of the
 # first epoch, counted in its history.
@@ -453,6 +478,19 @@ class Estimator:
                 "feature_columns and label_column must be configured "
                 "(label_column may be omitted with self_supervised=True)")
         epochs = num_epochs if num_epochs is not None else self.num_epochs
+        # One root span a fit: epoch and step spans on this thread, ingest
+        # spans on the prefetch thread and the workers' task spans parent
+        # under it, so a fit reads as one tree in the merged trace.
+        with span("train/fit", epochs=epochs):
+            self._fit(train_ds, evaluate_ds, epochs, resume_from)
+        # The last epoch flushed before the fit span closed.
+        flush_spans()
+        for cb in self.callbacks:
+            cb.on_train_end(self.history)
+        return self.history
+
+    def _fit(self, train_ds, evaluate_ds, epochs: int,
+             resume_from: Optional[str]) -> None:
         self._failures = 0
         rank, world = _dist_world()
         if self.mesh_spec.size > world:
@@ -475,9 +513,6 @@ class Estimator:
                 self._fit_stream(train_ds, evaluate_ds, epochs, resume_from)
             finally:
                 self._allreduce = self._clock = None
-        for cb in self.callbacks:
-            cb.on_train_end(self.history)
-        return self.history
 
     def _train_step(self, x: torch.Tensor,
                     y: Optional[torch.Tensor]) -> torch.Tensor:
@@ -559,10 +594,13 @@ class Estimator:
         gang every rank enters it after the same step (``save`` is
         collective)."""
         t0 = time.perf_counter()
+        _events.emit("preempt/drain", step=step, epoch=epoch, batch=b_idx)
         path = None
         if self.checkpoint_dir:
             path = self.save(self.checkpoint_dir, step=f"emergency_{step}",
                              data_position=(epoch, b_idx))
+            _events.emit("checkpoint/emergency", path=path, step=step,
+                         epoch=epoch, batch=b_idx)
             logger.warning("preemption drain: emergency checkpoint at %s "
                            "(step %d, epoch %d, batch %d)", path, step,
                            epoch, b_idx)
@@ -571,6 +609,9 @@ class Estimator:
                            "configured; exiting without an emergency "
                            "checkpoint")
         drain_s = time.perf_counter() - t0
+        _flight.record("train", "preempt_drain", step=step, epoch=epoch,
+                       batch=b_idx, **({"path": path} if path else {}))
+        flush_spans()
         fault.mark_drained()
         raise fault.PreemptionError(
             f"preempted at step {step} (epoch {epoch}, batch {b_idx}); "
@@ -606,41 +647,21 @@ class Estimator:
         if self._allreduce is not None:
             self._broadcast_state()
         first_step_at = None
+        step_timer = _metrics.timer("train/step")
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             self._model.train()
             for loader in loaders:
                 loader.set_epoch(epoch)
             to_skip = skip_batches if epoch == start_epoch else 0
-            b_idx = to_skip
             self._loss_sum.zero_()
-            n_batches = n_samples = 0
-            for i, (x, y) in enumerate(self._batches(loaders)):
-                if i < to_skip:
-                    continue
-                loss = self._run_step(self._train_step, x, y)
-                if self._clock is not None and first_step_at is None:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                    first_step_at = time.time()
-                n_batches += 1
-                b_idx += 1
-                self._step += 1
-                n_samples += len(x)
-                if (self.save_every_steps and self.checkpoint_dir
-                        and self._step % self.save_every_steps == 0):
-                    self.save(self.checkpoint_dir, step=f"mid_{self._step}",
-                              data_position=(epoch, b_idx))
-                # The fault plane fires at this boundary, after the step
-                # and any scheduled save, and a notice drains here, so the
-                # emergency checkpoint holds a finished step.
-                gang_wide = (fault.on_train_step(self._step)
-                             if fault.active() else False)
-                if self._preempt_due(gang_wide):
-                    self._drain_preemption(self._step, epoch, b_idx)
-                if self.log_every and n_batches % self.log_every == 0:
-                    logger.info("epoch %d step %d loss %.5f", epoch,
-                                n_batches, float(loss))  # sync: opt-in
+            _flight.record("train", "epoch_start", epoch=epoch,
+                           mode="stream")
+            # The epoch span covers the batch loop only: it closes before
+            # _finish_epoch, so the flush there sees it finished.
+            with span("train/epoch", epoch=epoch, mode="stream"):
+                n_batches, n_samples, first_step_at = self._stream_epoch(
+                    loaders, epoch, to_skip, step_timer, first_step_at)
             train_loss = float(self._loss_sum) / max(1, n_batches)  # one sync
             extra = None
             if self._clock is not None:
@@ -649,6 +670,50 @@ class Estimator:
                     extra["first_step_at"] = first_step_at
             self._finish_epoch(epoch, t0, train_loss, n_samples, evaluate_ds,
                                extra)
+
+    def _stream_epoch(self, loaders, epoch: int, to_skip: int, step_timer,
+                      first_step_at):
+        """One stream epoch's steps; returns ``(batches, samples,
+        first_step_at)``."""
+        b_idx = to_skip
+        n_batches = n_samples = 0
+        for i, (x, y) in enumerate(self._batches(loaders)):
+            if i < to_skip:
+                continue
+            # A step that never returns (a wedged device or
+            # collective) shows in the watchdog as "train/step" with
+            # its index; an epoch's first step may build kernels and
+            # gets the long threshold.
+            with _watchdog.inflight(
+                "train/step", epoch=epoch, step=b_idx,
+                stall_after_s=(_watchdog.long_stall_s()
+                               if n_batches == 0 else None),
+            ), span("train/step", epoch=epoch, step=b_idx) as sp:
+                loss = self._run_step(self._train_step, x, y)
+            step_timer.observe(sp.duration_s)
+            if self._clock is not None and first_step_at is None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                first_step_at = time.time()
+            n_batches += 1
+            b_idx += 1
+            self._step += 1
+            n_samples += len(x)
+            if (self.save_every_steps and self.checkpoint_dir
+                    and self._step % self.save_every_steps == 0):
+                self.save(self.checkpoint_dir, step=f"mid_{self._step}",
+                          data_position=(epoch, b_idx))
+            # The fault plane fires at this boundary, after the step
+            # and any scheduled save, and a notice drains here, so the
+            # emergency checkpoint holds a finished step.
+            gang_wide = (fault.on_train_step(self._step)
+                         if fault.active() else False)
+            if self._preempt_due(gang_wide):
+                self._drain_preemption(self._step, epoch, b_idx)
+            if self.log_every and n_batches % self.log_every == 0:
+                logger.info("epoch %d step %d loss %.5f", epoch,
+                            n_batches, float(loss))  # sync: opt-in
+        return n_batches, n_samples, first_step_at
 
     def _broadcast_state(self) -> None:
         """Rank 0's parameters and buffers to every rank, before the
@@ -767,9 +832,17 @@ class Estimator:
                 xe = xd.index_select(0, perm)
                 ye = None if yd is None else yd.index_select(0, perm)
             self._loss_sum.zero_()
-            for i in range(0, n_steps * batch, batch):
-                self._run_step(step, xe[i:i + batch],
-                               None if ye is None else ye[i:i + batch])
+            _flight.record("train", "epoch_start", epoch=epoch,
+                           mode="scan", n_steps=n_steps)
+            # The scan path's progress unit is the epoch (the JAX
+            # package fuses it into one dispatch): long-op threshold.
+            with _watchdog.inflight("train/epoch", epoch=epoch, mode="scan",
+                                    stall_after_s=_watchdog.long_stall_s()), \
+                    span("train/epoch", epoch=epoch, mode="scan",
+                         n_steps=n_steps):
+                for i in range(0, n_steps * batch, batch):
+                    self._run_step(step, xe[i:i + batch],
+                                   None if ye is None else ye[i:i + batch])
             self._step += n_steps
             # The mean over the fused steps, padded rows included, as
             # JAX's losses.mean(); samples count the true rows.
@@ -800,6 +873,12 @@ class Estimator:
                       extra: Optional[Dict[str, float]] = None
                       ) -> Dict[str, float]:
         dt = time.perf_counter() - t0
+        _metrics.counter_add("train/epochs")
+        _metrics.meter("train/samples").add(n_samples)
+        _metrics.timer("train/epoch").observe(dt)
+        # This process held its card the whole epoch: summed over a
+        # gang's ranks, the ledger reads in the gang's chip-seconds.
+        _acct.add_usage(_acct.CHIP_SECONDS, dt * _CARDS_PER_PROCESS)
         metrics: Dict[str, float] = {
             "epoch": epoch,
             "train_loss": train_loss,
@@ -817,6 +896,9 @@ class Estimator:
             # Epoch-end checkpoints point at the next epoch's first batch.
             self.save(self.checkpoint_dir, step=epoch,
                       data_position=(epoch + 1, 0))
+        # The epoch boundary is the span ring's flush point (a no-op
+        # without RAYDP_TPU_TELEMETRY_DIR).
+        flush_spans()
         return metrics
 
     @torch.no_grad()
@@ -958,6 +1040,7 @@ class Estimator:
             _prune_checkpoints(checkpoint_dir)
         if world > 1:
             dist.barrier()
+        _events.emit("checkpoint/complete", path=str(path), step=str(step))
         return path
 
     def restore(self, checkpoint_dir: str, step=None,
@@ -1035,11 +1118,13 @@ def _prune_checkpoints(checkpoint_dir: str) -> None:
     mids = sorted((int(m.group(1)), os.path.join(checkpoint_dir, n))
                   for n in os.listdir(checkpoint_dir)
                   for m in [_STEP_RE.match(n)] if m)
-    for _, path in mids[:max(0, len(mids) - keep)]:
+    for step_n, path in mids[:max(0, len(mids) - keep)]:
         try:
             os.remove(path)
         except FileNotFoundError:
-            pass  # removed by a concurrent prune
+            continue  # removed by a concurrent prune
+        _events.emit("checkpoint/prune", path=path, step=str(step_n),
+                     keep=keep)
 
 
 def _ensure_df(df):

@@ -37,11 +37,25 @@ over it, and a registration shortfall of G of W ranks
 (``min_world_size <= G < W``) relaunches on G ranks; the estimator
 rescales its resume position to the new world.
 
-Left for later items of ROADMAP Queue A: the control plane's gang lease
-(item 7, raising ``NotImplementedError`` when
-``RAYDP_TPU_SCHED_CAPACITY`` turns arbitration on), and the JAX
-package's accounting scope, events, flight recorder and ``replay/steps``
-counter (item 6).
+Telemetry (``raydp_tpu/train/spmd_fit.py:85-95, 153-221, 296-391``): the
+whole supervised fit, every relaunch included, bills to one
+``fit-spmd`` job (an ambient job wins), which its gangs and ranks
+inherit; relaunches, preemptions and resizes land on the event
+timeline (``train/resume``, ``preempt/request``, ``gang/resize``) and in
+the flight recorder; a relaunch that resumes behind the steps rank 0
+had reported (its shipped ``train/step`` timer) counts the difference
+as ``replay/steps``. The result adds the gang's ``metrics`` (its merged
+view), ``usage`` (:meth:`~raydp_tpu_torch.spmd.job.SPMDJob.usage_report`)
+and the fit's ``job_id``. In a session (an in-process one or a second
+driver's), every launch's final rank views also go to the session's
+master (``record_gang``), keyed ``<job>/fit-<token>/launch-<n>/rank-<r>``
+so that no fit or relaunch overwrites another's, and the session's
+``metrics_snapshot``, exposition and ``usage_report`` include the chip-
+seconds of every fit and every relaunch.
+
+Left for ROADMAP Queue A item 7: the control plane's gang lease (raising
+``NotImplementedError`` when ``RAYDP_TPU_SCHED_CAPACITY`` turns
+arbitration on).
 """
 from __future__ import annotations
 
@@ -51,6 +65,7 @@ import os
 import random
 import re
 import time
+import uuid
 from typing import Any, Callable, Dict, List, Optional
 
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -65,6 +80,8 @@ SCHED_CAPACITY_ENV = "RAYDP_TPU_SCHED_CAPACITY"
 # shortfall SPMDJob raises when ranks never come up; elastic mode
 # shrinks the world to the ranks that did register.
 _REGISTERED_RE = re.compile(r"only (\d+)/(\d+) ranks registered")
+# The optimizer step in a step-encoded checkpoint's name.
+_CKPT_STEP_RE = re.compile(r"^step_(?:mid|emergency)_(\d+)\.pt$")
 
 
 def _newest_checkpoint(checkpoint_dir: Optional[str]) -> Optional[str]:
@@ -84,6 +101,50 @@ def _newest_checkpoint(checkpoint_dir: Optional[str]) -> Optional[str]:
         if mtime > best_mtime:
             best, best_mtime = path, mtime
     return best
+
+
+def _ckpt_step(path: Optional[str]) -> Optional[int]:
+    """The optimizer step a checkpoint's name encodes, or None."""
+    if not path:
+        return None
+    m = _CKPT_STEP_RE.match(os.path.basename(path))
+    return int(m.group(1)) if m else None
+
+
+def _rank0_steps(job) -> int:
+    """Optimizer steps rank 0 has reported in its shipped ``train/step``
+    timer (a beat of lag: advisory, for replay accounting only)."""
+    try:
+        workers = job.metrics_snapshot().get("workers", {})
+        timer = workers.get("rank-0", {}).get("timer/train/step", {})
+        return int(timer.get("count", 0))
+    except Exception:
+        return 0
+
+
+def _launch_views(job, since_wall: float) -> Dict[str, dict]:
+    """The rank views that one launch of ``job`` shipped: those merged at
+    or after ``since_wall``, the launch's start. A relaunch at the same
+    world reuses the job, whose view keeps the failed launch's ranks
+    until the new ranks beat; a rank's first beat ships every section,
+    so a view merged since the launch holds nothing of the last one."""
+    workers = job.metrics_snapshot().get("workers", {})
+    return {k: v for k, v in workers.items()
+            if v.get("updated_wall", 0.0) >= since_wall}
+
+
+def _report_launch(session, gang: str, views: Dict[str, dict]) -> None:
+    """Hand one launch's rank views to the session's master, which bills
+    them with its workers'. A failure is logged and counted; the fit's
+    result stands."""
+    from raydp_tpu_torch.utils.profiling import metrics as _metrics
+
+    try:
+        session.cluster.record_gang(gang, views)
+    except Exception as exc:
+        _metrics.counter_add("telemetry/gang_report_errors")
+        logger.warning("fit_spmd: the session did not take %s's rank "
+                       "views (%s); its usage_report misses them", gang, exc)
 
 
 def _env_float(name: str, default: float) -> float:
@@ -156,8 +217,10 @@ def fit_spmd(
 
     The result has the JAX package's keys (``history``, ``params``,
     ``per_rank_history``, ``restarts``, ``world_size``: the world that
-    finished) and four of the port's: ``backend`` (the process group's),
-    ``start_s`` (seconds the last launch's ``start()`` took),
+    finished) and these of the port's: ``backend`` (the process group's),
+    ``start_s`` and ``run_s`` (seconds the last launch's ``start()`` and
+    ``run()`` took on the driver's clock: every rank's epochs lie inside
+    its ``run()``),
     ``per_rank_params_sha256`` (a digest of each rank's final parameters
     and buffers) and ``failures``: one entry per failed launch, with its
     ``error`` text, the wall-clock time the supervisor saw it (``at``),
@@ -168,6 +231,9 @@ def fit_spmd(
     from raydp_tpu_torch.spmd import create_spmd_job
     from raydp_tpu_torch.spmd.job import SPMDJobError
     from raydp_tpu_torch.store.object_store import ObjectRef
+    from raydp_tpu_torch.telemetry import accounting as _acct
+    from raydp_tpu_torch.telemetry import events as _events
+    from raydp_tpu_torch.telemetry import flight_recorder as _flight
     from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
     if not elastic and train_ds.num_shards != world_size:
@@ -214,101 +280,144 @@ def fit_spmd(
         return [(ds.shard_tables(r),) for r in range(cur_world)]
 
     cur_world = world_size
-    job = job_world = None
-    restarts = 0
-    start_s = 0.0
-    failures: List[Dict[str, Any]] = []
-    while True:
-        resume = _newest_checkpoint(checkpoint_dir)
-        if job is None or job_world != cur_world:
-            # A new world needs a new gang definition; a relaunch at the
-            # same world reuses the job.
-            job = create_spmd_job(job_name="torch-fit-spmd",
-                                  world_size=cur_world,
-                                  num_procs_per_node=num_procs_per_node,
-                                  hosts=hosts, env=env, timeout=60.0)
-            job_world = cur_world
+    # The accounting root: the whole supervised fit, every relaunch's
+    # chip-seconds included, bills to one job (an ambient job wins);
+    # the gangs launched below inherit it.
+    fit_job = _acct.ensure_job("fit-spmd", world_size=world_size)
+    # Names this fit's launches in the session's bill (an ambient job
+    # may span several fits).
+    fit_key = f"{fit_job.job_id}/fit-{uuid.uuid4().hex[:8]}"
+    launches = 0
+    with _acct.job_scope(fit_job):
+        job = job_world = None
+        restarts = 0
+        start_s = 0.0
+        prev_obs_steps = 0
+        failures: List[Dict[str, Any]] = []
+        while True:
+            resume = _newest_checkpoint(checkpoint_dir)
+            if restarts and resume is not None:
+                # Steps the failed incarnation ran past the checkpoint it
+                # resumes from are run again (heartbeat-lag accuracy).
+                ck = _ckpt_step(resume)
+                if ck is not None and prev_obs_steps > ck:
+                    _metrics.counter_add("replay/steps", prev_obs_steps - ck)
+            if job is None or job_world != cur_world:
+                # A new world needs a new gang definition; a relaunch at the
+                # same world reuses the job.
+                job = create_spmd_job(job_name="torch-fit-spmd",
+                                      world_size=cur_world,
+                                      num_procs_per_node=num_procs_per_node,
+                                      hosts=hosts, env=env, timeout=60.0)
+                job_world = cur_world
 
-        def work(ctx, payload, resume_from=resume, _device=device,
-                 _store_mode=store_mode, _master=master,
-                 _namespace=namespace, _blocks=blocks):
-            import torch
+            def work(ctx, payload, resume_from=resume, _device=device,
+                     _store_mode=store_mode, _master=master,
+                     _namespace=namespace, _blocks=blocks):
+                import torch
 
-            from raydp_tpu_torch.data.ml_dataset import (
-                MLDataset,
-                resolve_plan_tables,
-            )
-            from raydp_tpu_torch.train.spmd_fit import _params_digest
+                from raydp_tpu_torch.data.ml_dataset import (
+                    MLDataset,
+                    resolve_plan_tables,
+                )
+                from raydp_tpu_torch.train.spmd_fit import _params_digest
 
-            if _device.startswith("cuda"):
-                torch.cuda.set_device(ctx.device("cuda"))
-            backend = ctx.init_distributed(device=_device)
-            tables = (resolve_plan_tables(_master, _namespace, _blocks,
-                                          payload)
-                      if _store_mode else payload)
-            est = make_estimator()
-            history = est.fit(MLDataset(list(tables), num_shards=1),
-                              resume_from=resume_from)
-            state = est.get_model().state_dict()
-            out = {"rank": ctx.rank, "history": history,
-                   "backend": backend, "digest": _params_digest(state)}
-            if ctx.rank == 0:
-                out["params"] = {
-                    k: (v.detach().float() if v.dtype == torch.bfloat16
-                        else v.detach()).cpu().numpy()
-                    for k, v in state.items()}
-            return out
+                if _device.startswith("cuda"):
+                    torch.cuda.set_device(ctx.device("cuda"))
+                backend = ctx.init_distributed(device=_device)
+                tables = (resolve_plan_tables(_master, _namespace, _blocks,
+                                              payload)
+                          if _store_mode else payload)
+                est = make_estimator()
+                history = est.fit(MLDataset(list(tables), num_shards=1),
+                                  resume_from=resume_from)
+                state = est.get_model().state_dict()
+                out = {"rank": ctx.rank, "history": history,
+                       "backend": backend, "digest": _params_digest(state)}
+                if ctx.rank == 0:
+                    out["params"] = {
+                        k: (v.detach().float() if v.dtype == torch.bfloat16
+                            else v.detach()).cpu().numpy()
+                        for k, v in state.items()}
+                return out
 
-        try:
-            if restarts:
+            launch_wall = time.time()
+            try:
+                if restarts:
+                    _flight.record(
+                        "supervisor", "relaunch", attempt=restarts,
+                        world_size=cur_world,
+                        **({"resume": os.path.basename(resume)}
+                           if resume else {}))
+                    _events.emit(
+                        "train/resume", attempt=restarts, world_size=cur_world,
+                        resume_step=_ckpt_step(resume),
+                        **({"resume": os.path.basename(resume)}
+                           if resume else {}))
+                    logger.warning(
+                        "fit_spmd: relaunching gang (restart %d/%d, world "
+                        "%d%s)", restarts, max_restarts, cur_world,
+                        f", resume {os.path.basename(resume)}" if resume
+                        else ", from scratch")
+                t0 = time.perf_counter()
+                job.start()
+                start_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                results = job.run(work, timeout=timeout,
+                                  per_rank_args=_payloads(cur_world))
+                run_s = time.perf_counter() - t0
+                break
+            except SPMDJobError as exc:
+                err_text = str(exc)
+                failure = {"error": err_text, "at": time.time(),
+                           "preempted": "PreemptionError" in err_text,
+                           "world_size": cur_world, "backoff_s": 0.0}
+                failures.append(failure)
+                prev_obs_steps = _rank0_steps(job)
+                if failure["preempted"]:
+                    _metrics.counter_add("preemptions/total")
+                    _events.emit("preempt/request", attempt=restarts,
+                                 world_size=cur_world)
+                _flight.record("supervisor", "gang_failed", attempt=restarts,
+                               world_size=cur_world,
+                               preempted=failure["preempted"],
+                               error=err_text[:200])
+                if restarts >= max_restarts:
+                    raise SPMDJobError(
+                        f"fit_spmd: restart budget exhausted ({max_restarts} "
+                        f"restarts); last failure: {err_text}") from exc
+                restarts += 1
+                _metrics.counter_add("restarts/total")
+                # Elastic shrink: a registration shortfall means ranks are
+                # gone; continue on those that came up (the job's count, else
+                # the message's).
+                m = _REGISTERED_RE.search(err_text)
+                if elastic and m:
+                    got = (job.last_registered if job.last_registered
+                           is not None else int(m.group(1)))
+                    if min_world_size <= got < cur_world:
+                        logger.warning("fit_spmd: elastic resize %d -> %d "
+                                       "ranks", cur_world, got)
+                        _events.emit("gang/resize", from_world=cur_world,
+                                     to_world=got, attempt=restarts)
+                        cur_world = got
+                delay = restart_backoff_s * (2 ** (restarts - 1))
+                delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
+                failure["backoff_s"] = delay
                 logger.warning(
-                    "fit_spmd: relaunching gang (restart %d/%d, world "
-                    "%d%s)", restarts, max_restarts, cur_world,
-                    f", resume {os.path.basename(resume)}" if resume
-                    else ", from scratch")
-            t0 = time.perf_counter()
-            job.start()
-            start_s = time.perf_counter() - t0
-            results = job.run(work, timeout=timeout,
-                              per_rank_args=_payloads(cur_world))
-            break
-        except SPMDJobError as exc:
-            err_text = str(exc)
-            failure = {"error": err_text, "at": time.time(),
-                       "preempted": "PreemptionError" in err_text,
-                       "world_size": cur_world, "backoff_s": 0.0}
-            failures.append(failure)
-            if failure["preempted"]:
-                _metrics.counter_add("preemptions/total")
-            if restarts >= max_restarts:
-                raise SPMDJobError(
-                    f"fit_spmd: restart budget exhausted ({max_restarts} "
-                    f"restarts); last failure: {err_text}") from exc
-            restarts += 1
-            _metrics.counter_add("restarts/total")
-            # Elastic shrink: a registration shortfall means ranks are
-            # gone; continue on those that came up (the job's count, else
-            # the message's).
-            m = _REGISTERED_RE.search(err_text)
-            if elastic and m:
-                got = (job.last_registered if job.last_registered
-                       is not None else int(m.group(1)))
-                if min_world_size <= got < cur_world:
-                    logger.warning("fit_spmd: elastic resize %d -> %d "
-                                   "ranks", cur_world, got)
-                    cur_world = got
-            delay = restart_backoff_s * (2 ** (restarts - 1))
-            delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
-            failure["backoff_s"] = delay
-            logger.warning(
-                "fit_spmd: gang failed (%s); backing off %.1fs before "
-                "restart %d/%d", err_text.splitlines()[0][:160], delay,
-                restarts, max_restarts)
-            time.sleep(delay)
-        finally:
-            # Tear down between attempts and after the last one; the
-            # job restarts after stop().
-            job.stop()
+                    "fit_spmd: gang failed (%s); backing off %.1fs before "
+                    "restart %d/%d", err_text.splitlines()[0][:160], delay,
+                    restarts, max_restarts)
+                time.sleep(delay)
+            finally:
+                # Tear down between attempts and after the last one; the
+                # job restarts after stop(). The ranks' final snapshots
+                # arrive during stop().
+                job.stop()
+                if session is not None:
+                    _report_launch(session, f"{fit_key}/launch-{launches}",
+                                   _launch_views(job, launch_wall))
+                launches += 1
     rank0 = next(r for r in results if r["rank"] == 0)
     return {
         "history": rank0["history"],
@@ -318,6 +427,10 @@ def fit_spmd(
         "world_size": cur_world,
         "backend": rank0["backend"],
         "start_s": start_s,
+        "run_s": run_s,
         "per_rank_params_sha256": [r["digest"] for r in results],
         "failures": failures,
+        "metrics": job.metrics_snapshot(),
+        "usage": job.usage_report(),
+        "job_id": fit_job.job_id,
     }

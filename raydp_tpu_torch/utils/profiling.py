@@ -1,10 +1,15 @@
 """Process-wide counters, gauges, timers, histograms and throughput meters.
 
-The part of the JAX package's ``utils/profiling.py`` registry that the
-port's decode loop and serve plane report to: ``counter_add``,
-``gauge_set``/``gauge_value``, ``meter``, ``timer`` (:class:`StepTimer`),
-``histogram`` (:class:`Histogram`) and ``snapshot``/``reset``. The
-device trace hooks arrive with the slices that read them.
+The port's copy of the JAX package's ``utils/profiling.py`` registry:
+``counter_add``, ``gauge_set``/``gauge_value``/``gauge_max``, ``meter``
+(:class:`ThroughputMeter`), ``timer`` (:class:`StepTimer`), ``histogram``
+(:class:`Histogram`), ``snapshot``/``reset`` and
+:func:`sample_resource_gauges`.
+
+Left for the device-phase plane (ROADMAP item 6.4): ``trace``,
+``annotate``, the compile listener, ``enrich_compile_error`` and
+``cost_analysis_summary`` (XLA's hooks; the port's counterparts sit on
+``torch.profiler``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ __all__ = [
     "ThroughputMeter",
     "metrics",
     "quantile_from_hist_summary",
+    "sample_resource_gauges",
 ]
 
 
@@ -51,6 +57,13 @@ class StepTimer:
             yield
         finally:
             self.observe(time.perf_counter() - t0)
+
+    def percentile(self, q: float) -> float:
+        with self._mu:
+            xs = sorted(self._times)
+        if not xs:
+            return 0.0
+        return xs[min(len(xs) - 1, int(q / 100.0 * len(xs)))]
 
     def summary(self) -> Dict[str, float]:
         with self._mu:
@@ -93,6 +106,15 @@ class ThroughputMeter:
         if self._start is None or self._last is None or self._last <= self._start:
             return 0.0
         return self._units / (self._last - self._start)
+
+    @property
+    def total(self) -> float:
+        with self._mu:
+            return self._units
+
+    def rate(self) -> float:
+        with self._mu:
+            return self._rate_locked()
 
     def summary(self) -> Dict[str, float]:
         with self._mu:
@@ -203,6 +225,13 @@ class MetricsRegistry:
         with self._lock:
             return self._gauges.get(name)
 
+    def gauge_max(self, name: str, value: float) -> None:
+        """Watermark gauge: keeps the max ever observed."""
+        with self._lock:
+            prev = self._gauges.get(name)
+            if prev is None or value > prev:
+                self._gauges[name] = float(value)
+
     def timer(self, name: str) -> StepTimer:
         with self._lock:
             if name not in self._timers:
@@ -248,3 +277,47 @@ class MetricsRegistry:
 
 
 metrics = MetricsRegistry()
+
+
+def sample_resource_gauges(registry: Optional[MetricsRegistry] = None) -> None:
+    """Refresh the resource gauges on ``registry`` (default: the process
+    registry): host RSS current/peak, the CUDA memory this process holds
+    (``hbm/used_bytes`` and ``hbm/peak_bytes``: the JAX package's names,
+    here ``torch.cuda.memory_allocated``/``max_memory_allocated`` summed
+    over the process's cards), and the shm object store's occupancy when
+    a store is open in this process. Called from worker heartbeats, SPMD
+    pings and driver snapshots: one procfs read and dict lookups.
+
+    ``torch`` is looked up in ``sys.modules``, never imported, and the
+    card is read only once CUDA is initialised, so a torch-free ETL
+    worker stays torch-free and no process starts a CUDA context here."""
+    reg = registry if registry is not None else metrics
+    from raydp_tpu_torch.utils.memory import host_rss_bytes
+
+    rss, peak = host_rss_bytes()
+    if rss:
+        reg.gauge_set("mem/rss_bytes", rss)
+        reg.gauge_max("mem/rss_peak_bytes", peak)
+    try:
+        import sys
+
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            used = hwm = 0
+            for dev in range(torch.cuda.device_count()):
+                used += int(torch.cuda.memory_allocated(dev))
+                hwm += int(torch.cuda.max_memory_allocated(dev))
+            reg.gauge_set("hbm/used_bytes", used)
+            reg.gauge_max("hbm/peak_bytes", hwm)
+    except Exception:
+        pass  # no card or a partial torch: skip the device gauges
+    try:
+        from raydp_tpu_torch.store.object_store import get_current_store
+
+        store = get_current_store()
+        if store is not None:
+            occ = store.occupancy_bytes()
+            reg.gauge_set("store/occupancy_bytes", occ)
+            reg.gauge_max("store/occupancy_peak_bytes", occ)
+    except Exception:
+        pass

@@ -20,7 +20,11 @@ a two-rank ``fit_spmd`` of a tiny flash classifier whose ranks end with
 equal parameters, and the collective backend rule. Slice 11: a 1-rank
 ``fit_spmd`` killed at a checkpoint step and resumed, equal to a clean
 run, and a 2-rank injected preemption whose emergency checkpoint
-restores.
+restores. Slice 12: a stream fit of a bf16 flash classifier under a
+telemetry dir writes one ``train/step`` span a step, bills chip-seconds
+equal to its epochs' wall time and no more than the fit's on the test's
+clock, and reports ``hbm/peak_bytes`` at least
+``torch.cuda.max_memory_allocated()``.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -1099,3 +1103,56 @@ def test_fit_spmd_on_card_preemption_drains_and_restores(cuda, tmp_path):
         assert torch.equal(v.cpu(), state["model"][k]), k
     assert est._resume_position == (0, 2) and est._resume_world == 2
     _assert_same_params(out["params"], clean["params"])
+
+
+def test_fit_on_card_traces_and_bills_each_step(cuda, tmp_path,
+                                                monkeypatch):
+    """A stream fit of a bf16 flash classifier under
+    ``RAYDP_TPU_TELEMETRY_DIR``: one ``train/step`` span a step in this
+    process's shard; chip-seconds equal to the epochs' wall time (each
+    epoch bills its own interval) and no more than the fit's on this
+    test's clock; the sampled ``hbm/peak_bytes`` at least the
+    allocator's peak."""
+    import json
+
+    from raydp_tpu_torch.telemetry import accounting as acct
+    from raydp_tpu_torch.telemetry import recorder
+    from raydp_tpu_torch.utils.profiling import (
+        metrics,
+        sample_resource_gauges,
+    )
+
+    monkeypatch.setenv("RAYDP_TPU_TELEMETRY_DIR", str(tmp_path))
+    recorder.clear()
+    cfg = tiny_transformer(vocab_size=64, d_model=64, n_heads=2, n_layers=2,
+                           d_ff=128, max_len=16, attention_impl="flash",
+                           dtype=torch.bfloat16, dropout_rate=0.0)
+    ds = MLDataset([_token_cols(256, 16, 64, seed=4)], 1)
+    job = acct.mint_job("card-fit")
+    before = metrics.snapshot()["counters"].get(
+        f"job/{job.job_id}/chip_seconds", 0.0)
+    with acct.job_scope(job):
+        est = Estimator(
+            model=SequenceClassifier(
+                cfg, device="cuda",
+                generator=torch.Generator().manual_seed(5)),
+            loss="softmax_ce", num_epochs=2, batch_size=32,
+            feature_columns=[f"t{i}" for i in range(16)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, device="cuda", epoch_mode="stream",
+            optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3))
+        t0 = time.perf_counter()
+        hist = est.fit(ds)
+        fit_s = time.perf_counter() - t0
+    steps = 2 * (256 // 32)
+    with open(tmp_path / f"spans-{os.getpid()}.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert sum(r["name"] == "train/step" for r in records) == steps
+    billed = metrics.snapshot()["counters"][
+        f"job/{job.job_id}/chip_seconds"] - before
+    wall = sum(h["time_s"] for h in hist)
+    assert billed == wall
+    assert 0 < billed <= fit_s
+    sample_resource_gauges()
+    assert (metrics.gauge_value("hbm/peak_bytes")
+            >= torch.cuda.max_memory_allocated())

@@ -4,11 +4,10 @@
 mirroring ``tests/test_fault_tolerance.py`` on the CPU with gloo.
 
 * The grammar and hook cases of ``tests/test_fault_tolerance.py`` run
-  against the port (``test_reference_case_on_port``), but for two: its
-  ``job=`` scope case needs the accounting plane (ROADMAP Queue A item
-  6), and its gRPC case checks a gRPC status the port's standard-library
-  RPC does not have (``tests/test_torch_rpc.py`` holds the port's
-  dropped call).
+  against the port (``test_reference_case_on_port``), its ``job=`` scope
+  case on the port's accounting plane, but for one: its gRPC case checks
+  a gRPC status the port's standard-library RPC does not have
+  (``tests/test_torch_rpc.py`` holds the port's dropped call).
 * The gang cases, with a torch factory (``MLP(hidden=(16,), out_dim=1)``
   from the JAX model's initial parameters, Adam 3e-2, batch 128 a rank,
   1,024 rows, no shuffle): a rank killed at a checkpoint step and
@@ -55,6 +54,7 @@ from torch_port_cases import cases, load_port_module, run_case, time_limit
 
 REFERENCE_NAMES = (
     "test_plan_parses_every_kind", "test_plan_job_targeting",
+    "test_job_targeted_clause_fires_only_in_matching_scope",
     "test_plan_rejects_malformed",
     "test_plan_prob_arming_is_seed_deterministic",
     "test_rpc_drop_fires_on_nth_call_only", "test_rpc_delay_sleeps_once",

@@ -2,10 +2,13 @@
 
 Checked statically over the source: a process here may already hold jax
 in ``sys.modules`` before any test runs, so a runtime check would say
-nothing.
+nothing. The ETL worker and gang rank mains, with the telemetry they
+arm, load without torch (checked in a fresh interpreter).
 """
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -65,6 +68,18 @@ def test_port_files_exist():
                 "raydp_tpu_torch/native/build.py",
                 "raydp_tpu_torch/native/lib.py",
                 "raydp_tpu_torch/telemetry/progress.py",
+                "raydp_tpu_torch/telemetry/spans.py",
+                "raydp_tpu_torch/telemetry/propagation.py",
+                "raydp_tpu_torch/telemetry/accounting.py",
+                "raydp_tpu_torch/telemetry/events.py",
+                "raydp_tpu_torch/telemetry/export.py",
+                "raydp_tpu_torch/telemetry/flight_recorder.py",
+                "raydp_tpu_torch/telemetry/watchdog.py",
+                "raydp_tpu_torch/telemetry/logs.py",
+                "raydp_tpu_torch/telemetry/overlap.py",
+                "raydp_tpu_torch/telemetry/shipping.py",
+                "raydp_tpu_torch/telemetry/chrome_trace.py",
+                "raydp_tpu_torch/telemetry/analyze.py",
                 "raydp_tpu_torch/dataframe/__init__.py",
                 "raydp_tpu_torch/dataframe/aqe.py",
                 "raydp_tpu_torch/dataframe/dataframe.py",
@@ -132,3 +147,38 @@ def test_checker_catches_banned_imports(tmp_path):
     src.write_text("import grpc\nfrom cloudpickle import dumps\n")
     found = {mod for _, mod in _imported_roots(str(src))}
     assert found == NOT_ON_THE_CARD_MACHINE
+
+
+TELEMETRY_MODULES = ("spans", "propagation", "accounting", "events",
+                     "export", "flight_recorder", "watchdog", "logs",
+                     "overlap", "shipping", "chrome_trace", "analyze",
+                     "progress")
+
+
+@pytest.mark.parametrize("name", TELEMETRY_MODULES)
+def test_telemetry_module_imports_no_torch_at_module_level(name):
+    """A telemetry module runs in torch-free processes: torch is only
+    ever looked up in ``sys.modules`` there, never imported."""
+    path = os.path.join(ROOT, "raydp_tpu_torch", "telemetry", f"{name}.py")
+    roots = {mod for _, mod in _imported_roots(path)}
+    assert "torch" not in roots, name
+
+
+def test_worker_and_rank_mains_load_without_torch():
+    """The ETL worker's and the gang rank's entry modules, with every
+    telemetry module and the profiling gauges they sample, leave torch
+    out of ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "import raydp_tpu_torch.cluster.worker_main\n"
+        "import raydp_tpu_torch.spmd.worker_main\n"
+        + "".join(f"import raydp_tpu_torch.telemetry.{m}\n"
+                  for m in TELEMETRY_MODULES)
+        + "from raydp_tpu_torch.utils.profiling import "
+          "sample_resource_gauges\n"
+        "sample_resource_gauges()\n"
+        "print('torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False"], out.stdout

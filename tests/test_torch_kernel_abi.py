@@ -257,6 +257,12 @@ def test_backward_hands_the_kernels_dense_aligned_grad_out(monkeypatch, kind,
 
     want = grads()  # the CPU route, plain versions throughout
     received = []
+    # The stubbed route counts launches no kernel made: the counters
+    # are put back after the test, so later tests in this process read
+    # only their own.
+    for fn in (fa.flash_attention, fa.flash_bwd_delta, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv):
+        monkeypatch.setattr(fn, "launches", fn.launches)
     monkeypatch.setattr(fa, "_on_cpu", lambda name, x: False)
     monkeypatch.setattr(fa, "_launch", _plain_launch(received))
     got = grads()

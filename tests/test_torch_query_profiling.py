@@ -2,8 +2,9 @@
 ``stage_stats``, ``telemetry/progress.py``, ``aqe.rule_counts`` and
 ``Cluster.progress_report``) against the JAX package's.
 
-* The cases of ``tests/test_query_profiling.py`` that need no
-  telemetry export, and the ``explain`` cases of ``tests/test_aqe.py``,
+* The cases of ``tests/test_query_profiling.py`` (its new Prometheus
+  families on the port's exposition too; not its XLA compile-error
+  case), and the ``explain`` cases of ``tests/test_aqe.py``,
   run against the port: each module is loaded again with its engine
   imports pointed at the port. Their cluster cases run on one port
   session of 2 workers, last in this file (a live session routes every
@@ -42,6 +43,7 @@ QP_LOCAL = ("test_explain_analyze_dlrm_one_exchange",
             "test_explain_logical_plan_is_lazy",
             "test_narrow_stage_rows_in_equals_rows_out",
             "test_stage_stats_skew_reflects_zipf_keys",
+            "test_new_prometheus_families_render",
             "test_stage_stats_kill_switch")
 QP_CLUSTER = ("test_progress_and_analyze_on_cluster",)
 AQE_LOCAL = ("test_groupby_salt_parity", "test_groupby_salt_skips_below_floor",

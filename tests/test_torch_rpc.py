@@ -1,6 +1,11 @@
 """The port's standard-library RPC layer: round trips, remote errors,
 deadlines, dead peers, the rpc_drop/rpc_delay fault clauses, and a slow
-handler that must not hold up a concurrent Ping."""
+handler that must not hold up a concurrent Ping.
+
+The client stamps the caller's trace context and job into each request
+(``traceparent``, ``job``) where there are any, as the JAX package's
+does; the echo handler returns the request without those riders, so the
+round trips hold whatever an earlier test left in this process."""
 import socket
 import threading
 import time
@@ -16,8 +21,15 @@ from raydp_tpu_torch.cluster.rpc import (
     RpcTimeout,
     RpcUnavailable,
 )
+from raydp_tpu_torch.telemetry.accounting import JOB_KEY
+from raydp_tpu_torch.telemetry.propagation import TRACEPARENT_KEY
 
 SERVICE = "t.Svc"
+
+
+def _echo(req):
+    return {"echo": {k: v for k, v in req.items()
+                     if k not in (TRACEPARENT_KEY, JOB_KEY)}}
 
 
 def _slow(req):
@@ -32,7 +44,7 @@ def _boom(req):
 @pytest.fixture
 def server():
     srv = RpcServer(SERVICE, {
-        "Echo": lambda req: {"echo": req},
+        "Echo": _echo,
         "Ping": lambda req: {"pong": True},
         "Slow": _slow,
         "Boom": _boom,

@@ -260,6 +260,119 @@ def test_fit_spmd_relaunches_after_a_rank_dies(tmp_path, in_memory):
     _assert_ranks_agree(out)
 
 
+_CLIENT_FIT = """
+import json, sys
+import numpy as np, pandas as pd, torch
+import torch.distributed as dist
+import raydp_tpu_torch
+import raydp_tpu_torch.dataframe as rdf
+from raydp_tpu_torch.data import MLDataset
+from raydp_tpu_torch.parallel import MeshSpec
+from raydp_tpu_torch.train import Estimator, fit_spmd
+
+def make_estimator():
+    return Estimator(
+        model=raydp_tpu_torch.MLP(2, hidden=(8,), out_dim=1, device="cpu"),
+        optimizer=lambda p: torch.optim.Adam(p, lr=1e-2), loss="mse",
+        num_epochs=2, batch_size=64, feature_columns=["a", "b"],
+        label_column="y", mesh=MeshSpec(dp=dist.get_world_size()), seed=0,
+        shuffle=False, epoch_mode="stream", device="cpu")
+
+s = raydp_tpu_torch.connect(sys.argv[1])
+rng = np.random.default_rng(0)
+pdf = pd.DataFrame({"a": rng.normal(size=256), "b": rng.normal(size=256)})
+pdf["y"] = pdf["a"] - pdf["b"]
+ds = MLDataset.from_df(rdf.from_pandas(pdf, num_partitions=2), num_shards=1)
+out = fit_spmd(make_estimator, ds, world_size=1, device="cpu")
+print(json.dumps({"job_id": out["job_id"],
+                  "epochs_s": sum(h["time_s"] for h in out["history"]),
+                  "usage": s.cluster.usage_report()}))
+raydp_tpu_torch.stop()
+"""
+
+
+def test_session_bills_every_fit_and_every_launch(tmp_path, monkeypatch):
+    """Two fits in one session, the second relaunched after a rank dies,
+    and a third from a second driver (``connect`` in a subprocess): the
+    session's ``usage_report()`` bills each fit's job. A fit's chip-
+    seconds equal its ranks' epochs (each epoch bills its own interval,
+    and shipping loses nothing), and lie inside the world times the fit's
+    ``run()`` on the driver's clock; the relaunched fit also bills its
+    first launch. The exposition renders the ranks' counters but lists
+    no rank as a worker, and no rank is a dead worker of the session."""
+    import json
+    import subprocess
+    import sys
+    import time
+
+    from raydp_tpu_torch.telemetry import accounting
+
+    # No ambient job (an earlier test's may linger in this process): each
+    # fit is an accounting root of its own.
+    monkeypatch.setattr(accounting, "_process_job", None)
+    init = _jax_init_params()
+    marker = str(tmp_path / "killed")
+    session = raydp_tpu_torch.init(app_name="port-spmd-bill", num_workers=1,
+                                   memory_per_worker="256MB")
+    namespace = session.cluster.namespace
+    try:
+        with time_limit(LIMIT_S):
+            cl = session.cluster
+            t0 = time.perf_counter()
+            first = fit_spmd(_factory(init, epochs=2), _port_ds(shards=1),
+                             world_size=1, device="cpu")
+            first_s = time.perf_counter() - t0
+            second = fit_spmd(_factory(init, epochs=2, kill_marker=marker),
+                              _port_ds(), world_size=2, device="cpu",
+                              restart_backoff_s=0.1)
+            proc = subprocess.run(
+                [sys.executable, "-c", _CLIENT_FIT, cl.master.address],
+                capture_output=True, text=True, timeout=90,
+                cwd=os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__))))
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            remote = json.loads(proc.stdout.strip().splitlines()[-1])
+            usage = cl.usage_report()["jobs"]
+            view = cl.metrics_snapshot()
+            text = cl.prometheus_metrics()
+            dead = cl.health_report()["dead_workers"]
+    finally:
+        raydp_tpu_torch.stop()
+    assert shm.list_segments(f"rdp-{namespace}-") == []
+
+    def billed(jobs, out):
+        return jobs[out["job_id"]]["usage"]["chip_seconds"]
+
+    ids = {first["job_id"], second["job_id"], remote["job_id"]}
+    assert len(ids) == 3
+    epochs_s = sum(h["time_s"] for h in first["history"])
+    assert billed(usage, first) == epochs_s
+    assert 0 < epochs_s <= first["run_s"] <= first_s
+    assert usage[remote["job_id"]]["usage"]["chip_seconds"] == (
+        remote["epochs_s"])
+    # The second driver reads the bill the session's driver reads.
+    for job_id in ids:
+        assert remote["usage"]["jobs"].get(job_id, usage[job_id]) == (
+            usage[job_id])
+    assert second["restarts"] == 1 and os.path.exists(marker)
+    final = sum(h["time_s"] for hist in second["per_rank_history"]
+                for h in hist)
+    assert final <= 2 * second["run_s"]
+    # The killed launch's rank 0 shipped its epochs on its last Ping.
+    assert billed(usage, second) > final
+    gangs = view["gangs"]
+    fit_key = next(k for k in gangs
+                   if k.startswith(second["job_id"] + "/")).rsplit(
+        "/launch-", 1)[0]
+    assert {f"{fit_key}/launch-0/rank-0", f"{fit_key}/launch-1/rank-0",
+            f"{fit_key}/launch-1/rank-1"} <= set(gangs)
+    for key in gangs:
+        assert key not in view["workers"] and key not in dead
+        assert f'raydp_worker_up{{worker="{key}"}}' not in text
+    for job_id in ids:
+        assert f'raydp_job_chip_seconds_total{{job="{job_id}"' in text
+
+
 def test_collective_backend_rule_on_the_cpu(monkeypatch):
     """Gloo for a gang on the CPU; a gang on cards with no card on the
     host raises rather than falling back to the CPU."""

@@ -3,9 +3,10 @@
 The module's source is loaded a second time with its ``raydp_tpu.``
 imports pointed at ``raydp_tpu_torch.``, so each of its test functions
 holds the port to the expectations it holds the JAX package to: a bare
-``import raydp_tpu`` becomes the port's package, ``from raydp_tpu import
-<m>`` the port's ``<m>`` where it is ported, and ``from tests.<m>
-import ...`` takes the names from ``<m>`` loaded the same way. Not a
+``import raydp_tpu`` (at any indentation) becomes the port's package,
+``from raydp_tpu import <m>`` the port's ``<m>`` where it is ported,
+and ``from tests.<m> import ...`` takes the names from ``<m>`` loaded
+the same way. Not a
 test module itself (no ``test_`` prefix); the ``test_torch_*`` files
 parametrise over :func:`cases`. The loaded modules are not in
 ``sys.modules``, so the closure carrier ships their functions to the
@@ -24,7 +25,7 @@ import types
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Modules of the JAX package whose port the cases run against.
-PORTED = ("dataframe", "fault", "telemetry.progress", "utils.profiling", "context",
+PORTED = ("dataframe", "fault", "telemetry", "utils.profiling", "context",
           "cluster", "store", "config", "utils.net", "utils.memory",
           "utils.sharding", "spmd", "data")
 # Test modules whose cases run whole programs in subprocesses, with the
@@ -70,7 +71,8 @@ def load_port_module(filename: str, only=None) -> types.ModuleType:
         src = src.replace(f"raydp_tpu.{mod}", f"raydp_tpu_torch.{mod}")
     if filename in WHOLE_PACKAGE:
         src = re.sub(r"\braydp_tpu\b", "raydp_tpu_torch", src)
-    src = re.sub(r"^import raydp_tpu$", "import raydp_tpu_torch as raydp_tpu",
+    src = re.sub(r"^(\s*)import raydp_tpu$",
+                 r"\1import raydp_tpu_torch as raydp_tpu",
                  src, flags=re.MULTILINE)
     src = re.sub(r"^(\s*)from raydp_tpu import (\w+)",
                  lambda m: (f"{m.group(1)}from raydp_tpu_torch import "
