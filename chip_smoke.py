@@ -216,14 +216,42 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    no segment left. Prints each process's spans and dropped spans, the
    shard bytes, and the ranks' ms a step beside 13b's and 4b's beside
    their earlier runs'.
+16. The device plane (run after 4b, inside 12b and 13b, and inside 15).
+   (a) 4b's bf16 stream fine-tune, 1 epoch of 20 steps, with the plane
+   on: its four phase fractions summing to 1 within 1e-3, ``mfu`` in
+   (0, 1] against the card's bf16 peak (a card without a row in the
+   peak table fails), a step's FLOPs counted on the meta device within
+   5% of the closed form for bert_base at 32 x 128, a bound verdict, a
+   step's device span between 0.9 x 4b's graph-replay step and the
+   loop's wall a step and its compute phase inside it, 12 launches of
+   each kernel a step; then the same fit (2 epochs) with
+   ``RAYDP_TPU_DEVICE_PLANE`` on and off in turns, 3 runs a side, epoch
+   1's ms a step and the whole fit's wall printed; the plane's own host
+   work a step, timed alone, under 1% of 4b's eager step. (b) A NaN entering the loss at
+   step 6 of 8, the sentinel checking every 4th step: ``nan_loss``
+   tripped at the check, ``anomalies/nan_loss`` counted, a flight
+   bundle written. (c) In 12b's gang, before its scoring run: each rank
+   fits 8 steps with the plane on, then scores its shard in a loop while
+   the driver captures 2 s of the gang (``SPMDJob.capture_profile``):
+   one merged trace with both ranks' profiler processes, their span
+   records and their ``flash_fwd`` kernels; ``resource_report()``
+   gives each rank's ``mfu`` (in (0, 1]) and ``bound``. In 15, before
+   the SIGTERM: ``Cluster.capture_profile(1.0)`` over the driver and
+   the 4 workers, ``/debug/profile`` and ``/debug/dashboard`` answering
+   200, ``dashboard_report()`` of one shape from the session and from a
+   ``connect()``ed client, and the SLO engine's sampled series. 13b's
+   and 15's ranks print their phase split, each rank's
+   ``collective_frac`` within 0.05 of its step clock's
+   ``allreduce_ms / step_ms`` times the wall's share outside the input
+   wait.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a, 13b, each fit of 14 and 15) and read just
-after; phase 9's replicas, 12a's second driver and 12b's, 13b's, 14's
-and 15's ranks
+10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15 and 16) and read just
+after; phase 9's replicas, 12a's second driver and 12b's, 13b's, 14's,
+15's and 16c's ranks
 are new processes, whose counts start at 0 and are read by ``Ping`` or
 returned in their results (a rank that is killed or drains returns
 none). The last lines are a ``kernels`` JSON
@@ -2957,6 +2985,7 @@ def phase_gang(torch, P, session):
             f"{ds.locality()}; {ds.rows_per_shard} rows a rank, "
             f"{[round(b / 2**20, 2) for b in shard_bytes]} MiB of ids a rank "
             f"in per_rank_args")
+        probe_counts = capture_gang_profile(torch, job, shards)
         t0 = time.perf_counter()
         out = job.run(gang_score, timeout=GANG_LIMIT_S, per_rank_args=[
             (shards[r], SERVE_SEED, GANG_BATCH) for r in range(GANG_WORLD)])
@@ -3017,7 +3046,7 @@ def phase_gang(torch, P, session):
         f"{[round(o['peak_bytes'] / 2**30, 3) for o in out]} GiB")
     del model
     torch.cuda.empty_cache()
-    return out
+    return out, probe_counts
 
 
 def phase_second_drivers(torch, P, ref):
@@ -3030,14 +3059,15 @@ def phase_second_drivers(torch, P, ref):
     namespace = session.cluster.namespace
     try:
         client = phase_client(torch, P, session, ref)
-        ranks = phase_gang(torch, P, session)
+        ranks, probe_counts = phase_gang(torch, P, session)
     finally:
         P.stop()
     left = shm.list_segments(f"rdp-{namespace}-")
     check(not left, f"12: {len(left)} segments left after stop()")
     rank_launches = [o["counts"]["flash_fwd"] for o in ranks]
     return client, {"launches": sum(rank_launches),
-                    "rank_launches": rank_launches}
+                    "rank_launches": rank_launches,
+                    "probe_counts": probe_counts}
 
 
 # Phase 13: the window DLRM id pipeline on the session's workers (13a)
@@ -3420,6 +3450,7 @@ def phase_gang_fit(torch, P, session):
         f"{steps} steps; start() {out['start_s']:.3f} s; first step "
         f"{first_at - called:.3f} s after the call; fit_spmd {fit_s:.1f} s "
         f"in all (host clock)")
+    check_rank_phases("13b", last)
     for r, h in enumerate(last):
         log(f"[13b] rank {r}: {h['step_ms']:.2f} ms a step, "
             f"{h['allreduce_ms']:.2f} ms of it in the gradient exchange "
@@ -4124,12 +4155,17 @@ def phase_telemetry(torch, P):
         health = cl.health_report()
         check(health["healthy"] and not health["stalled_workers"],
               f"15: health before the kill {health}")
-        server = serve_prometheus(cl.prometheus_metrics, 0,
-                                  host="127.0.0.1", health=cl.health_report)
+        server = serve_prometheus(
+            cl.prometheus_metrics, 0, host="127.0.0.1",
+            health=cl.health_report,
+            profile=lambda seconds: cl.capture_profile(seconds) or {},
+            dashboard=cl.dashboard_report)
         base = f"http://127.0.0.1:{server.port}"
         codes = {p: _http_status(base + p) for p in ("/metrics", "/healthz")}
         check(codes == {"/metrics": 200, "/healthz": 200},
               f"15: the debug endpoint answered {codes}")
+        check_cluster_observability(cl, base)
+        check_rank_phases("15", last)
 
         # Events: the gang's lifecycle in order, under the fit's job.
         timeline = cl.events_report(job=fit_id)["events"]
@@ -4229,6 +4265,498 @@ def phase_telemetry(torch, P):
     return [h["launches"] for h in last]
 
 
+# Phase 16: the device plane. 16a 4b's stream fine-tune with the plane on
+# (its step phases, MFU, a step's FLOPs, bound), and with it off; 16b a
+# NaN in the loss tripping the sentinel; 16c trace captures across 12b's
+# gang and 15's session, resource_report, /debug/profile and
+# /debug/dashboard (run inside 12b and 15); 13b's and 15's ranks' split.
+PLANE_STEPS = 20
+PLANE_AB_RUNS = ("on", "off", "off", "on", "on", "off")
+# 16a's FLOPs of a step, counted on the meta device, against the closed
+# form.
+FLOP_TOL = 0.05
+# 16a: the plane's own host work a step, timed alone around one tiny
+# kernel over this many steps a run, held under this share of 4b's eager
+# step.
+PLANE_COST_STEPS, PLANE_COST_SHARE = 2000, 0.01
+# 16b: the sentinel checks every 4th step; the NaN enters the loss at 6.
+NAN_STEP, NAN_STEPS, SENTINEL_EVERY = 6, 8, 4
+# 16c: the gang's probe fit, then its scoring loop (in flight while the
+# driver captures; large batches, so a 2 s trace of two ranks stays tens
+# of thousands of kernel events, not hundreds of thousands), and the
+# captures' windows.
+PROBE_STEPS, PROBE_SCORE_S, PROBE_SCORE_BATCH = 8, 8.0, 256
+GANG_CAPTURE_S, CLUSTER_CAPTURE_S = 2.0, 1.0
+# 13b's and 15's ranks: the plane's collective share against the step
+# clock's exchange share of the step.
+COLLECTIVE_TOL = 0.05
+
+
+def closed_form_step_flops(cfg, batch, seq, classes=2):
+    """One train step of a ``SequenceClassifier`` (flash attention), the
+    FLOPs the port's count gives it: each linear layer 2·T·in·out forward
+    and twice that backward; the attention tiles 4·B·S²·d forward and
+    14·B·S²·d backward (the dq and dk/dv kernels each recompute S and
+    dP); the pooler and head on the first token."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    t = batch * seq
+    linears = (n * 2 * t * (4 * d * d + 2 * d * f)
+               + 2 * batch * (d * d + d * classes))
+    return 3 * linears + n * 18 * batch * seq * seq * d
+
+
+def _plane_env(on: bool):
+    """Set ``RAYDP_TPU_DEVICE_PLANE`` for a fit; returns the old value."""
+    old = os.environ.get("RAYDP_TPU_DEVICE_PLANE")
+    os.environ["RAYDP_TPU_DEVICE_PLANE"] = "1" if on else "0"
+    return old
+
+
+def _restore_env(name, old):
+    if old is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = old
+
+
+def _plane_fit(torch, P, np, cfg, cols, on: bool, epochs: int):
+    """4b's stream estimator over ``cols`` with the plane on or off;
+    returns (estimator, history, launch counts)."""
+    old = _plane_env(on)
+    try:
+        est = _glue_estimator(torch, P, np, cfg, "stream", epochs)
+        _reset_counts()
+        history = est.fit(P.MLDataset([cols], num_shards=1))
+        torch.cuda.synchronize()
+        return est, history, _counts()
+    finally:
+        _restore_env("RAYDP_TPU_DEVICE_PLANE", old)
+
+
+def plane_step_cost_us(torch, dp):
+    """The device plane's host work a stream step, in microseconds: the
+    step clock's two CUDA events, its poll and fold, the accumulator's
+    histogram sample and the sentinel's step checks, around one tiny
+    kernel, against that kernel alone; fastest of 3 runs a side, in
+    turns, ``PLANE_COST_STEPS`` steps a run."""
+    from raydp_tpu_torch.train.estimator import _StepClock
+
+    x = torch.zeros(1, device="cuda")
+
+    def bare():
+        for _ in range(PLANE_COST_STEPS):
+            x.add_(1)
+
+    def planed():
+        clock = _StepClock(torch.device("cuda"))
+        acc = dp.StepPhaseAccumulator("plane-cost")
+        sentinel = dp.AnomalySentinel()
+        for i in range(PLANE_COST_STEPS):
+            sentinel.wants_check(i + 1)
+            clock.begin()
+            h0 = time.perf_counter()
+            t0 = clock.mark()
+            x.add_(1)
+            clock.end((t0, None, None, clock.mark()), h0,
+                      time.perf_counter(), 0.0)
+            acc.step(1e-3)
+            sentinel.observe_step(1e-3, i)
+        torch.cuda.synchronize()
+        clock.epoch_totals()
+
+    runs = {bare: [], planed: []}
+    for fn in (bare, planed, planed, bare, bare, planed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs[fn].append(time.perf_counter() - t)
+    return (min(runs[planed]) - min(runs[bare])) / PLANE_COST_STEPS * 1e6
+
+
+def phase_device_plane(torch, P):
+    """16a and 16b (module docstring). Returns the launch counts of the
+    fits."""
+    import numpy as np
+
+    from raydp_tpu_torch.telemetry import device_profiler as dp
+    from raydp_tpu_torch.telemetry import flight_recorder
+    from raydp_tpu_torch.train.losses import resolve_loss
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    t0 = time.perf_counter()
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      dropout_rate=0.1, max_len=GLUE_SEQ)
+    _, cols = glue_columns(np, GLUE_BATCH * PLANE_STEPS, GLUE_SEQ, 30522,
+                           seed=5)
+    total = {k: 0 for k in KERNEL_SYMBOLS}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # 16a: one epoch with the plane on.
+    peaks = dp.device_peaks()
+    check(peaks["flops_by_dtype"] is not None,
+          f"16a: no peak row for {peaks['kind']!r}")
+    metrics.reset()
+    dp.clear_costs()
+    est, history, counts = _plane_fit(torch, P, np, cfg, cols, True, 1)
+    add(counts)
+    h = history[0]
+    ph = h.get("phases") or {}
+    fracs = {k: ph.get(k) for k in ("input_wait_frac", "dispatch_frac",
+                                    "compute_frac", "collective_frac")}
+    cost = dp.get_cost("train_step") or {}
+    closed = closed_form_step_flops(cfg, GLUE_BATCH, GLUE_SEQ)
+    steps = ph.get("steps", 0)
+    per_step = {k: ph.get(k, 0.0) / max(1, steps) * 1e3
+                for k in ("compute_s", "device_s", "wall_s")}
+    compute_ms, device_ms, wall_ms = (per_step["compute_s"],
+                                      per_step["device_s"],
+                                      per_step["wall_s"])
+    paced_ms = device_ms - compute_ms - ph.get("collective_s", 0.0) / max(
+        1, steps) * 1e3
+    scan_ms = RATES.get("4b_scan_ms", float("nan"))
+    eager_ms = RATES.get("4b_stream_ms", float("nan"))
+    log(f"[16a] stream fit, 1 epoch of {steps} steps, plane on: phases "
+        f"{ {k: ph.get(k) for k in ('input_wait_s', 'dispatch_s', 'compute_s', 'collective_s', 'device_s', 'wall_s')} }; "
+        f"fractions {fracs} (sum {sum(v or 0 for v in fracs.values()):.4f}); "
+        f"bound {h.get('bound')}; mfu {h.get('mfu')} against "
+        f"{dp.peak_flops(cost.get('dtype'), peaks) or float('nan'):.3e} "
+        f"FLOP/s ({cost.get('dtype')} on {peaks['kind']})")
+    log(f"[16a] FLOPs of a step counted on the meta device "
+        f"{cost.get('flops', 0):.6e} in {cost.get('count_s', 0):.3f} s "
+        f"(host, once a process, after the epoch's loop), closed form "
+        f"{closed:.6e} ({cost.get('flops', 0) / closed:.4f} of it); a "
+        f"step's device span {device_ms:.3f} ms (CUDA events), of it "
+        f"host-paced {paced_ms:.3f} ms and compute {compute_ms:.3f} ms, "
+        f"against 4b's eager step {eager_ms:.3f} ms and graph replay "
+        f"{scan_ms:.3f} ms (CUDA events), the loop wall {wall_ms:.3f} ms "
+        f"a step; launches {counts}")
+    check(ph and abs(sum(fracs.values()) - 1.0) <= 1e-3,
+          f"16a: the fractions {fracs} do not sum to 1")
+    check(h.get("mfu") is not None and 0.0 < h["mfu"] <= 1.0,
+          f"16a: mfu {h.get('mfu')}")
+    check(metrics.gauge_value("mfu") == h.get("mfu"),
+          f"16a: the mfu gauge {metrics.gauge_value('mfu')}")
+    check(abs(cost.get("flops", 0) / closed - 1.0) <= FLOP_TOL,
+          f"16a: counted {cost.get('flops')} FLOPs, closed form {closed}")
+    check(h.get("bound") in ("input-bound", "collective-bound",
+                             "compute-bound", "host-bound"),
+          f"16a: bound {h.get('bound')}")
+    check(0.9 * scan_ms <= device_ms <= wall_ms
+          and 0.0 <= compute_ms <= device_ms,
+          f"16a: a step's device span {device_ms} ms outside 0.9 x the "
+          f"graph replay's {scan_ms} ms and the loop's {wall_ms} ms, or "
+          f"its compute {compute_ms} ms outside it")
+    check(counts == {k: 12 * PLANE_STEPS for k in KERNEL_SYMBOLS},
+          f"16a: launches {counts}")
+    del est
+
+    # Plane on against off, in turns: epoch 1 of 2 a step, and the whole
+    # fit's wall, epoch 0 included (the step count is cached by now).
+    ab = {"on": [], "off": []}
+    walls = {"on": [], "off": []}
+    for side in PLANE_AB_RUNS:
+        t_fit = time.perf_counter()
+        est, history, counts = _plane_fit(torch, P, np, cfg, cols,
+                                          side == "on", 2)
+        walls[side].append(time.perf_counter() - t_fit)
+        add(counts)
+        ab[side].append(history[1]["time_s"] / PLANE_STEPS * 1e3)
+        del est
+    torch.cuda.empty_cache()
+    log(f"[16a] stream fit ms a step, epoch 1 (host clock), runs in order "
+        f"{list(PLANE_AB_RUNS)}: plane on "
+        f"{[round(v, 3) for v in ab['on']]}, off "
+        f"{[round(v, 3) for v in ab['off']]}; fastest on/off "
+        f"{min(ab['on']) / min(ab['off']):.4f}; the whole fit's wall, s: "
+        f"on {[round(v, 4) for v in walls['on']]}, off "
+        f"{[round(v, 4) for v in walls['off']]}")
+    cost_us = plane_step_cost_us(torch, dp)
+    log(f"[16a] the plane's host work a step, alone: {cost_us:.2f} us "
+        f"({cost_us / 1e3 / eager_ms:.5f} of 4b's eager step, "
+        f"{PLANE_COST_STEPS} steps a run, fastest of 3 a side)")
+    check(cost_us < PLANE_COST_SHARE * eager_ms * 1e3,
+          f"16a: the plane's host work {cost_us} us a step against 4b's "
+          f"eager step {eager_ms} ms")
+
+    # 16b: a NaN enters the loss at step NAN_STEP.
+    import shutil
+    import tempfile
+
+    pdir = tempfile.mkdtemp(prefix="chip-smoke-16b-")
+    base = resolve_loss("softmax_ce")
+    calls = {"n": 0}
+
+    def nan_at_step(logits, labels):
+        calls["n"] += 1
+        loss = base(logits, labels)
+        return loss * float("nan") if calls["n"] == NAN_STEP else loss
+
+    saved = {k: os.environ.get(k) for k in
+             (flight_recorder.POSTMORTEM_DIR_ENV, "RAYDP_TPU_SENTINEL_EVERY")}
+    os.environ[flight_recorder.POSTMORTEM_DIR_ENV] = pdir
+    os.environ["RAYDP_TPU_SENTINEL_EVERY"] = str(SENTINEL_EVERY)
+    try:
+        metrics.reset()
+        est = _glue_estimator(torch, P, np, cfg, "stream", 1)
+        est._loss_fn = nan_at_step
+        _, nan_cols = glue_columns(np, GLUE_BATCH * NAN_STEPS, GLUE_SEQ,
+                                   30522, seed=5)
+        _reset_counts()
+        est.fit(P.MLDataset([nan_cols], num_shards=1))
+        add(_counts())
+        tripped = est._sentinel.tripped
+        counters = metrics.snapshot()["counters"]
+        bundle = flight_recorder.latest_bundle(pdir)
+        text = "".join(open(os.path.join(pdir, n)).read()
+                       for n in sorted(os.listdir(pdir)))
+    finally:
+        for k, v in saved.items():
+            _restore_env(k, v)
+    log(f"[16b] NaN in the loss at step {NAN_STEP} of {NAN_STEPS}, checks "
+        f"every {SENTINEL_EVERY} steps: tripped {tripped}; counters "
+        f"{ {k: v for k, v in counters.items() if k.startswith('anomalies/')} }; "
+        f"bundle {bundle}")
+    check(any(t["kind"] == "nan_loss" and t["step"] == NAN_STEPS - 1
+              for t in tripped), f"16b: the sentinel tripped {tripped}")
+    check(counters.get("anomalies/nan_loss", 0) >= 1,
+          f"16b: anomalies/nan_loss {counters.get('anomalies/nan_loss')}")
+    check("anomaly:nan_loss" in text, f"16b: no anomaly bundle in {pdir}")
+    shutil.rmtree(pdir, ignore_errors=True)
+    del est
+    torch.cuda.empty_cache()
+    log(f"[16] phases 16a-16b {time.perf_counter() - t0:.1f} s (host "
+        f"clock)")
+    return total
+
+
+def gang_plane_probe(ctx, tables, seed, batch, marker_dir, score_s,
+                     score_batch):
+    """16c's rank body in 12b's gang: a short stream fit of the bf16
+    flash classifier on the rank's first ``PROBE_STEPS`` batches with the
+    device plane on (its epoch sets the rank's phase gauges and ``mfu``,
+    which the Pings ship), then, after writing a marker, scoring the
+    rank's shard in batches of ``score_batch`` in a loop for ``score_s``
+    seconds: the run the driver's capture samples. Returns the rank's history, launch counts and the
+    batches scored."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import chip_smoke as cs
+    import raydp_tpu_torch as P
+
+    device = f"cuda:{ctx.local_rank % torch.cuda.device_count()}"
+    torch.cuda.set_device(device)
+    table = pa.concat_tables(tables)
+    cols = {f"t{i}": table.column(f"t{i}").to_numpy().astype(np.int32)
+            for i in range(cs.GLUE_SEQ)}
+    cols["label"] = table.column("label").to_numpy().astype(np.int32)
+    rows = cs.PROBE_STEPS * batch
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      max_len=cs.GLUE_SEQ)
+    cs._reset_counts()
+    est = P.Estimator(
+        model=P.SequenceClassifier(
+            cfg, device=device, generator=torch.Generator().manual_seed(seed)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5),
+        loss="softmax_ce", num_epochs=1, batch_size=batch,
+        feature_columns=[f"t{i}" for i in range(cs.GLUE_SEQ)],
+        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
+        seed=0, shuffle=False, epoch_mode="stream", device=device)
+    history = est.fit(P.MLDataset([{k: v[:rows] for k, v in cols.items()}],
+                                  num_shards=1))
+    model = est.get_model().eval()
+    ids = torch.from_numpy(np.stack([cols[f"t{i}"]
+                                     for i in range(cs.GLUE_SEQ)],
+                                    axis=1)).to(device)
+    scored = 0
+    with open(os.path.join(marker_dir, f"rank-{ctx.rank}"), "w"):
+        pass
+    start = time.time()
+    with torch.inference_mode():
+        while time.time() - start < score_s:
+            for lo in range(0, len(ids), score_batch):
+                model(ids[lo:lo + score_batch])
+                scored += 1
+            torch.cuda.synchronize()
+    return {"rank": ctx.rank, "history": history, "counts": cs._counts(),
+            "scored": scored}
+
+
+def capture_gang_profile(torch, job, shards):
+    """16c in 12b: the probe runs in the gang while the driver captures
+    ``GANG_CAPTURE_S`` seconds of both ranks; holds one merged trace with
+    both ranks' profiler processes, span records and flash_fwd kernels,
+    and ``resource_report()``'s ``mfu`` and ``bound`` for each rank.
+    Returns the probe's launch counts by rank."""
+    import shutil
+    import tempfile
+    import threading
+
+    markers = tempfile.mkdtemp(prefix="chip-smoke-16c-")
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-16c-trace-")
+    result, error = {}, []
+
+    def run():
+        try:
+            result["out"] = job.run(gang_plane_probe, timeout=GANG_LIMIT_S,
+                                    per_rank_args=[
+                (shards[r], SERVE_SEED, GLUE_BATCH, markers, PROBE_SCORE_S,
+                 PROBE_SCORE_BATCH) for r in range(GANG_WORLD)])
+        except Exception as exc:  # surfaced below, after the join
+            error.append(exc)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        started = _wait_for(lambda: len(os.listdir(markers)) == GANG_WORLD
+                            or bool(error), timeout_s=GANG_LIMIT_S,
+                            interval_s=0.1)
+        check(started and not error, f"16c: the probe did not reach its "
+                                     f"scoring loop ({error})")
+        t0 = time.perf_counter()
+        merged = job.capture_profile(GANG_CAPTURE_S, out_dir=out_dir)
+        capture_s = time.perf_counter() - t0
+        thread.join(timeout=GANG_LIMIT_S)
+        check(not error and "out" in result, f"16c: the probe failed "
+                                             f"{error}")
+        with open(merged["merged_trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        by_rank = {}
+        for r in range(GANG_WORLD):
+            base = (r + 1) * 100000
+            mine = [e for e in events
+                    if base <= e.get("pid", -1) < base + 100000]
+            by_rank[r] = {
+                "events": len(mine),
+                "flash_fwd": sum(KERNEL_SYMBOLS["flash_fwd"]
+                                 in str(e.get("name")) for e in mine
+                                 if e.get("ph") == "X"),
+                "spans": sum(e.get("pid", 0) >= base + 50000
+                             and e.get("ph") == "X" for e in mine),
+                "names": sorted({e["args"]["name"] for e in mine
+                                 if e.get("ph") == "M"
+                                 and e.get("name") == "process_name"})}
+        report = _wait_for(lambda: (lambda rr: rr if len(rr) == GANG_WORLD
+                                    and all("mfu" in v and "bound" in v
+                                            for v in rr.values())
+                                    else None)(job.resource_report()["ranks"]))
+        log(f"[16c] 12b's gang: {GANG_CAPTURE_S} s capture in "
+            f"{capture_s:.2f} s beside the probe's scoring loop: ranks "
+            f"{merged['ranks']}, errors {merged.get('errors')}; by rank "
+            f"{by_rank}; merged {merged['merged_trace']}")
+        log(f"[16c] resource_report: "
+            f"{ {k: {f: v.get(f) for f in ('mfu', 'bound', 'phases', 'compiles', 'compile_seconds')} for k, v in (report or {}).items()} }")
+        for o in result["out"]:
+            ph = o["history"][0].get("phases", {})
+            log(f"[16c] rank {o['rank']} probe fit: {ph.get('steps')} steps, "
+                f"mfu {o['history'][0].get('mfu')}, bound "
+                f"{o['history'][0].get('bound')}; then {o['scored']} "
+                f"batches scored; launches {o['counts']}")
+        check(merged["ranks"] == list(range(GANG_WORLD))
+              and not merged.get("errors"),
+              f"16c: the gang's capture ranks {merged['ranks']}, errors "
+              f"{merged.get('errors')}")
+        for r, seen in by_rank.items():
+            check(seen["flash_fwd"] > 0 and seen["spans"] > 0,
+                  f"16c: rank {r} in the merged trace: {seen}")
+        check(report is not None and all(
+            0.0 < v["mfu"] <= 1.0 for v in report.values()),
+            f"16c: resource_report {report}")
+        return [o["counts"] for o in result["out"]]
+    finally:
+        thread.join(timeout=GANG_LIMIT_S)
+        shutil.rmtree(markers, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+_CLIENT_DASHBOARD = """
+import json, sys
+import raydp_tpu_torch
+s = raydp_tpu_torch.connect(sys.argv[1])
+report = s.cluster.dashboard_report()
+print("RESULT " + json.dumps({k: sorted(v) if isinstance(v, dict) else None
+                              for k, v in report.items()}))
+raydp_tpu_torch.stop()
+"""
+
+
+def check_cluster_observability(cl, base):
+    """16c in 15: ``Cluster.capture_profile`` over the driver and the 4
+    workers, ``/debug/profile`` and ``/debug/dashboard`` on ``base``,
+    the dashboard from the session and from a ``connect()``ed client of
+    one shape, and the SLO engine's sampled series."""
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-16c-cluster-")
+    try:
+        t0 = time.perf_counter()
+        merged = cl.capture_profile(CLUSTER_CAPTURE_S, out_dir=out_dir)
+        capture_s = time.perf_counter() - t0
+        codes = {p: _http_status(base + p) for p in
+                 (f"/debug/profile?seconds={CLUSTER_CAPTURE_S / 2}",
+                  "/debug/dashboard")}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    local = cl.dashboard_report()
+    shape = {k: sorted(v) if isinstance(v, dict) else None
+             for k, v in local.items()}
+    client = subprocess.run(
+        [sys.executable, "-c", _CLIENT_DASHBOARD, cl.master.address],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    line = next((ln for ln in client.stdout.splitlines()
+                 if ln.startswith("RESULT ")), None)
+    remote = json.loads(line[len("RESULT "):]) if line else None
+    sampler = cl._ts_sampler
+    series = sampler.store.names() if sampler is not None else []
+    log(f"[16c] 15's session: capture_profile({CLUSTER_CAPTURE_S}) over "
+        f"{len(merged['ranks'])} processes in {capture_s:.2f} s, errors "
+        f"{merged.get('errors')}; routes {codes}; dashboard sections "
+        f"{sorted(local)}; the client's {sorted(remote or {})}; SLO engine "
+        f"{cl._slo_engine is not None}, {len(series)} sampled series")
+    check(len(merged["ranks"]) == SESSION_WORKERS + 1
+          and not merged.get("errors"),
+          f"15/16c: the cluster capture covered {merged['ranks']} "
+          f"({merged.get('errors')})")
+    check(set(codes.values()) == {200}, f"15/16c: the routes answered "
+                                        f"{codes}")
+    check(client.returncode == 0 and remote == shape,
+          f"15/16c: the client's dashboard {remote} against the "
+          f"session's {shape} ({client.stderr[-500:]})")
+    check(cl._slo_engine is not None and len(series) > 0,
+          f"15/16c: the SLO engine {cl._slo_engine}, series {series[:5]}")
+
+
+def check_rank_phases(tag, last):
+    """13b's and 15's ranks: print each rank's phase split and hold the
+    plane's ``collective_frac`` (a share of the loop's wall) within
+    ``COLLECTIVE_TOL`` of the step clock's exchange share of the steps
+    taken over the wall's part outside the loop's input wait (the
+    steps' share of it): the wall is the steps' spans and the input wait,
+    no time unaccounted. 15's one epoch waits 0.1-0.2 of its wall on the
+    loader's first chunk; 13b's last epoch ~0.001."""
+    for r, h in enumerate(last):
+        ph = h.get("phases") or {}
+        share = h["allreduce_ms"] / h["step_ms"]
+        want = share * (1.0 - ph.get("input_wait_frac", 0.0))
+        log(f"[{tag}] rank {r} phases (last epoch): input_wait "
+            f"{ph.get('input_wait_frac')}, dispatch "
+            f"{ph.get('dispatch_frac')}, compute {ph.get('compute_frac')}, "
+            f"collective {ph.get('collective_frac')} against the step "
+            f"clock's {share:.4f} of the steps, {want:.4f} of the wall "
+            f"outside the input wait; bound {h.get('bound')}, mfu "
+            f"{h.get('mfu')}")
+        check(ph and abs(ph["collective_frac"] - want) <= COLLECTIVE_TOL,
+              f"{tag}: rank {r} collective_frac {ph.get('collective_frac')} "
+              f"against the exchange share {share} of the steps, {want} "
+              f"of the wall")
+
+
 def main() -> int:
     import torch
 
@@ -4259,6 +4787,7 @@ def main() -> int:
     decode_launches = phase_decode(torch, P)
     phase_grad_check(torch, P)
     fit_counts, scan_losses = phase_finetune(torch, P)
+    plane_counts = phase_device_plane(torch, P)
     lm_counts = phase_causal_lm(torch, P)
     remat_counts = phase_remat(torch, P, scan_losses)
     phase_dlrm(torch, P)
@@ -4286,7 +4815,10 @@ def main() -> int:
             "remat fine-tune": remat_counts, "MoE": moe_counts,
             "fine-tune from a DataFrame": etl_counts,
             "fine-tune from a cluster frame": session_counts,
-            "fine-tune through connect()": client["counts"]}
+            "fine-tune through connect()": client["counts"],
+            "16a-16b plane fits": plane_counts}
+    for r, counts in enumerate(gang["probe_counts"]):
+        fits[f"16c 12b gang probe rank {r}"] = counts
     for r, counts in enumerate(gang_fit):
         fits[f"fit_spmd rank {r}"] = counts
     fits.update(ft_counts)

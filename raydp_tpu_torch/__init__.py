@@ -48,6 +48,8 @@ without a card they raise unless the caller passes ``device="cpu"``.
 """
 import importlib
 
+__version__ = "0.1.0"
+
 # Public name -> the module that defines it, imported at first use.
 _EXPORTS = {
     "connect": "raydp_tpu_torch.context",
@@ -120,7 +122,7 @@ _SUBPACKAGES = ("cluster", "config", "context", "data", "dataframe",
                 "fault", "models", "native", "ops", "parallel", "serve",
                 "spmd", "store", "telemetry", "train", "utils")
 
-__all__ = sorted(_EXPORTS)
+__all__ = ["__version__", *sorted(_EXPORTS)]
 
 
 def __getattr__(name):

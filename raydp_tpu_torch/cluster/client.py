@@ -28,9 +28,10 @@ The reports (``raydp_tpu/cluster/client.py:193-233, 293-376``):
 RPCs; ``prometheus_metrics`` renders the remote view here, and
 ``trace_report`` analyses the telemetry dir this client shares with the
 session. Task submissions carry the submitting thread's trace context
-onto the pool threads that send them. Left for later slices:
-``scheduler_report`` (ROADMAP item 7), ``dashboard_report`` (item 6.5)
-and ``capture_profile`` (item 6.4).
+onto the pool threads that send them. ``dashboard_report`` is the
+master's too (``DashboardReport``); ``capture_profile`` fans the
+profile request to the workers from here and merges their traces. Left
+for a later slice: ``scheduler_report`` (ROADMAP item 7).
 """
 from __future__ import annotations
 
@@ -233,6 +234,12 @@ class _RemoteMaster:
             "master EventsReport",
         )["report"]
 
+    def dashboard_report(self) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("DashboardReport", {}),
+            "master DashboardReport",
+        )["report"]
+
     def mark_worker_dead(self, worker_id: str, reason: str = "") -> None:
         # Best-effort: the real master's own monitors are authoritative;
         # a client merely stops routing to the worker.
@@ -340,6 +347,11 @@ class RemoteCluster:
         shape of ``Cluster.events_report``)."""
         return self.master.events_report(job=job)
 
+    def dashboard_report(self) -> dict:
+        """The session's dashboard, from its master (the shape of
+        ``Cluster.dashboard_report``)."""
+        return self.master.dashboard_report()
+
     def progress_report(self) -> dict:
         """Stage progress as seen from THIS client (DataFrame stages
         run on the submitting driver), with the cluster-owning
@@ -350,6 +362,48 @@ class RemoteCluster:
         report["stage_totals"] = stage_store.snapshot()["totals"]
         report["cluster"] = self.master.progress_report()
         return report
+
+    def capture_profile(self, seconds: float = 3.0,
+                        out_dir: Optional[str] = None) -> Optional[dict]:
+        """``Cluster.capture_profile`` from a client: the profile request
+        fans out to every alive worker straight from here (the client
+        holds their stubs) and the archives merge here. The client
+        itself is not captured: it runs no device work. None without
+        workers."""
+        from raydp_tpu_torch.telemetry import device_profiler
+
+        workers = self.alive_workers()
+        if not workers:
+            return None
+        payloads: Dict[str, dict] = {}
+        errors: Dict[str, str] = {}
+
+        def _one(info: WorkerInfo) -> None:
+            try:
+                payloads[info.worker_id] = self._worker_client(info).call(
+                    "ProfileRequest", {"seconds": seconds},
+                    timeout=seconds + 30.0)
+            except Exception as exc:
+                errors[info.worker_id] = str(exc)
+
+        threads = [threading.Thread(target=_one, args=(w,), daemon=True)
+                   for w in workers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=seconds + 60.0)
+        if not payloads:
+            raise ClientError(
+                f"profile capture failed on every worker: {errors}")
+        ordered = [payloads[w] for w in sorted(payloads)]
+        for payload in ordered:
+            ref = payload.pop("ref", None)
+            if ref is not None and "zip" not in payload:
+                payload["zip"] = self.resolver.get_bytes(ref)
+        merged = device_profiler.merge_rank_traces(ordered, out_dir)
+        if errors:
+            merged["errors"] = errors
+        return merged
 
     # -- task submission ------------------------------------------------
     def submit(self, fn, *args, worker_id=None, timeout=300.0, **kwargs):

@@ -29,8 +29,11 @@ send them. :meth:`Cluster.metrics_snapshot`, :meth:`trace_report`,
 :meth:`usage_report`, :meth:`events_report` and :meth:`health_report`
 read the planes; worker churn lands on the event timeline.
 
-Left for later slices: the time-series and SLO planes and
-``dashboard_report`` (ROADMAP item 6.5), ``capture_profile`` (item 6.4),
+``start()`` arms the time-series sampler and the SLO engine over the
+merged view (``_start_observability``); :meth:`dashboard_report` folds
+them into one document and :meth:`capture_profile` merges a trace of
+the driver and every worker, both also served on the metrics endpoint
+(``/debug/dashboard``, ``/debug/profile``). Left for a later slice:
 ``scheduler_report`` and the fault plan's spawn hooks (item 7).
 """
 from __future__ import annotations
@@ -133,6 +136,10 @@ class Cluster:
         self._elastic_thread: Optional[threading.Thread] = None
         self._trace_ctx = None
         self._metrics_server = None
+        # The observability plane (time series and SLO engine), armed by
+        # start().
+        self._ts_sampler = None
+        self._slo_engine = None
         self._log_dir = os.path.join(
             tempfile.gettempdir(), "raydp_tpu_torch",
             f"{_slug(config.app_name)}-{os.getpid()}",
@@ -200,6 +207,7 @@ class Cluster:
         self._elastic_thread.start()
         self._warm_workers_async()
         self._serve_metrics()
+        self._start_observability()
 
     def _serve_metrics(self) -> None:
         """Serve the merged Prometheus view at ``/metrics`` (and the debug
@@ -218,12 +226,35 @@ class Cluster:
                 self.prometheus_metrics, int(port),
                 health=self.health_report,
                 progress=self.progress_report,
+                # The cluster-wide capture and the merged dashboard, not
+                # just the driver process's.
+                profile=lambda seconds: self.capture_profile(seconds) or {},
                 events=self.events_report,
+                dashboard=self.dashboard_report,
             )
             logger.info("prometheus scrape endpoint on :%d/metrics",
                         self._metrics_server.port)
         except Exception:
             logger.exception("metrics endpoint failed to start")
+
+    def _start_observability(self) -> None:
+        """Arm the driver's time-series sampler over the merged view and
+        the SLO engine over its store; each has its kill switch
+        (``RAYDP_TPU_TIMESERIES=0``, ``RAYDP_TPU_SLO=0``) and costs one
+        snapshot fold a sampling interval. A failure here is logged and
+        never fails the session's start."""
+        from raydp_tpu_torch.telemetry import slo as _slo
+        from raydp_tpu_torch.telemetry import timeseries as _ts
+
+        try:
+            if _ts.timeseries_enabled():
+                self._ts_sampler = _ts.TimeSeriesSampler(
+                    snapshot_fn=self.metrics_snapshot).start()
+            if _slo.slo_enabled() and self._ts_sampler is not None:
+                self._slo_engine = _slo.SloEngine(
+                    store=self._ts_sampler.store).start()
+        except Exception:
+            logger.exception("observability plane failed to start")
 
     @property
     def log_dir(self) -> str:
@@ -496,6 +527,14 @@ class Cluster:
                 self._stop_worker(worker_id, kill_objects=False)
             self._flush_telemetry()
         self._pool.shutdown(wait=False)
+        for attr in ("_slo_engine", "_ts_sampler"):
+            plane = getattr(self, attr)
+            if plane is not None:
+                try:
+                    plane.stop()
+                except Exception:  # pragma: no cover - teardown best-effort
+                    pass
+                setattr(self, attr, None)
         if self._metrics_server is not None:
             try:
                 self._metrics_server.close()
@@ -700,6 +739,21 @@ class Cluster:
         records = _events.load_event_records(telemetry_dir(), job=job)
         return {"events": records, "mttr": _events.mttr_report(records)}
 
+    def dashboard_report(self) -> dict:
+        """The dashboard: train, ETL, serve and control sections folded
+        from the merged view, the SLO table, the event timeline's tail
+        with MTTR episodes, and usage by job, in one document
+        (:mod:`raydp_tpu_torch.telemetry.dashboard`). Also served at
+        ``/debug/dashboard`` and, to a second driver, by the
+        ``DashboardReport`` RPC. No scheduler section: the control plane
+        is not ported (ROADMAP Queue A item 7)."""
+        from raydp_tpu_torch.telemetry import dashboard as _dash
+        from raydp_tpu_torch.telemetry import events as _events
+        from raydp_tpu_torch.telemetry import telemetry_dir
+
+        records = _events.load_event_records(telemetry_dir())
+        return _dash.build(self.metrics_snapshot(), events=records)
+
     def health_report(self) -> Optional[dict]:
         """Aggregated cluster health: per-worker heartbeat age and the
         watchdog stall flags shipped on heartbeats, stalled/dead/late
@@ -708,6 +762,56 @@ class Cluster:
         if self.master is None:
             return None
         return self.master.health_report()
+
+    def capture_profile(self, seconds: float = 3.0,
+                        out_dir: Optional[str] = None) -> Optional[dict]:
+        """A trace capture across the cluster: every alive worker and the
+        driver itself record a ``torch.profiler`` trace for ``seconds``
+        from (nearly) the same wall instant, and the archives merge into
+        one clock-aligned Perfetto file (``merged_trace.json`` under the
+        returned ``out_dir``). Worker archives travel through the shm
+        object store (a ref on the reply), not the control RPC. Also
+        served as ``/debug/profile?seconds=N`` on the driver's metrics
+        endpoint. None before :meth:`start`."""
+        if self.master is None:
+            return None
+        from raydp_tpu_torch.telemetry import device_profiler
+
+        payloads: Dict[str, dict] = {}
+        errors: Dict[str, str] = {}
+
+        def _one(worker_id: str) -> None:
+            client = self._client_for(worker_id)
+            if client is None:
+                errors[worker_id] = "no client"
+                return
+            try:
+                payloads[worker_id] = client.call(
+                    "ProfileRequest", {"seconds": seconds},
+                    timeout=seconds + 30.0)
+            except Exception as exc:
+                errors[worker_id] = str(exc)
+
+        threads = [threading.Thread(target=_one, args=(w.worker_id,),
+                                    daemon=True)
+                   for w in self.alive_workers()]
+        for t in threads:
+            t.start()
+        # The driver takes part, beside the fan-out: its loader and
+        # dispatch threads are half a step's story.
+        driver_payload = device_profiler.capture_trace_archive(seconds)
+        driver_payload["worker_id"] = "driver"
+        for t in threads:
+            t.join(timeout=seconds + 60.0)
+        ordered = [driver_payload] + [payloads[w] for w in sorted(payloads)]
+        for payload in ordered:  # store-shipped archives -> bytes
+            ref = payload.pop("ref", None)
+            if ref is not None and "zip" not in payload:
+                payload["zip"] = self.resolver.get_bytes(ref)
+        merged = device_profiler.merge_rank_traces(ordered, out_dir)
+        if errors:
+            merged["errors"] = errors
+        return merged
 
     def progress_report(self) -> dict:
         """Live stage progress — in-flight stages with done/total task

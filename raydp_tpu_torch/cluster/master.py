@@ -22,8 +22,8 @@ land in its ring and as span events, and the master answers
 and ``ProgressReport`` for second drivers. The port adds ``GangReport``:
 ``fit_spmd`` hands each finished gang's rank views to the session's
 master (:meth:`AppMaster.record_gang`), which bills them with the
-workers'. Left for later slices:
-``SchedulerReport`` (ROADMAP item 7) and ``DashboardReport`` (item 6.5).
+workers', and ``DashboardReport``. Left for a later slice:
+``SchedulerReport`` (ROADMAP item 7).
 """
 from __future__ import annotations
 
@@ -115,6 +115,7 @@ class AppMaster:
             "ProgressReport": self._on_progress_report,
             "UsageReport": self._on_usage_report,
             "EventsReport": self._on_events_report,
+            "DashboardReport": self._on_dashboard_report,
             "GangReport": self._on_gang_report,
             "Ping": lambda req: {"pong": True, "namespace": self.namespace},
         }
@@ -350,6 +351,9 @@ class AppMaster:
     def _on_events_report(self, req: dict) -> dict:
         return {"report": self.events_report(job=req.get("job"))}
 
+    def _on_dashboard_report(self, req: dict) -> dict:
+        return {"report": self.dashboard_report()}
+
     def _on_gang_report(self, req: dict) -> dict:
         self.record_gang(req["gang"], req["views"])
         return {}
@@ -382,6 +386,16 @@ class AppMaster:
 
         records = _events.load_event_records(telemetry_dir(), job=job)
         return {"events": records, "mttr": _events.mttr_report(records)}
+
+    def dashboard_report(self) -> dict:
+        """The dashboard over the merged cluster view, for a second
+        driver (``Cluster.dashboard_report``'s document)."""
+        from raydp_tpu_torch.telemetry import dashboard as _dash
+        from raydp_tpu_torch.telemetry import events as _events
+        from raydp_tpu_torch.telemetry import telemetry_dir
+
+        records = _events.load_event_records(telemetry_dir())
+        return _dash.build(self.metrics_snapshot(), events=records)
 
     def progress_report(self) -> dict:
         """Live stage progress: the driver-process tracker (DataFrame

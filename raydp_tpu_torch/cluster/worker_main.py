@@ -174,6 +174,7 @@ class Worker:
                 "RunTask": self._on_run_task,
                 "RunTaskBatch": self._on_run_task_batch,
                 "Ping": lambda req: {"pong": True, "worker_id": self.worker_id},
+                "ProfileRequest": self._on_profile,
                 "Stop": self._on_stop,
             },
             host=bind_host,
@@ -400,6 +401,28 @@ class Worker:
         finally:
             with self._busy_lock:
                 self._busy -= 1
+
+    def _on_profile(self, req: dict) -> dict:
+        """A trace capture on this ETL worker, on the RPC handler thread
+        beside any tasks in flight. The zip ships through the shm object
+        store once the worker is registered (``{"ref": ...}``), inline
+        before. The capture loads torch (its profiler) into the worker,
+        which ETL tasks alone never do."""
+        from raydp_tpu_torch.telemetry import device_profiler
+
+        seconds = float(req.get("seconds", 3.0))
+        _flight.record("profile", "start", worker_id=self.worker_id,
+                       seconds=seconds)
+        payload = device_profiler.capture_trace_archive(seconds)
+        payload["worker_id"] = self.worker_id
+        if self._ready.is_set():
+            blob = payload.pop("zip")
+            try:
+                payload["ref"] = self.ctx.put_bytes(blob)
+            except Exception:
+                payload["zip"] = blob  # store unavailable: inline
+        _flight.record("profile", "end", worker_id=self.worker_id)
+        return payload
 
     def _on_stop(self, req: dict) -> dict:
         # Non-transferred objects die with the worker; the master unlinks

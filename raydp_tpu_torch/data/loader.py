@@ -189,10 +189,15 @@ class ShardLoader:
         return self._staged
 
     def _coalesce_batches(self) -> int:
-        """Batches per chunk: the explicit setting, else sized toward
-        ``_TARGET_CHUNK_BYTES`` and capped at ``_MAX_COALESCE``."""
+        """Batches per chunk: the explicit setting, else on a card sized
+        toward ``_TARGET_CHUNK_BYTES`` and capped at ``_MAX_COALESCE``.
+        On the CPU auto stays at 1, as the JAX loader's host path: there
+        is no copy to amortize, and one batch a chunk keeps the prefetch
+        memory small."""
         if self.transfer_coalesce is not None:
             return max(1, self.transfer_coalesce)
+        if self.device.type != "cuda":
+            return 1
         row_bytes = (len(self.feature_columns) * self.feature_dtype.itemsize
                      + (self.label_dtype.itemsize if self.label_column else 0))
         batch_bytes = max(1, self.batch_size * row_bytes)

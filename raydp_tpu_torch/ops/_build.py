@@ -5,7 +5,8 @@ Each source under ``raydp_tpu_torch/csrc/`` is compiled with ``nvcc`` for
 ``ctypes``. The build runs at first use, into ``raydp_tpu_torch/_build/``
 (git-ignored), keyed by a hash of the source, every shared header
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
-and an unchanged one is reused. A failed build raises.
+and an unchanged one is reused. A failed build raises a
+``CompileError`` (``utils/profiling.py``).
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -88,11 +89,21 @@ def _finish(source: str, target: str, tmp: str,
 
 def build_all(sources: Iterable[str] = SOURCES) -> List[str]:
     """Compile every source that has no current library, one ``nvcc`` per
-    source, all started together. Returns the library paths."""
+    source, all started together, as one compile
+    (``utils/profiling.run_compile``: counted, billed, a failure raised
+    as a ``CompileError``). Returns the library paths."""
+    from raydp_tpu_torch.utils.profiling import run_compile
+
     os.makedirs(BUILD_DIR, exist_ok=True)
     sources = list(sources)
-    running = [(src, *_start(src)) for src in sources
-               if not os.path.exists(_target(src))]
+    missing = [src for src in sources if not os.path.exists(_target(src))]
+    if missing:
+        run_compile(_build, "nvcc:" + ",".join(missing), missing)
+    return [_target(src) for src in sources]
+
+
+def _build(sources: List[str]) -> None:
+    running = [(src, *_start(src)) for src in sources]
     try:
         for src, target, tmp, proc in running:
             _finish(src, target, tmp, proc)
@@ -101,7 +112,6 @@ def build_all(sources: Iterable[str] = SOURCES) -> List[str]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return [_target(src) for src in sources]
 
 
 def build_log(source: str) -> str:

@@ -11,8 +11,9 @@ launchers keep them.
 Dispatch goes by the tensors' device: CUDA tensors launch the kernels in
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (or raise), CPU tensors
 take the plain versions, which compute the same tile-by-tile function
-with the JAX package's block sizes and casts. Each kernel wrapper counts
-its launches in an integer ``launches`` attribute: ``flash_attention``,
+with the JAX package's block sizes and casts, and meta tensors (a cost
+count's pass) get their outputs' shapes and launch nothing. Each kernel
+wrapper counts its launches in an integer ``launches`` attribute: ``flash_attention``,
 ``flash_bwd_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. The wgmma
 kernels (the forward, dq and dk/dv, bf16 and f32) read their inputs with
 16-byte copies, so a CUDA tensor of either dtype that
@@ -28,6 +29,8 @@ import math
 from typing import List, Sequence, Tuple
 
 import torch
+
+from raydp_tpu_torch.utils import profiling
 
 NEG_INF = -1e30
 
@@ -48,6 +51,32 @@ def _pos_mask(q0: int, bq: int, k0: int, bkv: int, device) -> torch.Tensor:
     qpos = torch.arange(q0, q0 + bq, device=device)
     kpos = torch.arange(k0, k0 + bkv, device=device)
     return qpos[:, None] >= kpos[None, :]
+
+
+def _live_tiles(s: int, block_q: int, block_kv: int, causal: bool) -> int:
+    """(q tile, kv tile) pairs the kernels and the plain versions compute:
+    all of them, or causally those on or below the diagonal."""
+    block_q, block_kv = _blocks(s, block_q, block_kv)
+    return sum(1 for q0 in range(0, s, block_q)
+               for k0 in range(0, s, block_kv)
+               if not (causal and q0 + block_q - 1 < k0))
+
+
+def _count_kernel(x: torch.Tensor, matmuls: int, causal: bool,
+                  block_q: int, block_kv: int) -> None:
+    """Add a launch's FLOPs to a cost count in flight
+    (``utils/profiling.count_cost``; nothing outside one): ``matmuls``
+    products of a (block_q x D) and a (D x block_kv) tile, or their
+    transposes, per live tile and (batch, head), as the plain version
+    multiplies them: 2 in the forward (S = QKᵀ, PV), 3 in dq (S, dP,
+    dS·K), 4 in dk/dv (S, dP, Pᵀ·dO, dSᵀ·Q)."""
+    if profiling._kernel_tally is None:
+        return
+    b, s, h, d = x.shape
+    bq, bkv = _blocks(s, block_q, block_kv)
+    profiling.add_kernel_cost(2.0 * bq * bkv * d * matmuls
+                              * _live_tiles(s, block_q, block_kv, causal)
+                              * b * h)
 
 
 def flash_attention_plain(
@@ -214,9 +243,13 @@ def _kernel_fn(symbol: str):
     return fn
 
 
-def _launch(symbol: str, ptrs, ints, scale, strided, device) -> None:
+def _launch(symbol: str, ptrs, ints, scale, strided, device) -> bool:
     """Call a kernel's C entry on ``device``'s current stream and raise on
-    the ``cudaError_t`` it returns."""
+    the ``cudaError_t`` it returns; True once launched. On the meta
+    device (a cost count's pass: shapes, no data) nothing launches and
+    the wrapper returns its outputs' shapes."""
+    if device.type == "meta":
+        return False
     fn = _kernel_fn(symbol)
     has_scale = _SIGNATURES[symbol][3]
     strides = []
@@ -230,6 +263,7 @@ def _launch(symbol: str, ptrs, ints, scale, strided, device) -> None:
         err = fn(*args, *strides, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+    return True
 
 
 def _check_kernel_inputs(name: str, *xs: torch.Tensor) -> None:
@@ -319,16 +353,18 @@ def _flash_fwd_cuda(q, k, v, causal, block_q, block_kv):
     _check_kernel_inputs("flash kernel", q, k, v)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
-    _launch("raydp_flash_fwd", (q, k, v, out, lse),
-            (_KERNEL_DTYPES[q.dtype], b, s, h, d, int(causal)),
-            1.0 / math.sqrt(d), (q, k, v, out), q.device)
-    flash_attention.launches += 1
+    if _launch("raydp_flash_fwd", (q, k, v, out, lse),
+               (_KERNEL_DTYPES[q.dtype], b, s, h, d, int(causal)),
+               1.0 / math.sqrt(d), (q, k, v, out), q.device):
+        flash_attention.launches += 1
+    _count_kernel(q, 2, causal, block_q, block_kv)
     return out, lse
 
 
 def _on_cpu(name: str, x: torch.Tensor) -> bool:
-    """True for a CPU tensor, False for a CUDA one; raise otherwise."""
-    if x.is_cuda:
+    """True for a CPU tensor, False for a CUDA one or a meta one (shapes
+    only: :func:`_launch` launches nothing); raise otherwise."""
+    if x.is_cuda or x.is_meta:
         return False
     if x.device.type == "cpu":
         return True
@@ -343,10 +379,11 @@ def flash_bwd_delta(out: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:
     _check_kernel_inputs("flash_bwd_delta", out, grad_out)
     b, s, h, d = out.shape
     delta = torch.empty((b, h, s, 1), dtype=torch.float32, device=out.device)
-    _launch("raydp_flash_bwd_delta", (out, grad_out, delta),
-            (_KERNEL_DTYPES[out.dtype], b, s, h, d), None, (out, grad_out),
-            out.device)
-    flash_bwd_delta.launches += 1
+    if _launch("raydp_flash_bwd_delta", (out, grad_out, delta),
+               (_KERNEL_DTYPES[out.dtype], b, s, h, d), None,
+               (out, grad_out), out.device):
+        flash_bwd_delta.launches += 1
+    _count_kernel(out, 0, False, s, s)
     return delta
 
 
@@ -362,10 +399,11 @@ def flash_bwd_dq(q, k, v, grad_out, lse, delta, causal=False,
     _check_kernel_inputs("flash_bwd_dq", q, k, v, grad_out)
     _check_rows("flash_bwd_dq", q, lse, delta)
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    _launch("raydp_flash_bwd_dq", (q, k, v, grad_out, lse, delta, dq),
-            (_KERNEL_DTYPES[q.dtype], b, s, h, d, int(causal)),
-            1.0 / math.sqrt(d), (q, k, v, grad_out, dq), q.device)
-    flash_bwd_dq.launches += 1
+    if _launch("raydp_flash_bwd_dq", (q, k, v, grad_out, lse, delta, dq),
+               (_KERNEL_DTYPES[q.dtype], b, s, h, d, int(causal)),
+               1.0 / math.sqrt(d), (q, k, v, grad_out, dq), q.device):
+        flash_bwd_dq.launches += 1
+    _count_kernel(q, 3, causal, block_q, block_kv)
     return dq
 
 
@@ -382,10 +420,12 @@ def flash_bwd_dkv(q, k, v, grad_out, lse, delta, causal=False,
     _check_rows("flash_bwd_dkv", q, lse, delta)
     dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, h, d), dtype=v.dtype, device=q.device)
-    _launch("raydp_flash_bwd_dkv", (q, k, v, grad_out, lse, delta, dk, dv),
-            (_KERNEL_DTYPES[q.dtype], b, s, h, d, int(causal)),
-            1.0 / math.sqrt(d), (q, k, v, grad_out, dk, dv), q.device)
-    flash_bwd_dkv.launches += 1
+    if _launch("raydp_flash_bwd_dkv",
+               (q, k, v, grad_out, lse, delta, dk, dv),
+               (_KERNEL_DTYPES[q.dtype], b, s, h, d, int(causal)),
+               1.0 / math.sqrt(d), (q, k, v, grad_out, dk, dv), q.device):
+        flash_bwd_dkv.launches += 1
+    _count_kernel(q, 4, causal, block_q, block_kv)
     return dk, dv
 
 

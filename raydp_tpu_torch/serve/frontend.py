@@ -10,12 +10,15 @@ Graceful degradation is the contract: a full queue
 with a ``Retry-After`` header derived from the shed ETA; a request that
 misses its deadline becomes **504**. Anything accepted gets exactly one
 reply. Every admitted request's response carries its id in
-``X-RayDP-Request-Id``. The reference's busy-cluster 429 waits for the
-control plane (ROADMAP item 7), its ``traceparent`` echo for the serve
-plane's telemetry (the rest of item 6).
+``X-RayDP-Request-Id`` and, on ``/predict``, a ``traceparent`` (an
+incoming one is honored, so a caller's trace threads through the serve
+spans and events); a 504 leaves a ``serve/timeout`` event. The
+reference's busy-cluster 429 waits for the control plane (ROADMAP item
+7).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -27,6 +30,8 @@ from typing import Any, Dict, Optional
 from urllib.parse import urlsplit
 
 from raydp_tpu_torch.serve.batching import QueueFullError, RequestCancelled
+from raydp_tpu_torch.telemetry import events as _events
+from raydp_tpu_torch.telemetry import propagation as _prop
 
 logger = logging.getLogger(__name__)
 
@@ -57,13 +62,25 @@ class ServeFrontend:
 
     # -- request handling (transport-independent, unit-testable) --------
 
-    def handle_predict(self, body: Dict[str, Any]) -> tuple:
+    def handle_predict(self, body: Dict[str, Any],
+                       headers: Optional[Dict[str, str]] = None) -> tuple:
         """Process one /predict body; returns ``(status, payload,
         headers)``. Every admitted request's response carries
-        ``X-RayDP-Request-Id``; 200 bodies carry the per-phase latency
-        decomposition."""
+        ``X-RayDP-Request-Id`` and a ``traceparent`` (the caller's,
+        where its ``headers`` carry one); 200 bodies carry the per-phase
+        latency decomposition."""
         if "inputs" not in body:
             return 400, {"error": "body must carry 'inputs'"}, {}
+        incoming = None
+        if headers:
+            lowered = {str(k).lower(): v for k, v in headers.items()}
+            incoming = _prop.from_traceparent(lowered.get("traceparent"))
+        scope = (_prop.propagated(incoming) if incoming is not None
+                 else contextlib.nullcontext())
+        with scope:
+            return self._predict(body, incoming)
+
+    def _predict(self, body: Dict[str, Any], incoming) -> tuple:
         t0 = time.monotonic()
         try:
             req = self.group.submit(
@@ -85,11 +102,17 @@ class ServeFrontend:
                 shed_headers,
             )
         corr = {"X-RayDP-Request-Id": req.request_id}
+        traceparent = _prop.to_traceparent(
+            incoming if incoming is not None else _prop.current_context())
+        if traceparent:
+            corr["traceparent"] = traceparent
         try:
             result = req.wait()
         except RequestCancelled as exc:
             logger.info("serve request %s timed out after %d attempts",
                         req.request_id, req.attempts)
+            _events.emit("serve/timeout", request_id=req.request_id,
+                         attempts=req.attempts)
             return 504, {"error": str(exc), "id": req.request_id}, corr
         except Exception as exc:  # replica-side model failure
             return 500, {"error": str(exc), "id": req.request_id}, corr
@@ -109,7 +132,8 @@ class ServeFrontend:
             corr,
         )
 
-    def handle_generate(self, body: Dict[str, Any]) -> tuple:
+    def handle_generate(self, body: Dict[str, Any],
+                        headers: Optional[Dict[str, str]] = None) -> tuple:
         """Process one /generate body (decode-mode groups): ``prompt``
         is a token list, optional ``max_new``/``eos``/``timeout_s``.
         Same degradation contract as /predict; 200 bodies add the
@@ -218,7 +242,8 @@ class ServeFrontend:
                           if route == "/generate"
                           else frontend.handle_predict)
                 try:
-                    code, payload, headers = handle(body)
+                    code, payload, headers = handle(
+                        body, headers=dict(self.headers.items()))
                     self._reply_json(code, payload, headers)
                 except Exception as exc:
                     try:

@@ -22,9 +22,11 @@ the child, whose ``PYTHONPATH`` carries this process's ``sys.path``.
 The group's ``device`` is the one setting of where the model runs: a
 model function (or decode engine factory) that takes a ``device``
 keyword is called with the group's, whatever it binds itself.
-Admission through the cluster arbiter, job accounting and the serve
-events of the reference arrive with the port's control and telemetry
-planes.
+The group's lifecycle lands on the event timeline as the reference's
+does (``serve/start``, ``replica_up``, ``replica_down``, ``requeue``,
+``lineage_dead``, ``drain``, ``stop``). Admission through the cluster
+arbiter and job accounting arrive with the port's control plane
+(ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from raydp_tpu_torch.serve.replica_main import (
     REPLICA_SERVICE,
     SERVE_DRIVER_SERVICE,
 )
+from raydp_tpu_torch.telemetry import events as _events
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.env import _env_float, _env_int, child_pythonpath
 from raydp_tpu_torch.utils.profiling import metrics
@@ -130,6 +133,8 @@ class _ReplicaSlot:
                     "(%d restarts); lineage abandoned",
                     self.index, g.max_restarts,
                 )
+                _events.emit("serve/lineage_dead", replica=self.index,
+                             restarts=self.restarts, group=g.label)
                 return
             try:
                 self._spawn()
@@ -142,6 +147,8 @@ class _ReplicaSlot:
             stub = RpcClient(self.addr, REPLICA_SERVICE)
             self.alive = True
             g._publish_alive()
+            _events.emit("serve/replica_up", replica=self.index,
+                         incarnation=self.restarts, group=g.label)
             try:
                 self._dispatch(stub)
             finally:
@@ -158,6 +165,8 @@ class _ReplicaSlot:
             # successor starts, so no replica runs unsupervised.
             _reap(self.proc)
             metrics.counter_add("serve/restarts")
+            _events.emit("serve/replica_down", replica=self.index,
+                         group=g.label, exit_code=self.proc.returncode)
             logger.warning(
                 "serve slot %d: replica down (exit code %s); respawning",
                 self.index, self.proc.returncode,
@@ -258,12 +267,14 @@ class _ReplicaSlot:
                 # go BACK to the queue head and retry on a surviving
                 # replica — the zero-dropped-request guarantee.
                 g.queue.requeue(batch)
+                g._requeued(self.index, "dispatch_failed", batch)
                 return
             if reply.get("draining"):
                 # Drain refusal: replica got SIGTERM/preemption after
                 # assembly; hand the batch to a healthy lineage and
                 # wait out this incarnation.
                 g.queue.requeue(batch)
+                g._requeued(self.index, "draining", batch)
                 self._await_exit()
                 return
             wall = time.monotonic() - t0
@@ -330,9 +341,11 @@ class _ReplicaSlot:
                 )
             except Exception:
                 g.queue.requeue(admitted)
+                g._requeued(self.index, "admit_failed", admitted)
                 return
             if reply.get("draining"):
                 g.queue.requeue(admitted)
+                g._requeued(self.index, "draining", admitted)
                 self._await_exit()
                 return
             if reply.get("error"):
@@ -463,6 +476,9 @@ class ReplicaGroup:
             f"{self.label}-{os.getpid()}",
         )
         os.makedirs(self._log_dir, exist_ok=True)
+        _events.emit("serve/start", group=self.label, replicas=self.replicas,
+                     max_batch=self.queue.max_batch,
+                     slo_ms=self.queue.slo_s * 1000.0)
         self._slots = [
             _ReplicaSlot(self, i) for i in range(self.replicas)
         ]
@@ -502,7 +518,16 @@ class ReplicaGroup:
         if not reqs:
             return
         metrics.counter_add("decode/requeued_prefills", len(reqs))
-        self.queue.requeue(reqs)
+        n = self.queue.requeue(reqs)
+        self._requeued(slot, "decode_replica_death", reqs, requeued=n)
+
+    def _requeued(self, replica: int, reason: str, reqs,
+                  **attrs: Any) -> None:
+        """A ``serve/requeue`` event: which replica gave the requests
+        back, why, and their ids."""
+        _events.emit("serve/requeue", group=self.label, replica=replica,
+                     reason=reason,
+                     request_ids=[r.request_id for r in reqs], **attrs)
 
     def _on_decode_events(self, msg: dict) -> dict:
         """Apply one replica round's token/done events. Tokens append
@@ -761,6 +786,7 @@ class ReplicaGroup:
         slot = self._slots[index]
         if slot.proc is None or slot.proc.poll() is not None:
             return False
+        _events.emit("serve/drain", group=self.label, replica=index)
         slot.proc.terminate()
         return True
 
@@ -794,6 +820,7 @@ class ReplicaGroup:
             except Exception:
                 pass
             self._server = None
+        _events.emit("serve/stop", group=self.label)
 
     def __enter__(self) -> "ReplicaGroup":
         return self

@@ -35,6 +35,7 @@ from typing import Any, Callable, List
 from raydp_tpu_torch import fault as _fault
 from raydp_tpu_torch.cluster.rpc import RpcClient, RpcServer
 from raydp_tpu_torch.serve.decode import DecodeLoop, ToyDecodeEngine
+from raydp_tpu_torch.telemetry import events as _events
 from raydp_tpu_torch.utils.device import resolve_device, set_exact_float32
 from raydp_tpu_torch.utils.profiling import metrics
 
@@ -276,6 +277,8 @@ class ServeReplica:
                 # as prefills on a surviving replica when this process
                 # exits (recompute is the drain for decode).
                 _fault.mark_drained()
+                _events.emit("serve/drain", replica=self.replica,
+                             group=self.group)
                 self._stop.set()
                 return
             try:
@@ -330,6 +333,8 @@ class ServeReplica:
                             break
                     time.sleep(0.01)
                 _fault.mark_drained()
+                _events.emit("serve/drain", replica=self.replica,
+                             group=self.group)
                 print(
                     f"raydp-serve: replica {self.replica} drained; exiting",
                     file=sys.stderr, flush=True,

@@ -32,9 +32,10 @@ stall flags into :meth:`SPMDJob.health_report`; each dispatch is an
 ``rank/dead``, ``gang/failed``, ``preempt/request`` and
 ``gang/teardown`` land on the event timeline.
 
-Left for later slices: ``resource_report`` and ``capture_profile`` (the
-device-phase plane, ROADMAP item 6.4) and the arbiter's admission (item
-7).
+:meth:`SPMDJob.capture_profile` merges a trace of every rank, taken
+beside the running function; :meth:`SPMDJob.resource_report` reads each
+rank's shipped gauges (memory, compiles, phase fractions, ``bound``,
+``mfu``). Left for a later slice: the arbiter's admission (item 7).
 """
 from __future__ import annotations
 
@@ -565,6 +566,100 @@ class SPMDJob:
     def metrics_snapshot(self) -> dict:
         """Merged per-rank metrics view (the deltas shipped on Pings)."""
         return self.telemetry.merged()
+
+    def capture_profile(self, seconds: float = 3.0,
+                        out_dir: Optional[str] = None) -> dict:
+        """A trace capture across the gang: every rank starts a
+        ``torch.profiler`` trace at (nearly) the same wall instant,
+        records for ``seconds`` and ships its directory back as a zip;
+        the driver merges them into one clock-aligned Perfetto file
+        (``merged_trace.json`` under ``out_dir``, a temporary directory
+        by default). One thread a rank, so the start skew is an RPC's
+        latency; each capture runs on the rank's RPC handler thread,
+        beside the shipped function on its runner thread, so it samples
+        live training. A rank that fails is named under ``errors``."""
+        if not self._started:
+            raise SPMDJobError("job not started")
+        from raydp_tpu_torch.telemetry import device_profiler
+
+        out_dir = out_dir or tempfile.mkdtemp(prefix="raydp-gang-profile-")
+        payloads: Dict[int, dict] = {}
+        errors: Dict[int, str] = {}
+
+        def _one(rank: int, stub: RpcClient) -> None:
+            try:
+                payloads[rank] = stub.call(
+                    "ProfileRequest", {"seconds": seconds},
+                    timeout=seconds + 30.0)
+            except Exception as exc:  # a partial gang still merges
+                errors[rank] = str(exc)
+
+        threads = [threading.Thread(target=_one, args=(rank, stub),
+                                    daemon=True)
+                   for rank, stub in sorted(self._stubs.items())]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=seconds + 60.0)
+        if not payloads:
+            raise SPMDJobError(
+                f"profile capture failed on every rank: {errors}")
+        merged = device_profiler.merge_rank_traces(
+            [payloads[r] for r in sorted(payloads)], out_dir)
+        if errors:
+            merged["errors"] = errors
+        _flight.record("profile", "merged", job=self.job_name,
+                       ranks=len(payloads))
+        return merged
+
+    def resource_report(self) -> dict:
+        """Per-rank resources from the shipped gauges: host RSS, the
+        card's memory in use and at peak, compile counters, and, once a
+        rank has shipped an epoch's phase gauges, its phase fractions,
+        ``bound`` and ``mfu``. Ranks that shipped nothing yet appear with
+        zeros."""
+        from raydp_tpu_torch.telemetry import device_profiler
+
+        view = self.telemetry.merged()
+        ranks = {}
+        for rid, sections in sorted((view.get("workers") or {}).items()):
+            gauges = sections.get("gauges") or {}
+            counters = sections.get("counters") or {}
+            ranks[rid] = {
+                "rss_bytes": gauges.get("mem/rss_bytes", 0),
+                "rss_peak_bytes": gauges.get("mem/rss_peak_bytes", 0),
+                "hbm_used_bytes": gauges.get("hbm/used_bytes", 0),
+                "hbm_peak_bytes": gauges.get("hbm/peak_bytes", 0),
+                "compiles": counters.get("compile/count", 0),
+                "compile_seconds": counters.get("compile/seconds", 0.0),
+                "compile_failures": counters.get("compile/failures", 0),
+            }
+            fractions = {
+                name: gauges[f"phase/{name}"]
+                for name in ("input_wait_frac", "dispatch_frac",
+                             "compute_frac", "collective_frac")
+                if f"phase/{name}" in gauges
+            }
+            if fractions:
+                ranks[rid]["phases"] = fractions
+                ranks[rid]["bound"] = device_profiler.classify_fractions(
+                    fractions)
+            if "mfu" in gauges:
+                ranks[rid]["mfu"] = gauges["mfu"]
+        agg = view.get("aggregate") or {}
+        agg_gauges = agg.get("gauges") or {}
+        agg_counters = agg.get("counters") or {}
+        return {
+            "ranks": ranks,
+            "totals": {
+                "rss_bytes": agg_gauges.get("mem/rss_bytes", 0),
+                "hbm_used_bytes": agg_gauges.get("hbm/used_bytes", 0),
+                "hbm_peak_bytes": agg_gauges.get("hbm/peak_bytes", 0),
+                "compiles": agg_counters.get("compile/count", 0),
+                "compile_seconds": agg_counters.get("compile/seconds",
+                                                    0.0),
+            },
+        }
 
     def usage_report(self) -> dict:
         """Per-job usage folded from the ranks' shipped counters

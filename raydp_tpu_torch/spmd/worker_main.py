@@ -40,8 +40,9 @@ resource gauges, bills ``hbm_byte_seconds``, ships the metric delta
 the span ring; a stopping rank ships its full final snapshot on a last
 Ping (the ETL worker's ``WorkerStopped`` does the same for its master).
 ``RAYDP_TPU_DEBUG_PORT`` serves this rank's ``/metrics``
-and ``/healthz``. Left for the device-phase plane (ROADMAP item 6.4):
-the profile capture and the compile accounting.
+and ``/healthz``. A ``ProfileRequest`` captures a ``torch.profiler``
+trace of the rank beside its running function, and the rank counts its
+compiles (kernel builds, graph captures) from its start.
 """
 from __future__ import annotations
 
@@ -77,7 +78,11 @@ from raydp_tpu_torch.telemetry import logs as _logs
 from raydp_tpu_torch.telemetry import propagation as trace_prop
 from raydp_tpu_torch.telemetry import watchdog as _watchdog
 from raydp_tpu_torch.utils.net import local_ip
-from raydp_tpu_torch.utils.profiling import metrics, sample_resource_gauges
+from raydp_tpu_torch.utils.profiling import (
+    install_compile_listener,
+    metrics,
+    sample_resource_gauges,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -229,6 +234,7 @@ class SPMDWorker:
         self._server = RpcServer(
             WORKER_SERVICE,
             {"RunFunction": self._on_run_function, "Stop": self._on_stop,
+             "ProfileRequest": self._on_profile,
              "Preempt": self._on_preempt},
             host="0.0.0.0" if multihost else "127.0.0.1",
         )
@@ -248,6 +254,22 @@ class SPMDWorker:
         self._stop_event.set()
         self._queue.put(None)
         return {"stopping": True}
+
+    def _on_profile(self, req: dict) -> dict:
+        """A trace capture across the gang: runs ON the RPC handler
+        thread, beside whatever shipped function the runner thread is
+        executing, so the window samples live training without pausing
+        it (``torch.profiler`` records this thread's host ops, the
+        card's kernels from every thread, and the span ring)."""
+        from raydp_tpu_torch.telemetry import device_profiler
+
+        seconds = float(req.get("seconds", 3.0))
+        _flight.record("profile", "start", rank=self.rank, seconds=seconds)
+        payload = device_profiler.capture_trace_archive(seconds,
+                                                        rank=self.rank)
+        _flight.record("profile", "end", rank=self.rank,
+                       nbytes=len(payload.get("zip") or b""))
+        return payload
 
     def _on_preempt(self, req: dict) -> dict:
         """The driver's preemption notice: sets the drain flag a SIGTERM
@@ -375,6 +397,9 @@ class SPMDWorker:
         forever; result-posting only notices mid-function."""
         shipper = self._shipper
         missed = 0
+        # Compile accounting (kernel builds, graph captures) for all this
+        # rank runs; the counters ride the same deltas as its timers.
+        install_compile_listener()
         beat_index = 0
         last_mono = time.monotonic()
         while not self._stop_event.wait(HEARTBEAT_S):

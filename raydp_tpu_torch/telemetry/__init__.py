@@ -22,11 +22,18 @@ rank mains. The planes this package holds:
 * the shipped metrics: :mod:`.shipping` (heartbeat deltas, the master's
   merged view with tombstones) and :mod:`.overlap` (how much of the
   scheduler's work overlaps);
-* :mod:`.progress`: the DataFrame engine's stage statistics.
-
-Left for later slices: the device-phase plane (``device_profiler`` on
-``torch.profiler``, ROADMAP item 6.4) and ``slo``, ``timeseries`` and
-``dashboard`` (item 6.5).
+* :mod:`.progress`: the DataFrame engine's stage statistics;
+* the device plane: :mod:`.device_profiler` (a stream step's input-wait
+  / dispatch / compute / collective split from CUDA events, ``mfu``
+  against the card's peak, anomaly sentinels, and ``torch.profiler``
+  captures across a gang merged into one Perfetto trace:
+  ``Cluster.capture_profile()``, ``/debug/profile``);
+* the observability control plane: :mod:`.timeseries` (the driver's
+  bounded rings sampled from the merged view), :mod:`.slo` (objectives
+  evaluated as burn rates over two windows, breach and recovery events,
+  ``raydp_slo_*`` families) and :mod:`.dashboard` (one document:
+  ``Cluster.dashboard_report()``, ``/debug/dashboard``,
+  ``python -m raydp_tpu_torch.telemetry.dashboard``).
 """
 from raydp_tpu_torch.telemetry.chrome_trace import (
     load_span_records,
@@ -45,10 +52,14 @@ from raydp_tpu_torch.telemetry.export import (
 )
 from raydp_tpu_torch.telemetry import (
     accounting,
+    dashboard,
+    device_profiler,
     events,
     flight_recorder,
     logs,
     progress,
+    slo,
+    timeseries,
     watchdog,
 )
 from raydp_tpu_torch.telemetry.accounting import (
@@ -68,7 +79,15 @@ from raydp_tpu_torch.telemetry.events import (
     load_event_records,
     mttr_report,
 )
+from raydp_tpu_torch.telemetry.device_profiler import (
+    AnomalySentinel,
+    StepPhaseAccumulator,
+    capture_trace_archive,
+    classify_fractions,
+    merge_rank_traces,
+)
 from raydp_tpu_torch.telemetry.progress import (
+    PROGRESS_LOG_ENV,
     STAGE_STATS_ENV,
     STATS_DIR_ENV,
     ProgressTracker,
@@ -98,12 +117,20 @@ from raydp_tpu_torch.telemetry.propagation import (
     to_traceparent,
 )
 from raydp_tpu_torch.telemetry.shipping import ClusterTelemetry, MetricsShipper
+from raydp_tpu_torch.telemetry.slo import Objective, SloConfig, SloEngine
 from raydp_tpu_torch.telemetry.spans import (
     Span,
     SpanRecorder,
     event,
     recorder,
     span,
+)
+from raydp_tpu_torch.telemetry.timeseries import (
+    TIMESERIES_ENV,
+    TimeSeriesConfig,
+    TimeSeriesSampler,
+    TimeSeriesStore,
+    timeseries_enabled,
 )
 
 __all__ = [
@@ -122,19 +149,23 @@ __all__ = [
     "TRACEPARENT_ENV",
     "JOB_ENV",
     "EVENT_BUFFER_ENV",
-    "STAGE_STATS_ENV",
-    "STATS_DIR_ENV",
-    "ProgressTracker",
-    "StageStats",
-    "StageStatsStore",
-    "stage_stats_enabled",
-    "stage_store",
     "flight_recorder",
     "logs",
     "watchdog",
+    "device_profiler",
     "accounting",
     "events",
-    "progress",
+    "dashboard",
+    "slo",
+    "timeseries",
+    "TIMESERIES_ENV",
+    "TimeSeriesConfig",
+    "TimeSeriesStore",
+    "TimeSeriesSampler",
+    "timeseries_enabled",
+    "Objective",
+    "SloConfig",
+    "SloEngine",
     "JobContext",
     "current_job",
     "job_scope",
@@ -146,6 +177,11 @@ __all__ = [
     "usage_report",
     "load_event_records",
     "mttr_report",
+    "AnomalySentinel",
+    "StepPhaseAccumulator",
+    "capture_trace_archive",
+    "classify_fractions",
+    "merge_rank_traces",
     "Watchdog",
     "inflight",
     "dump_bundle",

@@ -4,9 +4,9 @@ The port's copy of ``raydp_tpu/telemetry/accounting.py``.
 
 In the port ``chip_seconds`` are CUDA-device seconds (wall time times
 the cards a process uses) and ``hbm_byte_seconds`` the CUDA memory a
-gang rank holds, integrated over its heartbeats. The
-``compile_seconds`` kind stays in the ledger; no plane of the port
-bills it before the device-phase plane (ROADMAP item 6.4).
+gang rank holds, integrated over its heartbeats. ``compile_seconds``
+are the port's compiles: kernel builds and CUDA graph captures
+(``utils/profiling.run_compile``).
 
 Everything the telemetry plane measured before this module was
 *cluster-global*: two pipelines sharing one cluster (or two gangs

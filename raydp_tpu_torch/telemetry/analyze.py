@@ -2,9 +2,8 @@
 
 The port's copy of ``raydp_tpu/telemetry/analyze.py``.
 
-``_device_plane`` reads the ``train/phases`` events of the device-phase
-plane (ROADMAP item 6.4); until the port emits them it returns what the
-JAX function returns for records without them.
+``_device_plane`` reads the ``train/phases`` events the estimator's
+device plane emits once an epoch (``telemetry/device_profiler.py``).
 
 Answers the whole-gang questions the raw shards cannot: where did the
 job's wall-clock actually go (critical path through the merged span

@@ -2,9 +2,9 @@
 
 The port's copy of ``raydp_tpu/telemetry/events.py``.
 
-The ``sentinel/*`` and ``slo/*`` kinds are emitted by planes the port
-takes later (ROADMAP items 6.4, 6.5); the timeline treats them as the
-JAX package does.
+The ``sentinel/*`` kinds come from the device plane's anomaly
+sentinels, the ``slo/*`` kinds from the SLO engine, as in the JAX
+package.
 
 Counters say *how many* restarts happened; nothing said *when*, *to
 whom*, or *in what order*. This module is the bounded, structured

@@ -1,11 +1,10 @@
 """Export surface: Prometheus text exposition + append-only JSONL logs
 (the port's copy of ``raydp_tpu/telemetry/export.py``).
 
-Left for later slices: ``/debug/profile`` (the device-phase plane,
-ROADMAP item 6.4) and ``/debug/dashboard`` (item 6.5) answer 404 here.
-:func:`render_prometheus` is whole: families whose view keys no ported
-plane fills yet (compile, MFU, SLO, anomalies) render nothing, as in
-the JAX package. The port's one addition: a view's ``gangs`` (finished
+:func:`render_prometheus` is whole, and :func:`serve_prometheus` serves
+every route of the JAX package's, ``/debug/profile`` (a
+``torch.profiler`` capture) and ``/debug/dashboard`` included. The
+port's one addition: a view's ``gangs`` (finished
 SPMD gangs' rank views, which the master keeps) render as workers do,
 but with no ``raydp_worker_up`` series: a rank is not an ETL worker.
 
@@ -1321,12 +1320,33 @@ def _default_events(job: Optional[str] = None) -> Dict[str, Any]:
     return {"events": records, "mttr": _events.mttr_report(records)}
 
 
-# Routes of planes the port has not taken yet: each answers 404 naming
-# the ROADMAP item that brings it, and serves no stand-in document.
-_PENDING_ROUTES = {
-    "/debug/dashboard": "the dashboard arrives with ROADMAP item 6.5",
-    "/debug/profile": "device profiling arrives with ROADMAP item 6.4",
-}
+def _default_dashboard() -> Dict[str, Any]:
+    """``/debug/dashboard`` over this process's registry; driver
+    endpoints pass ``Cluster.dashboard_report`` (imported lazily: the
+    dashboard pulls in the event and accounting stack)."""
+    from raydp_tpu_torch.telemetry import dashboard as _dash
+
+    return _dash.local_dashboard()
+
+
+# /debug/profile capture windows are clamped, so a stray ?seconds=86400
+# cannot pin a handler thread (and a profiler's buffers) for a day.
+_PROFILE_MAX_SECONDS = 120.0
+
+
+def _default_profile(seconds: float) -> Dict[str, Any]:
+    """One process's capture: a ``torch.profiler`` trace of THIS process
+    for ``seconds``, written under the telemetry dir (or a temporary
+    one). Driver endpoints pass the cluster-wide capture instead."""
+    from raydp_tpu_torch.telemetry import device_profiler as _devprof
+
+    base = telemetry_dir()
+    out_dir = None
+    if base:
+        out_dir = os.path.join(
+            base, f"profile-{os.getpid()}-{int(time.time())}"
+        )
+    return _devprof.capture_local_trace(seconds, out_dir)
 
 
 def serve_prometheus(
@@ -1335,7 +1355,9 @@ def serve_prometheus(
     host: str = "0.0.0.0",
     health: Optional[Callable[[], Dict[str, Any]]] = None,
     progress: Optional[Callable[[], Dict[str, Any]]] = None,
+    profile: Optional[Callable[[float], Dict[str, Any]]] = None,
     events: Optional[Callable[[Optional[str]], Dict[str, Any]]] = None,
+    dashboard: Optional[Callable[[], Dict[str, Any]]] = None,
 ) -> _ScrapeServer:
     """Serve the process debug surface on a daemon thread.
 
@@ -1350,11 +1372,16 @@ def serve_prometheus(
     snapshot), ``/debug/stacks`` (plain-text all-thread dump),
     ``/debug/progress`` (JSON from ``progress()`` — default: the
     process's live :mod:`~raydp_tpu_torch.telemetry.progress` tracker plus
-    stage-store totals), and ``/debug/events?job=ID`` (the cluster
+    stage-store totals), ``/debug/profile?seconds=N`` (an on-demand
+    trace: ``profile(seconds)`` — default this process's
+    ``torch.profiler`` capture; the driver endpoint passes
+    ``Cluster.capture_profile``; it holds the request for the window,
+    other routes stay responsive), ``/debug/events?job=ID`` (the cluster
     event timeline + MTTR report from ``events()`` — default: every
-    events shard under the telemetry dir, else the local ring).
-    ``/debug/profile`` and ``/debug/dashboard`` answer 404 naming the
-    ROADMAP item (6.4, 6.5) whose plane serves them.
+    events shard under the telemetry dir, else the local ring), and
+    ``/debug/dashboard`` (the dashboard JSON from ``dashboard()`` —
+    default this process's registry; the driver passes
+    ``Cluster.dashboard_report``).
     Stdlib ``http.server`` only: one scrape every few seconds, no need
     for more. ``port=0`` binds an ephemeral port. Returns a handle with
     ``.port`` and idempotent ``.close()``."""
@@ -1362,7 +1389,9 @@ def serve_prometheus(
 
     health_fn = health if health is not None else _default_health
     progress_fn = progress if progress is not None else _default_progress
+    profile_fn = profile if profile is not None else _default_profile
     events_fn = events if events is not None else _default_events
+    dashboard_fn = dashboard if dashboard is not None else _default_dashboard
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, body: bytes, ctype: str) -> None:
@@ -1427,8 +1456,28 @@ def serve_prometheus(
                         ).encode("utf-8"),
                         "application/json",
                     )
-                elif path in _PENDING_ROUTES:
-                    self.send_error(404, _PENDING_ROUTES[path])
+                elif path == "/debug/dashboard":
+                    self._reply(
+                        200,
+                        json.dumps(
+                            dashboard_fn(), default=str
+                        ).encode("utf-8"),
+                        "application/json",
+                    )
+                elif path == "/debug/profile":
+                    try:
+                        seconds = float(query.get("seconds", ["3"])[0])
+                    except ValueError:
+                        self.send_error(400, "seconds must be a number")
+                        return
+                    seconds = min(max(0.0, seconds), _PROFILE_MAX_SECONDS)
+                    self._reply(
+                        200,
+                        json.dumps(
+                            profile_fn(seconds), default=str
+                        ).encode("utf-8"),
+                        "application/json",
+                    )
                 elif path == "/debug/stacks":
                     from raydp_tpu_torch.telemetry import flight_recorder as _fl
 
@@ -1461,7 +1510,7 @@ def serve_prometheus(
     logger.info(
         "telemetry debug endpoint on %s:%d "
         "(/metrics /livez /healthz /debug/state /debug/stacks "
-        "/debug/progress /debug/events)",
+        "/debug/progress /debug/profile /debug/events /debug/dashboard)",
         host, server.port,
     )
     return server

@@ -16,8 +16,10 @@ through ``StageStatsStore.output_bytes``/``output_layout``):
   them, so ``df.stage_stats`` / ``df.explain(analyze=True)`` can
   re-associate numbers with plan nodes after the fact.
 * :data:`progress` — a :class:`ProgressTracker` of live stage
-  task-completion counts (done/total), served by
-  ``Cluster.progress_report()``.
+  task-completion counts (done/total), served on ``/debug/progress``
+  and ``Cluster.progress_report()``, with an opt-in driver-side logger
+  (``RAYDP_TPU_PROGRESS_LOG=<seconds>``) that logs active-stage
+  progress lines at that cadence.
 
 Env knobs:
 
@@ -29,15 +31,15 @@ Env knobs:
 * ``RAYDP_TPU_STATS_DIR`` (falls back to ``RAYDP_TPU_TELEMETRY_DIR``)
   — when set, every record is also appended to
   ``stats-<pid>.jsonl`` there, so CI can ship the stats store as an
-  artifact from a process that already exited. Nothing prunes old
-  shards there.
-
-Left for ROADMAP Queue A 6.3: the reference's opt-in progress logger
-(``RAYDP_TPU_PROGRESS_LOG``) and its pruning of ``stats-<pid>.jsonl``.
+  artifact from a process that already exited. The first write of a
+  process there prunes the directory's ``stats-*.jsonl`` shards to the
+  newest ``RAYDP_TPU_SHARD_KEEP`` (``telemetry/export.py``).
+* ``RAYDP_TPU_PROGRESS_LOG=<seconds>`` — arm the progress logger.
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
 import threading
 import time
@@ -45,7 +47,10 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+logger = logging.getLogger(__name__)
+
 __all__ = [
+    "PROGRESS_LOG_ENV",
     "STAGE_STATS_ENV",
     "STATS_DIR_ENV",
     "StageStats",
@@ -58,6 +63,7 @@ __all__ = [
 
 STAGE_STATS_ENV = "RAYDP_TPU_STAGE_STATS"
 STATS_DIR_ENV = "RAYDP_TPU_STATS_DIR"
+PROGRESS_LOG_ENV = "RAYDP_TPU_PROGRESS_LOG"
 
 
 def stage_stats_enabled() -> bool:
@@ -214,7 +220,10 @@ class StageStatsStore:
             if self._shard_path is None or not self._shard_path.startswith(
                 directory
             ):
+                from raydp_tpu_torch.telemetry.export import prune_shards_once
+
                 os.makedirs(directory, exist_ok=True)
+                prune_shards_once(directory, "stats")
                 self._shard_path = os.path.join(
                     directory, f"stats-{os.getpid()}.jsonl"
                 )
@@ -238,6 +247,7 @@ class ProgressTracker:
         self._recent: List[Dict[str, Any]] = []
         self._keep_recent = keep_recent
         self._done_stages = 0
+        self._logger_armed = False
 
     def stage_begin(self, stage_id: int, op: str, total: int) -> None:
         now = time.time()
@@ -249,6 +259,7 @@ class ProgressTracker:
                 "total": int(total),
                 "started_wall": now,
             }
+        self._maybe_start_logger()
 
     def task_done(self, stage_id: int, n: int = 1) -> None:
         with self._mu:
@@ -283,6 +294,40 @@ class ProgressTracker:
                 "tasks_done": sum(s["done"] for s in self._recent)
                 + sum(s["done"] for s in active),
             }
+
+
+    # -- opt-in driver-side progress logger ----------------------------
+    def _maybe_start_logger(self) -> None:
+        """Arm, once, a daemon thread that logs each active stage's
+        ``progress: stage <id> <op> <done>/<total> tasks`` every
+        ``RAYDP_TPU_PROGRESS_LOG`` seconds (at least 0.2; 5 where the
+        value does not parse)."""
+        interval = os.environ.get(PROGRESS_LOG_ENV)
+        if not interval:
+            return
+        with self._mu:
+            if self._logger_armed:
+                return
+            self._logger_armed = True
+        try:
+            period = max(0.2, float(interval))
+        except ValueError:
+            period = 5.0
+
+        def _loop() -> None:
+            while True:
+                time.sleep(period)
+                with self._mu:
+                    active = [dict(s) for s in self._active.values()]
+                for st in active:
+                    logger.info(
+                        "progress: stage %d %s %d/%d tasks",
+                        st["stage_id"], st["op"], st["done"], st["total"],
+                    )
+
+        threading.Thread(
+            target=_loop, name="raydp-progress-log", daemon=True
+        ).start()
 
 
 stage_store = StageStatsStore()

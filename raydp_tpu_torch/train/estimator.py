@@ -44,8 +44,26 @@ Differences from the JAX estimator, each deliberate:
   defaulting rules and says here that a step updates the parameters and
   the optimizer state in place, so only a failure raised before the
   update may be retried (below).
-* The device-phase plane (step phases, MFU, anomaly sentinels) is a
-  later slice (ROADMAP item 6.4).
+
+**Device plane** (``raydp_tpu/train/estimator.py:604-613, 787-924,
+1085-1130``; ``telemetry/device_profiler.py``; off with
+``RAYDP_TPU_DEVICE_PLANE=0``): the stream path splits each epoch's loop
+wall into input wait, dispatch, compute and collective from the step
+clock's CUDA events (folded as they complete, no sync) and the host's
+time in each step, and adds ``phases``, ``bound`` and ``mfu`` to the
+epoch's metrics and a ``train/phases`` event to the span shards. The
+FLOPs behind ``mfu`` are counted once a process for each model and
+input shape, after the first epoch's loop, on the meta device
+(``utils/profiling.count_train_step``): no training step runs under a
+counter. An
+:class:`~raydp_tpu_torch.telemetry.device_profiler.AnomalySentinel`
+watches step times and, every ``RAYDP_TPU_SENTINEL_EVERY`` steps (the
+only syncs it adds), the step's loss and its global grad norm, computed
+on those steps only; every epoch's loss is checked at its sync. The
+scan path replays one graph a step, unchanged: only the epoch-loss
+check applies there, as in the JAX package. Kernel builds and the
+graph capture are the port's compiles: counted, and billed to the job
+as ``compile_seconds`` (``utils/profiling.run_compile``).
 
 **Telemetry** (``raydp_tpu/train/estimator.py:594, 649-683, 710,
 823-840, 1094-1102, 1399, 1588``): a fit is a ``train/fit`` span, each
@@ -122,7 +140,9 @@ import logging
 import os
 import re
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from collections import deque
+from typing import (Callable, Deque, Dict, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -134,13 +154,17 @@ from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
 from raydp_tpu_torch.parallel.mesh import DEFAULT_LOGICAL_RULES, MeshSpec
 from raydp_tpu_torch.telemetry import accounting as _acct
+from raydp_tpu_torch.telemetry import device_profiler as _devplane
 from raydp_tpu_torch.telemetry import events as _events
 from raydp_tpu_torch.telemetry import flight_recorder as _flight
 from raydp_tpu_torch.telemetry import flush_spans, span
+from raydp_tpu_torch.telemetry.spans import event as _event
 from raydp_tpu_torch.telemetry import watchdog as _watchdog
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
+from raydp_tpu_torch.utils.profiling import count_train_step
+from raydp_tpu_torch.utils.profiling import install_compile_listener
 from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
 #: Retention cap for step-encoded checkpoints (``step_mid_<N>.pt`` and
@@ -190,13 +214,35 @@ def _rank_seed(seed: int, rank: int) -> int:
 
 
 class _StepClock:
-    """Per-step timestamps of a multi-process fit: CUDA events on a card
-    (read once an epoch, after its loss sync), the host clock on the
-    CPU."""
+    """Per-step timestamps of a stream fit: CUDA events on a card, the
+    host clock on the CPU. Each step leaves ``(start, exchange start,
+    exchange end, end)`` (the exchange marks are None outside a
+    multi-process fit) and the host's clock at its start and end and its
+    seconds in the exchange. A step is folded into the epoch's totals
+    once its end event has completed, polled with ``query()`` at the
+    next step's start (no sync), so only the steps the host launched
+    ahead of the card are held (the launch queue bounds them); the
+    epoch's loss sync completes the rest (:meth:`epoch_totals`).
+
+    On a card the events are put on the host's clock by the epoch's
+    first step, which starts on an idle card (after the previous epoch's
+    sync). From the card's start of a step until the host's last launch
+    of it, the card can only have run what the host had launched: that
+    part of the span (less the host's seconds in the exchange) is the
+    step's ``paced_ms``, the rest of the span the card's own. A step
+    long enough to fill the launch queue blocks the host in its launches
+    and reads part of its span as paced."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.steps: List[tuple] = []
+        self._pending: Deque[tuple] = deque()
+        self._origin: Optional[tuple] = None  # (host s, event) of step 1
+        self._totals = self._zero()
+
+    @staticmethod
+    def _zero() -> Dict[str, float]:
+        return {"steps": 0, "step_ms": 0.0, "allreduce_ms": 0.0,
+                "paced_ms": 0.0}
 
     def mark(self):
         if self.cuda:
@@ -208,16 +254,44 @@ class _StepClock:
     def _ms(self, a, b) -> float:
         return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
 
-    def epoch_means(self) -> Dict[str, float]:
-        """``step_ms`` and ``allreduce_ms`` (the gradient exchange: bucket
-        copies, all_reduce and the division) over the steps since the
-        last call (the device has finished them by now)."""
-        steps, self.steps = self.steps, []
-        if not steps:
-            return {"step_ms": 0.0, "allreduce_ms": 0.0}
-        n = len(steps)
-        return {"step_ms": sum(self._ms(s[0], s[3]) for s in steps) / n,
-                "allreduce_ms": sum(self._ms(s[1], s[2]) for s in steps) / n}
+    def begin(self) -> None:
+        """At a step's start: fold the steps the card has finished."""
+        self._fold(everything=False)
+
+    def end(self, marks: tuple, host_t0: float, host_t1: float,
+            exchange_s: float) -> None:
+        if self._origin is None:
+            self._origin = (host_t0, marks[0])
+        self._pending.append((marks, host_t0, host_t1, exchange_s))
+
+    def _fold(self, everything: bool) -> None:
+        t = self._totals
+        while self._pending:
+            (s0, s1, s2, s3), h0, h1, exchange_s = self._pending[0]
+            if self.cuda and not everything and not s3.query():
+                break
+            self._pending.popleft()
+            step = self._ms(s0, s3)
+            ar = self._ms(s1, s2) if s1 is not None else 0.0
+            t["steps"] += 1
+            t["step_ms"] += step
+            t["allreduce_ms"] += ar
+            if self.cuda:
+                origin_h, origin_ev = self._origin
+                d0 = max(h0, origin_h + origin_ev.elapsed_time(s0) / 1e3)
+                paced = (h1 - d0 - exchange_s) * 1e3
+                t["paced_ms"] += min(max(0.0, paced), step - ar)
+
+    def epoch_totals(self) -> Dict[str, float]:
+        """``steps``, ``step_ms``, ``allreduce_ms`` (the gradient
+        exchange: bucket copies, all_reduce and the division) and
+        ``paced_ms`` (the class docstring) summed over the steps since
+        the last call. Called after the epoch's loss sync: every event
+        has completed."""
+        self._fold(everything=True)
+        out, self._totals = self._totals, self._zero()
+        self._origin = None
+        return out
 
 
 class _GradAllReduce:
@@ -435,6 +509,16 @@ class Estimator:
         # live while a fit runs.
         self._allreduce: Optional[_GradAllReduce] = None
         self._clock: Optional[_StepClock] = None
+        # The device plane, live while a fit runs (the sentinel stays for
+        # inspection after it): the stream path's phase accumulator, and
+        # the global grad norm of a step the sentinel checks.
+        self._phases: Optional[_devplane.StepPhaseAccumulator] = None
+        self._sentinel: Optional[_devplane.AnomalySentinel] = None
+        self._want_grad_norm = False
+        self._grad_norm: Optional[torch.Tensor] = None
+        # The fit's first input, on the meta device: the shape whose step
+        # the plane counts after the first epoch.
+        self._first_input: Optional[torch.Tensor] = None
 
     @property
     def optimizer(self) -> torch.optim.Optimizer:
@@ -500,6 +584,9 @@ class Estimator:
                 f"mesh {self.mesh_spec.axis_sizes} needs "
                 f"{self.mesh_spec.size} devices but only {world} are "
                 "visible (one card a process)")
+        install_compile_listener()
+        plane = _devplane.enabled()
+        self._sentinel = _devplane.AnomalySentinel() if plane else None
         if self._use_scan(train_ds) and resume_from is None:
             self.effective_epoch_mode = "scan"
             self._fit_scan(train_ds, evaluate_ds, epochs)
@@ -508,11 +595,14 @@ class Estimator:
             if world > 1:
                 self._generator.manual_seed(_rank_seed(self.seed, rank))
                 self._allreduce = _GradAllReduce(self._model.parameters())
+            if world > 1 or plane:
                 self._clock = _StepClock(self.device)
+            if plane:
+                self._phases = _devplane.StepPhaseAccumulator("train_step")
             try:
                 self._fit_stream(train_ds, evaluate_ds, epochs, resume_from)
             finally:
-                self._allreduce = self._clock = None
+                self._allreduce = self._clock = self._phases = None
 
     def _train_step(self, x: torch.Tensor,
                     y: Optional[torch.Tensor]) -> torch.Tensor:
@@ -520,9 +610,15 @@ class Estimator:
         the epoch's sum on the device; returns the loss. Both paths run
         it: the stream path eagerly, the scan path as a CUDA graph on a
         card."""
-        opt = self.optimizer
         clock = self._clock
-        t0 = clock.mark() if clock is not None else None
+        if clock is not None:
+            # Before the optimizer: a fit's first step builds it (imports
+            # included), host time inside the step's span.
+            clock.begin()
+            h0 = time.perf_counter()
+            t0 = clock.mark()
+        opt = self.optimizer
+        exchange_s = 0.0
         opt.zero_grad(set_to_none=True)
         loss = self._loss_fn(self._model(x), self._target(x, y))
         if self.aux_losses:
@@ -533,15 +629,25 @@ class Estimator:
             (loss * len(x)).backward()
             t1 = clock.mark()
             self._update_begun = True
+            h1 = time.perf_counter()
             loss = self._allreduce(loss.detach() * len(x), len(x),
                                    fault.preemption_requested())
+            exchange_s = time.perf_counter() - h1
             t2 = clock.mark()
         else:
             loss.backward()
             self._update_begun = True
+            t1 = t2 = None
+        if self._want_grad_norm:
+            # The sentinel checks this step: the global grad norm (after
+            # the exchange), a tensor read at its check.
+            self._grad_norm = torch.nn.utils.get_total_norm(
+                [p.grad for p in self._model.parameters()
+                 if p.grad is not None])
         opt.step()
         if clock is not None:
-            clock.steps.append((t0, t1, t2, clock.mark()))
+            clock.end((t0, t1, t2, clock.mark()), h0, time.perf_counter(),
+                      exchange_s)
         loss = loss.detach()
         self._loss_sum += loss
         return loss
@@ -648,6 +754,7 @@ class Estimator:
             self._broadcast_state()
         first_step_at = None
         step_timer = _metrics.timer("train/step")
+        self._first_input = None
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             self._model.train()
@@ -659,17 +766,54 @@ class Estimator:
                            mode="stream")
             # The epoch span covers the batch loop only: it closes before
             # _finish_epoch, so the flush there sees it finished.
+            loop_t0 = time.perf_counter()
             with span("train/epoch", epoch=epoch, mode="stream"):
                 n_batches, n_samples, first_step_at = self._stream_epoch(
                     loaders, epoch, to_skip, step_timer, first_step_at)
             train_loss = float(self._loss_sum) / max(1, n_batches)  # one sync
-            extra = None
+            loop_wall = time.perf_counter() - loop_t0
+            extra: Dict = {}
             if self._clock is not None:
-                extra = self._clock.epoch_means()
-                if epoch == start_epoch and first_step_at is not None:
-                    extra["first_step_at"] = first_step_at
+                totals = self._clock.epoch_totals()
+                if self._allreduce is not None:
+                    n = max(1, totals["steps"])
+                    extra["step_ms"] = totals["step_ms"] / n
+                    extra["allreduce_ms"] = totals["allreduce_ms"] / n
+                    if epoch == start_epoch and first_step_at is not None:
+                        extra["first_step_at"] = first_step_at
+                if self._phases is not None and self._phases.epoch_steps:
+                    self._note_step_cost()
+                    summary = self._phases.epoch_summary(
+                        loop_wall, totals["step_ms"] / 1e3,
+                        totals["allreduce_ms"] / 1e3,
+                        totals["paced_ms"] / 1e3)
+                    extra["phases"] = summary
+                    extra["bound"] = summary["bound"]
+                    if "mfu" in summary:
+                        extra["mfu"] = summary["mfu"]
+                    # analyze's device-plane section reads this event.
+                    _event("train/phases", epoch=epoch, **{
+                        k: v for k, v in summary.items()
+                        if isinstance(v, (int, float, str))})
+            if self._sentinel is not None:
+                # Every epoch's loss is checked at its one sync (the
+                # sampled cadence may miss a short epoch's NaN step).
+                self._sentinel.check_loss(train_loss, self._step,
+                                          epoch=epoch)
             self._finish_epoch(epoch, t0, train_loss, n_samples, evaluate_ds,
                                extra)
+
+    def _note_step_cost(self) -> None:
+        """Register the FLOPs of a step at the fit's first input shape for
+        the device plane's ``mfu``, once a fit, after its first epoch's
+        loop (out of its wall): counted on the meta device
+        (``utils/profiling.count_train_step``), once a process for each
+        model and input shape."""
+        if self._first_input is None:
+            return
+        x, self._first_input = self._first_input, None
+        _devplane.note_compiled("train_step",
+                                count_train_step(self._model, (x,)))
 
     def _stream_epoch(self, loaders, epoch: int, to_skip: int, step_timer,
                       first_step_at):
@@ -677,9 +821,24 @@ class Estimator:
         first_step_at)``."""
         b_idx = to_skip
         n_batches = n_samples = 0
-        for i, (x, y) in enumerate(self._batches(loaders)):
+        phases, sentinel = self._phases, self._sentinel
+        batches = enumerate(self._batches(loaders))
+        while True:
+            # Time blocked on the next batch: the step's input wait.
+            t_wait = time.perf_counter()
+            try:
+                i, (x, y) = next(batches)
+            except StopIteration:
+                break
             if i < to_skip:
                 continue
+            if phases is not None:
+                phases.note_input_wait(time.perf_counter() - t_wait)
+                if self._first_input is None and not phases.total_steps:
+                    # The shape _note_step_cost counts; no data is kept.
+                    self._first_input = torch.empty_like(x, device="meta")
+            self._want_grad_norm = (sentinel is not None
+                                    and sentinel.wants_check(self._step + 1))
             # A step that never returns (a wedged device or
             # collective) shows in the watchdog as "train/step" with
             # its index; an epoch's first step may build kernels and
@@ -691,6 +850,18 @@ class Estimator:
             ), span("train/step", epoch=epoch, step=b_idx) as sp:
                 loss = self._run_step(self._train_step, x, y)
             step_timer.observe(sp.duration_s)
+            if phases is not None:
+                phases.step(sp.duration_s)
+            if sentinel is not None:
+                sentinel.observe_step(sp.duration_s, b_idx, epoch=epoch)
+                if self._want_grad_norm:
+                    # The sampled sync: the only one the plane adds.
+                    sentinel.check_loss(float(loss), b_idx, epoch=epoch)
+                    if self._grad_norm is not None:
+                        sentinel.check_grad_norm(float(self._grad_norm),
+                                                 b_idx, epoch=epoch)
+                    self._want_grad_norm = False
+                    self._grad_norm = None
             if self._clock is not None and first_step_at is None:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -847,6 +1018,11 @@ class Estimator:
             # The mean over the fused steps, padded rows included, as
             # JAX's losses.mean(); samples count the true rows.
             train_loss = float(self._loss_sum) / n_steps  # one sync
+            if self._sentinel is not None:
+                # One graph replay a step, no host loop inside the epoch:
+                # only the epoch's loss is checked, at its sync.
+                self._sentinel.check_loss(train_loss, self._step,
+                                          epoch=epoch)
             metrics = self._finish_epoch(epoch, t0, train_loss, n_true,
                                          evaluate_ds)
             if self.log_every:

@@ -1,4 +1,5 @@
-"""Device selection, env readers and the metrics registry.
+"""Device selection, env readers, sizes, sharding plans, the metrics
+registry and the profiler hooks.
 
 Imported lazily (PEP 562): the engine's modules import
 ``utils.profiling`` and must not pull in torch through ``utils.device``.
@@ -6,7 +7,20 @@ Imported lazily (PEP 562): the engine's modules import
 import importlib
 
 _EXPORTS = {
+    "parse_memory_size": "raydp_tpu_torch.utils.memory",
+    "format_memory_size": "raydp_tpu_torch.utils.memory",
+    "find_free_port": "raydp_tpu_torch.utils.net",
+    "local_ip": "raydp_tpu_torch.utils.net",
+    "BlockSlice": "raydp_tpu_torch.utils.sharding",
+    "divide_blocks": "raydp_tpu_torch.utils.sharding",
+    "assignment_sample_counts": "raydp_tpu_torch.utils.sharding",
+    "split_sizes": "raydp_tpu_torch.utils.sharding",
+    "MetricsRegistry": "raydp_tpu_torch.utils.profiling",
+    "StepTimer": "raydp_tpu_torch.utils.profiling",
+    "ThroughputMeter": "raydp_tpu_torch.utils.profiling",
+    "annotate": "raydp_tpu_torch.utils.profiling",
     "metrics": "raydp_tpu_torch.utils.profiling",
+    "trace": "raydp_tpu_torch.utils.profiling",
     "resolve_device": "raydp_tpu_torch.utils.device",
     "set_exact_float32": "raydp_tpu_torch.utils.device",
 }
@@ -21,3 +35,7 @@ def __getattr__(name):
     value = getattr(importlib.import_module(module), name)
     globals()[name] = value
     return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

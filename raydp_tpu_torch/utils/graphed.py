@@ -36,7 +36,10 @@ What is baked in at capture, and how each is kept honest:
   allocates them once from the graph's pool and every replay writes the
   same storage.
 
-A failure to capture or to replay raises; nothing falls back to eager.
+A capture is one compile (``utils/profiling.run_compile``: counted in
+``compile/*`` and billed as ``compile_seconds``). A failure to capture
+raises a ``CompileError`` chained to the cause, one to replay raises as
+it is; nothing falls back to eager.
 CUDA only: the CPU runs the same function eagerly (the callers decide).
 """
 from __future__ import annotations
@@ -49,6 +52,7 @@ from raydp_tpu_torch.ops.flash_attention import (
     count_replay,
     recording_launches,
 )
+from raydp_tpu_torch.utils.profiling import run_compile
 
 
 # Optimizers without a capturable mode whose step keeps no state on the
@@ -150,7 +154,7 @@ class CapturedStep:
         if self._graph is None:
             if self.warmed < self.warmup:
                 return self._warm_up(*args)
-            self._capture(args)
+            run_compile(self._capture, "cuda_graph_capture", args)
         self._replay(args)
         return self._out
 

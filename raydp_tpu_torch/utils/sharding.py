@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -219,3 +219,11 @@ def assignment_sample_counts(
     """Samples each rank's plan holds."""
     return {r: sum(s.num_samples for s in plan)
             for r, plan in assignment.items()}
+
+
+def split_sizes(total: int, parts: int) -> Tuple[int, ...]:
+    """Split ``total`` rows into ``parts`` near-equal contiguous chunk sizes."""
+    if parts <= 0:
+        raise ValueError("parts must be positive")
+    base, extra = divmod(total, parts)
+    return tuple(base + (1 if i < extra else 0) for i in range(parts))

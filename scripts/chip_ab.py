@@ -21,6 +21,11 @@ Phases:
   scan path; read: the stream fit's host-clock ms a step (epochs 1 on),
   one eager stream step by CUDA events, and the scan path's graph
   replay.
+* ``4bs``: 4b's stream fit alone (its 4 epochs of 10 steps; read: epochs
+  1 on a step, the whole fit's wall and epoch 0's) and one eager step,
+  ~15 s a run, so more runs fit in a call; ``4bs-off`` the
+  same with ``RAYDP_TPU_DEVICE_PLANE=0`` set first (a checkout without
+  the device plane ignores it).
 
 Prints one ``AB {json}`` line a run and, last, a summary with each
 side's values in run order, the card's name and power limit. Needs a
@@ -65,6 +70,33 @@ if phase == "13b":
         P.stop()
 elif phase == "4b":
     cs.phase_finetune(torch, P)
+elif phase in ("4bs", "4bs-off"):
+    import os
+    import numpy as np
+
+    if phase == "4bs-off":
+        os.environ["RAYDP_TPU_DEVICE_PLANE"] = "0"
+    ids, cols = cs.glue_columns(np, cs.GLUE_BATCH * cs.FIT_STEPS,
+                                cs.GLUE_SEQ, 30522, seed=5)
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      dropout_rate=0.1, max_len=cs.GLUE_SEQ)
+    import time
+
+    est = cs._glue_estimator(torch, P, np, cfg, "stream", cs.FIT_EPOCHS)
+    t_fit = time.perf_counter()
+    history = est.fit(P.MLDataset([cols], num_shards=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_fit
+    later = history[1:]
+    ms = sum(h["time_s"] for h in later) / (len(later) * cs.FIT_STEPS) * 1e3
+    print(f"[{phase}] stream: epochs 1-{cs.FIT_EPOCHS - 1} {ms:.2f} ms/step")
+    print(f"[{phase}] stream: the whole fit {wall:.4f} s, epoch 0 "
+          f"{history[0]['time_s']:.4f} s")
+    x = torch.from_numpy(ids[:cs.GLUE_BATCH]).cuda()
+    y = torch.from_numpy(cols["label"][:cs.GLUE_BATCH]).cuda()
+    eager = cs.time_ms(torch, lambda: est._train_step(x, y), iters=10)
+    print(f"[{phase}] one stream train step (CUDA events, 10 steps): "
+          f"{eager:.3f} ms")
 else:
     raise SystemExit(f"unknown phase {phase}")
 print("FAILS", len(fails), flush=True)
@@ -82,6 +114,18 @@ _READS = {
             re.compile(r"^\[4b\] one stream train step \(CUDA events, "
                        r"\d+ steps\): ([\d.]+) ms"))],
 }
+for _phase in ("4bs", "4bs-off"):
+    _READS[_phase] = [
+        ("stream_fit_ms",
+         re.compile(rf"^\[{_phase}\] stream: epochs \S+ ([\d.]+) ms/step")),
+        ("fit_wall_s",
+         re.compile(rf"^\[{_phase}\] stream: the whole fit ([\d.]+) s")),
+        ("epoch0_s",
+         re.compile(rf"^\[{_phase}\] stream: the whole fit \S+ s, epoch 0 "
+                    r"([\d.]+) s")),
+        ("eager_step_ms",
+         re.compile(rf"^\[{_phase}\] one stream train step \(CUDA events, "
+                    r"\d+ steps\): ([\d.]+) ms"))]
 
 
 def run_once(checkout: str, phase: str) -> dict:

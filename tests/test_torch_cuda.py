@@ -24,7 +24,11 @@ restores. Slice 12: a stream fit of a bf16 flash classifier under a
 telemetry dir writes one ``train/step`` span a step, bills chip-seconds
 equal to its epochs' wall time and no more than the fit's on the test's
 clock, and reports ``hbm/peak_bytes`` at least
-``torch.cuda.max_memory_allocated()``.
+``torch.cuda.max_memory_allocated()``. Slice 13: a 3-step stream fit of a
+bf16 flash classifier with the device plane on reports ``mfu`` above 0
+and phase fractions summing to 1, and a 0.5 s ``torch.profiler``
+capture on one thread records the ``flash_fwd`` kernels another thread
+launches.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -1156,3 +1160,66 @@ def test_fit_on_card_traces_and_bills_each_step(cuda, tmp_path,
     sample_resource_gauges()
     assert (metrics.gauge_value("hbm/peak_bytes")
             >= torch.cuda.max_memory_allocated())
+
+
+def test_device_plane_on_card_reports_mfu_and_phases(cuda):
+    """Two stream steps of a bf16 flash classifier with the plane on: an
+    ``mfu`` above 0 against the card's bf16 peak from the step counted on
+    the meta device, both steps in the phases, and the epoch's four
+    phase fractions summing to 1."""
+    from raydp_tpu_torch.telemetry import device_profiler as dp
+
+    torch.cuda.init()  # the peak table reads the card of a live context
+    assert dp.device_peaks()["flops_by_dtype"], dp.device_peaks()
+    cfg = tiny_transformer(vocab_size=64, d_model=64, n_heads=2, n_layers=2,
+                           d_ff=128, max_len=16, attention_impl="flash",
+                           dtype=torch.bfloat16, dropout_rate=0.0)
+    est = Estimator(
+        model=SequenceClassifier(cfg, device="cuda",
+                                 generator=torch.Generator().manual_seed(5)),
+        loss="softmax_ce", num_epochs=1, batch_size=32,
+        feature_columns=[f"t{i}" for i in range(16)], label_column="label",
+        feature_dtype=np.int32, label_dtype=np.int32, device="cuda",
+        epoch_mode="stream",
+        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3))
+    hist = est.fit(MLDataset([_token_cols(64, 16, 64, seed=4)], 1))
+    ph = hist[0]["phases"]
+    assert ph["steps"] == 2
+    assert hist[0]["mfu"] > 0
+    assert dp.get_cost("train_step")["dtype"] == "bfloat16"
+    assert sum(ph[k] for k in ("input_wait_frac", "dispatch_frac",
+                               "compute_frac", "collective_frac")) == \
+        pytest.approx(1.0, abs=1e-3)
+
+
+def test_capture_records_another_threads_flash_kernels(cuda, tmp_path):
+    """A 0.5 s capture on this thread while another thread launches the
+    bf16 flash forward: the Chrome trace holds its kernel events (CUPTI
+    records the whole process's launches)."""
+    import json
+    import threading
+
+    from raydp_tpu_torch.telemetry import device_profiler as dp
+
+    q, k, v = _qkv((4, 128, 4, 64), torch.bfloat16)
+    flash_attention(q, k, v)  # the kernel library built and loaded
+    torch.cuda.synchronize()
+    stop = threading.Event()
+
+    def launch():
+        while not stop.is_set():
+            flash_attention(q, k, v)
+            torch.cuda.synchronize()
+
+    worker = threading.Thread(target=launch, daemon=True)
+    worker.start()
+    try:
+        info = dp.capture_local_trace(0.5, str(tmp_path))
+    finally:
+        stop.set()
+        worker.join(timeout=30)
+    events = dp._load_torch_chrome_events(info["dir"])
+    kernels = [e for e in events if "flash_fwd" in str(e.get("name"))
+               and e.get("cat") == "kernel"]
+    assert kernels, sorted({str(e.get("cat")) for e in events})
+

@@ -80,6 +80,10 @@ def test_port_files_exist():
                 "raydp_tpu_torch/telemetry/shipping.py",
                 "raydp_tpu_torch/telemetry/chrome_trace.py",
                 "raydp_tpu_torch/telemetry/analyze.py",
+                "raydp_tpu_torch/telemetry/device_profiler.py",
+                "raydp_tpu_torch/telemetry/timeseries.py",
+                "raydp_tpu_torch/telemetry/slo.py",
+                "raydp_tpu_torch/telemetry/dashboard.py",
                 "raydp_tpu_torch/dataframe/__init__.py",
                 "raydp_tpu_torch/dataframe/aqe.py",
                 "raydp_tpu_torch/dataframe/dataframe.py",
@@ -152,7 +156,8 @@ def test_checker_catches_banned_imports(tmp_path):
 TELEMETRY_MODULES = ("spans", "propagation", "accounting", "events",
                      "export", "flight_recorder", "watchdog", "logs",
                      "overlap", "shipping", "chrome_trace", "analyze",
-                     "progress")
+                     "progress", "device_profiler", "timeseries", "slo",
+                     "dashboard")
 
 
 @pytest.mark.parametrize("name", TELEMETRY_MODULES)

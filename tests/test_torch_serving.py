@@ -3,9 +3,10 @@ batching, HTTP degradation, the fault-plan clauses and a group's
 construction, all in process.
 
 Mirrors tests/test_serving.py on the port's copies, save the busy-cluster
-429 (the arbiter) and the traceparent echo (telemetry), which wait for
-the port's control and telemetry planes; the 504 test keeps its
-request-id half. The tests that run replica processes (batching,
+429 (the arbiter), which waits for the port's control plane; the 504's
+``serve/timeout`` event and the ``traceparent`` echo of ``/predict`` are
+the port's too (``test_predict_504_carries_request_id_and_event``,
+``test_predict_echoes_incoming_traceparent``). The tests that run replica processes (batching,
 ``serve_kill``, ``latency``, the SIGTERM drain) are in
 tests/test_torch_serve_group.py: a small file, which pytest-xdist's
 ``loadfile`` schedule (largest files first) runs late, away from
@@ -355,6 +356,55 @@ def test_predict_504_carries_request_id():
     assert status == 504
     assert headers["X-RayDP-Request-Id"] == "slow-1"
     assert payload["id"] == "slow-1"
+
+
+def test_predict_504_carries_request_id_and_event():
+    from raydp_tpu_torch.telemetry import events as _events
+
+    class _Stuck:
+        def submit(self, payload, timeout_s=None, request_id=None):
+            return ServeRequest(payload, timeout_s=0.05,
+                                request_id=request_id)
+
+        def stats(self):
+            return {}
+
+    status, payload, headers = ServeFrontend(_Stuck()).handle_predict(
+        {"inputs": [1], "id": "slow-1"}
+    )
+    assert status == 504
+    assert headers["X-RayDP-Request-Id"] == "slow-1"
+    timeouts = [e for e in _events.local_events()
+                if e["name"] == "serve/timeout"]
+    assert timeouts
+    assert timeouts[-1]["attrs"]["request_id"] == "slow-1"
+
+
+def test_predict_echoes_incoming_traceparent():
+    fe = ServeFrontend(_PhasedGroup())
+    status, _, headers = fe.handle_predict(
+        {"inputs": [1]}, headers={"Traceparent": "trace01;span02"}
+    )
+    assert status == 200
+    assert headers["traceparent"] == "trace01;span02"
+    assert "X-RayDP-Request-Id" in headers
+
+
+def test_predict_http_echoes_traceparent_header():
+    """Over HTTP the request's headers reach the handler: the caller's
+    trace comes back on the response."""
+    fe = ServeFrontend(_PhasedGroup()).start(port=0)
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{fe.port}/predict",
+            data=json.dumps({"inputs": [1, 2]}).encode(),
+            headers={"Content-Type": "application/json",
+                     "traceparent": "trace77;span88"})
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            assert resp.status == 200
+            assert resp.headers["traceparent"] == "trace77;span88"
+    finally:
+        fe.close()
 
 
 def test_predict_429_echoes_client_supplied_id():

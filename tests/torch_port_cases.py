@@ -25,13 +25,12 @@ import types
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Modules of the JAX package whose port the cases run against.
-PORTED = ("dataframe", "fault", "telemetry", "utils.profiling", "context",
-          "cluster", "store", "config", "utils.net", "utils.memory",
-          "utils.sharding", "spmd", "data")
+PORTED = ("dataframe", "fault", "telemetry", "utils", "context", "cluster",
+          "store", "config", "spmd", "data")
 # Test modules whose cases run whole programs in subprocesses, with the
 # package named inside string literals: every ``raydp_tpu`` name in them
 # points at the port, and their selected cases use ported modules only.
-WHOLE_PACKAGE = ("test_client_mode.py",)
+WHOLE_PACKAGE = ("test_client_mode.py", "test_slo.py")
 
 _TESTS_IMPORT = re.compile(r"^from tests\.(\w+) import (.+)$", re.MULTILINE)
 
@@ -113,44 +112,106 @@ def _param_sets(fn):
     return combos
 
 
+# Key prefix, in a case's params, of a parametrized fixture's value.
+FIXTURE_PARAM = "fixture:"
+
+
+def _module_fixture(module, name):
+    """``module``'s own fixture ``name``, or None."""
+    fixture = getattr(module, name, None)
+    return fixture if hasattr(fixture, "__wrapped__") else None
+
+
+def _fixture_param_sets(module, fn, seen=()):
+    """Every combination of the params of the parametrized module
+    fixtures ``fn`` reaches, through its arguments and theirs."""
+    combos = [{}]
+    for arg in inspect.signature(fn).parameters:
+        fixture = _module_fixture(module, arg)
+        if fixture is None or arg in seen:
+            continue
+        marker = getattr(fixture, "_fixture_function_marker", None)
+        params = getattr(marker, "params", None)
+        own = ([{FIXTURE_PARAM + arg: p} for p in params] if params
+               else [{}])
+        inner = _fixture_param_sets(module, fixture.__wrapped__,
+                                    seen + (arg,))
+        combos = [{**c, **o, **i} for c, o, i
+                  in itertools.product(combos, own, inner)]
+    return combos
+
+
 def cases(module, names):
     """``(id, test name, params)`` for every parameter set of each test
-    in ``names``."""
+    in ``names``: its parametrize marks times the params of the
+    parametrized fixtures it uses."""
     out = []
     for name in names:
-        for params in _param_sets(getattr(module, name)):
-            suffix = "-".join(str(v) for v in params.values())
-            out.append((f"{name}[{suffix}]" if suffix else name, name,
-                        params))
+        fn = getattr(module, name)
+        for params in _param_sets(fn):
+            for fixed in _fixture_param_sets(module, fn):
+                params_all = {**params, **fixed}
+                suffix = "-".join(str(v) for v in params_all.values())
+                out.append((f"{name}[{suffix}]" if suffix else name, name,
+                            params_all))
     return out
+
+
+class _ParamRequest:
+    """pytest's ``request`` for a parametrized fixture: ``param`` is the
+    case's value, everything else the test's own request."""
+
+    def __init__(self, request, param):
+        self._request = request
+        self.param = param
+
+    def __getattr__(self, name):
+        return getattr(self._request, name)
 
 
 def run_case(module, name, params, request, fixtures=None) -> None:
     """Call ``module.<name>`` with ``params``, ``fixtures`` (values for
     fixture names the caller provides, e.g. a module-scoped session), the
-    module's own fixtures (called directly; a generator fixture is set
-    up before the call and torn down after it) and pytest's
-    (``tmp_path``, ``monkeypatch``)."""
+    module's own fixtures and pytest's (``tmp_path``, ``monkeypatch``).
+    A module fixture's own arguments resolve the same way, recursively:
+    another module fixture, pytest's through ``request.getfixturevalue``,
+    and ``request`` itself with the case's ``param`` for a parametrized
+    one. A generator fixture is set up before the call and torn down
+    after it, in reverse order; each fixture is made once a case."""
     fn = getattr(module, name)
-    kwargs = dict(params)
+    kwargs = {k: v for k, v in params.items()
+              if not k.startswith(FIXTURE_PARAM)}
     provided = dict(fixtures or {})
+    made = {}
     generators = []
+
+    def resolve(arg):
+        if arg in provided:
+            return provided[arg]
+        if arg in made:
+            return made[arg]
+        fixture = _module_fixture(module, arg)
+        if fixture is None:
+            return request.getfixturevalue(arg)
+        body = fixture.__wrapped__
+        args = {}
+        for inner in inspect.signature(body).parameters:
+            if inner == "request" and FIXTURE_PARAM + arg in params:
+                args[inner] = _ParamRequest(request,
+                                            params[FIXTURE_PARAM + arg])
+            else:
+                args[inner] = resolve(inner)
+        value = body(**args)
+        if inspect.isgenerator(value):
+            generators.append(value)
+            value = next(value)
+        made[arg] = value
+        return value
+
     try:
         for arg in inspect.signature(fn).parameters:
-            if arg in kwargs:
-                continue
-            if arg in provided:
-                kwargs[arg] = provided[arg]
-                continue
-            fixture = getattr(module, arg, None)
-            if fixture is not None and hasattr(fixture, "__wrapped__"):
-                value = fixture.__wrapped__()
-                if inspect.isgenerator(value):
-                    generators.append(value)
-                    value = next(value)
-                kwargs[arg] = value
-            else:
-                kwargs[arg] = request.getfixturevalue(arg)
+            if arg not in kwargs:
+                kwargs[arg] = resolve(arg)
         fn(**kwargs)
     finally:
         for gen in reversed(generators):
