@@ -79,7 +79,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    the memory it holds there and flash forward launches by ``Ping``;
    phase 1 holds the kernel against its plain version at these
    batches' shapes. Then the
-   same traffic under ``serve_kill:replica=0,request=40``: 512 replies,
+   same traffic under ``serve_kill:replica=0,request=8``: 512 replies,
    0 errors, a restart and both lineages alive again. (b) A decode-mode
    group of 1 replica serving the bert_base-width f32 decode engine of
    phase 3 under ``serve_kill:replica=0,request=4``: four prompts of 48
@@ -244,18 +244,49 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``collective_frac`` within 0.05 of its step clock's
    ``allreduce_ms / step_ms`` times the wall's share outside the input
    wait.
+17. The control plane (run inside 14's session, then on a fresh one).
+   (a) The arbiter at capacity 2: a priority-0 ``fit_spmd`` of 14b's
+   configuration on 2 ranks (:func:`marked_factory`: 16 steps a rank,
+   an emergency checkpoint directory) is preempted, once its first step
+   is done, by the arrival of a priority-5 ``ReplicaGroup`` of 1 replica
+   of phase 2's flash classifier (``slots = replicas``): the gang drains
+   after one step on both ranks and releases its lease, the group is
+   admitted and serves (b), the drained gang waits queued, and once the
+   group stops it re-enters admission (``sched/resume``) and resumes
+   from its emergency checkpoint to parameters equal (``torch.equal``)
+   to 14b's clean gang's, 12 launches of each kernel a resumed step by
+   each rank's counter. Printed: the seconds from the arrival to
+   ``sched/preempt``, the ranks' drain seconds, the arrival's admission
+   wait, the seconds from the group's release to the victim's first
+   resumed step, the victim's ``sched/preempt`` -> ``sched/resume``
+   episode from the event timeline, and ``dashboard_report()``'s
+   scheduler section while the group serves. (b) Open-loop load on the
+   admitted group: 16 replies held against the dense forward, a Poisson
+   schedule of 200 requests/s for 4 s through ``GroupTarget`` and one of
+   25/s for 2 s through ``HttpTarget`` on a ``ServeFrontend``, every
+   outcome ``ok``; then the knee finder (p99 SLO 250 ms and shed
+   threshold 0.05, ``KneeConfig``'s defaults; 1 s steps from 32
+   requests/s, x1.7, 2 bisections): offered against achieved, p50/p99,
+   the outcome counts and the phase breakdown of each run, the knee and
+   the whole rate/p99 curve; the replica's flash launches by ``Ping``.
+   (c) The autoscaler (``ClusterProvisioner``) over a fresh session of
+   1 torch-free worker, max 3: an arbiter waiter queued behind a holder
+   grows the pool in one evaluation, the second grow passes
+   ``spawn_fail:nth=1`` by backoff, and a 96-task ETL of 8-task rounds
+   runs across the drain back to 1 worker; the seconds to grow, the
+   drain latency, the tasks lost (0) and the flap episodes (0).
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15 and 16) and read just
-after; phase 9's replicas, 12a's second driver and 12b's, 13b's, 14's,
-15's and 16c's ranks
-are new processes, whose counts start at 0 and are read by ``Ping`` or
-returned in their results (a rank that is killed or drains returns
-none). The last lines are a ``kernels`` JSON
-line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
+10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16 and 17) and read
+just after; phase 9's and 17b's replicas, 12a's second driver and
+12b's, 13b's, 14's, 15's, 16c's and 17a's ranks are new processes,
+whose counts start at 0 and are read by ``Ping`` or returned in their
+results (a rank that is killed or drains returns none). The last lines
+are a ``kernels`` JSON line, the card's name and power limit, and
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -336,7 +367,10 @@ RATES = {}
 # up (a process reaches the card in ~8 s) or a request to be answered.
 SERVE_REPLICAS, SERVE_REQUESTS, SERVE_MAX_BATCH = 2, 512, 32
 SERVE_BUCKETS, SERVE_SLO_MS, SERVE_SEED = [32, 64, 128], 10, 0
-SERVE_KILL_PLAN = "serve_kill:replica=0,request=40"
+# The kill lands inside replica 0's first batch (32 requests from the
+# full queue): a later index needs a second batch, which the sibling
+# replica can take all of while replica 0 warms up on its first.
+SERVE_KILL_PLAN = "serve_kill:replica=0,request=8"
 SERVE_DECODE_PROMPT_LENS, SERVE_DECODE_MAX_NEW = [5, 17, 40, 90], 48
 SERVE_DECODE_KILL_PLAN = "serve_kill:replica=0,request=4"
 SERVE_UP_S, SERVE_REQUEST_S = 180.0, 300.0
@@ -1872,9 +1906,10 @@ def serve_classifier(seed: int, device="cuda", attention_impl="flash"):
 
 
 def padded_ids(torch, payloads, bucket, device):
-    """Each request's ids padded with 0 to ``bucket``, as one tensor."""
+    """Each request's ids padded with 0 to ``bucket``, as one int64
+    tensor (the load generator's payloads are floats, ``[1.0] * n``)."""
     return torch.tensor([list(p)[:bucket] + [0] * (bucket - len(p))
-                         for p in payloads], device=device)
+                         for p in payloads], dtype=torch.int64, device=device)
 
 
 def classify_batch(payloads, bucket, *, seed, device):
@@ -3702,8 +3737,8 @@ def phase_ft_preempt(torch, P, ds2):
     ranks drain after step 6 to ``step_emergency_6.pt``, the supervisor
     counts a preemption and a restart, and the resumed gang ends equal to
     a clean gang run; then ``SPMDJob.request_preemption()`` on a running
-    gang. Returns (the emergency checkpoint's bytes, the clean run's
-    epoch loss, launch counts by tag, the copied checkpoint's path)."""
+    gang. Returns (the clean gang's result, launch counts by tag, the
+    copied checkpoint's path)."""
     import shutil
     import tempfile
     import threading
@@ -3829,8 +3864,7 @@ def phase_ft_preempt(torch, P, ds2):
         f"gang returned in {call_s * 1e3:.1f} ms; both ranks drained after "
         f"step {notice_drains[0][0]} in {[round(t, 3) for _, t in notice_drains]} "
         f"s into {files[0]}")
-    clean_loss = clean["history"][-1]["train_loss"]
-    return clean_loss, counts, os.path.join(keep, os.path.basename(emergency))
+    return clean, counts, os.path.join(keep, os.path.basename(emergency))
 
 
 def phase_ft_elastic(torch, P, ds2, emergency, clean_loss):
@@ -3876,7 +3910,9 @@ def phase_ft_elastic(torch, P, ds2, emergency, clean_loss):
 
 def phase_fault_tolerance(torch, P):
     """14: a fresh 4-worker session holding 10c's GLUE rows; 14a, 14b
-    and 14c over them (store mode). Returns launch counts by tag."""
+    and 14c over them (store mode), then 17a-b in the same session
+    (its victim 14b's configuration, held against 14b's clean gang).
+    Returns launch counts by tag and 17b's replica flash launches."""
     import numpy as np
     import pyarrow as pa
 
@@ -3902,18 +3938,22 @@ def phase_fault_tolerance(torch, P):
         clean_counts, kill_counts = phase_ft_kill(torch, P, ds1)
         counts = {"14a clean fit": clean_counts,
                   "14a resumed rank 0": kill_counts}
-        clean_loss, preempt_counts, emergency = phase_ft_preempt(torch, P,
-                                                                 ds2)
+        clean, preempt_counts, emergency = phase_ft_preempt(torch, P, ds2)
         counts.update(preempt_counts)
-        counts["14c rank 0"] = phase_ft_elastic(torch, P, ds2, emergency,
-                                                clean_loss)
+        counts["14c rank 0"] = phase_ft_elastic(
+            torch, P, ds2, emergency, clean["history"][-1]["train_loss"])
+        log(f"[14] fault tolerance: {time.perf_counter() - t0:.1f} s "
+            f"(host clock)")
+        t0 = time.perf_counter()
+        cp_counts, replica_launches = phase_control_plane(
+            torch, P, session, ds2, clean)
+        counts.update(cp_counts)
     finally:
         P.stop()
     left = shm.list_segments(f"rdp-{namespace}-")
     check(not left, f"14: {len(left)} segments left after stop()")
-    log(f"[14] fault tolerance: {time.perf_counter() - t0:.1f} s in all "
-        f"(host clock)")
-    return counts
+    log(f"[17a-b] {time.perf_counter() - t0:.1f} s (host clock)")
+    return counts, replica_launches
 
 
 # Phase 15: the trace, accounting and health planes of telemetry over one
@@ -4757,6 +4797,418 @@ def check_rank_phases(tag, last):
               f"of the wall")
 
 
+
+# Phase 17: the control plane on the card. (a) In phase 14's session, a
+# low-priority 2-rank fit_spmd of 14b's configuration is preempted by a
+# high-priority serving group's arrival and resumes once the group stops;
+# (b) open-loop load on the admitted group; (c) the autoscaler over a
+# fresh session's torch-free workers.
+CP_CAPACITY = 2
+CP_VICTIM_PRIORITY, CP_ARRIVAL_PRIORITY = 0, 5
+CP_ADMIT_TIMEOUT_S = 600.0
+CP_REPLICAS, CP_MAX_QUEUE = 1, 1024
+CP_POISSON_RPS, CP_POISSON_S = 200.0, 4.0  # 17b through GroupTarget
+CP_HTTP_RPS, CP_HTTP_S = 25.0, 2.0  # 17b through HttpTarget
+CP_CHECK_REQUESTS = 16  # replies held against the dense forward
+CP_TIMEOUT_S = 2.0
+# The knee's p99 SLO and shed threshold are KneeConfig's defaults (250
+# ms, 0.05); the ramp starts higher and its steps are 1 s, so 17b stays
+# near 40 s. One replica held the SLO at 3,795 requests/s (H100 80GB
+# HBM3, 700.00 W), so the ramp goes past it.
+CP_KNEE = dict(start_rps=32.0, max_rps=16384.0, step_factor=1.7,
+               step_duration_s=1.0, slo_ms=250.0, shed_threshold=0.05,
+               bisect_rounds=2, timeout_s=CP_TIMEOUT_S, seed=17)
+# 17c, the reference's autoscale smoke: 1 worker to 3 and back.
+AS_CONFIG = dict(min_workers=1, max_workers=3, interval_s=0.5,
+                 up_cooldown_s=0.3, down_cooldown_s=0.6, idle_evals=2,
+                 spawn_retries=3, backoff_s=0.2)
+AS_SPAWN_PLAN = "spawn_fail:nth=1"
+AS_TASKS, AS_ROUND, AS_TASK_S = 96, 8, 0.15
+AS_LIMIT_S = 60.0
+
+
+def marked_factory(checkpoint_dir, marker):
+    """17a's victim: :func:`ft_factory` at 14b's settings (so its final
+    parameters are comparable with 14b's clean gang), whose rank 0
+    creates ``marker`` once its first step is done."""
+    def make_estimator():
+        import os
+
+        import chip_smoke as cs
+
+        est = cs.ft_factory(checkpoint_dir, cs.FT_GANG_BATCH,
+                            cs.FT_GANG_EPOCHS)()
+        step = est._train_step
+
+        def marked_step(x, y):
+            out = step(x, y)
+            if not os.path.exists(marker):
+                open(marker, "w").close()
+            return out
+
+        est._train_step = marked_step
+        return est
+
+    return make_estimator
+
+
+def _event(records, name, job=None, **attrs):
+    """The last event ``name`` (of ``job``, where given) whose attributes
+    include ``attrs``."""
+    hits = [r for r in records if r["name"] == name
+            and (job is None or r.get("job") == job)
+            and all((r.get("attrs") or {}).get(k) == v
+                    for k, v in attrs.items())]
+    return hits[-1] if hits else None
+
+
+def phase_control_plane(torch, P, session, ds2, clean):
+    """17a and 17b in phase 14's session over its 2-shard GLUE dataset;
+    ``clean`` is 14b's clean gang's result (the same configuration).
+    Returns launch counts by tag and the replica's flash launches."""
+    import functools
+    import importlib
+    import shutil
+    import tempfile
+    import threading
+
+    from raydp_tpu_torch import control
+    from raydp_tpu_torch.telemetry import accounting as acct
+    from raydp_tpu_torch.telemetry import events as events_mod
+
+    smoke = importlib.import_module("chip_smoke")
+    arb = control.configure(CP_CAPACITY, admit_timeout_s=CP_ADMIT_TIMEOUT_S)
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-17a-")
+    marker = os.path.join(ckpt, "training")
+    victim_job = acct.mint_job("victim", priority=CP_VICTIM_PRIORITY)
+    arrival_job = acct.mint_job("serve", priority=CP_ARRIVAL_PRIORITY)
+    victim = {}
+
+    def run_victim():
+        with acct.job_scope(victim_job):
+            try:
+                victim["out"] = P.fit_spmd(
+                    marked_factory(ckpt, marker), ds2,
+                    world_size=GANG_WORLD, checkpoint_dir=ckpt,
+                    timeout=FT_LIMIT_S)
+            except Exception as exc:  # read below, after the group
+                victim["error"] = exc
+
+    group = P.ReplicaGroup(
+        replicas=CP_REPLICAS, device="cuda", mode="batch",
+        model_fn=functools.partial(smoke.classify_batch, seed=SERVE_SEED),
+        buckets=SERVE_BUCKETS, max_batch=SERVE_MAX_BATCH,
+        slo_ms=SERVE_SLO_MS, max_queue=CP_MAX_QUEUE,
+        dispatch_timeout_s=SERVE_REQUEST_S, label="smoke-17")
+    runner = threading.Thread(target=run_victim, daemon=True)
+    t0 = time.perf_counter()
+    runner.start()
+    try:
+        deadline = time.monotonic() + FT_LIMIT_S
+        while not os.path.exists(marker):
+            check(runner.is_alive() and time.monotonic() < deadline,
+                  f"17a: the victim gang never trained: "
+                  f"{victim.get('error')!r}")
+            time.sleep(0.05)
+        check(arb.report()["in_use"] == GANG_WORLD,
+              f"17a: the victim holds {arb.report()['in_use']} slots")
+        arrived = time.time()
+        with acct.job_scope(arrival_job):
+            group.start()  # blocks until the gang has drained its slot
+        admitted = time.time()
+        try:
+            _wait_up(group, "17a")
+            up = time.time()
+            while [w["job"] for w in arb.report()["queue"]] != [
+                    victim_job.job_id]:
+                check(runner.is_alive() and time.monotonic() < deadline,
+                      f"17a: the drained victim is not queued: "
+                      f"{arb.report()}; {victim.get('error')!r}")
+                time.sleep(0.05)
+            dash = session.cluster.dashboard_report()
+            phase_load(torch, group)
+            pongs = group.ping()
+        finally:
+            group.stop()
+        released = time.time()
+        runner.join(FT_LIMIT_S)
+        check(not runner.is_alive(), "17a: the victim did not finish")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        control.reset_for_tests()
+    check("error" not in victim, f"17a: the victim failed: "
+                                 f"{victim.get('error')!r}")
+    out = victim["out"]
+    records = events_mod.local_events()
+    preempt = _event(records, "sched/preempt", victim=victim_job.job_id,
+                     reason="priority")
+    admit = _event(records, "sched/admit", label="smoke-17")
+    resume = _event(records, "sched/resume", label="fit-spmd")
+    release = _event(records, "sched/release", job=arrival_job.job_id)
+    check(None not in (preempt, admit, resume, release),
+          f"17a: sched events missing: preempt, admit, resume, release "
+          f"{[e is not None for e in (preempt, admit, resume, release)]}")
+    episodes = [e for e in events_mod.mttr_report(records)
+                .get(victim_job.job_id, {}).get("episodes", [])
+                if e["start_kind"] == "sched/preempt"]
+    check(len(episodes) == 1 and episodes[0]["end_kind"] == "sched/resume",
+          f"17a: the victim's preempt -> resume episode: {episodes}")
+    (episode,) = episodes
+    (failure,) = out["failures"]
+    drains = _drains(failure["error"])
+    check(failure["preempted"] and len(drains) == GANG_WORLD
+          and len({s for s, _ in drains}) == 1,
+          f"17a: the ranks drained at {drains}: {failure['error'][:400]}")
+    drained_step = drains[0][0]
+    steps = FT_GANG_EPOCHS * ds2.rows_per_shard // FT_GANG_BATCH
+    check(0 < drained_step < steps,
+          f"17a: drained after step {drained_step} of {steps}")
+    check(out["restarts"] == 1, f"17a: {out['restarts']} restarts")
+    differ = _params_equal(torch, out["params"], clean["params"])
+    check(not differ, f"17a: the resumed victim's parameters differ from "
+                      f"14b's clean gang's in {len(differ)} tensors, e.g. "
+                      f"{differ[:4]}")
+    check(len(set(out["per_rank_params_sha256"])) == 1,
+          "17a: the resumed ranks' parameters differ")
+    counts = {}
+    for r, hist in enumerate(out["per_rank_history"]):
+        want = {k: 12 * (steps - drained_step) for k in KERNEL_SYMBOLS}
+        check(hist[-1]["launches"] == want,
+              f"17a: resumed rank {r} counted {hist[-1]['launches']}, want "
+              f"{want}")
+        counts[f"17a resumed rank {r}"] = hist[-1]["launches"]
+    first = min(h[0]["probe_first_step_at"] for h in out["per_rank_history"])
+    rep = arb.report()
+    check(rep["in_use"] == 0 and not rep["queue"],
+          f"17a: the arbiter still holds {rep}")
+    sched = dash["control"].get("scheduler")
+    check(sched is not None and sched["enabled"]
+          and sched["in_use"] == CP_REPLICAS and sched["queue_depth"] == 1,
+          f"17a: the dashboard's scheduler section: {sched}")
+    log(f"[17a] the arbiter at capacity {CP_CAPACITY}: a {GANG_WORLD}-rank "
+        f"fit_spmd (priority {CP_VICTIM_PRIORITY}, {steps} steps a rank) "
+        f"preempted by a {CP_REPLICAS}-replica ReplicaGroup (priority "
+        f"{CP_ARRIVAL_PRIORITY}); arrival to sched/preempt "
+        f"{preempt['start_wall'] - arrived:.3f} s; drain seconds "
+        f"{[round(t, 3) for _, t in drains]} by rank (after step "
+        f"{drained_step}); the arrival's admission wait "
+        f"{admit['attrs']['wait_s']} s (start() returned after "
+        f"{admitted - arrived:.3f} s, the replica up after "
+        f"{up - arrived:.3f} s); the group's release to the victim's first "
+        f"resumed step {first - release['start_wall']:.3f} s (sched/resume "
+        f"after {resume['start_wall'] - release['start_wall']:.3f} s, wait "
+        f"{resume['attrs']['wait_s']} s); episode sched/preempt -> "
+        f"sched/resume {episode['repair_s']:.3f} s through "
+        + ", ".join(s["kind"] for s in episode["steps"])
+        + f"; the resumed gang equal to 14b's clean gang (torch.equal); "
+        f"17a-b {time.perf_counter() - t0:.1f} s; group stop to the "
+        f"victim's return {time.time() - released:.1f} s")
+    log(f"[17a] dashboard_report()['control']['scheduler'] while the group "
+        f"served: {json.dumps(sched, sort_keys=True)}")
+    replica_launches = sum(p["launches"]["flash_fwd"] for p in pongs)
+    check(replica_launches > 0, "17b: the replica launched no flash forward")
+    log(f"[17b] Ping: " + "; ".join(
+        f"replica {p['replica']} on {p['device']}, flash_fwd "
+        f"{p['launches']['flash_fwd']}" for p in pongs))
+    return counts, replica_launches
+
+
+def phase_load(torch, group):
+    """17b: open-loop load on the admitted group: a Poisson schedule
+    through ``GroupTarget``, a short one through ``HttpTarget`` on a
+    ``ServeFrontend``, then the knee finder; a few replies held against
+    the driver's dense forward of the same weights first."""
+    import importlib
+
+    from raydp_tpu_torch.loadgen import (
+        GroupTarget,
+        HttpTarget,
+        KneeConfig,
+        find_knee,
+        poisson_schedule,
+        run_schedule,
+    )
+    from raydp_tpu_torch.serve import ServeFrontend
+
+    smoke = importlib.import_module("chip_smoke")
+    t0 = time.perf_counter()
+    # The loadgen's payloads: ``size`` ids of 1, padded to the bucket.
+    sizes = [8, 24, 96, 128] * (CP_CHECK_REQUESTS // 4)
+    payloads = [[1] * n for n in sizes]
+    got = torch.tensor([group.submit(p, timeout_s=SERVE_REQUEST_S)
+                        .wait(timeout=SERVE_REQUEST_S) for p in payloads])
+    dense = smoke.serve_classifier(SERVE_SEED, attention_impl="dense")
+    with torch.inference_mode():
+        want = torch.cat([dense(padded_ids(torch, [p], next(
+            b for b in SERVE_BUCKETS if len(p) <= b), "cuda")).float().cpu()
+            for p in payloads])
+    check(torch.allclose(got, want, **LOGIT_TOL),
+          f"17b: replies differ from the dense forward by "
+          f"{(got - want).abs().max().item():.3e}")
+
+    def show(tag, res):
+        s = res.summary()
+        log(f"[17b] {tag}: offered {s['offered_rps']} rps, achieved "
+            f"{s['achieved_rps']} rps, {s['requests']} requests; p50 "
+            f"{s['p50_s']} s, p99 {s['p99_s']} s; counts {s['counts']}; "
+            f"phase fractions {s['phase_fractions']}")
+        return s
+
+    target = GroupTarget(group)
+    pois = show("GroupTarget Poisson", run_schedule(
+        target, poisson_schedule(CP_POISSON_RPS, CP_POISSON_S, seed=17),
+        timeout_s=CP_TIMEOUT_S))
+    check(pois["counts"]["ok"] == pois["requests"],
+          f"17b: the Poisson run's outcomes {pois['counts']}")
+    fe = ServeFrontend(group).start()
+    try:
+        http = show("HttpTarget Poisson", run_schedule(
+            HttpTarget(f"http://127.0.0.1:{fe.port}"),
+            poisson_schedule(CP_HTTP_RPS, CP_HTTP_S, seed=18),
+            timeout_s=CP_TIMEOUT_S))
+    finally:
+        fe.close()
+    check(http["counts"]["ok"] == http["requests"],
+          f"17b: the HTTP run's outcomes {http['counts']}")
+    knee = find_knee(target, KneeConfig(**CP_KNEE))
+    curve = [(round(p.rps, 1), p.stage, round(p.achieved_rps, 1),
+              p.p99_s, round(p.shed_rate, 4), p.breached)
+             for p in knee.curve]
+    check(knee.knee_rps > 0 and len(curve) >= 2,
+          f"17b: no knee: {knee.summary()}")
+    log(f"[17b] knee finder (p99 SLO {CP_KNEE['slo_ms']:.0f} ms, shed "
+        f"threshold {CP_KNEE['shed_threshold']}, {CP_KNEE['step_duration_s']}"
+        f" s steps from {CP_KNEE['start_rps']:.0f} rps, x"
+        f"{CP_KNEE['step_factor']}): {json.dumps(knee.summary())}; curve "
+        f"(rps, stage, achieved rps, p99 s, shed, breached): {curve}; "
+        f"17b {time.perf_counter() - t0:.1f} s")
+
+
+def _autoscale_task(ctx, i):
+    time.sleep(AS_TASK_S)
+    return i
+
+
+def phase_autoscale(P):
+    """17c: the reference's autoscale smoke on a fresh 1-worker session:
+    a queued arbiter waiter grows the pool in one evaluation, a second
+    grow passes ``spawn_fail:nth=1`` by backoff, and a 96-task ETL runs
+    across a drain back to the minimum with no task lost and no flap.
+    Host work only: the workers hold no torch."""
+    import threading
+
+    from raydp_tpu_torch import control, fault
+    from raydp_tpu_torch.control import (
+        Autoscaler,
+        AutoscalerConfig,
+        ClusterProvisioner,
+    )
+    from raydp_tpu_torch.telemetry import accounting as acct
+    from raydp_tpu_torch.telemetry import events as events_mod
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    before = metrics.snapshot().get("counters", {})
+    os.environ[fault.FAULT_PLAN_ENV] = AS_SPAWN_PLAN
+    fault.reset_for_tests()
+    session = P.init(app_name="chip-smoke-17c", num_workers=1,
+                     memory_per_worker="256MB")
+    try:
+        cluster = session.cluster
+        sc = Autoscaler(ClusterProvisioner(cluster),
+                        AutoscalerConfig(**AS_CONFIG))
+        arb = control.configure(1, admit_timeout_s=120.0)
+        holder = arb.acquire(acct.mint_job("holder"), slots=1,
+                             preemptible=False)
+        waiter = {}
+
+        def wait_for_slot():
+            waiter["lease"] = arb.acquire(acct.mint_job("starved"), slots=1,
+                                          timeout=120.0, preemptible=False)
+
+        wt = threading.Thread(target=wait_for_slot, daemon=True)
+        wt.start()
+        deadline = time.monotonic() + 10.0
+        while arb.report()["queue_depth"] != 1:
+            check(time.monotonic() < deadline,
+                  f"17c: the waiter never queued: {arb.report()}")
+            time.sleep(0.02)
+        t0 = time.monotonic()
+        first = sc.step()
+        grow_s = time.monotonic() - t0
+        check(first.verdict == "grow" and len(cluster.alive_workers()) == 2,
+              f"17c: first evaluation {first}")
+        time.sleep(AS_CONFIG["up_cooldown_s"] + 0.05)
+        t0 = time.monotonic()
+        second = sc.step()
+        retry_s = time.monotonic() - t0
+        check(second.verdict == "grow" and len(cluster.alive_workers()) == 3,
+              f"17c: second evaluation {second}")
+        failed = (metrics.snapshot()["counters"].get("autoscale/spawn_failed",
+                                                     0)
+                  - before.get("autoscale/spawn_failed", 0))
+        check(failed == 1, f"17c: {failed} spawn failures, want 1")
+        holder.release()
+        wt.join(30.0)
+        waiter["lease"].release()
+
+        items = list(range(AS_TASKS))
+        got = []
+
+        def etl():
+            # Rounds in turn keep the job in flight across the drains.
+            for base in range(0, len(items), AS_ROUND):
+                got.extend(cluster.map_tasks(
+                    _autoscale_task, items[base:base + AS_ROUND],
+                    timeout=120.0))
+
+        t_etl = time.monotonic()
+        et = threading.Thread(target=etl, daemon=True)
+        et.start()
+        time.sleep(0.3)  # tasks in flight on all three workers
+        t0 = time.monotonic()
+        deadline = t0 + AS_LIMIT_S
+        while len(cluster.alive_workers()) > AS_CONFIG["min_workers"]:
+            check(time.monotonic() < deadline,
+                  f"17c: the pool did not drain: {cluster.alive_workers()}")
+            sc.step()
+            time.sleep(0.25)
+        drain_s = time.monotonic() - t0
+        et.join(180.0)
+        etl_s = time.monotonic() - t_etl
+        check(not et.is_alive(), "17c: the ETL did not finish")
+        lost = len(items) - sum(a == b for a, b in zip(got, items))
+        check(got == items, f"17c: {lost} tasks lost in the scale-down")
+        acted = [d.verdict for d in sc.decisions
+                 if d.verdict in ("grow", "shrink")]
+        flaps = sum(1 for a, b in zip(acted, acted[1:])
+                    if (a, b) == ("shrink", "grow"))
+        check(flaps == 0 and acted == ["grow", "grow", "shrink", "shrink"],
+              f"17c: decisions {acted}, {flaps} flap episodes")
+        decided = [r for r in events_mod.local_events()
+                   if r["name"] == "autoscale/decision"][-len(
+                       [d for d in sc.decisions if d.verdict != "steady"]):]
+        check([r["attrs"]["verdict"] for r in decided]
+              == [d.verdict for d in sc.decisions if d.verdict != "steady"],
+              "17c: the decisions are not on the event timeline")
+    finally:
+        P.stop()
+        os.environ.pop(fault.FAULT_PLAN_ENV, None)
+        fault.reset_for_tests()
+        control.reset_for_tests()
+    log(f"[17c] autoscaler {AS_CONFIG['min_workers']} -> "
+        f"{AS_CONFIG['max_workers']} workers: a queued arbiter waiter grew "
+        f"the pool in one evaluation ({grow_s:.3f} s, a worker spawned and "
+        f"registered); the second grow through {AS_SPAWN_PLAN} "
+        f"{retry_s:.3f} s (one failure, backoff {AS_CONFIG['backoff_s']} "
+        f"s, then a spawn); drain back to {AS_CONFIG['min_workers']} worker "
+        f"{drain_s:.3f} s under a {AS_TASKS}-task ETL ({etl_s:.3f} s, "
+        f"{AS_TASKS / etl_s:.1f} tasks/s); tasks lost {lost}; flap "
+        f"episodes {flaps}; decisions {acted} of "
+        f"{[d.verdict for d in sc.decisions]}")
+    return {"grow_s": grow_s, "retry_s": retry_s, "drain_s": drain_s,
+            "lost": lost, "flaps": flaps}
+
+
 def main() -> int:
     import torch
 
@@ -4807,10 +5259,14 @@ def main() -> int:
     session_counts, session_ref = phase_session(torch, P, etl_ref)
     client, gang = phase_second_drivers(torch, P, session_ref)
     gang_fit = phase_window_and_gang(torch, P)
-    ft_counts = phase_fault_tolerance(torch, P)
+    t17 = time.perf_counter()
+    ft_counts, cp_replica_launches = phase_fault_tolerance(torch, P)
+    phase_autoscale(P)
+    log(f"[17] 17c done; phases 14 and 17 {time.perf_counter() - t17:.1f} s")
     telemetry_counts = phase_telemetry(torch, P)
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
-                      + decode_replica_launches + serve_f32_driver)
+                      + decode_replica_launches + serve_f32_driver
+                      + cp_replica_launches)
     fits = {"fine-tune": fit_counts, "causal LM": lm_counts,
             "remat fine-tune": remat_counts, "MoE": moe_counts,
             "fine-tune from a DataFrame": etl_counts,
@@ -4840,7 +5296,8 @@ def main() -> int:
         f"the end of the clean run and of the serve_kill run), the "
         f"driver's bf16 flash forward {serve_bf16_driver} (the in-process "
         f"rate), decode replica {decode_replica_launches}, the driver's "
-        f"f32 reference_decode {serve_f32_driver}; the SPMD gang's ranks "
+        f"f32 reference_decode {serve_f32_driver}, 17b's replica "
+        f"{cp_replica_launches} (by Ping); the SPMD gang's ranks "
         f"{' + '.join(map(str, gang['rank_launches']))} (each rank's own "
         f"counter, returned in its result)")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -29,9 +29,12 @@ RPCs; ``prometheus_metrics`` renders the remote view here, and
 ``trace_report`` analyses the telemetry dir this client shares with the
 session. Task submissions carry the submitting thread's trace context
 onto the pool threads that send them. ``dashboard_report`` is the
-master's too (``DashboardReport``); ``capture_profile`` fans the
-profile request to the workers from here and merges their traces. Left
-for a later slice: ``scheduler_report`` (ROADMAP item 7).
+master's too (``DashboardReport``), and so is ``scheduler_report``
+(``SchedulerReport``, the session's arbiter; ``raydp_tpu/cluster/
+client.py:211, 338-345``), retried as an idempotent read;
+``capture_profile`` fans the profile request to the workers from here
+and merges their traces. A master RPC's retries and backoff read
+``RAYDP_TPU_CLIENT_RETRIES`` and ``RAYDP_TPU_CLIENT_BACKOFF_S`` per call.
 """
 from __future__ import annotations
 
@@ -61,7 +64,10 @@ from raydp_tpu_torch.store.resolver import ObjectResolver
 logger = logging.getLogger(__name__)
 
 
-#: Retries of an idempotent master RPC, and the first retry's delay.
+#: Retries of an idempotent master RPC, and the first retry's delay,
+#: read per call (``raydp_tpu/cluster/client.py:62-74``).
+CLIENT_RETRIES_ENV = "RAYDP_TPU_CLIENT_RETRIES"
+CLIENT_BACKOFF_ENV = "RAYDP_TPU_CLIENT_BACKOFF_S"
 _RETRIES = 4
 _BACKOFF_S = 0.25
 
@@ -83,10 +89,21 @@ def _retry_idempotent(fn: Callable[[], Any], what: str) -> Any:
     been applied, and re-sending it would double-apply. Read-only calls
     (Ping, ListWorkers, GetObjectMeta, …) are safe to re-send verbatim.
 
-    ``_RETRIES`` attempts with base delay ``_BACKOFF_S`` doubling per
-    attempt, plus up to 25% jitter so a fleet of reconnecting clients
-    doesn't stampede the recovering master in lockstep.
+    ``RAYDP_TPU_CLIENT_RETRIES`` attempts (default 4) with base delay
+    ``RAYDP_TPU_CLIENT_BACKOFF_S`` (default 0.25) doubling per attempt,
+    plus up to 25% jitter so a fleet of reconnecting clients doesn't
+    stampede the recovering master in lockstep. An unparsable value
+    reads as its default.
     """
+    try:
+        retries = max(0, int(os.environ.get(CLIENT_RETRIES_ENV,
+                                            str(_RETRIES))))
+    except ValueError:
+        retries = _RETRIES
+    try:
+        backoff = float(os.environ.get(CLIENT_BACKOFF_ENV, str(_BACKOFF_S)))
+    except ValueError:
+        backoff = _BACKOFF_S
     attempt = 0
     while True:
         try:
@@ -95,14 +112,14 @@ def _retry_idempotent(fn: Callable[[], Any], what: str) -> Any:
             # Transport-level failure only: an RpcError (remote handler
             # raised) means the master IS reachable — retrying a
             # handler exception would just repeat it.
-            if attempt >= _RETRIES:
+            if attempt >= retries:
                 raise
-            delay = _BACKOFF_S * (2 ** attempt)
+            delay = backoff * (2 ** attempt)
             delay *= 1.0 + random.uniform(0.0, 0.25)
             attempt += 1
             logger.warning(
                 "client: %s unreachable (%s); retry %d/%d in %.2fs",
-                what, exc, attempt, _RETRIES, delay,
+                what, exc, attempt, retries, delay,
             )
             time.sleep(delay)
 
@@ -218,6 +235,12 @@ class _RemoteMaster:
         return _retry_idempotent(
             lambda: self._client.call("UsageReport", {}),
             "master UsageReport",
+        )["report"]
+
+    def scheduler_report(self) -> dict:
+        return _retry_idempotent(
+            lambda: self._client.call("SchedulerReport", {}),
+            "master SchedulerReport",
         )["report"]
 
     def record_gang(self, gang: str, views: dict) -> None:
@@ -336,6 +359,11 @@ class RemoteCluster:
         """Per-job usage folded on the session's owner (the shape of
         ``Cluster.usage_report``)."""
         return self.master.usage_report()
+
+    def scheduler_report(self) -> dict:
+        """The session's arbiter state, from its master (the shape of
+        ``Cluster.scheduler_report``; retried through master blips)."""
+        return self.master.scheduler_report()
 
     def record_gang(self, gang: str, views: dict) -> None:
         """A finished gang's rank views to the session's master (the

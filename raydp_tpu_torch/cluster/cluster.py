@@ -33,8 +33,11 @@ read the planes; worker churn lands on the event timeline.
 merged view (``_start_observability``); :meth:`dashboard_report` folds
 them into one document and :meth:`capture_profile` merges a trace of
 the driver and every worker, both also served on the metrics endpoint
-(``/debug/dashboard``, ``/debug/profile``). Left for a later slice:
-``scheduler_report`` and the fault plan's spawn hooks (item 7).
+(``/debug/dashboard``, ``/debug/profile``). :meth:`scheduler_report`
+is the control plane's arbiter (``raydp_tpu/cluster/cluster.py:
+690-723``), and the dashboard's scheduler section; the autoscaler's
+``ClusterProvisioner`` grows and shrinks the pool through
+:meth:`request_workers`, :meth:`kill_worker` and :meth:`alive_workers`.
 """
 from __future__ import annotations
 
@@ -724,6 +727,16 @@ class Cluster:
 
         return _acct.usage_report(self.metrics_snapshot())
 
+    def scheduler_report(self) -> dict:
+        """The control plane's arbiter state: capacity, slots in use, the
+        admission queue in grant order, active leases, each job's
+        lifecycle state and queue-wait statistics. ``{"enabled": False,
+        ...}`` while arbitration is off (``RAYDP_TPU_SCHED_CAPACITY``
+        unset, the single-tenant default)."""
+        from raydp_tpu_torch.control import get_arbiter
+
+        return get_arbiter().report()
+
     def record_gang(self, gang: str, views: dict) -> None:
         """Bill a finished SPMD gang's final rank views with the session
         (``fit_spmd`` calls it after each launch; see
@@ -742,17 +755,19 @@ class Cluster:
     def dashboard_report(self) -> dict:
         """The dashboard: train, ETL, serve and control sections folded
         from the merged view, the SLO table, the event timeline's tail
-        with MTTR episodes, and usage by job, in one document
+        with MTTR episodes, usage by job and the arbiter's state
+        (:meth:`scheduler_report`) in one document
         (:mod:`raydp_tpu_torch.telemetry.dashboard`). Also served at
         ``/debug/dashboard`` and, to a second driver, by the
-        ``DashboardReport`` RPC. No scheduler section: the control plane
-        is not ported (ROADMAP Queue A item 7)."""
+        ``DashboardReport`` RPC."""
         from raydp_tpu_torch.telemetry import dashboard as _dash
         from raydp_tpu_torch.telemetry import events as _events
         from raydp_tpu_torch.telemetry import telemetry_dir
 
         records = _events.load_event_records(telemetry_dir())
-        return _dash.build(self.metrics_snapshot(), events=records)
+        return _dash.build(self.metrics_snapshot(),
+                           scheduler=self.scheduler_report(),
+                           events=records)
 
     def health_report(self) -> Optional[dict]:
         """Aggregated cluster health: per-worker heartbeat age and the

@@ -22,8 +22,10 @@ land in its ring and as span events, and the master answers
 and ``ProgressReport`` for second drivers. The port adds ``GangReport``:
 ``fit_spmd`` hands each finished gang's rank views to the session's
 master (:meth:`AppMaster.record_gang`), which bills them with the
-workers', and ``DashboardReport``. Left for a later slice:
-``SchedulerReport`` (ROADMAP item 7).
+workers', and ``DashboardReport``. ``SchedulerReport`` answers with the
+master process's arbiter (the master and the cluster owner share a
+process; ``raydp_tpu/cluster/master.py:107, 337-355``), and the
+dashboard carries it as its scheduler section.
 """
 from __future__ import annotations
 
@@ -116,6 +118,7 @@ class AppMaster:
             "UsageReport": self._on_usage_report,
             "EventsReport": self._on_events_report,
             "DashboardReport": self._on_dashboard_report,
+            "SchedulerReport": self._on_scheduler_report,
             "GangReport": self._on_gang_report,
             "Ping": lambda req: {"pong": True, "namespace": self.namespace},
         }
@@ -351,6 +354,9 @@ class AppMaster:
     def _on_events_report(self, req: dict) -> dict:
         return {"report": self.events_report(job=req.get("job"))}
 
+    def _on_scheduler_report(self, req: dict) -> dict:
+        return {"report": self.scheduler_report()}
+
     def _on_dashboard_report(self, req: dict) -> dict:
         return {"report": self.dashboard_report()}
 
@@ -395,7 +401,16 @@ class AppMaster:
         from raydp_tpu_torch.telemetry import telemetry_dir
 
         records = _events.load_event_records(telemetry_dir())
-        return _dash.build(self.metrics_snapshot(), events=records)
+        return _dash.build(self.metrics_snapshot(),
+                           scheduler=self.scheduler_report(),
+                           events=records)
+
+    def scheduler_report(self) -> dict:
+        """The master process's arbiter state (``ClusterArbiter.report``):
+        the authoritative view a second driver polls."""
+        from raydp_tpu_torch.control import get_arbiter
+
+        return get_arbiter().report()
 
     def progress_report(self) -> dict:
         """Live stage progress: the driver-process tracker (DataFrame

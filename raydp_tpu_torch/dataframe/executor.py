@@ -21,9 +21,11 @@ Telemetry (``raydp_tpu/dataframe/executor.py:38-93``): every stage runs
 in a ``df/stage`` span (under streaming dispatch the span covers the
 scheduling; the stage's wall lands in its StageStats), the first stage
 of a process with no job in scope mints a process-wide ``etl`` job, and
-each exchange bills its bytes as ``shuffle_bytes``. The reference's
-fair-share ``stage_gate`` around the span waits for the control plane
-(ROADMAP item 7).
+each exchange bills its bytes as ``shuffle_bytes``. Every stage also
+passes the control plane's fair-share ``stage_gate``
+(``raydp_tpu/dataframe/executor.py:69-77``): a one-slot turn from the
+arbiter, granted in deficit-weighted round-robin order across jobs, and
+a no-op unless ``RAYDP_TPU_SCHED_CAPACITY`` turns arbitration on.
 """
 from __future__ import annotations
 
@@ -270,10 +272,13 @@ def _ensure_etl_job() -> None:
 def _stage_span(op: str, n_parts: int, executor: str, **attrs):
     """Span and counter around one stage execution (driver side: submit
     and result gather on the cluster backend, the stage's wall as the
-    planner sees it)."""
+    planner sees it), inside the arbiter's fair-share turn."""
+    from raydp_tpu_torch.control import stage_gate
+
     _ensure_etl_job()
     metrics.counter_add("df/stages")
-    with span("df/stage", op=op, parts=n_parts, executor=executor, **attrs):
+    with stage_gate(label=op), span("df/stage", op=op, parts=n_parts,
+                                    executor=executor, **attrs):
         yield
 
 

@@ -4,8 +4,8 @@ The counterpart of ``raydp_tpu/fault/``. A seeded, env-driven plan
 (``RAYDP_TPU_FAULT_PLAN``, the same grammar in both packages) says which
 rank or worker dies at which step or task, which rank is preempted,
 which heartbeats are skipped, which replica dies or stalls at which
-request, or which RPC is delayed or dropped. Hooks (all no-ops when no
-plan is set):
+request, which RPC is delayed or dropped, or which host spawn fails.
+Hooks (all no-ops when no plan is set):
 
 * :func:`on_train_step`: the estimator's step boundary (``kill`` /
   ``preempt``);
@@ -15,6 +15,8 @@ plan is set):
 * :func:`on_serve_request`: a serving replica's request boundary
   (``serve_kill`` / ``latency``);
 * :func:`on_rpc`: an RPC client send (``rpc_delay`` / ``rpc_drop``).
+* :func:`on_spawn`: the autoscaler's host-spawn attempt
+  (``spawn_fail`` / ``spawn_delay``).
 
 Preemption notices are independent of the plan: a real SIGTERM (through
 :func:`install_sigterm_drain`) or a gang rank's ``Preempt`` RPC lands in
@@ -25,6 +27,7 @@ clause, so the estimator drains to an emergency checkpoint and raises
 from raydp_tpu_torch.fault.inject import (
     PREEMPT_GRACE_ENV,
     PreemptionError,
+    SpawnFaultError,
     active,
     ambient_rank,
     ambient_replica,
@@ -33,6 +36,7 @@ from raydp_tpu_torch.fault.inject import (
     on_heartbeat,
     on_rpc,
     on_serve_request,
+    on_spawn,
     on_task,
     on_train_step,
     plan_clauses,
@@ -56,6 +60,7 @@ __all__ = [
     "FaultClause",
     "FaultPlanError",
     "PreemptionError",
+    "SpawnFaultError",
     "active",
     "ambient_rank",
     "ambient_replica",
@@ -64,6 +69,7 @@ __all__ = [
     "on_heartbeat",
     "on_rpc",
     "on_serve_request",
+    "on_spawn",
     "on_task",
     "on_train_step",
     "parse_plan",

@@ -23,8 +23,10 @@ A ``job=`` clause fires only where the accounting plane's ambient job
 worker main) matches it by id or name (``raydp_tpu/fault/inject.py:
 81-97``). Every clause that fires lands on the event timeline as
 ``fault/clause`` (written through, so it survives a clause that kills
-the process). ``on_spawn`` belongs to the autoscaler, which is not
-ported (ROADMAP item 7).
+the process). :func:`on_spawn` (``spawn_fail``, ``spawn_delay``) runs
+before each host-spawn attempt of the autoscaler
+(``control/autoscaler.py``), which backs off and retries on
+:class:`SpawnFaultError`.
 
 SIGTERM: :func:`install_sigterm_drain` replaces the handler installed
 before it (a rank's flight recorder) and keeps it. A SIGTERM sets the
@@ -70,11 +72,20 @@ class PreemptionError(RuntimeError):
         self.checkpoint_path = checkpoint_path
 
 
+class SpawnFaultError(RuntimeError):
+    """Raised by :func:`on_spawn` for an armed ``spawn_fail`` clause.
+
+    The autoscaler's provisioner boundary catches it and applies its
+    backoff-and-retry budget, as it would a real launcher failure.
+    """
+
+
 class _State:
     def __init__(self) -> None:
         self.plan_text: Optional[str] = None
         self.clauses: List[FaultClause] = []
         self.rpc_counts: dict = {}
+        self.spawn_count = 0
         self.preempt = threading.Event()
         self.drained = threading.Event()
         self.grace_timer: Optional[threading.Timer] = None
@@ -100,6 +111,7 @@ def _clauses() -> List[FaultClause]:
             _state.clauses = parse_plan(text, seed=seed)
             _state.plan_text = text
             _state.rpc_counts = {}
+            _state.spawn_count = 0
         return _state.clauses
 
 
@@ -314,6 +326,33 @@ def on_rpc(qualified_method: str) -> Optional[str]:
     return verdict
 
 
+def on_spawn() -> None:
+    """Hook before each host-spawn attempt at the provisioner boundary.
+
+    Counts attempts per process (0-based). A matching ``spawn_delay``
+    clause sleeps in place through the clock seam (a hung provisioning
+    call; virtual time under the simulator); a matching ``spawn_fail``
+    clause raises :class:`SpawnFaultError`.
+    """
+    clauses = _clauses()
+    if not clauses:
+        return
+    with _lock:
+        n = _state.spawn_count
+        _state.spawn_count = n + 1
+    for c in clauses:
+        if not c.armed or c.fired or c.nth != n:
+            continue
+        if c.kind == "spawn_delay":
+            c.fired = True
+            _emit_clause(c, f"delayed spawn attempt {n} by {c.delay}s")
+            _clock.sleep(c.delay)
+        elif c.kind == "spawn_fail":
+            c.fired = True
+            _emit_clause(c, f"failed spawn attempt {n}")
+            raise SpawnFaultError(f"injected spawn failure (attempt {n})")
+
+
 def preemption_requested() -> bool:
     """True once a preemption notice (real or injected) has landed."""
     return _state.preempt.is_set()
@@ -416,6 +455,7 @@ def reset_for_tests() -> None:
         _state.plan_text = None
         _state.clauses = []
         _state.rpc_counts = {}
+        _state.spawn_count = 0
         _state.preempt = threading.Event()
         _state.drained = threading.Event()
         if _state.grace_timer is not None:

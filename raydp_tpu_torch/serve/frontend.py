@@ -6,15 +6,14 @@ kind that blocks the handler thread on the request's reply event, and
 one GET route exposing :meth:`ReplicaGroup.stats`.
 
 Graceful degradation is the contract: a full queue
-(:class:`~raydp_tpu_torch.serve.batching.QueueFullError`) becomes **429**
-with a ``Retry-After`` header derived from the shed ETA; a request that
-misses its deadline becomes **504**. Anything accepted gets exactly one
-reply. Every admitted request's response carries its id in
+(:class:`~raydp_tpu_torch.serve.batching.QueueFullError`) or a busy
+cluster (:class:`~raydp_tpu_torch.control.ClusterBusyError`) becomes
+**429** with a ``Retry-After`` header derived from the shed ETA; a
+request that misses its deadline becomes **504**. Anything accepted gets
+exactly one reply. Every admitted request's response carries its id in
 ``X-RayDP-Request-Id`` and, on ``/predict``, a ``traceparent`` (an
 incoming one is honored, so a caller's trace threads through the serve
-spans and events); a 504 leaves a ``serve/timeout`` event. The
-reference's busy-cluster 429 waits for the control plane (ROADMAP item
-7).
+spans and events); a 504 leaves a ``serve/timeout`` event.
 """
 from __future__ import annotations
 
@@ -29,6 +28,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 from urllib.parse import urlsplit
 
+from raydp_tpu_torch.control import ClusterBusyError
 from raydp_tpu_torch.serve.batching import QueueFullError, RequestCancelled
 from raydp_tpu_torch.telemetry import events as _events
 from raydp_tpu_torch.telemetry import propagation as _prop
@@ -88,7 +88,7 @@ class ServeFrontend:
                 timeout_s=body.get("timeout_s"),
                 request_id=body.get("id"),
             )
-        except QueueFullError as exc:
+        except (QueueFullError, ClusterBusyError) as exc:
             shed_headers = {"Retry-After": str(retry_after_s(exc))}
             if body.get("id"):
                 shed_headers["X-RayDP-Request-Id"] = str(body["id"])
@@ -155,7 +155,7 @@ class ServeFrontend:
                 timeout_s=body.get("timeout_s"),
                 request_id=body.get("id"),
             )
-        except QueueFullError as exc:
+        except (QueueFullError, ClusterBusyError) as exc:
             return (
                 429,
                 {

@@ -24,9 +24,18 @@ model function (or decode engine factory) that takes a ``device``
 keyword is called with the group's, whatever it binds itself.
 The group's lifecycle lands on the event timeline as the reference's
 does (``serve/start``, ``replica_up``, ``replica_down``, ``requeue``,
-``lineage_dead``, ``drain``, ``stop``). Admission through the cluster
-arbiter and job accounting arrive with the port's control plane
-(ROADMAP Queue A item 7).
+``lineage_dead``, ``drain``, ``stop``).
+
+The control plane (``raydp_tpu/serve/group.py:426-445, 578-582``):
+``start()`` bills the group to the ambient job (or mints one of its own,
+which its replicas inherit through ``RAYDP_TPU_JOB``) and is admitted by
+the cluster arbiter with ``slots = replicas``, so serving shares
+capacity with training under one policy; a busy cluster raises
+:class:`~raydp_tpu_torch.control.ClusterBusyError` there (the HTTP
+frontend's 429). The arbiter's preemption of the group
+(:meth:`ReplicaGroup._on_preempt`) drains it; ``stop()`` releases the
+lease. An :class:`~raydp_tpu_torch.control.Autoscaler` reads the
+group's queue once registered with ``register_serve_group``.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from raydp_tpu_torch.serve.replica_main import (
     REPLICA_SERVICE,
     SERVE_DRIVER_SERVICE,
 )
+from raydp_tpu_torch.telemetry import accounting as _acct
 from raydp_tpu_torch.telemetry import events as _events
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.env import _env_float, _env_int, child_pythonpath
@@ -186,6 +196,7 @@ class _ReplicaSlot:
                 ENV_MODE: g.mode,
                 ENV_DEVICE: str(g.device),
                 ENV_SERVE_DRIVER_ADDR: g._driver_addr,
+                **_acct.env_for_child(g._job_ctx),
                 # The child resolves the model by reference: it sees
                 # every module this process can import.
                 "PYTHONPATH": child_pythonpath(),
@@ -435,6 +446,9 @@ class ReplicaGroup:
         self._server: Optional[RpcServer] = None
         self._driver_addr = ""
         self._log_dir = ""
+        self._job_ctx = None
+        self._owns_job_ctx = False
+        self._sched_lease = None
         self._model_blob: Optional[bytes] = None
         # Decode mode: driver-side truth for in-flight sequences —
         # request_id → (ServeRequest, owning slot index).
@@ -444,10 +458,13 @@ class ReplicaGroup:
     # -- lifecycle ------------------------------------------------------
 
     def start(self) -> "ReplicaGroup":
-        """Resolve the device, bring up the driver RPC surface, and
-        launch every lineage. Raises when the device is ``cuda`` and
-        there is no card (the group never serves on the CPU by itself),
-        and :class:`ServeError` when ``model_fn`` cannot be pickled."""
+        """Resolve the device, admit through the arbiter, bring up the
+        driver RPC surface, and launch every lineage. Raises when the
+        device is ``cuda`` and there is no card (the group never serves
+        on the CPU by itself), :class:`ServeError` when ``model_fn``
+        cannot be pickled, and
+        :class:`~raydp_tpu_torch.control.ClusterBusyError` when the
+        cluster has no capacity for the group."""
         if self._started:
             raise ServeError(f"replica group {self.label} already started")
         self.device = resolve_device(self.device)
@@ -461,6 +478,21 @@ class ReplicaGroup:
                     "shipped to the replicas by reference, so pass a "
                     "module-level function or a functools.partial of one"
                 ) from exc
+        self._job_ctx = _acct.current_job()
+        self._owns_job_ctx = self._job_ctx is None
+        if self._job_ctx is None:
+            self._job_ctx = _acct.mint_job(self.label,
+                                           world_size=self.replicas)
+            _acct.set_process_job(self._job_ctx)
+        from raydp_tpu_torch.control import get_arbiter
+
+        try:
+            self._sched_lease = get_arbiter().ensure_admitted(
+                self._job_ctx, slots=self.replicas, label=self.label,
+                on_preempt=self._on_preempt)
+        except Exception:
+            self._release_job()
+            raise
         self._stopping.clear()
         self._server = RpcServer(
             SERVE_DRIVER_SERVICE,
@@ -596,6 +628,24 @@ class ReplicaGroup:
                     req, error=f"decode retired with reason {reason!r}"
                 )
         return {"ok": True}
+
+    def _on_preempt(self) -> None:
+        """The arbiter's preemption of the group: the whole group drains
+        (replicas finish their in-flight batches, the queue stops
+        admitting) on a thread of its own, off the arbiter's."""
+        _events.emit("serve/preempt", group=self.label)
+        threading.Thread(target=self.stop, daemon=True,
+                         name=f"serve-preempt-{self.label}").start()
+
+    def _release_job(self) -> None:
+        """Return the arbiter's lease and drop a job this group minted."""
+        if self._sched_lease is not None:
+            self._sched_lease.release()
+            self._sched_lease = None
+        if self._owns_job_ctx:
+            _acct.set_process_job(None)
+            self._owns_job_ctx = False
+        self._job_ctx = None
 
     def _publish_alive(self) -> None:
         metrics.gauge_set(
@@ -794,7 +844,8 @@ class ReplicaGroup:
 
     def stop(self) -> None:
         """Graceful teardown: stop admitting, stop the replicas and wait
-        for their processes to exit. Idempotent."""
+        for their processes to exit, release the arbiter's lease.
+        Idempotent."""
         if not self._started:
             return
         self._started = False
@@ -820,6 +871,7 @@ class ReplicaGroup:
             except Exception:
                 pass
             self._server = None
+        self._release_job()
         _events.emit("serve/stop", group=self.label)
 
     def __enter__(self) -> "ReplicaGroup":

@@ -35,7 +35,14 @@ stall flags into :meth:`SPMDJob.health_report`; each dispatch is an
 :meth:`SPMDJob.capture_profile` merges a trace of every rank, taken
 beside the running function; :meth:`SPMDJob.resource_report` reads each
 rank's shipped gauges (memory, compiles, phase fractions, ``bound``,
-``mfu``). Left for a later slice: the arbiter's admission (item 7).
+``mfu``).
+
+Admission (``raydp_tpu/spmd/job.py:313-323``): ``start()`` acquires
+``world_size`` slots from the control plane's arbiter before it spawns
+a rank, blocking in the admission queue when the pool is full (a no-op
+when the arbiter is off or a supervisor such as ``fit_spmd`` already
+holds the job's lease); the arbiter's preemption of the gang is
+:meth:`SPMDJob.request_preemption`. ``stop()`` releases the lease.
 """
 from __future__ import annotations
 
@@ -81,8 +88,10 @@ ENV_LOCAL_WORLD_SIZE = "RAYDP_SPMD_LOCAL_WORLD_SIZE"
 # Registration barrier (driver side): the soft window is the job's
 # ``timeout`` and resets on every new rank registration; alive-but-slow
 # workers (cold imports on a busy host) are waited on up to the hard cap,
-# ``_REGISTER_HARD_FACTOR`` soft windows and never under
-# ``_REGISTER_HARD_MIN_S``.
+# ``register_hard_timeout`` or else ``_REGISTER_HARD_FACTOR`` soft windows
+# and never under ``_REGISTER_HARD_MIN_S``. The env vars override both.
+ENV_REGISTER_TIMEOUT = "RAYDP_SPMD_REGISTER_TIMEOUT"
+ENV_REGISTER_HARD_TIMEOUT = "RAYDP_SPMD_REGISTER_HARD_TIMEOUT"
 _REGISTER_HARD_FACTOR = 10.0
 _REGISTER_HARD_MIN_S = 300.0
 # Dispatch-payload shipping policy. Payloads (fn closure + scatter blob)
@@ -219,11 +228,14 @@ class SPMDJob:
         timeout: float = 30.0,
         hosts: Optional[List[str]] = None,
         coordinator_port: Optional[int] = None,
+        register_hard_timeout: Optional[float] = None,
         host_nodes: Optional[List[str]] = None,
     ):
         """``timeout`` is the registration barrier's SOFT window (resets
-        on progress); ranks that are alive-but-slow are waited on past
-        it up to ``max(10 × soft, 300)`` seconds.
+        on progress); ``register_hard_timeout`` caps how long ranks that
+        are alive-but-slow are waited on past it (default
+        ``max(10 × soft, 300)`` seconds). ``RAYDP_SPMD_REGISTER_TIMEOUT``
+        and ``RAYDP_SPMD_REGISTER_HARD_TIMEOUT`` override both.
         ``host_nodes`` names the cluster node of each host (placement
         fills it) for :meth:`rank_nodes`."""
         if world_size < 1:
@@ -234,6 +246,7 @@ class SPMDJob:
         self.script_prepare_fn = script_prepare_fn
         self.base_env = dict(env or {})
         self.timeout = timeout
+        self.register_hard_timeout = register_hard_timeout
         self.hosts = hosts or ["127.0.0.1"]
         self.host_nodes = list(host_nodes) if host_nodes is not None else None
         self.coordinator_port = coordinator_port
@@ -261,6 +274,9 @@ class SPMDJob:
         self._owns_trace_ctx = False
         self._job_ctx: Optional[_acct.JobContext] = None
         self._owns_job_ctx = False
+        # The arbiter's lease start() took for a standalone gang (None
+        # where a supervisor holds the job's lease, or arbitration is off).
+        self._sched_lease = None
         # Driver-local staging store for oversize dispatch payloads:
         # blobs above the inline cap are parked here and ranks pull
         # them through the chunked FetchObjectChunk path.
@@ -363,6 +379,18 @@ class SPMDJob:
             self._job_ctx = _acct.mint_job(self.job_name,
                                            world_size=self.world_size)
             _acct.set_process_job(self._job_ctx)
+        # Admission before any rank spawns: blocks in the arbiter's queue
+        # while the pool is full, raises ClusterBusyError on a shed or an
+        # admission timeout (the gang is torn down first).
+        from raydp_tpu_torch.control import get_arbiter
+
+        try:
+            self._sched_lease = get_arbiter().ensure_admitted(
+                self._job_ctx, slots=self.world_size, label=self.job_name,
+                on_preempt=self.request_preemption)
+        except Exception:
+            self.stop()
+            raise
 
         log_dir = os.path.join(
             tempfile.gettempdir(), "raydp_tpu_torch", "spmd",
@@ -469,9 +497,18 @@ class SPMDJob:
             )
 
     def _registration_timeouts(self) -> "tuple[float, float]":
-        """(soft, hard) windows for the registration barrier."""
-        soft = float(self.timeout)
-        return soft, max(_REGISTER_HARD_FACTOR * soft, _REGISTER_HARD_MIN_S)
+        """(soft, hard) windows for the registration barrier. The env vars
+        take precedence over the constructor's values, the soft window's
+        and the hard cap's alike (``raydp_tpu/spmd/job.py:419-431``)."""
+        soft = float(os.environ.get(ENV_REGISTER_TIMEOUT) or self.timeout)
+        hard_env = os.environ.get(ENV_REGISTER_HARD_TIMEOUT)
+        if hard_env:
+            hard = float(hard_env)
+        elif self.register_hard_timeout is not None:
+            hard = float(self.register_hard_timeout)
+        else:
+            hard = max(_REGISTER_HARD_FACTOR * soft, _REGISTER_HARD_MIN_S)
+        return soft, hard
 
     def _log_tails(self, limit: int = 2000) -> str:
         """Last ``limit`` bytes of every rank's captured output, formatted
@@ -914,6 +951,9 @@ class SPMDJob:
                 trace_prop.set_process_context(None)
         self._trace_ctx = None
         self._owns_trace_ctx = False
+        if self._sched_lease is not None:
+            self._sched_lease.release()
+            self._sched_lease = None
         if self._owns_job_ctx and self._job_ctx is not None:
             if _acct.process_job() == self._job_ctx:
                 _acct.set_process_job(None)

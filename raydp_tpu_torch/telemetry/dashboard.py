@@ -1,8 +1,11 @@
 """Unified flywheel dashboard: the whole system in one view.
 
 The port's copy of ``raydp_tpu/telemetry/dashboard.py``. Its control
-section (pool size, queue depth) stays empty until the autoscaler and
-the arbiter are ported (ROADMAP Queue A item 7).
+section folds the autoscaler's pool size and decisions and the
+arbiter's queue (``raydp_tpu_torch/control/``), with the arbiter's
+whole report as ``control.scheduler`` where the caller passes it
+(``Cluster.dashboard_report`` does); its sim section, a replay of
+``raydp_tpu_torch/sim/`` in this process.
 
 Every plane built so far reports somewhere — training MFU and step
 phases in the device profiler, ETL stage rows in the operator metrics,

@@ -53,9 +53,14 @@ so that no fit or relaunch overwrites another's, and the session's
 ``metrics_snapshot``, exposition and ``usage_report`` include the chip-
 seconds of every fit and every relaunch.
 
-Left for ROADMAP Queue A item 7: the control plane's gang lease (raising
-``NotImplementedError`` when ``RAYDP_TPU_SCHED_CAPACITY`` turns
-arbitration on).
+The control plane (``raydp_tpu/train/spmd_fit.py:232-256, 359``): the
+whole supervised fit holds ONE gang lease of the arbiter across
+restarts. A preempted gang's drain releases it (``state="drained"``), the
+loop's top re-enters admission behind the arrival, an elastic shrink
+returns the departed ranks' slots (``Lease.resize``), and every exit
+releases it. The arbiter's preemption of the fit is
+``SPMDJob.request_preemption`` on the live gang. Inert unless
+``RAYDP_TPU_SCHED_CAPACITY`` is above 0.
 """
 from __future__ import annotations
 
@@ -73,8 +78,6 @@ from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 logger = logging.getLogger(__name__)
 
 __all__ = ["fit_spmd"]
-
-SCHED_CAPACITY_ENV = "RAYDP_TPU_SCHED_CAPACITY"
 
 # "job X: only 2/4 ranks registered within 30s ...": the registration
 # shortfall SPMDJob raises when ranks never come up; elastic mode
@@ -227,6 +230,7 @@ def fit_spmd(
     whether it was a ``preempted`` drain, its ``world_size`` and the
     ``backoff_s`` slept before the relaunch."""
     from raydp_tpu_torch.context import current_session
+    from raydp_tpu_torch.control import get_arbiter
     from raydp_tpu_torch.data.ml_dataset import MLDataset
     from raydp_tpu_torch.spmd import create_spmd_job
     from raydp_tpu_torch.spmd.job import SPMDJobError
@@ -242,10 +246,6 @@ def fit_spmd(
             f"({train_ds.num_shards} != {world_size})")
     if min_world_size < 1:
         raise ValueError("min_world_size must be >= 1")
-    if os.environ.get(SCHED_CAPACITY_ENV):
-        raise NotImplementedError(
-            f"{SCHED_CAPACITY_ENV} is set, but the control plane's gang "
-            "lease is not ported yet (ROADMAP Queue A item 7)")
     device = str(resolve_device(device))
     if max_restarts is None:
         max_restarts = int(_env_float("RAYDP_TPU_MAX_RESTARTS", 3))
@@ -280,6 +280,7 @@ def fit_spmd(
         return [(ds.shard_tables(r),) for r in range(cur_world)]
 
     cur_world = world_size
+    arbiter = get_arbiter()
     # The accounting root: the whole supervised fit, every relaunch's
     # chip-seconds included, bills to one job (an ambient job wins);
     # the gangs launched below inherit it.
@@ -290,134 +291,172 @@ def fit_spmd(
     launches = 0
     with _acct.job_scope(fit_job):
         job = job_world = None
-        restarts = 0
-        start_s = 0.0
-        prev_obs_steps = 0
-        failures: List[Dict[str, Any]] = []
-        while True:
-            resume = _newest_checkpoint(checkpoint_dir)
-            if restarts and resume is not None:
-                # Steps the failed incarnation ran past the checkpoint it
-                # resumes from are run again (heartbeat-lag accuracy).
-                ck = _ckpt_step(resume)
-                if ck is not None and prev_obs_steps > ck:
-                    _metrics.counter_add("replay/steps", prev_obs_steps - ck)
-            if job is None or job_world != cur_world:
-                # A new world needs a new gang definition; a relaunch at the
-                # same world reuses the job.
-                job = create_spmd_job(job_name="torch-fit-spmd",
-                                      world_size=cur_world,
-                                      num_procs_per_node=num_procs_per_node,
-                                      hosts=hosts, env=env, timeout=60.0)
-                job_world = cur_world
 
-            def work(ctx, payload, resume_from=resume, _device=device,
-                     _store_mode=store_mode, _master=master,
-                     _namespace=namespace, _blocks=blocks):
-                import torch
+        def _preempt_gang() -> None:
+            # The arbiter's victim hook: the live incarnation's ranks
+            # drain to an emergency checkpoint (``job`` is read when the
+            # arbiter calls, so a relaunch's gang gets the notice).
+            if job is not None:
+                job.request_preemption()
 
-                from raydp_tpu_torch.data.ml_dataset import (
-                    MLDataset,
-                    resolve_plan_tables,
-                )
-                from raydp_tpu_torch.train.spmd_fit import _params_digest
+        # The whole supervised fit holds ONE gang lease across restarts:
+        # admission blocks in the arbiter's queue while the pool is full
+        # (ClusterBusyError on a shed or an admission timeout; an inert
+        # lease while arbitration is off).
+        lease = arbiter.acquire(fit_job, slots=world_size, kind="gang",
+                                label="fit-spmd", on_preempt=_preempt_gang)
+        try:
+            restarts = 0
+            start_s = 0.0
+            prev_obs_steps = 0
+            failures: List[Dict[str, Any]] = []
+            while True:
+                if not lease.active:
+                    # Preempted last attempt: the drain released the lease
+                    # to the arrival; re-enter admission behind it and
+                    # resume from the emergency checkpoint once capacity
+                    # returns (the arbiter emits ``sched/resume``).
+                    lease = arbiter.acquire(fit_job, slots=cur_world,
+                                            kind="gang", label="fit-spmd",
+                                            on_preempt=_preempt_gang)
+                lease.renew()
+                resume = _newest_checkpoint(checkpoint_dir)
+                if restarts and resume is not None:
+                    # Steps the failed incarnation ran past the checkpoint it
+                    # resumes from are run again (heartbeat-lag accuracy).
+                    ck = _ckpt_step(resume)
+                    if ck is not None and prev_obs_steps > ck:
+                        _metrics.counter_add("replay/steps",
+                                             prev_obs_steps - ck)
+                if job is None or job_world != cur_world:
+                    # A new world needs a new gang definition; a relaunch
+                    # at the same world reuses the job.
+                    job = create_spmd_job(
+                        job_name="torch-fit-spmd", world_size=cur_world,
+                        num_procs_per_node=num_procs_per_node, hosts=hosts,
+                        env=env, timeout=60.0)
+                    job_world = cur_world
 
-                if _device.startswith("cuda"):
-                    torch.cuda.set_device(ctx.device("cuda"))
-                backend = ctx.init_distributed(device=_device)
-                tables = (resolve_plan_tables(_master, _namespace, _blocks,
-                                              payload)
-                          if _store_mode else payload)
-                est = make_estimator()
-                history = est.fit(MLDataset(list(tables), num_shards=1),
-                                  resume_from=resume_from)
-                state = est.get_model().state_dict()
-                out = {"rank": ctx.rank, "history": history,
-                       "backend": backend, "digest": _params_digest(state)}
-                if ctx.rank == 0:
-                    out["params"] = {
-                        k: (v.detach().float() if v.dtype == torch.bfloat16
-                            else v.detach()).cpu().numpy()
-                        for k, v in state.items()}
-                return out
+                def work(ctx, payload, resume_from=resume, _device=device,
+                         _store_mode=store_mode, _master=master,
+                         _namespace=namespace, _blocks=blocks):
+                    import torch
 
-            launch_wall = time.time()
-            try:
-                if restarts:
-                    _flight.record(
-                        "supervisor", "relaunch", attempt=restarts,
-                        world_size=cur_world,
-                        **({"resume": os.path.basename(resume)}
-                           if resume else {}))
-                    _events.emit(
-                        "train/resume", attempt=restarts, world_size=cur_world,
-                        resume_step=_ckpt_step(resume),
-                        **({"resume": os.path.basename(resume)}
-                           if resume else {}))
+                    from raydp_tpu_torch.data.ml_dataset import (
+                        MLDataset,
+                        resolve_plan_tables,
+                    )
+                    from raydp_tpu_torch.train.spmd_fit import _params_digest
+
+                    if _device.startswith("cuda"):
+                        torch.cuda.set_device(ctx.device("cuda"))
+                    backend = ctx.init_distributed(device=_device)
+                    tables = (resolve_plan_tables(_master, _namespace, _blocks,
+                                                  payload)
+                              if _store_mode else payload)
+                    est = make_estimator()
+                    history = est.fit(MLDataset(list(tables), num_shards=1),
+                                      resume_from=resume_from)
+                    state = est.get_model().state_dict()
+                    out = {"rank": ctx.rank, "history": history,
+                           "backend": backend, "digest": _params_digest(state)}
+                    if ctx.rank == 0:
+                        out["params"] = {
+                            k: (v.detach().float() if v.dtype == torch.bfloat16
+                                else v.detach()).cpu().numpy()
+                            for k, v in state.items()}
+                    return out
+
+                launch_wall = time.time()
+                try:
+                    if restarts:
+                        _flight.record(
+                            "supervisor", "relaunch", attempt=restarts,
+                            world_size=cur_world,
+                            **({"resume": os.path.basename(resume)}
+                               if resume else {}))
+                        _events.emit(
+                            "train/resume", attempt=restarts,
+                            world_size=cur_world,
+                            resume_step=_ckpt_step(resume),
+                            **({"resume": os.path.basename(resume)}
+                               if resume else {}))
+                        logger.warning(
+                            "fit_spmd: relaunching gang (restart %d/%d, world "
+                            "%d%s)", restarts, max_restarts, cur_world,
+                            f", resume {os.path.basename(resume)}" if resume
+                            else ", from scratch")
+                    t0 = time.perf_counter()
+                    job.start()
+                    start_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    results = job.run(work, timeout=timeout,
+                                      per_rank_args=_payloads(cur_world))
+                    run_s = time.perf_counter() - t0
+                    break
+                except SPMDJobError as exc:
+                    err_text = str(exc)
+                    failure = {"error": err_text, "at": time.time(),
+                               "preempted": "PreemptionError" in err_text,
+                               "world_size": cur_world, "backoff_s": 0.0}
+                    failures.append(failure)
+                    prev_obs_steps = _rank0_steps(job)
+                    if failure["preempted"]:
+                        _metrics.counter_add("preemptions/total")
+                        _events.emit("preempt/request", attempt=restarts,
+                                     world_size=cur_world)
+                        # The drain is durable (the emergency checkpoint
+                        # committed before the ranks raised): yield the
+                        # slots now; the loop's top re-enters admission.
+                        lease.release(state="drained")
+                    _flight.record("supervisor", "gang_failed",
+                                   attempt=restarts, world_size=cur_world,
+                                   preempted=failure["preempted"],
+                                   error=err_text[:200])
+                    if restarts >= max_restarts:
+                        raise SPMDJobError(
+                            f"fit_spmd: restart budget exhausted "
+                            f"({max_restarts} restarts); last failure: "
+                            f"{err_text}") from exc
+                    restarts += 1
+                    _metrics.counter_add("restarts/total")
+                    # Elastic shrink: a registration shortfall means ranks
+                    # are gone; continue on those that came up (the job's
+                    # count, else the message's).
+                    m = _REGISTERED_RE.search(err_text)
+                    if elastic and m:
+                        got = (job.last_registered if job.last_registered
+                               is not None else int(m.group(1)))
+                        if min_world_size <= got < cur_world:
+                            logger.warning("fit_spmd: elastic resize %d -> %d "
+                                           "ranks", cur_world, got)
+                            _events.emit("gang/resize", from_world=cur_world,
+                                         to_world=got, attempt=restarts)
+                            cur_world = got
+                            # The departed ranks' slots go back to the queue.
+                            lease.resize(cur_world)
+                    delay = restart_backoff_s * (2 ** (restarts - 1))
+                    delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
+                    failure["backoff_s"] = delay
                     logger.warning(
-                        "fit_spmd: relaunching gang (restart %d/%d, world "
-                        "%d%s)", restarts, max_restarts, cur_world,
-                        f", resume {os.path.basename(resume)}" if resume
-                        else ", from scratch")
-                t0 = time.perf_counter()
-                job.start()
-                start_s = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                results = job.run(work, timeout=timeout,
-                                  per_rank_args=_payloads(cur_world))
-                run_s = time.perf_counter() - t0
-                break
-            except SPMDJobError as exc:
-                err_text = str(exc)
-                failure = {"error": err_text, "at": time.time(),
-                           "preempted": "PreemptionError" in err_text,
-                           "world_size": cur_world, "backoff_s": 0.0}
-                failures.append(failure)
-                prev_obs_steps = _rank0_steps(job)
-                if failure["preempted"]:
-                    _metrics.counter_add("preemptions/total")
-                    _events.emit("preempt/request", attempt=restarts,
-                                 world_size=cur_world)
-                _flight.record("supervisor", "gang_failed", attempt=restarts,
-                               world_size=cur_world,
-                               preempted=failure["preempted"],
-                               error=err_text[:200])
-                if restarts >= max_restarts:
-                    raise SPMDJobError(
-                        f"fit_spmd: restart budget exhausted ({max_restarts} "
-                        f"restarts); last failure: {err_text}") from exc
-                restarts += 1
-                _metrics.counter_add("restarts/total")
-                # Elastic shrink: a registration shortfall means ranks are
-                # gone; continue on those that came up (the job's count, else
-                # the message's).
-                m = _REGISTERED_RE.search(err_text)
-                if elastic and m:
-                    got = (job.last_registered if job.last_registered
-                           is not None else int(m.group(1)))
-                    if min_world_size <= got < cur_world:
-                        logger.warning("fit_spmd: elastic resize %d -> %d "
-                                       "ranks", cur_world, got)
-                        _events.emit("gang/resize", from_world=cur_world,
-                                     to_world=got, attempt=restarts)
-                        cur_world = got
-                delay = restart_backoff_s * (2 ** (restarts - 1))
-                delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
-                failure["backoff_s"] = delay
-                logger.warning(
-                    "fit_spmd: gang failed (%s); backing off %.1fs before "
-                    "restart %d/%d", err_text.splitlines()[0][:160], delay,
-                    restarts, max_restarts)
-                time.sleep(delay)
-            finally:
-                # Tear down between attempts and after the last one; the
-                # job restarts after stop(). The ranks' final snapshots
-                # arrive during stop().
-                job.stop()
-                if session is not None:
-                    _report_launch(session, f"{fit_key}/launch-{launches}",
-                                   _launch_views(job, launch_wall))
-                launches += 1
+                        "fit_spmd: gang failed (%s); backing off %.1fs before "
+                        "restart %d/%d", err_text.splitlines()[0][:160], delay,
+                        restarts, max_restarts)
+                    time.sleep(delay)
+                finally:
+                    # Tear down between attempts and after the last one; the
+                    # job restarts after stop(). The ranks' final snapshots
+                    # arrive during stop().
+                    job.stop()
+                    if session is not None:
+                        _report_launch(session, f"{fit_key}/launch-{launches}",
+                                       _launch_views(job, launch_wall))
+                    launches += 1
+        finally:
+            # Capacity never leaks: success, an exhausted budget and any
+            # other error return the slots (a drained lease is already
+            # released; release is idempotent).
+            lease.release()
     rank0 = next(r for r in results if r["rank"] == 0)
     return {
         "history": rank0["history"],

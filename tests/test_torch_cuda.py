@@ -28,7 +28,9 @@ clock, and reports ``hbm/peak_bytes`` at least
 bf16 flash classifier with the device plane on reports ``mfu`` above 0
 and phase fractions summing to 1, and a 0.5 s ``torch.profiler``
 capture on one thread records the ``flash_fwd`` kernels another thread
-launches.
+launches. Slice 14: a replica group of one flash replica on the card,
+admitted by the arbiter, answers a short open-loop ``GroupTarget``
+schedule with zero errors.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -1223,3 +1225,43 @@ def test_capture_records_another_threads_flash_kernels(cuda, tmp_path):
                and e.get("cat") == "kernel"]
     assert kernels, sorted({str(e.get("cat")) for e in events})
 
+
+
+# ------------------------------------------------------------ slice 14
+
+def test_admitted_flash_replica_answers_open_loop_load(cuda):
+    """The arbiter admits a one-replica group of the 2-layer bf16 flash
+    classifier (``slots = replicas``); a short Poisson schedule through
+    the load generator's ``GroupTarget`` gets an ``ok`` for every
+    arrival, the replica's flash forward ran, and ``stop()`` returns the
+    lease."""
+    from raydp_tpu_torch import control
+    from raydp_tpu_torch.loadgen import (
+        GroupTarget,
+        poisson_schedule,
+        run_schedule,
+    )
+
+    arb = control.configure(2, admit_timeout_s=60.0)
+    group = ReplicaGroup(replicas=1, device="cuda", model_fn=classify_batch,
+                         buckets=[32, 64, 128], max_batch=16, slo_ms=10,
+                         dispatch_timeout_s=120, label="t-card-load")
+    try:
+        group.start()
+        assert arb.report()["in_use"] == 1
+        deadline = time.monotonic() + 120.0
+        while group.stats()["replicas_alive"] < 1:
+            assert time.monotonic() < deadline, group.stats()
+            time.sleep(0.05)
+        result = run_schedule(GroupTarget(group),
+                              poisson_schedule(50.0, 2.0, seed=3),
+                              timeout_s=30.0)
+        pongs = group.ping()
+    finally:
+        group.stop()
+        in_use = arb.report()["in_use"]
+        control.reset_for_tests()
+    counts = result.counts()
+    assert counts["ok"] == len(result.outcomes) > 50, counts
+    assert pongs[0]["launches"]["flash_fwd"] > 0, pongs
+    assert in_use == 0

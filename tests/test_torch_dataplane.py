@@ -13,9 +13,10 @@
   ``transfer_coalesce`` batches are packed into ONE uint8 buffer
   (on a card, the one buffer that crosses in one copy), unpacked bit for
   bit, and an explicit ``transfer_coalesce`` holds on the host path.
-* ``test_spmd_register_hard_timeout_precedence`` is ROADMAP Queue A
-  item 7's parity case (the register-timeout overrides are not ported)
-  and is not run here.
+* ``test_spmd_register_hard_timeout_precedence`` runs against the port's
+  ``SPMDJob``: ``register_hard_timeout=`` and the
+  ``RAYDP_SPMD_REGISTER_TIMEOUT`` / ``RAYDP_SPMD_REGISTER_HARD_TIMEOUT``
+  overrides, in the reference's precedence.
 """
 import numpy as np
 import pyarrow as pa
@@ -26,13 +27,12 @@ from raydp_tpu_torch.data import MLDataset
 from raydp_tpu_torch.data import loader as loader_mod
 from torch_port_cases import cases, load_port_module, run_case, time_limit
 
-LEFT_FOR_ITEM_7 = ("test_spmd_register_hard_timeout_precedence",)
 MIRRORED = ("test_loader_packs_one_device_put_per_chunk",
             "test_host_path_honors_explicit_coalesce")
 PORT_REFERENCE = load_port_module("test_dataplane.py")
 REFERENCE_CASES = cases(PORT_REFERENCE, [
     n for n in vars(PORT_REFERENCE)
-    if n.startswith("test_") and n not in LEFT_FOR_ITEM_7 + MIRRORED])
+    if n.startswith("test_") and n not in MIRRORED])
 LIMIT_S = 120
 
 
@@ -54,7 +54,7 @@ def test_reference_case_on_port(name, params, request, port_session):
 
 
 def test_cases_cover_the_reference_module():
-    assert len(REFERENCE_CASES) + len(MIRRORED) + len(LEFT_FOR_ITEM_7) == 7
+    assert len(REFERENCE_CASES) + len(MIRRORED) == 7
 
 
 def _toy_dataset(rows=256):

@@ -112,7 +112,23 @@ def test_port_files_exist():
                 "raydp_tpu_torch/spmd/worker_main.py",
                 "raydp_tpu_torch/dataframe/window.py",
                 "raydp_tpu_torch/parallel/mesh.py",
-                "raydp_tpu_torch/train/spmd_fit.py"):
+                "raydp_tpu_torch/train/spmd_fit.py",
+                "raydp_tpu_torch/control/__init__.py",
+                "raydp_tpu_torch/control/arbiter.py",
+                "raydp_tpu_torch/control/autoscaler.py",
+                "raydp_tpu_torch/loadgen/__init__.py",
+                "raydp_tpu_torch/loadgen/__main__.py",
+                "raydp_tpu_torch/loadgen/schedules.py",
+                "raydp_tpu_torch/loadgen/trace.py",
+                "raydp_tpu_torch/loadgen/runner.py",
+                "raydp_tpu_torch/loadgen/knee.py",
+                "raydp_tpu_torch/sim/__init__.py",
+                "raydp_tpu_torch/sim/__main__.py",
+                "raydp_tpu_torch/sim/vclock.py",
+                "raydp_tpu_torch/sim/cluster.py",
+                "raydp_tpu_torch/sim/monitors.py",
+                "raydp_tpu_torch/sim/pathology.py",
+                "raydp_tpu_torch/sim/scenario.py"):
         assert os.path.join(ROOT, rel) in _port_files(), rel
         assert os.path.exists(os.path.join(ROOT, rel)), rel
     assert os.path.exists(os.path.join(ROOT, "raydp_tpu_torch", "native",
@@ -171,12 +187,17 @@ def test_telemetry_module_imports_no_torch_at_module_level(name):
 
 def test_worker_and_rank_mains_load_without_torch():
     """The ETL worker's and the gang rank's entry modules, with every
-    telemetry module and the profiling gauges they sample, leave torch
-    out of ``sys.modules``."""
+    telemetry module, the profiling gauges they sample and the control
+    plane the executor's stages pass, leave torch out of
+    ``sys.modules``."""
     code = (
         "import sys\n"
         "import raydp_tpu_torch.cluster.worker_main\n"
         "import raydp_tpu_torch.spmd.worker_main\n"
+        "import raydp_tpu_torch.control\n"
+        "from raydp_tpu_torch.dataframe import executor\n"
+        "with executor._stage_span('probe', 1, 'local'):\n"
+        "    pass\n"
         + "".join(f"import raydp_tpu_torch.telemetry.{m}\n"
                   for m in TELEMETRY_MODULES)
         + "from raydp_tpu_torch.utils.profiling import "

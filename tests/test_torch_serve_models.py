@@ -67,9 +67,10 @@ def flash_classifier(device, n_layers=2, seed=0):
 
 
 def padded_ids(payloads, bucket):
-    """Each request's ids padded with 0 to ``bucket``, as one tensor."""
+    """Each request's ids padded with 0 to ``bucket``, as one int64
+    tensor (the load generator's payloads are floats, ``[1.0] * n``)."""
     return torch.tensor([list(p)[:bucket] + [0] * (bucket - len(p))
-                         for p in payloads])
+                         for p in payloads], dtype=torch.int64)
 
 
 def classify_batch(payloads, bucket, *, device="cuda", n_layers=2, seed=0):

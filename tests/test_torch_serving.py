@@ -2,9 +2,11 @@
 batching, HTTP degradation, the fault-plan clauses and a group's
 construction, all in process.
 
-Mirrors tests/test_serving.py on the port's copies, save the busy-cluster
-429 (the arbiter), which waits for the port's control plane; the 504's
-``serve/timeout`` event and the ``traceparent`` echo of ``/predict`` are
+Mirrors tests/test_serving.py on the port's copies; its busy-cluster 429
+(``test_frontend_cluster_busy_is_429_with_retry_after``) runs against the
+port through ``tests/torch_port_cases.py``, and a group that the arbiter
+cannot admit raises ``ClusterBusyError`` from ``start()`` holding
+nothing. The 504's ``serve/timeout`` event and the ``traceparent`` echo of ``/predict`` are
 the port's too (``test_predict_504_carries_request_id_and_event``,
 ``test_predict_echoes_incoming_traceparent``). The tests that run replica processes (batching,
 ``serve_kill``, ``latency``, the SIGTERM drain) are in
@@ -20,6 +22,8 @@ import pytest
 import torch
 
 from raydp_tpu.serve import ReplicaGroup as JaxReplicaGroup
+from raydp_tpu_torch import control
+from raydp_tpu_torch.control import ClusterBusyError
 from raydp_tpu_torch.fault.plan import FaultPlanError, parse_plan
 from raydp_tpu_torch.serve import (
     QueueFullError,
@@ -31,7 +35,13 @@ from raydp_tpu_torch.serve import (
     ServeRequest,
 )
 from raydp_tpu_torch.utils.profiling import metrics
+from raydp_tpu_torch.telemetry import accounting as acct
 from test_torch_serve_models import sum_model
+from torch_port_cases import load_port_module, run_case
+
+BUSY_CASE = "test_frontend_cluster_busy_is_429_with_retry_after"
+PORT_REFERENCE = load_port_module("test_serving.py",
+                                  only=(BUSY_CASE, "_ShedGroup"))
 
 
 @pytest.fixture(autouse=True)
@@ -196,6 +206,35 @@ def test_frontend_queue_full_is_429_with_retry_after():
     assert status == 429
     assert payload["queue_depth"] == 7
     assert headers["Retry-After"] == "3"  # ceil(2.3)
+
+
+def test_frontend_cluster_busy_is_429_with_retry_after(request):
+    """The reference's case, on the port's frontend and arbiter error."""
+    run_case(PORT_REFERENCE, BUSY_CASE, {}, request)
+
+
+def test_group_start_on_a_busy_cluster_raises_busy_holding_nothing():
+    """The arbiter cannot admit the group's replicas: ``start()`` raises
+    ``ClusterBusyError`` after the admission timeout, having started no
+    replica and left no job or lease behind."""
+    arb = control.configure(1, admit_timeout_s=0.2)
+    holder = arb.acquire(acct.mint_job("holder"), slots=1, preemptible=False)
+    group = ReplicaGroup(replicas=1, model_fn=sum_model, device="cpu",
+                         label="t-busy")
+    ambient = acct.process_job()  # an earlier test's, or None
+    try:
+        with pytest.raises(ClusterBusyError) as info:
+            group.start()
+        # The group's own place in the queue when it timed out.
+        assert info.value.queue_depth == 1
+        assert arb.report()["queue_depth"] == 0
+        assert group._slots == [] and group._server is None
+        assert group._sched_lease is None and acct.process_job() is ambient
+        assert arb.in_use() == 1
+        assert arb.report()["states"][holder.job.job_id] == "running"
+    finally:
+        holder.release()
+        control.reset_for_tests()
 
 
 def test_frontend_shed_without_eta_defaults_to_one_second():

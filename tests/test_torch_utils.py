@@ -4,10 +4,11 @@
   ``split_sizes``) runs against ``raydp_tpu_torch.utils``, loaded by
   ``tests/torch_port_cases.py`` with its imports pointed at the port.
 * Every name in the ``__all__`` of the reference's ``raydp_tpu``,
-  ``raydp_tpu.utils``, ``raydp_tpu.cluster`` and ``raydp_tpu.telemetry``
+  ``raydp_tpu.utils``, ``raydp_tpu.cluster``, ``raydp_tpu.telemetry``,
+  ``raydp_tpu.control``, ``raydp_tpu.loadgen`` and ``raydp_tpu.sim``
   resolves on the port's counterpart, but for the names of modules
   still to port (ROADMAP Queue A items 7-10), listed in ``UNPORTED``:
-  none of these four packages exports one today.
+  none of these packages exports one today.
 * The lazy exports keep ``import raydp_tpu_torch`` and its ``utils``
   and ``cluster`` packages free of torch.
 """
@@ -22,7 +23,8 @@ from torch_port_cases import cases, load_port_module, run_case
 PORT_REFERENCE = load_port_module("test_utils.py")
 REFERENCE_CASES = cases(PORT_REFERENCE, [n for n in vars(PORT_REFERENCE)
                                          if n.startswith("test_")])
-PACKAGES = ("", ".utils", ".cluster", ".telemetry")
+PACKAGES = ("", ".utils", ".cluster", ".telemetry", ".control", ".loadgen",
+            ".sim")
 # Names of a reference package's __all__ that belong to modules the port
 # has not taken yet, by package.
 UNPORTED = {pkg: () for pkg in PACKAGES}

@@ -26,7 +26,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Modules of the JAX package whose port the cases run against.
 PORTED = ("dataframe", "fault", "telemetry", "utils", "context", "cluster",
-          "store", "config", "spmd", "data")
+          "store", "config", "spmd", "data", "control", "loadgen", "sim",
+          "serve")
 # Test modules whose cases run whole programs in subprocesses, with the
 # package named inside string literals: every ``raydp_tpu`` name in them
 # points at the port, and their selected cases use ported modules only.
@@ -154,6 +155,21 @@ def cases(module, names):
                 suffix = "-".join(str(v) for v in params_all.values())
                 out.append((f"{name}[{suffix}]" if suffix else name, name,
                             params_all))
+    return out
+
+
+def case_params(module, case_list):
+    """``case_list`` (from :func:`cases`) as ``pytest.param``s of
+    ``(name, params)``, each carrying its case id and the reference
+    test's ``slow`` mark where it has one (a slow case stays slow)."""
+    import pytest
+
+    out = []
+    for case_id, name, params in case_list:
+        marks = [m for m in getattr(getattr(module, name), "pytestmark", [])
+                 if m.name == "slow"]
+        out.append(pytest.param(name, params, id=case_id,
+                                marks=[pytest.mark.slow] if marks else []))
     return out
 
 
