@@ -156,7 +156,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``PackedDLRM(criteo_dlrm())`` through ``fit_on_df`` (stream, phase
    5's batches); ETL rows/s, stage seconds and skew. (b) ``fit_spmd`` of
    10c's bf16 flash classifier over a gang of 2 ranks on the card, each
-   reading its plan's slices of 2,048 GLUE rows from the object store,
+   reading its plan's slices of 1,024 GLUE rows from the object store,
    batch 32 a rank, 2 epochs: the backend the rule picks, the ranks'
    losses equal and their final parameters identical, 12 launches of
    each kernel a step by each rank's counters, a falling loss, and the
@@ -165,9 +165,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    share (CUDA events), peak memory, ``start()`` seconds and the first
    step's seconds after the call.
 14. Fault tolerance of training on a fresh 4-worker session holding
-   1,024 of 10c's GLUE rows (store mode), 13b's classifier
+   512 of 10c's GLUE rows (store mode), 13b's classifier
    (:func:`ft_factory`): (a) a clean in-process ``Estimator.fit`` (batch
-   64, 2 epochs, 32 steps), then ``fit_spmd(world_size=1)`` of the same
+   32, 2 epochs, 32 steps), then ``fit_spmd(world_size=1)`` of the same
    under ``kill:rank=0,step=8`` with ``save_every_steps=8``: one
    restart, ``step_mid_8.pt``, 0 replayed steps, the last epoch's loss
    and the final parameters equal to the clean fit's (``torch.equal``);
@@ -184,7 +184,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    step into one emergency checkpoint, the call inside the grace. (c)
    that ``step_emergency_6.pt`` alone in a fresh directory, resumed by
    ``fit_spmd(world_size=1, elastic=True)`` over the same 2-shard
-   dataset: the skip rescaled from 6 to 12 batches, 20 steps of 32 rows,
+   dataset: the skip rescaled from 6 to 12 batches, 4 steps of 32 rows,
    a finite loss. Every fit runs 12 launches of each kernel a step by
    its process's counters; ``stop()`` leaves no segment.
 15. Telemetry, one run traced, billed and watched: ``RAYDP_TPU_TELEMETRY_DIR``
@@ -246,7 +246,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    wait.
 17. The control plane (run inside 14's session, then on a fresh one).
    (a) The arbiter at capacity 2: a priority-0 ``fit_spmd`` of 14b's
-   configuration on 2 ranks (:func:`marked_factory`: 16 steps a rank,
+   configuration on 2 ranks (:func:`marked_factory`: 8 steps a rank,
    an emergency checkpoint directory) is preempted, once its first step
    is done, by the arrival of a priority-5 ``ReplicaGroup`` of 1 replica
    of phase 2's flash classifier (``slots = replicas``): the gang drains
@@ -275,14 +275,42 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``spawn_fail:nth=1`` by backoff, and a 96-task ETL of 8-task rounds
    runs across the drain back to 1 worker; the seconds to grow, the
    drain latency, the tasks lost (0) and the flap episodes (0).
+18. The torch compat estimator (``TorchEstimator``) on the card, its
+   model 13b's bf16 flash classifier at bert_base width and depth
+   (dropout 0, fed segment ids 0 so that every parameter takes part in
+   the loss, as DDP needs), built by a creator on the CPU and moved to
+   the card, AdamW 1e-4, ``CrossEntropyLoss``, int64 ids and labels.
+   (a) ``python -m raydp_tpu_torch.cli.submit --name chip-18a
+   --num-workers 2 --conf chip.phase=18a`` runs a driver script this
+   script writes to a temporary file (:func:`compat_driver_main`): it
+   prints the handoff ``init()`` got (app name, worker count, live
+   workers, conf), each held by this process, then ``fit_on_df`` of
+   1,024 GLUE rows (4 partitions of a session of 2 workers) for one
+   shuffled epoch at batch 32 with a 64-row eval frame, ``evaluate``
+   and ``predict`` on those 64 rows, ``save`` and ``restore`` into a
+   fresh estimator; its counters show 12 launches of each kernel a step
+   and 12 forward launches an eval or predict forward; the per-step
+   losses fall (the first 8 steps' mean above the last 8's), the eval
+   numbers are finite, and the restored estimator's ``predict`` equals
+   the first's and its model's own forward. (b) In phase 14's session,
+   ``TorchEstimator(num_workers=2)`` on phase 14's 512 rows as a
+   fresh ref-backed dataset (256 a rank, batch 32, one epoch) with a
+   ref-backed eval set of 128 rows over 2 blocks: the store feed (the
+   driver's ``_rows_range`` replaced by one that fails), DDP over gloo
+   on one card, the eval reduced over the gang; each rank's own
+   counters (written by a forward hook of the creator's model) show 12
+   launches of each kernel a step and 12 forward launches an eval; the
+   ranks' step losses fall (the first 3 steps' mean above the last
+   3's).
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16 and 17) and read
-just after; phase 9's and 17b's replicas, 12a's second driver and
-12b's, 13b's, 14's, 15's, 16c's and 17a's ranks are new processes,
+10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16, 17 and 18) and
+read just after; phase 9's and 17b's replicas, 12a's and 18a's second
+drivers and 12b's, 13b's, 14's, 15's, 16c's, 17a's and 18b's ranks are
+new processes,
 whose counts start at 0 and are read by ``Ping`` or returned in their
 results (a rank that is killed or drains returns none). The last lines
 are a ``kernels`` JSON line, the card's name and power limit, and
@@ -3109,7 +3137,9 @@ def phase_second_drivers(torch, P, ref):
 # and fit_spmd of 10c's classifier over a gang of 2 ranks (13b).
 WINDOW_ROWS, WINDOW_DENSE, WINDOW_TABLES = 500_000, 13, 26
 WINDOW_VOCAB, WINDOW_PARTS = 100_000, 8
-GANG_FIT_ROWS, GANG_FIT_BATCH, GANG_FIT_EPOCHS = 2048, 32, 2
+# 13b ran 2,048 rows until phase 18 came: 1,024 keeps the script inside
+# its limit (16 steps a rank an epoch).
+GANG_FIT_ROWS, GANG_FIT_BATCH, GANG_FIT_EPOCHS = 1024, 32, 2
 GANG_FIT_LIMIT_S = 900.0
 
 
@@ -3523,9 +3553,11 @@ def phase_window_and_gang(torch, P):
 # in a fresh session's object store: a rank killed at a checkpoint step
 # (14a), a preemption drained by a gang of 2 (14b, and the driver's
 # notice to a running gang), an elastic resume onto one rank (14c).
-FT_ROWS, FT_SAVE_EVERY = 1024, 8
-FT_BATCH, FT_EPOCHS = 64, 2  # 14a: 10c's batch, 16 steps an epoch
-FT_GANG_BATCH, FT_GANG_EPOCHS = 32, 1  # 14b, 14c: 16 steps a rank at world 2
+# 1,024 rows at batch 64 (14a) until phase 18 came: 512 at 32 keeps 14a's
+# 32 steps and halves the gloo steps of 14b and 17a.
+FT_ROWS, FT_SAVE_EVERY = 512, 8
+FT_BATCH, FT_EPOCHS = 32, 2  # 14a: 16 steps an epoch
+FT_GANG_BATCH, FT_GANG_EPOCHS = 32, 1  # 14b, 14c: 8 steps a rank at world 2
 FT_KILL_STEP, FT_PREEMPT_STEP = 8, 6
 FT_KILL_PLAN = f"kill:rank=0,step={FT_KILL_STEP}"
 FT_PREEMPT_PLAN = f"preempt:step={FT_PREEMPT_STEP},grace=0"
@@ -3871,7 +3903,7 @@ def phase_ft_elastic(torch, P, ds2, emergency, clean_loss):
     """14c: 14b's ``step_emergency_6.pt`` alone in a fresh directory,
     resumed by ``fit_spmd(world_size=1, elastic=True)`` over the same
     2-shard dataset: the skip rescaled from 6 batches at world 2 to 12 at
-    world 1, 20 steps of 32 rows trained. Returns the rank's counts."""
+    world 1, 4 steps of 32 rows trained. Returns the rank's counts."""
     import shutil
 
     import numpy as np
@@ -3910,7 +3942,8 @@ def phase_ft_elastic(torch, P, ds2, emergency, clean_loss):
 
 def phase_fault_tolerance(torch, P):
     """14: a fresh 4-worker session holding 10c's GLUE rows; 14a, 14b
-    and 14c over them (store mode), then 17a-b in the same session
+    and 14c over them (store mode), 18b over them, then 17a-b in the
+    same session
     (its victim 14b's configuration, held against 14b's clean gang).
     Returns launch counts by tag and 17b's replica flash launches."""
     import numpy as np
@@ -3944,6 +3977,9 @@ def phase_fault_tolerance(torch, P):
             torch, P, ds2, emergency, clean["history"][-1]["train_loss"])
         log(f"[14] fault tolerance: {time.perf_counter() - t0:.1f} s "
             f"(host clock)")
+        t0 = time.perf_counter()
+        counts.update(phase_compat_gang(torch, P, frame))
+        log(f"[18b] {time.perf_counter() - t0:.1f} s (host clock)")
         t0 = time.perf_counter()
         cp_counts, replica_launches = phase_control_plane(
             torch, P, session, ds2, clean)
@@ -5209,6 +5245,360 @@ def phase_autoscale(P):
             "lost": lost, "flaps": flaps}
 
 
+# Phase 18: the torch compat estimator on the card. (a) A driver script
+# run through the submit CLI in a process of its own: a world-1 fit from
+# a frame of its own session, evaluate, predict, save and restore. (b) A
+# store-fed 2-rank gang of gloo DDP ranks in phase 14's session.
+COMPAT_ROWS, COMPAT_EVAL_ROWS, COMPAT_BATCH = 1024, 64, 32
+COMPAT_GANG_BATCH, COMPAT_GANG_EPOCHS, COMPAT_GANG_EVAL_ROWS = 32, 1, 128
+COMPAT_LR, COMPAT_LIMIT_S = 1e-4, 300.0
+COMPAT_CONF = {"chip.phase": "18a"}
+COMPAT_DRIVER = """import sys
+
+import chip_smoke
+
+sys.exit(chip_smoke.compat_driver_main(sys.argv[1]))
+"""
+
+
+def compat_classifier(config):
+    """18's model creator, run in the process that fits (the closure
+    carrier ships it by value): 13b's bf16 flash classifier at bert_base
+    width and depth, dropout 0 (the estimator hands a model no dropout
+    generator), from generator seed 9, built on the CPU; it is fed
+    segment ids 0, so every parameter takes part in the loss (DDP over
+    gloo refuses a parameter without a gradient). A forward hook writes,
+    after each forward in eval mode, this process's flash launch counts
+    and the training losses the criterion kept to
+    ``<config["probe_dir"]>/rank-<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import raydp_tpu_torch as P
+
+    probe = config.setdefault("_probe", {"losses": []})
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      max_len=cs.GLUE_SEQ, dropout_rate=0.0)
+
+    class Segmented(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.clf = P.SequenceClassifier(
+                cfg, device="cpu", generator=torch.Generator().manual_seed(9))
+
+        def forward(self, ids):
+            return self.clf(ids, torch.zeros_like(ids))
+
+    def write_probe(module, args, out):
+        if module.training:
+            return
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        losses = probe["losses"]
+        record = {"rank": rank, "counts": cs._counts(),
+                  "losses": (torch.stack(losses).float().tolist()
+                             if losses else []),
+                  "first_step_at": probe.get("first_step_at")}
+        path = os.path.join(config["probe_dir"], f"rank-{rank}.json")
+        with open(path, "w") as f:
+            json.dump(record, f)
+
+    model = Segmented()
+    model.register_forward_hook(write_probe)
+    return model
+
+
+def compat_loss(config):
+    """18's criterion creator: ``CrossEntropyLoss`` that keeps each
+    training step's loss (on the device, no sync) for the probe, and the
+    wall-clock time its first step's forward finished (one sync)."""
+    import torch
+
+    probe = config.setdefault("_probe", {"losses": []})
+    losses = probe["losses"]
+
+    class KeptCE(torch.nn.CrossEntropyLoss):
+        def forward(self, out, target):
+            loss = super().forward(out, target)
+            if torch.is_grad_enabled():  # a train step, not an eval
+                if not losses:  # the wall-clock time the first step ran
+                    torch.cuda.synchronize()
+                    probe["first_step_at"] = time.time()
+                losses.append(loss.detach())
+            return loss
+
+    return KeptCE()
+
+
+def compat_estimator(P, np, num_workers, batch, epochs, probe_dir):
+    import torch
+
+    return P.TorchEstimator(
+        num_workers=num_workers, model=compat_classifier,
+        optimizer=lambda m, c: torch.optim.AdamW(m.parameters(),
+                                                 lr=COMPAT_LR),
+        loss=compat_loss, feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+        feature_types=np.int64, label_column="label", label_type=np.int64,
+        batch_size=batch, num_epochs=epochs, seed=0, probe_dir=probe_dir,
+        device="cuda")
+
+
+def compat_driver_main(probe_dir: str) -> int:
+    """18a's driver, run by ``python -m raydp_tpu_torch.cli.submit`` in
+    a process of its own: prints ``HANDOFF {json}`` (what ``init()``
+    got from the CLI) and ``RESULT {json}`` (the fit's history, each
+    stage's launch counts and host seconds, the kept losses, the eval
+    numbers and the predict checks)."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import raydp_tpu_torch as P
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.data import MLDataset
+
+    t0 = time.perf_counter()
+    session = P.init()
+    init_s = time.perf_counter() - t0
+    print("HANDOFF " + json.dumps({
+        "app": session.config.app_name,
+        "workers": session.config.num_workers,
+        "alive": len(session.cluster.alive_workers()),
+        "conf": session.config.extra}), flush=True)
+    try:
+        table = pa.table(synthetic_glue(np, COMPAT_ROWS + COMPAT_EVAL_ROWS,
+                                        GLUE_SEQ, 30522))
+        train = rdf.from_arrow(table.slice(0, COMPAT_ROWS),
+                               num_partitions=ETL_PARTS)
+        evl = rdf.from_arrow(table.slice(COMPAT_ROWS), num_partitions=1)
+        ids = np.stack([table.column(f"t{i}").to_numpy()[COMPAT_ROWS:]
+                        for i in range(GLUE_SEQ)], axis=1)
+        est = compat_estimator(P, np, 1, COMPAT_BATCH, 1, probe_dir)
+        counts, secs = {}, {}
+
+        def stage(name, fn):
+            _reset_counts()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            counts[name] = _counts()
+            return out
+
+        called = time.time()
+        history = stage("fit", lambda: est.fit_on_df(train, evl))
+        first_step_s = est.config["_probe"]["first_step_at"] - called
+        metrics = stage("evaluate", lambda: est.evaluate(
+            MLDataset.from_df(evl, num_shards=1)))
+        preds = stage("predict", lambda: est.predict(ids))
+        path = est.save(os.path.join(probe_dir, "compat.pt"))
+        restored = compat_estimator(P, np, 1, COMPAT_BATCH, 1, probe_dir)
+        restored.restore(path)
+
+        def restored_predict():
+            got = restored.predict(ids)
+            model = restored.get_model().eval()
+            with torch.no_grad():
+                own = model(torch.from_numpy(ids).cuda()).float().cpu()
+            return got, own.numpy()
+
+        got, own = stage("restored", restored_predict)
+        losses = torch.stack(est.config["_probe"]["losses"]).float().tolist()
+        print("RESULT " + json.dumps({
+            "init_s": init_s, "first_step_s": first_step_s,
+            "history": history, "secs": secs,
+            "counts": counts, "losses": losses, "evaluate": metrics,
+            "predict_shape": list(preds.shape),
+            "predict_finite": bool(np.isfinite(preds).all()),
+            "restored_equal": bool(np.array_equal(got, preds)),
+            "own_forward_equal": bool(np.array_equal(got, own)),
+            "restored_history": restored.history == history}), flush=True)
+    finally:
+        P.stop()
+    return 0
+
+
+def _prefixed(text, prefix):
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    check(len(lines) == 1, f"18a: the driver printed {len(lines)} "
+          f"{prefix.strip()} lines")
+    return json.loads(lines[0][len(prefix):])
+
+
+def phase_compat_cli(torch, P):
+    """18a: the submit CLI runs :func:`compat_driver_main` in a process
+    of its own; returns its launch counts over every stage."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-18a-")
+    driver = os.path.join(tmp, "driver.py")
+    with open(driver, "w") as f:
+        f.write(COMPAT_DRIVER)
+    args = ["--name", "chip-18a", "--num-workers", "2"]
+    for k, v in COMPAT_CONF.items():
+        args += ["--conf", f"{k}={v}"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAYDP_TPU_CONF_")
+           and k not in ("RAYDP_TPU_APP_NAME", "RAYDP_TPU_NUM_WORKERS")}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "raydp_tpu_torch.cli.submit", *args,
+             driver, tmp], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=COMPAT_LIMIT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"18a: the CLI exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        handoff = _prefixed(proc.stdout, "HANDOFF ")
+        out = _prefixed(proc.stdout, "RESULT ")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_handoff = {"app": "chip-18a", "workers": 2, "alive": 2,
+                    "conf": COMPAT_CONF}
+    check(handoff == want_handoff,
+          f"18a: init() got {handoff}, the CLI handed {want_handoff}")
+    steps = COMPAT_ROWS // COMPAT_BATCH
+    fwd = {"flash_fwd": 12}
+    want = {"fit": {k: 12 * steps + (12 if k == "flash_fwd" else 0)
+                    for k in KERNEL_SYMBOLS},
+            "evaluate": {k: fwd.get(k, 0) for k in KERNEL_SYMBOLS},
+            "predict": {k: fwd.get(k, 0) for k in KERNEL_SYMBOLS},
+            "restored": {k: 2 * fwd.get(k, 0) for k in KERNEL_SYMBOLS}}
+    check(out["counts"] == want,
+          f"18a: launches by stage {out['counts']}, want {want}")
+    losses = out["losses"]
+    head, tail = np.mean(losses[:8]), np.mean(losses[-8:])
+    check(len(losses) == steps and all(np.isfinite(losses)) and tail < head,
+          f"18a: the step losses did not fall ({len(losses)} steps, first "
+          f"8 mean {head:.4f}, last 8 {tail:.4f})")
+    hist = out["history"]
+    evals = [hist[-1]["eval_loss"], hist[-1]["eval_acc"],
+             out["evaluate"]["eval_loss"], out["evaluate"]["eval_acc"]]
+    check(len(hist) == 1 and all(np.isfinite(evals)),
+          f"18a: history {hist}, evaluate {out['evaluate']}")
+    check(out["predict_shape"] == [COMPAT_EVAL_ROWS, 2]
+          and out["predict_finite"],
+          f"18a: predictions {out['predict_shape']}, finite "
+          f"{out['predict_finite']}")
+    check(out["restored_equal"] and out["own_forward_equal"]
+          and out["restored_history"],
+          f"18a: restored predict equal {out['restored_equal']}, equal to "
+          f"its model's forward {out['own_forward_equal']}, history "
+          f"restored {out['restored_history']}")
+    secs = out["secs"]
+    log(f"[18a] submit CLI -> driver process: {wall:.1f} s of wall (host "
+        f"clock, the interpreter's start and imports included), init() "
+        f"{out['init_s']:.2f} s with handoff {handoff}; fit_on_df "
+        f"{secs['fit']:.2f} s for {steps} steps and the eval, "
+        f"{out['first_step_s']:.2f} s of it from the call to the first "
+        f"step's forward (the frame's shards read, the CPU build of "
+        f"bert_base, the upload), train_loss "
+        f"{hist[0]['train_loss']:.4f} (steps' mean {head:.4f} over the first "
+        f"8 -> {tail:.4f} over the last 8), eval_loss "
+        f"{hist[0]['eval_loss']:.4f} eval_acc {hist[0]['eval_acc']:.4f}; "
+        f"evaluate {secs['evaluate']:.2f} s {out['evaluate']}, predict "
+        f"{secs['predict']:.2f} s, restored predict + forward "
+        f"{secs['restored']:.2f} s (each builds the model on the CPU); "
+        f"launches by stage {out['counts']}")
+    total = {k: sum(c[k] for c in out["counts"].values())
+             for k in KERNEL_SYMBOLS}
+    return total
+
+
+def phase_compat_gang(torch, P, frame):
+    """18b: ``TorchEstimator(num_workers=2)`` in the live session of
+    phase 14 on a dataset of its GLUE ``frame`` (a fresh one: phase 14's
+    datasets hold the blocks their driver-side reads landed); returns
+    each rank's launch counts by tag."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.store.object_store import ObjectRef
+    from raydp_tpu_torch.train import torch_estimator as te
+
+    ds2 = MLDataset.from_df(frame, num_shards=GANG_WORLD)
+    table = pa.table(synthetic_glue(np, FT_ROWS + COMPAT_GANG_EVAL_ROWS,
+                                    GLUE_SEQ, 30522)).slice(FT_ROWS)
+    evl = MLDataset.from_df(rdf.from_arrow(table, num_partitions=GANG_WORLD),
+                            num_shards=GANG_WORLD)
+    check(all(isinstance(b, ObjectRef) for b in ds2.blocks + evl.blocks),
+          "18b: the rows are not in the object store")
+    probe = tempfile.mkdtemp(prefix="chip-smoke-18b-")
+    est = compat_estimator(P, np, GANG_WORLD, COMPAT_GANG_BATCH,
+                           COMPAT_GANG_EPOCHS, probe)
+    spec = est._store_feed_spec(ds2, evl, GANG_WORLD)
+    check(spec is not None and all(p is not None
+                                   for p in spec["eval_plans"]),
+          "18b: no store feed with a gang-reduced eval")
+    rows_range, read = te._rows_range, []
+
+    def refused(*args, **kwargs):
+        read.append(args[2:4])
+        raise AssertionError("18b: the driver materialized rank rows")
+
+    te._rows_range = refused
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        called = time.time()
+        t0 = time.perf_counter()
+        hist = est.fit(ds2, evl)
+        fit_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(GANG_WORLD):
+            with open(os.path.join(probe, f"rank-{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        te._rows_range = rows_range
+        shutil.rmtree(probe, ignore_errors=True)
+    check(not read, f"18b: _rows_range was called for {read}")
+    steps = COMPAT_GANG_EPOCHS * ds2.rows_per_shard // COMPAT_GANG_BATCH
+    want = {k: 12 * steps + (12 * COMPAT_GANG_EPOCHS
+                             if k == "flash_fwd" else 0)
+            for k in KERNEL_SYMBOLS}
+    for o in ranks:
+        check(o["counts"] == want and len(o["losses"]) == steps,
+              f"18b: rank {o['rank']} counted {o['counts']} over "
+              f"{len(o['losses'])} steps, want {want} over {steps}")
+    losses = [h["train_loss"] for h in hist]
+    evals = [h[k] for h in hist for k in ("eval_loss", "eval_acc")]
+    check(len(hist) == COMPAT_GANG_EPOCHS and all(np.isfinite(losses + evals)),
+          f"18b: history {hist}")
+    head = np.mean([o["losses"][:3] for o in ranks])
+    tail = np.mean([o["losses"][-3:] for o in ranks])
+    check(tail < head, f"18b: the ranks' step losses did not fall: first 3 "
+          f"steps' mean {head:.4f}, last 3 {tail:.4f}")
+    eval_pairs = [(h["eval_loss"], h["eval_acc"]) for h in hist]
+    ends = [(o["losses"][0], o["losses"][-1]) for o in ranks]
+    log(f"[18b] TorchEstimator(num_workers={GANG_WORLD}) store-fed in "
+        f"phase 14's session: fit {fit_s:.1f} s (host clock: the gang's "
+        f"start, the ranks' imports, CPU model builds and DDP setup "
+        f"included; the call to each rank's first step's forward "
+        f"{[round(o['first_step_at'] - called, 2) for o in ranks]} s) for "
+        f"{steps} steps a rank at batch {COMPAT_GANG_BATCH} "
+        f"and {COMPAT_GANG_EPOCHS} gang-reduced eval(s) of "
+        f"{COMPAT_GANG_EVAL_ROWS} rows; train_loss by epoch "
+        f"{[round(x, 4) for x in losses]} (the ranks' step losses' mean "
+        f"{head:.4f} over the first 3 -> {tail:.4f} over the last 3), eval "
+        f"{[(round(e, 4), round(a, 4)) for e, a in eval_pairs]}"
+        f"; rank step losses first/last "
+        f"{[(round(a, 4), round(b, 4)) for a, b in ends]}"
+        f"; launches by rank {[o['counts'] for o in ranks]}; "
+        f"_rows_range calls {len(read)}")
+    return {f"18b rank {o['rank']}": o["counts"] for o in ranks}
+
+
 def main() -> int:
     import torch
 
@@ -5232,38 +5622,57 @@ def main() -> int:
     fwd_entry, wgmma = phase_kernel(torch, P)
     entries = [fwd_entry] + phase_backward_kernels(torch, P)
     f32 = time_f32_kernels(torch, wgmma)
+    log(f"[time] phase 1 done at {time.perf_counter() - t0:.1f} s")
     for e in entries:
         if e["name"] in f32:
             e["f32"] = f32[e["name"]]
     glue_launches = phase_glue(torch, P)
+    log(f"[time] phase 2 done at {time.perf_counter() - t0:.1f} s")
     decode_launches = phase_decode(torch, P)
+    log(f"[time] phase 3 done at {time.perf_counter() - t0:.1f} s")
     phase_grad_check(torch, P)
     fit_counts, scan_losses = phase_finetune(torch, P)
+    log(f"[time] phase 4a-4b done at {time.perf_counter() - t0:.1f} s")
     plane_counts = phase_device_plane(torch, P)
+    log(f"[time] phase 16a-16b done at {time.perf_counter() - t0:.1f} s")
     lm_counts = phase_causal_lm(torch, P)
     remat_counts = phase_remat(torch, P, scan_losses)
+    log(f"[time] phase 4c-4d done at {time.perf_counter() - t0:.1f} s")
     phase_dlrm(torch, P)
     moe_counts = phase_moe(torch, P)
+    log(f"[time] phase 5-6 done at {time.perf_counter() - t0:.1f} s")
     import numpy as np
 
     train, test = _split(np, taxi_columns(np, GBT_ROWS))
     phase_gbt(torch, P, train, test)
     phase_tf(torch, P, train, test)
+    log(f"[time] phase 7-8 done at {time.perf_counter() - t0:.1f} s")
     _reset_counts()
     serve = phase_serve_batch(torch, P)
     serve_bf16_driver = _counts()["flash_fwd"]
     _reset_counts()
     decode_replica_launches = phase_serve_decode(torch, P)
+    log(f"[time] phase 9 done at {time.perf_counter() - t0:.1f} s")
     serve_f32_driver = _counts()["flash_fwd"]
     etl_counts, etl_ref = phase_etl(torch, P)
+    log(f"[time] phase 10 done at {time.perf_counter() - t0:.1f} s")
     session_counts, session_ref = phase_session(torch, P, etl_ref)
+    log(f"[time] phase 11 done at {time.perf_counter() - t0:.1f} s")
     client, gang = phase_second_drivers(torch, P, session_ref)
+    log(f"[time] phase 12 done at {time.perf_counter() - t0:.1f} s")
     gang_fit = phase_window_and_gang(torch, P)
+    log(f"[time] phase 13 done at {time.perf_counter() - t0:.1f} s")
     t17 = time.perf_counter()
     ft_counts, cp_replica_launches = phase_fault_tolerance(torch, P)
     phase_autoscale(P)
+    log(f"[time] phases 14, 18b and 17 done at "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"[17] 17c done; phases 14 and 17 {time.perf_counter() - t17:.1f} s")
     telemetry_counts = phase_telemetry(torch, P)
+    log(f"[time] phase 15 done at {time.perf_counter() - t0:.1f} s")
+    t18 = time.perf_counter()
+    cli_counts = phase_compat_cli(torch, P)
+    log(f"[18a] {time.perf_counter() - t18:.1f} s (host clock)")
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver
                       + cp_replica_launches)
@@ -5280,6 +5689,7 @@ def main() -> int:
     fits.update(ft_counts)
     for r, counts in enumerate(telemetry_counts):
         fits[f"15 fit_spmd rank {r}"] = counts
+    fits["18a CLI driver"] = cli_counts
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

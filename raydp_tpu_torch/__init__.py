@@ -37,7 +37,12 @@ blocks. Slice 10 completes the engine with window functions
 ``profile``, ``stage_stats``; ``telemetry/progress.py``), and trains
 across the gang: ``train.fit_spmd`` runs an ``Estimator`` in each rank
 over its own shard, gradients all-reduced (``parallel.MeshSpec``, data
-parallel).
+parallel). Slice 15 is the user surface around them: the submit CLI
+(``cli/submit.py``) and ``init``'s ``RAYDP_TPU_*`` handoff, the torch
+compat estimator (``train.TorchEstimator``: a user's ``nn.Module`` on
+the card, a gloo DDP gang over the object store), the host-side torch
+dataset (``MLDataset.to_torch_dataset``), and the typed ``DataConfig``
+and ``TrainConfig`` (``config/``).
 
 The package imports its parts lazily (PEP 562): ``import
 raydp_tpu_torch`` and the DataFrame engine load no torch, so an ETL
@@ -111,6 +116,7 @@ _EXPORTS = {
     "Estimator": "raydp_tpu_torch.train",
     "GBTEstimator": "raydp_tpu_torch.train",
     "TFEstimator": "raydp_tpu_torch.train",
+    "TorchEstimator": "raydp_tpu_torch.train",
     "TrainingCallback": "raydp_tpu_torch.train",
     "fit_spmd": "raydp_tpu_torch.train",
     "MeshSpec": "raydp_tpu_torch.parallel",

@@ -410,7 +410,7 @@ class RemoteCluster:
             try:
                 payloads[info.worker_id] = self._worker_client(info).call(
                     "ProfileRequest", {"seconds": seconds},
-                    timeout=seconds + 30.0)
+                    timeout=seconds + device_profiler.WORKER_CAPTURE_SLACK_S)
             except Exception as exc:
                 errors[info.worker_id] = str(exc)
 
@@ -419,7 +419,8 @@ class RemoteCluster:
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=seconds + 60.0)
+            t.join(timeout=seconds
+                   + device_profiler.WORKER_CAPTURE_SLACK_S + 30.0)
         if not payloads:
             raise ClientError(
                 f"profile capture failed on every worker: {errors}")

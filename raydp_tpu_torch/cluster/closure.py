@@ -35,7 +35,15 @@ runs on need not have cloudpickle, so :func:`dumps` and
   defined inside a function, or in a module whose functions go by value
   (``__main__``, a script, a test module), raises a
   :class:`pickle.PicklingError` that names it: shipping it by reference
-  would make a worker import that module.
+  would make a worker import that module. ``dumps(obj, classes=True)``
+  ships such a class by value instead, as cloudpickle does: its name,
+  bases and namespace (methods by value, ``staticmethod``,
+  ``classmethod`` and ``property`` members rebuilt from their
+  functions), the class made first and its namespace set after, so
+  methods that name it (``super()``'s cell, a global) load. The torch
+  compat estimator uses it for a user's ``nn.Module`` classes
+  (``train/torch_estimator.py``); a metaclass other than the bases'
+  and ``__slots__`` are not carried.
 
 ``marshal``'s format is the interpreter's own: a blob loads only in the
 same Python version. The cluster's workers are started with
@@ -140,6 +148,22 @@ def _make_function(code: bytes, base_globals, name: str, closure):
                               closure)
 
 
+# Class attributes that the class statement makes itself.
+_CLASS_SKIP = frozenset(("__dict__", "__weakref__", "__module__",
+                         "__qualname__", "__doc__", "_abc_impl"))
+
+
+def _make_class(name: str, bases: tuple, base_ns: dict) -> type:
+    return types.new_class(name, bases, None,
+                           lambda ns: ns.update(base_ns))
+
+
+def _fill_class(cls: type, state: dict) -> type:
+    for key, value in state.items():
+        setattr(cls, key, value)
+    return cls
+
+
 def _fill_function(fn: types.FunctionType, state: dict):
     for key, value in state["globals"].items():
         fn.__globals__.setdefault(key, value)
@@ -155,8 +179,9 @@ def _fill_function(fn: types.FunctionType, state: dict):
 # -- the pickling side --------------------------------------------------
 
 class _Pickler(pickle.Pickler):
-    def __init__(self, file):
+    def __init__(self, file, classes: bool = False):
         super().__init__(file, protocol=pickle.HIGHEST_PROTOCOL)
+        self._classes = classes
         # id(original globals dict) -> the stub shipped in its place, so
         # every function of one script shares one globals dict on load.
         self._globals: Dict[int, "_GlobalsStub"] = {}
@@ -176,11 +201,18 @@ class _Pickler(pickle.Pickler):
             # Wrapped: pickle skips a state of None, and a cell may
             # hold None.
             return _make_cell, (), (contents,), None, None, _fill_cell
+        if self._classes:
+            if isinstance(obj, (staticmethod, classmethod)):
+                return type(obj), (obj.__func__,)
+            if isinstance(obj, property):
+                return property, (obj.fget, obj.fset, obj.fdel, obj.__doc__)
         if isinstance(obj, type):
             qualname = getattr(obj, "__qualname__", obj.__name__)
             module = getattr(obj, "__module__", None)
             if "<locals>" in qualname or (module is not None
                                           and module_by_value(module)):
+                if self._classes:
+                    return self._class_reduce(obj)
                 raise pickle.PicklingError(
                     f"class {module}.{qualname} cannot be shipped: it is "
                     "defined inside a function or in a module whose "
@@ -188,6 +220,13 @@ class _Pickler(pickle.Pickler):
                     "module), which a worker does not import; define it "
                     "in the port or an installed package")
         return NotImplemented
+
+    def _class_reduce(self, cls: type):
+        base_ns = {"__module__": cls.__module__,
+                   "__qualname__": cls.__qualname__, "__doc__": cls.__doc__}
+        state = {k: v for k, v in vars(cls).items() if k not in _CLASS_SKIP}
+        return (_make_class, (cls.__name__, cls.__bases__, base_ns), state,
+                None, None, _fill_class)
 
     def _function_reduce(self, fn: types.FunctionType):
         module = fn.__module__
@@ -229,11 +268,12 @@ class _GlobalsStub:
         return _make_globals, (self.module_name,)
 
 
-def dumps(obj) -> bytes:
+def dumps(obj, classes: bool = False) -> bytes:
     """``obj`` as bytes, its functions by value or by reference as the
-    module docstring says."""
+    module docstring says; with ``classes``, also the classes that would
+    otherwise raise."""
     buf = io.BytesIO()
-    _Pickler(buf).dump(obj)
+    _Pickler(buf, classes=classes).dump(obj)
     return buf.getvalue()
 
 

@@ -803,7 +803,7 @@ class Cluster:
             try:
                 payloads[worker_id] = client.call(
                     "ProfileRequest", {"seconds": seconds},
-                    timeout=seconds + 30.0)
+                    timeout=seconds + device_profiler.WORKER_CAPTURE_SLACK_S)
             except Exception as exc:
                 errors[worker_id] = str(exc)
 
@@ -817,7 +817,8 @@ class Cluster:
         driver_payload = device_profiler.capture_trace_archive(seconds)
         driver_payload["worker_id"] = "driver"
         for t in threads:
-            t.join(timeout=seconds + 60.0)
+            t.join(timeout=seconds
+                   + device_profiler.WORKER_CAPTURE_SLACK_S + 30.0)
         ordered = [driver_payload] + [payloads[w] for w in sorted(payloads)]
         for payload in ordered:  # store-shipped archives -> bytes
             ref = payload.pop("ref", None)

@@ -1,3 +1,8 @@
-from raydp_tpu_torch.config.config import ClusterConfig, validate_config
+from raydp_tpu_torch.config.config import (
+    ClusterConfig,
+    DataConfig,
+    TrainConfig,
+    validate_config,
+)
 
-__all__ = ["ClusterConfig", "validate_config"]
+__all__ = ["ClusterConfig", "DataConfig", "TrainConfig", "validate_config"]

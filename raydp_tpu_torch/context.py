@@ -9,17 +9,40 @@ the object store after the ETL workers are torn down (ownership transfer —
 the holder outlives the cluster).
 
 ``init`` starts processes and the object store and does no device work,
-so it takes no ``device=``; the fits keep theirs. ``connect`` attaches
-this process to another process's session as a second driver (client
-mode); its ``stop()`` only disconnects.
+so it takes no ``device=``; the fits keep theirs. Its arguments default
+to ``None`` and resolve as explicit argument > ``RAYDP_TPU_*``
+environment (the submit CLI's handoff, ``cli/submit.py``) > built-in
+default; ``RAYDP_TPU_CONF_<key>`` entries merge under ``configs=``.
+``connect`` attaches this process to another process's session as a
+second driver (client mode); its ``stop()`` only disconnects.
 """
 from __future__ import annotations
 
 import atexit
+import os
 import threading
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 from raydp_tpu_torch.config import ClusterConfig
+
+
+def _env_default(name: str, explicit, default):
+    """Explicit argument > RAYDP_TPU_* environment (the submit CLI's
+    handoff, cli/submit.py; reference: bin/raydp-submit conf plumbing) >
+    built-in default."""
+    if explicit is not None:
+        return explicit
+    val = os.environ.get(name)
+    return val if val is not None else default
+
+
+def _env_confs() -> Dict[str, str]:
+    prefix = "RAYDP_TPU_CONF_"
+    return {
+        k[len(prefix):]: v
+        for k, v in os.environ.items()
+        if k.startswith(prefix)
+    }
 
 
 _lock = threading.RLock()
@@ -62,19 +85,21 @@ class Session:
 
 
 def init(
-    app_name: str = "raydp-tpu",
-    num_workers: int = 2,
-    cores_per_worker: int = 1,
-    memory_per_worker: "int | str" = "1GB",
+    app_name: Optional[str] = None,
+    num_workers: Optional[int] = None,
+    cores_per_worker: Optional[int] = None,
+    memory_per_worker: "int | str | None" = None,
     placement_strategy: Optional[str] = None,
     placement_group: Optional[Any] = None,
     placement_bundle_indexes: Optional[list] = None,
+    enable_native: bool = True,
     max_worker_restarts: int = 3,
     num_virtual_nodes: int = 0,
     bind_host: str = "127.0.0.1",
     advertise_host: Optional[str] = None,
     master_port: int = 0,
     launcher: Optional[Any] = None,
+    configs: Optional[Dict[str, Any]] = None,
 ) -> Session:
     """Start the distributed ETL session (singleton): the AppMaster, the
     object store and ``num_workers`` worker processes.
@@ -91,20 +116,34 @@ def init(
             )
         if _session is not None and not _session._holder_released:
             _lingering.append(_session)
+        merged_confs = _env_confs()
+        merged_confs.update(configs or {})
         cfg = ClusterConfig.from_args(
-            app_name=app_name,
-            num_workers=num_workers,
-            cores_per_worker=cores_per_worker,
-            memory_per_worker=memory_per_worker,
-            placement_strategy=placement_strategy,
+            app_name=_env_default("RAYDP_TPU_APP_NAME", app_name, "raydp-tpu"),
+            num_workers=int(
+                _env_default("RAYDP_TPU_NUM_WORKERS", num_workers, 2)
+            ),
+            cores_per_worker=int(
+                _env_default(
+                    "RAYDP_TPU_CORES_PER_WORKER", cores_per_worker, 1
+                )
+            ),
+            memory_per_worker=_env_default(
+                "RAYDP_TPU_MEMORY_PER_WORKER", memory_per_worker, "1GB"
+            ),
+            placement_strategy=_env_default(
+                "RAYDP_TPU_PLACEMENT_STRATEGY", placement_strategy, None
+            ),
             placement_group=placement_group,
             placement_bundle_indexes=placement_bundle_indexes,
+            enable_native=enable_native,
             max_worker_restarts=max_worker_restarts,
             num_virtual_nodes=num_virtual_nodes,
             bind_host=bind_host,
             advertise_host=advertise_host,
             master_port=master_port,
             launcher=launcher,
+            configs=merged_confs,
         )
         _session = Session(cfg)
         return _session

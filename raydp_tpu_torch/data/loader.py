@@ -20,6 +20,10 @@ Per epoch:
    device slices of the chunk. Pinned buffers form a ring: a buffer goes
    back to the producer with the CUDA event recorded after its copy, and
    the producer waits on that event before gathering into it again.
+   ``infeed_depth`` chunk copies (at least 1) are kept issued ahead of
+   the chunk whose batches the step is consuming, as the JAX estimator's
+   ``_sharded_prefetch`` window keeps its transfers in flight
+   (``raydp_tpu/train/estimator.py:495-520``).
 
 On the CPU the same gather runs into plain host buffers. Epoch 0 of rank
 0, unshuffled over an unshuffled dataset whose blocks the DataFrame
@@ -44,6 +48,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import deque
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -124,6 +129,7 @@ class ShardLoader:
         device: DeviceLike,
         drop_last: bool,
         transfer_coalesce: Optional[int] = None,
+        infeed_depth: int = 2,
     ):
         self._dataset = dataset
         self._rank = rank
@@ -138,6 +144,7 @@ class ShardLoader:
         self.device = resolve_device(device)
         self.drop_last = drop_last
         self.transfer_coalesce = transfer_coalesce
+        self.infeed_depth = max(1, infeed_depth)
         self._epoch = 0
         self._staged: Optional[Tuple[List[np.ndarray],
                                      Optional[np.ndarray]]] = None
@@ -354,29 +361,39 @@ class ShardLoader:
         source = packed()
         if self.prefetch > 0:
             source = _background(source, self.prefetch, stop)
+
+        def batches(buf, rows):
+            x, y = self._unpack(buf, rows)
+            for lo in range(0, rows, bs):
+                xb = x[lo:lo + bs]
+                yield (xb, y[lo:lo + bs]) if self.label_column else xb
+
+        # Chunks copied to the device whose batches are not served yet:
+        # up to infeed_depth beyond the one being served.
+        window: deque = deque()
         try:
             for handle, rows in source:
                 nbytes = self._layout(rows)[1]
                 if ring is None:
-                    buf = torch.from_numpy(handle)
-                else:
-                    # A host-to-device copy that never completes is a
-                    # silent hang: bracketed for the watchdog (host-side
-                    # bookkeeping; the copy stays asynchronous).
-                    with _overlap.tracker.ingest(), \
-                            _watchdog.inflight("ingest/device_put",
-                                               rank=self._rank):
-                        stream = torch.cuda.current_stream(self.device)
-                        buf = torch.empty(nbytes, dtype=torch.uint8,
-                                          device=self.device)
-                        buf.copy_(ring.bufs[handle][:nbytes],
-                                  non_blocking=True)
-                        ring.release(handle, stream)
-                    metrics.counter_add("ingest/device_puts")
-                x, y = self._unpack(buf, rows)
-                for lo in range(0, rows, bs):
-                    xb = x[lo:lo + bs]
-                    yield (xb, y[lo:lo + bs]) if self.label_column else xb
+                    yield from batches(torch.from_numpy(handle), rows)
+                    continue
+                # A host-to-device copy that never completes is a
+                # silent hang: bracketed for the watchdog (host-side
+                # bookkeeping; the copy stays asynchronous).
+                with _overlap.tracker.ingest(), \
+                        _watchdog.inflight("ingest/device_put",
+                                           rank=self._rank):
+                    stream = torch.cuda.current_stream(self.device)
+                    buf = torch.empty(nbytes, dtype=torch.uint8,
+                                      device=self.device)
+                    buf.copy_(ring.bufs[handle][:nbytes], non_blocking=True)
+                    ring.release(handle, stream)
+                metrics.counter_add("ingest/device_puts")
+                window.append((buf, rows))
+                if len(window) > self.infeed_depth:
+                    yield from batches(*window.popleft())
+            while window:
+                yield from batches(*window.popleft())
         finally:
             # An abandoned epoch unblocks the producer so it exits.
             stop.set()

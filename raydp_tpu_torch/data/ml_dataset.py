@@ -377,9 +377,12 @@ class MLDataset:
                  rank: int = 0, shuffle: bool = True, seed: int = 0,
                  feature_dtype=np.float32, label_dtype=np.float32,
                  prefetch: int = 2, device="cuda", drop_last: bool = False,
-                 transfer_coalesce: Optional[int] = None):
+                 transfer_coalesce: Optional[int] = None,
+                 infeed_depth: int = 2):
         """The batch loader of shard ``rank`` onto ``device``
-        (:class:`raydp_tpu_torch.data.loader.ShardLoader`)."""
+        (:class:`raydp_tpu_torch.data.loader.ShardLoader`): the JAX
+        package's ``to_jax``. Its ``to_torch``, a host-side
+        ``IterableDataset``, is :meth:`to_torch_dataset` here."""
         from raydp_tpu_torch.data.loader import ShardLoader
 
         return ShardLoader(
@@ -388,6 +391,20 @@ class MLDataset:
             shuffle=shuffle, seed=seed, feature_dtype=feature_dtype,
             label_dtype=label_dtype, prefetch=prefetch, device=device,
             drop_last=drop_last, transfer_coalesce=transfer_coalesce,
+            infeed_depth=infeed_depth,
+        )
+
+    def to_torch_dataset(self, feature_columns: List[str], label_column: str,
+                         batch_size: int = 256, rank: int = 0,
+                         shuffle: bool = True, seed: int = 0):
+        """Torch IterableDataset over this shard, CPU batches (API parity
+        with the reference's TorchMLDataset, torch/torch_ml_dataset.py:
+        25-111; the JAX package's ``to_torch``)."""
+        from raydp_tpu_torch.data.torch_adapter import TorchShardDataset
+
+        return TorchShardDataset(
+            self, rank, feature_columns, label_column, batch_size, shuffle,
+            seed,
         )
 
 

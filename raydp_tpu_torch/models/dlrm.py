@@ -23,7 +23,7 @@ gives GSPMD a contracting dim to shard the table over ``tp``. On one card
 the tables are replicated, so that reason does not hold, and at
 ``criteo_dlrm``'s 26 × 100k vocabularies and batch 1024 the one-hot
 operand would be 205 MB a table in bf16 for the same sums. The rule comes
-back when tables shard over several cards (ROADMAP Queue A, item 6),
+back when tables shard over several cards (ROADMAP Queue A, item 9),
 with ``LOGICAL_RULES`` and ``dlrm_shardings``. Ids out of a table's range
 are an error here (``jnp.take`` fills them with NaN).
 """

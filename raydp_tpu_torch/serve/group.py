@@ -85,6 +85,10 @@ _DEFAULT_MAX_RESTARTS = 3
 _DEFAULT_BACKOFF_S = 0.5
 _DEFAULT_DISPATCH_TIMEOUT_S = 30.0
 _REGISTER_TIMEOUT_S = 30.0
+# How long a retired incarnation may take to exit by itself before
+# it is terminated: a drained replica stops its RPC server before its
+# interpreter exits, and a SIGTERM during that exit kills it.
+_SELF_EXIT_S = 5.0
 
 
 class ServeError(RuntimeError):
@@ -170,10 +174,7 @@ class _ReplicaSlot:
                     pass
             if g._stopping.is_set():
                 return
-            # The dispatcher gave up on this incarnation (it died, timed
-            # out or failed a call): make sure it is gone before its
-            # successor starts, so no replica runs unsupervised.
-            _reap(self.proc)
+            self._retire()
             metrics.counter_add("serve/restarts")
             _events.emit("serve/replica_down", replica=self.index,
                          group=g.label, exit_code=self.proc.returncode)
@@ -229,6 +230,14 @@ class _ReplicaSlot:
                     f"{self.proc.returncode} before registering "
                     f"(log: {log_path})"
                 )
+
+    def _retire(self) -> None:
+        """The dispatcher gave up on this incarnation (it died, timed
+        out, failed a call or drained): make sure it is gone before its
+        successor starts, so no replica runs unsupervised. It gets
+        ``_SELF_EXIT_S`` to exit by itself first, so a clean drain
+        exits 0 rather than by a SIGTERM."""
+        _reap(self.proc, exit_s=_SELF_EXIT_S)
 
     def _backoff(self) -> None:
         self.restarts += 1

@@ -431,6 +431,13 @@ def capture_local_trace(seconds: float, out_dir: Optional[str] = None,
             "wall_stop": wall_stop}
 
 
+# Seconds an ETL worker's capture may take beyond the capture itself: the
+# first one imports torch and its profiler into a torch-free worker, which
+# took 24-31 s on the card's machine with four workers importing at once
+# (the JAX package allows 30 s).
+WORKER_CAPTURE_SLACK_S = 120.0
+
+
 def capture_trace_archive(seconds: float, rank: Any = None,
                           ) -> Dict[str, Any]:
     """The ``ProfileRequest`` handler's body: capture locally, zip the

@@ -1,6 +1,6 @@
 """Training: the estimator, its losses and metrics, the multi-process
-``fit_spmd``, gradient-boosted trees and the keras wire-format
-estimator."""
+``fit_spmd``, the torch compat estimator, gradient-boosted trees and the
+keras wire-format estimator."""
 from raydp_tpu_torch.train.estimator import Estimator, TrainingCallback
 from raydp_tpu_torch.train.gbt import GBTEstimator
 from raydp_tpu_torch.train.spmd_fit import fit_spmd
@@ -10,6 +10,7 @@ from raydp_tpu_torch.train.losses import (
     resolve_loss,
     resolve_metric,
 )
+from raydp_tpu_torch.train.torch_estimator import TorchEstimator
 from raydp_tpu_torch.train.tf_estimator import (
     KerasSequential,
     TFEstimator,
@@ -24,6 +25,7 @@ __all__ = [
     "LOSSES",
     "METRICS",
     "TFEstimator",
+    "TorchEstimator",
     "TrainingCallback",
     "fit_spmd",
     "parse_keras_model",

@@ -44,6 +44,18 @@ Differences from the JAX estimator, each deliberate:
   defaulting rules and says here that a step updates the parameters and
   the optimizer state in place, so only a failure raised before the
   update may be retried (below).
+* ``rng_impl`` takes the JAX package's names (``None``,
+  ``"threefry2x32"``, ``"rbg"``, ``"unsafe_rbg"``) and raises for any
+  other, but changes nothing: the port's random streams come from torch
+  generators whatever the name, and no name makes them equal JAX's.
+* ``infeed_depth`` is the number of chunk copies the stream path's
+  device loader keeps issued ahead of the step (``data/loader.py``), the
+  JAX estimator's transfer window; the scan path uploads the dataset
+  once and has none.
+* ``train_config=`` and ``data_config=`` (``raydp_tpu_torch.config``)
+  override the scalar keyword arguments they name, as in the JAX
+  package; a ``TrainConfig`` with ``max_failures`` set is an explicit
+  budget.
 
 **Device plane** (``raydp_tpu/train/estimator.py:604-613, 787-924,
 1085-1130``; ``telemetry/device_profiler.py``; off with
@@ -149,6 +161,7 @@ import torch
 from torch import nn
 
 from raydp_tpu_torch import fault
+from raydp_tpu_torch.config import DataConfig, TrainConfig
 from raydp_tpu_torch.data.ml_dataset import MLDataset
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
@@ -189,6 +202,9 @@ CAPTURE_WARMUP_STEPS = 3
 # Gradient bytes per all_reduce of a multi-process fit (DDP's default
 # bucket size).
 BUCKET_CAP_MB = 25
+
+# The JAX estimator's rng_impl names (None: jax's default, threefry).
+RNG_IMPLS = (None, "threefry2x32", "rbg", "unsafe_rbg")
 
 
 def _dist_world() -> "tuple[int, int]":
@@ -423,8 +439,30 @@ class Estimator:
         aux_losses: bool = False,
         max_failures: Optional[int] = None,
         donate_state: Optional[bool] = None,
+        infeed_depth: int = 2,
+        rng_impl: Optional[str] = None,
+        train_config: Optional[TrainConfig] = None,
+        data_config: Optional[DataConfig] = None,
         device: DeviceLike = "cuda",
     ):
+        # Typed-config forms (raydp_tpu/train/estimator.py:191-205): values
+        # in a supplied TrainConfig/DataConfig override the scalar kwargs.
+        if train_config is not None:
+            num_epochs = train_config.num_epochs
+            mesh = train_config.mesh
+            seed = train_config.seed
+            log_every = train_config.log_every_steps
+            checkpoint_dir = train_config.checkpoint_dir
+            max_failures = train_config.max_failures
+            save_every_steps = train_config.save_every_steps
+        if data_config is not None:
+            batch_size = data_config.batch_size
+            shuffle = data_config.shuffle
+            prefetch = data_config.prefetch
+            drop_last = data_config.drop_last
+        if rng_impl not in RNG_IMPLS:
+            raise ValueError(
+                f"rng_impl must be one of {RNG_IMPLS}, got {rng_impl!r}")
         if epoch_mode not in ("auto", "stream", "scan"):
             raise ValueError(
                 f"epoch_mode must be auto|stream|scan, got {epoch_mode!r}")
@@ -462,6 +500,11 @@ class Estimator:
         self.save_every_steps = save_every_steps
         self.self_supervised = self_supervised
         self.prefetch = prefetch
+        # Chunk copies the stream path's device loader keeps issued ahead
+        # of the step (data/loader.py; the JAX estimator's infeed window).
+        self.infeed_depth = max(1, infeed_depth)
+        # Accepted for the JAX package's API only (module docstring).
+        self.rng_impl = rng_impl
         self.drop_last = drop_last
         self.epoch_mode = epoch_mode
         self.scan_threshold_bytes = scan_threshold_bytes
@@ -534,6 +577,7 @@ class Estimator:
                 seed=self.seed, feature_dtype=self.feature_dtype,
                 label_dtype=self.label_dtype, prefetch=self.prefetch,
                 device=self.device, drop_last=drop_last,
+                infeed_depth=self.infeed_depth,
             )
             for rank in range(ds.num_shards)
         ]

@@ -4,8 +4,10 @@ loaded one returns.
 
 The functions here live in this test module, which a worker must never
 import (it imports nothing of JAX, but the rule is the same for every
-test module), so each travels by value. The last case loads a blob in a
-fresh interpreter that has never seen this module.
+test module), so each travels by value. Two cases load a blob in a
+fresh interpreter that has never seen this module; the last ships
+classes by value (``dumps(..., classes=True)``, the torch compat
+estimator's mode), which the default refuses.
 """
 import functools
 import os
@@ -195,3 +197,54 @@ def test_fresh_interpreter_loads_without_the_defining_module(tmp_path):
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.stdout.split() == [str(sum(_fib(i) for i in range(10))),
                                   str(_scaled(1))]
+
+
+class _Counter:
+    """A class of this (by-value) module, with the members a user's
+    class has: a ``super()`` call, class data, static, class and
+    property members."""
+
+    step = 2
+
+    def __init__(self, start):
+        super().__init__()
+        self.value = start
+
+    @staticmethod
+    def double(x):
+        return 2 * x
+
+    @classmethod
+    def stride(cls):
+        return cls.step
+
+    @property
+    def next(self):
+        return self.value + self.stride()
+
+
+def test_classes_travel_by_value_when_asked(tmp_path):
+    """``dumps(..., classes=True)`` ships a local class and a class of a
+    by-value module by value: an interpreter that never imported this
+    module loads an instance and builds new ones; the default still
+    refuses both."""
+    class Local(_Counter):
+        def __init__(self):
+            super().__init__(5)
+
+    with pytest.raises(pickle.PicklingError, match="Local"):
+        closure.dumps(Local())
+    blob = tmp_path / "blob"
+    blob.write_bytes(closure.dumps((Local(), lambda: Local().next),
+                                   classes=True))
+    code = (
+        "import pickle, sys\n"
+        f"obj, make = pickle.loads(open({str(blob)!r}, 'rb').read())\n"
+        f"assert {__name__!r} not in sys.modules\n"
+        "print(obj.value, obj.next, type(obj).double(4), make(),\n"
+        "      type(obj).__mro__[1].__name__)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=str(tmp_path),
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.split() == ["5", "7", "8", "7", "_Counter"]

@@ -30,7 +30,9 @@ and phase fractions summing to 1, and a 0.5 s ``torch.profiler``
 capture on one thread records the ``flash_fwd`` kernels another thread
 launches. Slice 14: a replica group of one flash replica on the card,
 admitted by the arbiter, answers a short open-loop ``GroupTarget``
-schedule with zero errors.
+schedule with zero errors. Slice 15: the pinned loader with 1, 2 and 5
+chunk copies in flight gives the CPU's batches, and the torch compat
+estimator's fit of a tiny flash classifier on the card against the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device. These import no
 JAX, so they run on a machine that has none:
@@ -431,6 +433,74 @@ def test_pinned_loader_delivers_the_cpu_batches(cuda):
                 assert x.device.type == "cpu"
                 torch.testing.assert_close(x, wx, rtol=0, atol=0)
                 torch.testing.assert_close(y, wy, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_pinned_loader_infeed_depths_deliver_the_cpu_batches(cuda, depth):
+    """Any number of chunk copies in flight ahead of the consumer gives
+    the CPU's batches, in order, one copy a chunk."""
+    from raydp_tpu_torch.utils.profiling import metrics
+
+    ds = MLDataset([_token_cols(70, 16, 64)], 1)
+    kw = dict(feature_columns=[f"t{i}" for i in range(16)],
+              label_column="label", batch_size=8, shuffle=True, seed=2,
+              feature_dtype=np.int32, label_dtype=np.int32, prefetch=2,
+              transfer_coalesce=2)
+    on_card = ds.to_torch(device="cuda", infeed_depth=depth, **kw)
+    want = list(ds.to_torch(device="cpu", **kw))
+    before = metrics.snapshot()["counters"].get("ingest/device_puts", 0)
+    got = [(x.cpu(), y.cpu()) for x, y in on_card]
+    puts = metrics.snapshot()["counters"]["ingest/device_puts"] - before
+    assert len(got) == len(want) == 9 and puts == 5
+    for (x, y), (wx, wy) in zip(got, want):
+        torch.testing.assert_close(x, wx, rtol=0, atol=0)
+        torch.testing.assert_close(y, wy, rtol=0, atol=0)
+
+
+def test_torch_estimator_on_card_matches_cpu(cuda):
+    """The torch compat estimator fits a tiny f32 flash classifier on the
+    card (every kernel, 2 launches a step: one a layer) and on the CPU
+    from the same seed: per-epoch losses within 1e-3, predictions within
+    1e-3, the trained state back on the CPU."""
+    from raydp_tpu_torch.train import TorchEstimator
+
+    cols = _token_cols(64, 16, 64, seed=3)
+    cfg = tiny_transformer(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                           d_ff=64, max_len=16, attention_impl="flash",
+                           dtype=torch.float32, dropout_rate=0.0)
+
+    class Segmented(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.clf = SequenceClassifier(cfg, device="cpu")
+
+        def forward(self, ids):
+            return self.clf(ids, torch.zeros_like(ids))
+
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        est = TorchEstimator(
+            model=lambda c: Segmented(),
+            optimizer=lambda m, c: torch.optim.AdamW(m.parameters(), lr=1e-3),
+            loss=torch.nn.CrossEntropyLoss(),
+            feature_columns=[f"t{i}" for i in range(16)],
+            feature_types=np.int64, label_column="label",
+            label_type=np.int64, batch_size=16, num_epochs=2, device=dev)
+        before = _counts()
+        hist = est.fit(MLDataset([cols], 1), MLDataset([cols], 1))
+        steps = 2 * 4
+        want = [cfg.n_layers * (steps + 2)] + [cfg.n_layers * steps] * 3
+        got = [a - b for a, b in zip(_counts(), before)]
+        assert got == (want if dev == "cuda" else [0] * 4)
+        ids = np.stack([cols[f"t{i}"] for i in range(16)], 1)[:8]
+        fits[dev] = (hist, est.predict(ids))
+        assert all(t.device.type == "cpu"
+                   for t in est._trained_state.values())
+    for g, c in zip(fits["cuda"][0], fits["cpu"][0]):
+        np.testing.assert_allclose(g["train_loss"], c["train_loss"],
+                                   rtol=1e-3)
+    np.testing.assert_allclose(fits["cuda"][1], fits["cpu"][1], rtol=1e-3,
+                               atol=1e-3)
 
 
 def test_estimator_fit_on_card_matches_cpu(cuda):

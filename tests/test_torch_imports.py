@@ -53,6 +53,10 @@ def test_port_files_exist():
                 "raydp_tpu_torch/train/losses.py",
                 "raydp_tpu_torch/train/gbt.py",
                 "raydp_tpu_torch/train/tf_estimator.py",
+                "raydp_tpu_torch/train/torch_estimator.py",
+                "raydp_tpu_torch/data/torch_adapter.py",
+                "raydp_tpu_torch/cli/submit.py",
+                "raydp_tpu_torch/examples/torch_nyctaxi.py",
                 "raydp_tpu_torch/data/ml_dataset.py",
                 "raydp_tpu_torch/data/loader.py",
                 "raydp_tpu_torch/utils/sharding.py",

@@ -20,8 +20,8 @@
   ``step_emergency_`` files together, oldest step first, and the
   survivor restores.
 
-``tests/test_resume.py::test_train_and_data_config_objects_wire`` waits
-for the typed configs (ROADMAP Queue A item 8).
+``tests/test_resume.py::test_train_and_data_config_objects_wire`` runs
+on the port's typed configs in ``tests/test_torch_typed_config.py``.
 """
 import os
 

@@ -9,6 +9,8 @@ SIGTERM drain, plus ``default_model`` parity with the JAX package,
 run on a device it does not have. Every group test first waits, with a
 deadline, until every replica has registered, so no assertion races a
 replica's start-up, and the SIGTERM test signals a registered replica.
+A retired incarnation is given time to exit by itself (a drain ends
+with 0) and a wedged one is still terminated.
 """
 import functools
 import os
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from raydp_tpu.serve.replica_main import default_model as jax_default_model
+import raydp_tpu_torch.serve.group as group_mod
 from raydp_tpu_torch.cluster.rpc import RpcServer
 from raydp_tpu_torch.serve import ReplicaGroup
 from raydp_tpu_torch.serve.replica_main import (
@@ -221,3 +224,30 @@ def test_replica_asked_for_cuda_without_a_card_never_registers(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert registered == []
+
+
+def _incarnation(sleep_s):
+    """A stand-in replica process that exits 0 after ``sleep_s`` and dies
+    by SIGTERM before that."""
+    return subprocess.Popen([sys.executable, "-c",
+                             f"import time; time.sleep({sleep_s})"])
+
+
+def test_retire_lets_an_exiting_incarnation_exit_by_itself():
+    """A drained replica is still exiting when its calls begin to fail:
+    retiring it waits for that exit, so it ends with 0, not by a
+    SIGTERM."""
+    slot = group_mod._ReplicaSlot(group=None, index=0)
+    slot.proc = _incarnation(1.0)
+    slot._retire()
+    assert slot.proc.returncode == 0
+
+
+def test_retire_terminates_a_wedged_incarnation(monkeypatch):
+    monkeypatch.setattr(group_mod, "_SELF_EXIT_S", 0.2)
+    slot = group_mod._ReplicaSlot(group=None, index=0)
+    slot.proc = _incarnation(60.0)
+    t0 = time.monotonic()
+    slot._retire()
+    assert slot.proc.returncode == -signal.SIGTERM
+    assert time.monotonic() - t0 < 30.0

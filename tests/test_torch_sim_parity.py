@@ -23,12 +23,14 @@ import raydp_tpu.telemetry.events as ref_events
 import raydp_tpu.utils.profiling as ref_profiling
 from raydp_tpu.control.autoscaler import AutoscalerConfig as RefAutoscalerCfg
 from raydp_tpu.loadgen.knee import KneeConfig as RefKneeConfig
+from raydp_tpu.telemetry import stage_store as ref_stage_store
 from raydp_tpu_torch.control import arbiter as arbiter_mod
 from raydp_tpu_torch.control.autoscaler import AutoscalerConfig
 from raydp_tpu_torch.loadgen import poisson_schedule
 from raydp_tpu_torch.loadgen.knee import KneeConfig
 from raydp_tpu_torch.sim import scenario as port_scenario
 from raydp_tpu_torch.telemetry import events as port_events
+from raydp_tpu_torch.telemetry import stage_store as port_stage_store
 from raydp_tpu_torch.utils.profiling import metrics
 
 # Wall-clock fields of a SimResult's JSON and of the sim/run event.
@@ -39,6 +41,12 @@ WALL_KEYS = ("wall_s", "events_per_s")
 def _clean_world():
     metrics.reset()
     ref_profiling.metrics.reset()
+    # The scenario's autoscaler reads the process's recent DataFrame
+    # stages (its stage_queue signal): stages an earlier test ran in this
+    # process, with wall-clock queue times of their own, would enter one
+    # package's decisions and not the other's.
+    port_stage_store.clear()
+    ref_stage_store.clear()
     yield
     arbiter_mod.reset_for_tests()
     ref_arbiter_mod.reset_for_tests()

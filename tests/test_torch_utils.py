@@ -24,7 +24,7 @@ PORT_REFERENCE = load_port_module("test_utils.py")
 REFERENCE_CASES = cases(PORT_REFERENCE, [n for n in vars(PORT_REFERENCE)
                                          if n.startswith("test_")])
 PACKAGES = ("", ".utils", ".cluster", ".telemetry", ".control", ".loadgen",
-            ".sim")
+            ".sim", ".config")
 # Names of a reference package's __all__ that belong to modules the port
 # has not taken yet, by package.
 UNPORTED = {pkg: () for pkg in PACKAGES}

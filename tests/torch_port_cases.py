@@ -28,6 +28,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PORTED = ("dataframe", "fault", "telemetry", "utils", "context", "cluster",
           "store", "config", "spmd", "data", "control", "loadgen", "sim",
           "serve")
+# Single modules of packages the port has not taken whole: only these
+# ``raydp_tpu.<package>.<module>`` imports point at the port.
+PORTED_MODULES = ("train.torch_estimator",)
 # Test modules whose cases run whole programs in subprocesses, with the
 # package named inside string literals: every ``raydp_tpu`` name in them
 # points at the port, and their selected cases use ported modules only.
@@ -67,7 +70,7 @@ def load_port_module(filename: str, only=None) -> types.ModuleType:
         src = f.read()
     if only is not None:
         src = _only(src, set(only))
-    for mod in PORTED:
+    for mod in PORTED + PORTED_MODULES:
         src = src.replace(f"raydp_tpu.{mod}", f"raydp_tpu_torch.{mod}")
     if filename in WHOLE_PACKAGE:
         src = re.sub(r"\braydp_tpu\b", "raydp_tpu_torch", src)
