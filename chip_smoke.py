@@ -93,19 +93,21 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    with its numpy twin, directly and through the exchange's hash;
    ``gather_matrix`` (f32, i32) over a 129-column int frame of 8192 rows
    equal to numpy fancy indexing; each timed against its twin. (b)
-   examples/data_process.py's 200,000 taxi rows through its
+   examples/data_process.py's taxi rows (100,000 of its 200,000 since
+   phase 19) through its
    ``nyc_taxi_preprocess`` over 4 partitions and ``random_split([0.9,
    0.1], seed=42)``, held against the same features computed with numpy
    (rows and values exact, the haversine within rtol 1e-12), feeding
    ``Estimator.fit_on_df`` of the taxi MLP and ``predict_on_df`` (one
    prediction per row, in row order), ``GBTEstimator.fit_on_df`` at
    phase 7's settings and ``TFEstimator.fit_on_df`` with phase 8's
-   tower; falling losses. (c) examples/bert_glue.py's 8192 rows as a
+   tower; falling losses. (c) examples/bert_glue.py's rows (4,096 of its
+   8192 since phase 19) as a
    frame of 4 partitions -> ``Estimator.fit_on_df(num_shards=2)`` of the
    bf16 flash classifier at bert_base width and depth, batch 64, AdamW,
    2 epochs on the path ``"auto"`` picks: 12 launches of each flash
    kernel a step, in the counters. (d) examples/dlrm_criteo.py's
-   500,000 rows and rare-id remap (``groupBy().count()``, a udf), the
+   rows (250,000 of its 500,000 since phase 19) and rare-id remap (``groupBy().count()``, a udf), the
    vocab sizes against ``np.unique``, into a stream ``PackedDLRM`` fit.
    ETL seconds and rows/s, and the seconds from each ``fit_on_df``'s
    call to its first step.
@@ -143,7 +145,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    and the ranks' gloo ``all_reduce`` of ``[correct, rows]`` equal to
    their sums; the gang's sequences/s beside phase 2's.
 13. Windows, query profiling and ``fit_spmd`` on a fresh 4-worker
-   session: (a) 500,000 Criteo-shaped rows (13 dense, 26 categorical
+   session: (a) 250,000 Criteo-shaped rows (500,000 until phase 19; 13
+   dense, 26 categorical
    columns of zipf-like ids over at most 100,000 values) through the
    reference notebook's id assignment on the workers (``posexplode``,
    ``groupBy("column_id", "data").count()``, ``row_number().over(
@@ -156,7 +159,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ``PackedDLRM(criteo_dlrm())`` through ``fit_on_df`` (stream, phase
    5's batches); ETL rows/s, stage seconds and skew. (b) ``fit_spmd`` of
    10c's bf16 flash classifier over a gang of 2 ranks on the card, each
-   reading its plan's slices of 1,024 GLUE rows from the object store,
+   reading its plan's slices of 512 GLUE rows (1,024 until phase 19) from
+   the object store,
    batch 32 a rank, 2 epochs: the backend the rule picks, the ranks'
    losses equal and their final parameters identical, 12 launches of
    each kernel a step by each rank's counters, a falling loss, and the
@@ -165,7 +169,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    share (CUDA events), peak memory, ``start()`` seconds and the first
    step's seconds after the call.
 14. Fault tolerance of training on a fresh 4-worker session holding
-   512 of 10c's GLUE rows (store mode), 13b's classifier
+   512 of 10c's GLUE rows (store mode), 13b's classifier cut to
+   ``FT_LAYERS`` (2) layers since phase 19
    (:func:`ft_factory`): (a) a clean in-process ``Estimator.fit`` (batch
    32, 2 epochs, 32 steps), then ``fit_spmd(world_size=1)`` of the same
    under ``kill:rank=0,step=8`` with ``save_every_steps=8``: one
@@ -185,8 +190,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    that ``step_emergency_6.pt`` alone in a fresh directory, resumed by
    ``fit_spmd(world_size=1, elastic=True)`` over the same 2-shard
    dataset: the skip rescaled from 6 to 12 batches, 4 steps of 32 rows,
-   a finite loss. Every fit runs 12 launches of each kernel a step by
-   its process's counters; ``stop()`` leaves no segment.
+   a finite loss. Every fit runs ``FT_LAYERS`` launches of each kernel a
+   step by its process's counters; ``stop()`` leaves no segment.
 15. Telemetry, one run traced, billed and watched: ``RAYDP_TPU_TELEMETRY_DIR``
    and ``RAYDP_TPU_POSTMORTEM_DIR`` set to fresh directories before a
    fresh 4-worker ``init`` (the workers and ranks inherit them); 1,024
@@ -254,7 +259,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    admitted and serves (b), the drained gang waits queued, and once the
    group stops it re-enters admission (``sched/resume``) and resumes
    from its emergency checkpoint to parameters equal (``torch.equal``)
-   to 14b's clean gang's, 12 launches of each kernel a resumed step by
+   to 14b's clean gang's, ``FT_LAYERS`` launches of each kernel a
+   resumed step by
    each rank's counter. Printed: the seconds from the arrival to
    ``sched/preempt``, the ranks' drain seconds, the arrival's admission
    wait, the seconds from the group's release to the victim's first
@@ -276,7 +282,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    runs across the drain back to 1 worker; the seconds to grow, the
    drain latency, the tasks lost (0) and the flap episodes (0).
 18. The torch compat estimator (``TorchEstimator``) on the card, its
-   model 13b's bf16 flash classifier at bert_base width and depth
+   model 13b's bf16 flash classifier at bert_base width with
+   ``COMPAT_LAYERS`` (2) layers since phase 19
    (dropout 0, fed segment ids 0 so that every parameter takes part in
    the loss, as DDP needs), built by a creator on the CPU and moved to
    the card, AdamW 1e-4, ``CrossEntropyLoss``, int64 ids and labels.
@@ -288,8 +295,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    1,024 GLUE rows (4 partitions of a session of 2 workers) for one
    shuffled epoch at batch 32 with a 64-row eval frame, ``evaluate``
    and ``predict`` on those 64 rows, ``save`` and ``restore`` into a
-   fresh estimator; its counters show 12 launches of each kernel a step
-   and 12 forward launches an eval or predict forward; the per-step
+   fresh estimator; its counters show ``COMPAT_LAYERS`` launches of each
+   kernel a step and as many forward launches an eval or predict
+   forward; the per-step
    losses fall (the first 8 steps' mean above the last 8's), the eval
    numbers are finite, and the restored estimator's ``predict`` equals
    the first's and its model's own forward. (b) In phase 14's session,
@@ -298,19 +306,46 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    ref-backed eval set of 128 rows over 2 blocks: the store feed (the
    driver's ``_rows_range`` replaced by one that fails), DDP over gloo
    on one card, the eval reduced over the gang; each rank's own
-   counters (written by a forward hook of the creator's model) show 12
-   launches of each kernel a step and 12 forward launches an eval; the
+   counters (written by a forward hook of the creator's model) show
+   ``COMPAT_LAYERS`` launches of each kernel a step and as many forward
+   launches an eval; the
    ranks' step losses fall (the first 3 steps' mean above the last
    3's).
+19. Model parallelism (after 18a): two gangs of 4 ranks on the one card,
+   one process per mesh position, over gloo (the ranks share the card:
+   ``parallel/collectives.py`` stages send/recv and all_to_all through
+   the host). (a) ``fit_spmd(mesh=MeshSpec(sp=2, tp=2))`` of 10c's
+   bf16 classifier at bert_base width and depth with ring attention,
+   dropout 0, AdamW 2e-5, the first 1,024 of 10c's rows, one unshuffled
+   epoch at batch 32 (every rank reads the same rows: dp is 1): each
+   rank's 32 step losses within 6e-2 of the same fit on one rank (dense
+   attention, the same initial parameters from seed 9, the same rows);
+   each rank holds half the rows of block 0's ``qkv`` and ``mlp_up``
+   and half the columns of its ``out`` and ``mlp_down``; the trained
+   model's Ulysses logits within the bf16 forward bound (2e-2) of its
+   ring logits on 32 rows; the gathered epoch checkpoint restored on
+   one rank predicts the ring's logits (the 12-layer bf16 logit bound);
+   the ranks' gathered parameters equal; no flash launch (the ring is
+   plain torch). Each rank reports its step and gradient-exchange ms
+   (CUDA events), its tp/sp collectives' calls, ms and bytes staged
+   through the host a step, and its peak memory. (b) ``fit_spmd(mesh=
+   MeshSpec(dp=2, pp=2))`` of a ``PipelinedClassifier`` at bert_base
+   width (one block a stage, as the reference builds it), bf16 flash, 4
+   microbatches, 3 epochs of 4 steps a dp rank over 128 rows each: each
+   rank's pipelined forward of the initial model on its rows equals the
+   stages in sequence on one rank (the logit bound), the loss falls,
+   each rank holds one stage, and each rank's counters read 52 forward
+   (1 block x 4 microbatches x 12 steps, and 4 for the check forward)
+   and 48 of each backward kernel.
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16, 17 and 18) and
-read just after; phase 9's and 17b's replicas, 12a's and 18a's second
-drivers and 12b's, 13b's, 14's, 15's, 16c's, 17a's and 18b's ranks are
-new processes,
+10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16, 17, 18 and 19)
+and read just after; phase 9's and 17b's replicas, 12a's and 18a's
+second drivers and 12b's, 13b's, 14's, 15's, 16c's, 17a's, 18b's and
+19's ranks are new processes,
 whose counts start at 0 and are read by ``Ping`` or returned in their
 results (a rank that is killed or drains returns none). The last lines
 are a ``kernels`` JSON line, the card's name and power limit, and
@@ -2229,9 +2264,12 @@ def phase_serve_decode(torch, P):
 # the GLUE rows of the fine-tune from a frame, the Criteo rows of the DLRM
 # fit; the native kernels' rows and columns (a GLUE-shaped int frame: 128
 # token ids and the label).
-ETL_TAXI_ROWS, ETL_PARTS, TAXI_MLP_EPOCHS = 200_000, 4, 3
-ETL_GLUE_ROWS, ETL_GLUE_BATCH, ETL_GLUE_EPOCHS = 8192, 64, 2
-ETL_CRITEO_ROWS, ETL_CRITEO_EPOCHS, ETL_CRITEO_MIN_COUNT = 500_000, 5, 3
+# 100,000 taxi rows since phase 19 (200,000 before: phase 19's depth).
+ETL_TAXI_ROWS, ETL_PARTS, TAXI_MLP_EPOCHS = 100_000, 4, 3
+# 4,096 GLUE rows since phase 19 (8,192 before: phase 19's depth).
+ETL_GLUE_ROWS, ETL_GLUE_BATCH, ETL_GLUE_EPOCHS = 4096, 64, 2
+# 250,000 Criteo rows since phase 19 (500,000 before).
+ETL_CRITEO_ROWS, ETL_CRITEO_EPOCHS, ETL_CRITEO_MIN_COUNT = 250_000, 5, 3
 NATIVE_HASH_ROWS, NATIVE_GATHER_ROWS, NATIVE_GATHER_COLS = 4_000_000, 8192, 129
 # The haversine udf runs row by row on Python floats, the numpy check on
 # whole arrays: the two may round the last bit apart.
@@ -3135,11 +3173,14 @@ def phase_second_drivers(torch, P, ref):
 
 # Phase 13: the window DLRM id pipeline on the session's workers (13a)
 # and fit_spmd of 10c's classifier over a gang of 2 ranks (13b).
-WINDOW_ROWS, WINDOW_DENSE, WINDOW_TABLES = 500_000, 13, 26
+# 250,000 rows since phase 19 (500,000 before: phase 19's depth); 6.5M
+# exploded values stay above the exchange's 64 MB coalesce size.
+WINDOW_ROWS, WINDOW_DENSE, WINDOW_TABLES = 250_000, 13, 26
 WINDOW_VOCAB, WINDOW_PARTS = 100_000, 8
-# 13b ran 2,048 rows until phase 18 came: 1,024 keeps the script inside
-# its limit (16 steps a rank an epoch).
-GANG_FIT_ROWS, GANG_FIT_BATCH, GANG_FIT_EPOCHS = 1024, 32, 2
+# 13b ran 2,048 rows until phase 18 came, then 1,024 and 512 as phase 19
+# came: 256 keeps the script inside its limit on a slow host's gloo (4
+# steps a rank an epoch).
+GANG_FIT_ROWS, GANG_FIT_BATCH, GANG_FIT_EPOCHS = 256, 32, 2
 GANG_FIT_LIMIT_S = 900.0
 
 
@@ -3556,6 +3597,9 @@ def phase_window_and_gang(torch, P):
 # 1,024 rows at batch 64 (14a) until phase 18 came: 512 at 32 keeps 14a's
 # 32 steps and halves the gloo steps of 14b and 17a.
 FT_ROWS, FT_SAVE_EVERY = 512, 8
+# 14's and 17a's classifier: bert_base width, 2 layers since phase 19 (12
+# before; phase 19's depth): flash launches count FT_LAYERS a step.
+FT_LAYERS = 2
 FT_BATCH, FT_EPOCHS = 32, 2  # 14a: 16 steps an epoch
 FT_GANG_BATCH, FT_GANG_EPOCHS = 32, 1  # 14b, 14c: 8 steps a rank at world 2
 FT_KILL_STEP, FT_PREEMPT_STEP = 8, 6
@@ -3570,7 +3614,7 @@ _DRAINED_RE = r"preempted at step (\d+) \(epoch \d+, batch \d+\); emergency " \
 def ft_factory(checkpoint_dir, batch, epochs, save_every_steps=0):
     """14's estimator factory, run in a rank (``fit_spmd`` ships it by
     value) or in this process: 13b's bf16 flash classifier at bert_base
-    width and depth, AdamW 2e-5, the stream path, dropout 0.1. Its
+    width and ``FT_LAYERS`` layers, AdamW 2e-5, the stream path, dropout 0.1. Its
     callback adds to every epoch's metrics the process's flash launch
     counts and peak device memory, the wall-clock time its fit's first
     step finished (``probe_first_step_at``, after a synchronize), the
@@ -3600,7 +3644,7 @@ def ft_factory(checkpoint_dir, batch, epochs, save_every_steps=0):
         torch.cuda.reset_peak_memory_stats()
         world = dist.get_world_size() if dist.is_initialized() else 1
         cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
-                          max_len=cs.GLUE_SEQ)
+                          max_len=cs.GLUE_SEQ, n_layers=cs.FT_LAYERS)
         est = P.Estimator(
             model=P.SequenceClassifier(
                 cfg, device="cuda",
@@ -3703,7 +3747,7 @@ def phase_ft_kill(torch, P, ds1):
     clean_hist = clean_est.fit(ds1)
     torch.cuda.synchronize()
     clean_counts = clean_hist[-1]["launches"]
-    want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+    want = {k: FT_LAYERS * steps for k in KERNEL_SYMBOLS}
     check(clean_counts == want, f"14a: the clean fit counted "
                                 f"{clean_counts}, want {want}")
     clean = {k: (v.detach().float() if v.dtype == torch.bfloat16
@@ -3741,7 +3785,7 @@ def phase_ft_kill(torch, P, ds1):
                       f"clean fit's in {len(differ)} tensors, e.g. "
                       f"{differ[:4]}")
     counts = hist[-1]["launches"]
-    want = {k: 12 * resumed_steps for k in KERNEL_SYMBOLS}
+    want = {k: FT_LAYERS * resumed_steps for k in KERNEL_SYMBOLS}
     check(counts == want, f"14a: the resumed rank counted {counts}, want "
                           f"{want}")
     recovery, backoff = _recovery(out, "14a")
@@ -3829,7 +3873,7 @@ def phase_ft_preempt(torch, P, ds2):
                       f"{differ[:4]}")
     resumed = steps - FT_PREEMPT_STEP
     for r, hist in enumerate(out["per_rank_history"]):
-        want = {k: 12 * resumed for k in KERNEL_SYMBOLS}
+        want = {k: FT_LAYERS * resumed for k in KERNEL_SYMBOLS}
         check(hist[-1]["launches"] == want,
               f"14b: resumed rank {r} counted {hist[-1]['launches']}, want "
               f"{want}")
@@ -3925,7 +3969,7 @@ def phase_ft_elastic(torch, P, ds2, emergency, clean_loss):
                                     f"batches, want {skip}")
     check(h["samples"] == steps * FT_GANG_BATCH,
           f"14c: trained {h['samples']} rows, want {steps * FT_GANG_BATCH}")
-    want = {k: 12 * steps for k in KERNEL_SYMBOLS}
+    want = {k: FT_LAYERS * steps for k in KERNEL_SYMBOLS}
     check(h["launches"] == want, f"14c: counted {h['launches']}, want {want}")
     check(np.isfinite(h["train_loss"]), f"14c: loss {h['train_loss']}")
     log(f"[14c] fit_spmd(world_size=1, elastic=True) from "
@@ -3995,7 +4039,7 @@ def phase_fault_tolerance(torch, P):
 # Phase 15: the trace, accounting and health planes of telemetry over one
 # run: a fresh session's ETL on its workers into a 2-rank fit_spmd of
 # 13b's classifier, traced, billed and watched.
-TELEMETRY_ROWS = 1024  # of 10c's 8,192: 16 steps a rank at batch 32
+TELEMETRY_ROWS = 1024  # 16 steps a rank at batch 32
 TELEMETRY_LIMIT_S = 600.0
 # Each rank's shipped hbm/peak_bytes against its allocator peak.
 BILLING_TOL = 0.10
@@ -4843,8 +4887,9 @@ CP_CAPACITY = 2
 CP_VICTIM_PRIORITY, CP_ARRIVAL_PRIORITY = 0, 5
 CP_ADMIT_TIMEOUT_S = 600.0
 CP_REPLICAS, CP_MAX_QUEUE = 1, 1024
-CP_POISSON_RPS, CP_POISSON_S = 200.0, 4.0  # 17b through GroupTarget
-CP_HTTP_RPS, CP_HTTP_S = 25.0, 2.0  # 17b through HttpTarget
+# 2 s and 1 s since phase 19 (4 s and 2 s before).
+CP_POISSON_RPS, CP_POISSON_S = 200.0, 2.0  # 17b through GroupTarget
+CP_HTTP_RPS, CP_HTTP_S = 25.0, 1.0  # 17b through HttpTarget
 CP_CHECK_REQUESTS = 16  # replies held against the dense forward
 CP_TIMEOUT_S = 2.0
 # The knee's p99 SLO and shed threshold are KneeConfig's defaults (250
@@ -5008,7 +5053,8 @@ def phase_control_plane(torch, P, session, ds2, clean):
           "17a: the resumed ranks' parameters differ")
     counts = {}
     for r, hist in enumerate(out["per_rank_history"]):
-        want = {k: 12 * (steps - drained_step) for k in KERNEL_SYMBOLS}
+        want = {k: FT_LAYERS * (steps - drained_step)
+                for k in KERNEL_SYMBOLS}
         check(hist[-1]["launches"] == want,
               f"17a: resumed rank {r} counted {hist[-1]['launches']}, want "
               f"{want}")
@@ -5252,6 +5298,8 @@ def phase_autoscale(P):
 COMPAT_ROWS, COMPAT_EVAL_ROWS, COMPAT_BATCH = 1024, 64, 32
 COMPAT_GANG_BATCH, COMPAT_GANG_EPOCHS, COMPAT_GANG_EVAL_ROWS = 32, 1, 128
 COMPAT_LR, COMPAT_LIMIT_S = 1e-4, 300.0
+# bert_base width, 2 layers since phase 19 (12 before; phase 19's depth).
+COMPAT_LAYERS = 2
 COMPAT_CONF = {"chip.phase": "18a"}
 COMPAT_DRIVER = """import sys
 
@@ -5264,7 +5312,7 @@ sys.exit(chip_smoke.compat_driver_main(sys.argv[1]))
 def compat_classifier(config):
     """18's model creator, run in the process that fits (the closure
     carrier ships it by value): 13b's bf16 flash classifier at bert_base
-    width and depth, dropout 0 (the estimator hands a model no dropout
+    width and ``COMPAT_LAYERS`` layers, dropout 0 (the estimator hands a model no dropout
     generator), from generator seed 9, built on the CPU; it is fed
     segment ids 0, so every parameter takes part in the loss (DDP over
     gloo refuses a parameter without a gradient). A forward hook writes,
@@ -5279,7 +5327,8 @@ def compat_classifier(config):
 
     probe = config.setdefault("_probe", {"losses": []})
     cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
-                      max_len=cs.GLUE_SEQ, dropout_rate=0.0)
+                      max_len=cs.GLUE_SEQ, dropout_rate=0.0,
+                      n_layers=cs.COMPAT_LAYERS)
 
     class Segmented(torch.nn.Module):
         def __init__(self):
@@ -5464,8 +5513,9 @@ def phase_compat_cli(torch, P):
     check(handoff == want_handoff,
           f"18a: init() got {handoff}, the CLI handed {want_handoff}")
     steps = COMPAT_ROWS // COMPAT_BATCH
-    fwd = {"flash_fwd": 12}
-    want = {"fit": {k: 12 * steps + (12 if k == "flash_fwd" else 0)
+    fwd = {"flash_fwd": COMPAT_LAYERS}
+    want = {"fit": {k: COMPAT_LAYERS * steps
+                    + (COMPAT_LAYERS if k == "flash_fwd" else 0)
                     for k in KERNEL_SYMBOLS},
             "evaluate": {k: fwd.get(k, 0) for k in KERNEL_SYMBOLS},
             "predict": {k: fwd.get(k, 0) for k in KERNEL_SYMBOLS},
@@ -5564,8 +5614,8 @@ def phase_compat_gang(torch, P, frame):
         shutil.rmtree(probe, ignore_errors=True)
     check(not read, f"18b: _rows_range was called for {read}")
     steps = COMPAT_GANG_EPOCHS * ds2.rows_per_shard // COMPAT_GANG_BATCH
-    want = {k: 12 * steps + (12 * COMPAT_GANG_EPOCHS
-                             if k == "flash_fwd" else 0)
+    want = {k: COMPAT_LAYERS * steps + (COMPAT_LAYERS * COMPAT_GANG_EPOCHS
+                                        if k == "flash_fwd" else 0)
             for k in KERNEL_SYMBOLS}
     for o in ranks:
         check(o["counts"] == want and len(o["losses"]) == steps,
@@ -5597,6 +5647,333 @@ def phase_compat_gang(torch, P, frame):
         f"; launches by rank {[o['counts'] for o in ranks]}; "
         f"_rows_range calls {len(read)}")
     return {f"18b rank {o['rank']}": o["counts"] for o in ranks}
+
+
+
+# Phase 19: model parallelism over a gang on the one card. 19a: bert_base
+# over MeshSpec(sp=2, tp=2), ring attention, one epoch of 512 of 10c's
+# rows at batch 32 (16 steps; at 8 the Ulysses check's margin over the
+# bf16 bound shrank on a CPU rehearsal); 19b, in the same gang: a PipelinedClassifier at
+# bert_base width over MeshSpec(dp=2, pp=2) with the flash kernels, 3
+# epochs of 4 steps a dp rank on 128 rows each.
+MESH_ROWS, MESH_BATCH, MESH_CHECK_ROWS = 512, 32, 32
+PIPE_ROWS, PIPE_EPOCHS, PIPE_CHECK_ROWS = 256, 3, 8
+MESH_LIMIT_S = 900.0
+# The ranks share the machine's cores with the driver.
+MESH_ENV = {"OMP_NUM_THREADS": "2"}
+
+
+def _recording_loss(record):
+    """The repo's ``softmax_ce``, each step's value kept (a device tensor,
+    read after the fit: no sync a step)."""
+    from raydp_tpu_torch.train.losses import resolve_loss
+
+    base = resolve_loss("softmax_ce")
+
+    def loss(preds, target):
+        value = base(preds, target)
+        record.append(value.detach())
+        return value
+
+    return loss
+
+
+def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids):
+    """19a's estimator factory, run in each rank: 10c's bf16 classifier
+    at bert_base width and depth with ring attention, its initial
+    parameters from generator seed 9 (the 1-rank reference's), cut by the
+    estimator over ``MeshSpec(**axes)``; AdamW 2e-5, unshuffled, the
+    stream path, a gathered checkpoint at the epoch's end. Its callback
+    adds to the last epoch's metrics the rank's step losses, launch
+    counts, peak memory, the collectives' calls, time and staged bytes
+    (``parallel/collectives.py``), the shapes of block 0's four Megatron
+    weights, and the ring's and Ulysses' logits of the trained model on
+    ``check_ids``; then it runs 19b in the same gang
+    (:func:`pipe_part`), so that phase 19 starts one gang."""
+    def make_estimator():
+        import dataclasses
+
+        import numpy as np
+        import torch
+
+        import chip_smoke as cs
+        import raydp_tpu_torch as P
+        from raydp_tpu_torch.parallel import collectives as C
+
+        steps = []
+
+        class MeshProbe(P.TrainingCallback):
+            est = None
+
+            def on_train_end(self, history):
+                model = self.est.get_model()
+                blk = model.encoder.blocks[0]
+                m = history[-1]
+                m["launches"] = cs._counts()
+                m["peak_bytes"] = torch.cuda.max_memory_allocated()
+                m["collectives"] = C.stats()
+                m["step_losses"] = [float(v) for v in steps]
+                m["shapes"] = {n: list(t.shape) for n, t in (
+                    ("qkv", blk.attn.qkv.weight), ("out", blk.attn.out.weight),
+                    ("mlp_up", blk.mlp_up.weight),
+                    ("mlp_down", blk.mlp_down.weight))}
+                m["ring"] = self.est.predict(check_ids).tolist()
+                for b in model.encoder.blocks:
+                    b.attn.cfg = dataclasses.replace(
+                        b.attn.cfg, attention_impl="ulysses")
+                m["ulysses"] = self.est.predict(check_ids).tolist()
+                C.set_timing(False)
+                m["pipe"] = cs.pipe_part(pipe_cols, pipe_ids)
+
+        cs._reset_counts()
+        C.reset_stats()
+        C.set_timing(True)
+        torch.cuda.reset_peak_memory_stats()
+        cfg = P.bert_base(attention_impl="ring", dtype=torch.bfloat16,
+                          max_len=cs.GLUE_SEQ, dropout_rate=0.0)
+        probe = MeshProbe()
+        est = P.Estimator(
+            model=P.SequenceClassifier(
+                cfg, device="cuda", generator=torch.Generator().manual_seed(9)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5,
+                                                  weight_decay=1e-4),
+            loss=cs._recording_loss(steps), num_epochs=1,
+            batch_size=cs.MESH_BATCH,
+            feature_columns=[f"t{i}" for i in range(cs.GLUE_SEQ)],
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, mesh=P.MeshSpec(**axes), seed=0,
+            shuffle=False, epoch_mode="stream",
+            checkpoint_dir=checkpoint_dir, callbacks=[probe], device="cuda")
+        probe.est = est
+        return est
+
+    return make_estimator
+
+
+def pipe_part(cols, check_ids):
+    """19b, run in every rank of 19a's gang after its fit: a
+    ``PipelinedClassifier`` at bert_base width (one block a stage: 2 in
+    all) with the flash kernels, bf16, 4 microbatches, its parameters
+    from generator seed 11, over ``MeshSpec(dp=2, pp=2)`` on the same 4
+    ranks (a new mesh: new groups); AdamW 1e-4, batch 32 a dp rank, each
+    dp rank fitting its half of ``cols``. First each rank runs the
+    pipelined forward of the initial model on its dp half of
+    ``check_ids``. Returns the forward's logits, the history, the
+    rank's launch counts from before that forward to the fit's end, its
+    peak memory (19a's estimator still held) and its stages' shapes."""
+    import numpy as np
+    import torch
+
+    import raydp_tpu_torch as P
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.models import PipelinedClassifier
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    spec = P.MeshSpec(dp=2, pp=2)
+    cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                      max_len=GLUE_SEQ, dropout_rate=0.0, n_layers=2)
+    est = P.Estimator(
+        model=PipelinedClassifier(cfg, spec, n_microbatches=4, device="cuda",
+                                  generator=torch.Generator().manual_seed(11)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4, weight_decay=1e-4),
+        loss="softmax_ce", num_epochs=PIPE_EPOCHS, batch_size=MESH_BATCH,
+        feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
+        mesh=spec, seed=0, shuffle=False, epoch_mode="stream",
+        device="cuda")
+    est.param_placements()  # builds the mesh: every rank calls it
+    dp = est.mesh.coords["dp"]
+    half = len(check_ids) // 2
+    logits = est.predict(check_ids[dp * half:(dp + 1) * half])
+    rows = len(cols["label"]) // 2
+    shard = {k: v[dp * rows:(dp + 1) * rows] for k, v in cols.items()}
+    history = est.fit(MLDataset([shard], 1))
+    return {"check_logits": logits.tolist(), "history": history,
+            "launches": _counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "stage_shapes": [list(p.shape) for n, p in
+                             est.get_model().named_parameters()
+                             if n.startswith("stages.")][:2]}
+
+
+def phase_mesh(torch, P):
+    """19: model parallelism over one gang of 4 ranks on the one card
+    (gloo: ranks share the card), each a mesh position. 19a
+    ``fit_spmd(mesh=MeshSpec(sp=2, tp=2))`` of bert_base with ring
+    attention against the same fit on one rank (dense attention, the same
+    initial parameters and rows), the ranks' tp blocks, Ulysses against
+    ring on the trained model, and the gathered checkpoint on one rank;
+    19b, in the same ranks after 19a's fit, a dp2·pp2
+    ``PipelinedClassifier`` with the flash kernels against its stages in
+    sequence, its loss falling and its launch counts. Returns 19a's and
+    then 19b's launch counts of each rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.models import PipelinedClassifier
+
+    full = synthetic_glue(np, ETL_GLUE_ROWS, GLUE_SEQ, 30522)
+    cols = {k: v[:MESH_ROWS].astype(np.int32) for k, v in full.items()}
+    feats = [f"t{i}" for i in range(GLUE_SEQ)]
+    check_ids = np.stack([cols[c][:MESH_CHECK_ROWS] for c in feats], 1)
+    pcols = {k: v[:PIPE_ROWS] for k, v in cols.items()}
+    pids = check_ids[:PIPE_CHECK_ROWS]
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-19a-")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts = []
+    try:
+        # 19a's reference: the same fit on one rank, dense attention.
+        ref_steps = []
+        _reset_counts()
+        cfg = P.bert_base(attention_impl="dense", dtype=torch.bfloat16,
+                          max_len=GLUE_SEQ, dropout_rate=0.0)
+        ref = P.Estimator(
+            model=P.SequenceClassifier(
+                cfg, device="cuda", generator=torch.Generator().manual_seed(9)),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5,
+                                                  weight_decay=1e-4),
+            loss=_recording_loss(ref_steps), num_epochs=1,
+            batch_size=MESH_BATCH, feature_columns=feats,
+            label_column="label", feature_dtype=np.int32,
+            label_dtype=np.int32, seed=0, shuffle=False,
+            epoch_mode="stream", device="cuda")
+        t0 = time.perf_counter()
+        ref.fit(MLDataset([cols], 1))
+        ref_s = time.perf_counter() - t0
+        ref_losses = [float(v) for v in ref_steps]
+        del ref
+        torch.cuda.empty_cache()
+
+        called, t0 = time.time(), time.perf_counter()
+        out = P.fit_spmd(mesh_fit_factory(dict(sp=2, tp=2), ckpt, check_ids,
+                                          pcols, pids),
+                         MLDataset([cols], 1), world_size=4,
+                         mesh=P.MeshSpec(sp=2, tp=2), env=MESH_ENV,
+                         timeout=MESH_LIMIT_S)
+        fit_s = time.perf_counter() - t0
+        last = [h[-1] for h in out["per_rank_history"]]
+        steps = MESH_ROWS // MESH_BATCH
+        for r, m in enumerate(last):
+            got = m["step_losses"]
+            check(len(got) == steps and len(ref_losses) == steps,
+                  f"19a: rank {r} ran {len(got)} steps, the reference "
+                  f"{len(ref_losses)}, want {steps}")
+            check(np.allclose(got, ref_losses, **FIT_TOL),
+                  f"19a: rank {r}'s step losses {np.round(got, 4)} are not "
+                  f"the 1-rank fit's {np.round(ref_losses, 4)} (6e-2)")
+            tp_half = {"qkv": [3 * 768 // 2, 768], "out": [768, 384],
+                       "mlp_up": [3072 // 2, 768], "mlp_down": [768, 1536]}
+            check(m["shapes"] == tp_half,
+                  f"19a: rank {r} holds {m['shapes']}, want {tp_half}")
+            ring, uly = np.asarray(m["ring"]), np.asarray(m["ulysses"])
+            check(np.allclose(uly, ring, **TOL["bfloat16"]),
+                  f"19a: rank {r}'s Ulysses logits differ from the ring's "
+                  f"by {np.abs(uly - ring).max():.4f}")
+            check(m["launches"] == {k: 0 for k in m["launches"]},
+                  f"19a: ring attention launched flash kernels "
+                  f"{m['launches']}")
+        check(len(set(out["per_rank_params_sha256"])) == 1,
+              "19a: the ranks' gathered parameters differ")
+        one = P.Estimator(
+            model=P.SequenceClassifier(P.bert_base(
+                attention_impl="ring", dtype=torch.bfloat16,
+                max_len=GLUE_SEQ, dropout_rate=0.0), device="cuda"),
+            optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5,
+                                                  weight_decay=1e-4),
+            batch_size=MESH_BATCH, feature_dtype=np.int32, device="cuda")
+        one.restore(ckpt, step=0)
+        restored = one.predict(check_ids)
+        ring0 = np.asarray(last[0]["ring"])
+        check(np.allclose(restored, ring0, **LOGIT_TOL),
+              f"19a: the gathered checkpoint on one rank predicts "
+              f"{np.abs(restored - ring0).max():.4f} away from the mesh")
+        del one
+        torch.cuda.empty_cache()
+        log(f"[19a] fit_spmd over MeshSpec(sp=2, tp=2): 4 ranks, backend "
+            f"{out['backend']}, {steps} steps at batch {MESH_BATCH} (dp=1: "
+            f"every rank reads the same rows); start() {out['start_s']:.3f} "
+            f"s, fit_spmd {fit_s:.1f} s in all (19b included), the first "
+            f"step {min(m['first_step_at'] for m in last) - called:.1f} s "
+            f"after the call, the 1-rank reference fit "
+            f"{ref_s:.1f} s (host clock); step losses within 6e-2 of the "
+            f"1-rank fit's (max diff "
+            f"{np.abs(np.asarray(last[0]['step_losses']) - ref_losses).max():.4f});"
+            f" Ulysses vs ring logits max diff "
+            f"{np.abs(np.asarray(last[0]['ulysses']) - ring0).max():.4f}; "
+            f"restored on one rank max diff "
+            f"{np.abs(restored - ring0).max():.4f}")
+        for r, m in enumerate(last):
+            col = m["collectives"]
+            log(f"[19a] rank {r}: {m['step_ms']:.2f} ms a step, "
+                f"{m['allreduce_ms']:.2f} ms of it in the gradient exchange "
+                f"(CUDA events, the epoch's mean); tp/sp collectives "
+                f"{col['calls'] / steps:.0f} calls and "
+                f"{col['collective_ms'] / steps:.2f} ms a step (CUDA events "
+                f"around each, forward, backward and the two predicts "
+                f"included), {col['staged_bytes'] / steps / 2**20:.2f} MiB "
+                f"a step staged through the host; peak device memory "
+                f"{m['peak_bytes'] / 2**30:.3f} GiB; block 0 holds "
+                f"{m['shapes']}")
+        counts += [m["launches"] for m in last]
+
+        plast = [m["pipe"] for m in last]
+        seq = PipelinedClassifier(
+            P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                        max_len=GLUE_SEQ, dropout_rate=0.0, n_layers=2),
+            P.MeshSpec(dp=2, pp=2), n_microbatches=4, device="cuda",
+            generator=torch.Generator().manual_seed(11)).eval()
+        with torch.no_grad():
+            want = seq(torch.from_numpy(pids).cuda()).float().cpu().numpy()
+        del seq
+        psteps = PIPE_EPOCHS * (PIPE_ROWS // 2) // MESH_BATCH
+        n_mb, blocks = 4, 1
+        # Predicted before the run: 1 block a stage x 4 microbatches x 12
+        # steps = 48 of each kernel, plus the check forward's 4 (one
+        # microbatch a row pair) forward launches.
+        want_counts = {k: blocks * n_mb * psteps for k in KERNEL_SYMBOLS}
+        want_counts["flash_fwd"] += n_mb
+        half = len(pids) // 2
+        diffs = []
+        for r, m in enumerate(plast):
+            dp = r // 2
+            got = np.asarray(m["check_logits"])
+            diffs.append(np.abs(got - want[dp * half:(dp + 1) * half]).max())
+            check(np.allclose(got, want[dp * half:(dp + 1) * half],
+                              **LOGIT_TOL),
+                  f"19b: rank {r}'s pipelined logits differ from the "
+                  f"stages in sequence by {diffs[-1]:.4f}")
+            check(m["launches"] == want_counts,
+                  f"19b: rank {r} counted {m['launches']}, want "
+                  f"{want_counts}")
+            check(m["stage_shapes"][0][0] == 1,
+                  f"19b: rank {r} holds {m['stage_shapes']} of the stages")
+            losses = [h["train_loss"] for h in m["history"]]
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"19b: rank {r}'s pipelined loss did not fall: {losses}")
+        losses = [h["train_loss"] for h in plast[0]["history"]]
+        log(f"[19b] in 19a's gang: MeshSpec(dp=2, pp=2), a "
+            f"PipelinedClassifier at bert_base width (2 blocks, one a "
+            f"stage), flash, 4 microbatches, {psteps} steps a rank at batch "
+            f"{MESH_BATCH}; losses {[round(v, 4) for v in losses]}; each "
+            f"rank's launches {plast[0]['launches']} (predicted "
+            f"{want_counts}); logits vs the stages in sequence max diff "
+            + ", ".join(f"{d:.4f}" for d in diffs))
+        for r, m in enumerate(plast):
+            h = m["history"][-1]
+            log(f"[19b] rank {r}: {h['step_ms']:.2f} ms a step, "
+                f"{h['allreduce_ms']:.2f} ms in the gradient exchange "
+                f"(CUDA events), peak {m['peak_bytes'] / 2**30:.3f} GiB "
+                f"(19a's estimator still held)")
+        counts += [m["launches"] for m in plast]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -5673,6 +6050,10 @@ def main() -> int:
     t18 = time.perf_counter()
     cli_counts = phase_compat_cli(torch, P)
     log(f"[18a] {time.perf_counter() - t18:.1f} s (host clock)")
+    t19 = time.perf_counter()
+    mesh_counts = phase_mesh(torch, P)
+    log(f"[time] phase 19 done at {time.perf_counter() - t0:.1f} s "
+        f"({time.perf_counter() - t19:.1f} s)")
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver
                       + cp_replica_launches)
@@ -5690,6 +6071,9 @@ def main() -> int:
     for r, counts in enumerate(telemetry_counts):
         fits[f"15 fit_spmd rank {r}"] = counts
     fits["18a CLI driver"] = cli_counts
+    for r, counts in enumerate(mesh_counts):
+        tag = f"19a rank {r}" if r < 4 else f"19b rank {r - 4}"
+        fits[tag] = counts
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

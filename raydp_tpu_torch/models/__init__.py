@@ -34,6 +34,8 @@ from raydp_tpu_torch.models.transformer import (
     tiny_transformer,
 )
 
+from raydp_tpu_torch.models.pipelined import PipelinedClassifier
+
 __all__ = [
     "CausalLM",
     "DLRM",
@@ -47,6 +49,7 @@ __all__ = [
     "MoELayer",
     "MultiHeadAttention",
     "PackedDLRM",
+    "PipelinedClassifier",
     "SequenceClassifier",
     "ShardedEmbedding",
     "TransformerBlock",

@@ -138,13 +138,39 @@ update is the one for the mean over the global batch; the
 reported ``train_loss`` is that global mean, the same on every rank.
 Dropout draws from a generator seeded from ``seed`` and the rank. Every
 rank enters :meth:`Estimator.save`; rank 0 writes the file (with every
-rank's generator state) and prunes, then all wait at a barrier. The
-mesh is data parallel only (:class:`~raydp_tpu_torch.parallel.MeshSpec`),
-so ``shard_params`` and ``logical_rules`` change nothing, as with a
-dp-only mesh in the JAX package. Each epoch's metrics add ``step_ms``
-and ``allreduce_ms`` (means over its steps: CUDA events on a card, the
-host clock on the CPU) and ``first_step_at`` (the wall-clock time the
-fit's first step finished, epoch 0 only).
+rank's generator state) and prunes, then all wait at a barrier. Each
+epoch's metrics add ``step_ms`` and ``allreduce_ms`` (means over its
+steps: CUDA events on a card, the host clock on the CPU) and
+``first_step_at`` (the wall-clock time the fit's first step finished,
+epoch 0 only).
+
+**Model parallelism** (``raydp_tpu/train/estimator.py:304-308, 327-400,
+532-575``): a ``mesh=MeshSpec(dp, pp, sp, tp)`` with any of pp, sp, tp
+above 1 must span the gang's world, one process per mesh position
+(``raydp_tpu_torch/parallel/mesh.py``); a dp-only mesh spans the whole
+gang, as before. The mesh is built (:meth:`Estimator.param_placements`)
+at the fit's start, or at the first evaluate, predict, save or restore,
+and with ``shard_params`` each parameter of a model that declares
+logical axes is cut to this rank's block by ``logical_rules`` (default:
+the transformer's ``LOGICAL_RULES``, as ``JAXEstimator`` uses them), the
+modules binding the mesh's groups; Adam's moments follow, since the
+optimizer is built on the cut parameters. A model without axes (an
+MLP) stays replicated and every rank computes all of it. The data rule:
+a gang's shards go to dp indices, not ranks (``fit_spmd``), so the sp,
+tp and pp peers of one dp index read the same ``batch_size`` rows, and
+the model keeps its sp block of the positions. The gradient rule (JAX's
+autodiff sums a replicated parameter's gradient over every axis that
+replicates it): each rank backpropagates its loss weighted by 1 on the
+first sp rank of the last pp stage and 0 elsewhere (the sp and pp peers
+compute the same loss), and every parameter's gradient is summed over
+the dp, sp and pp axes that replicate it, in buckets per group; tp
+peers need no sum, the layers' own collectives having made their
+gradients whole. The rows and loss sum are counted once a dp index.
+``save`` gathers full parameters and optimizer state to rank 0, which
+writes the one checkpoint file; ``restore`` cuts it onto whatever mesh
+restores it, one process included. The device plane's FLOP count
+(``mfu``) is skipped on such a mesh: its meta-device pass cannot run the
+model's collectives.
 """
 from __future__ import annotations
 
@@ -165,7 +191,15 @@ from raydp_tpu_torch.config import DataConfig, TrainConfig
 from raydp_tpu_torch.data.ml_dataset import MLDataset
 from raydp_tpu_torch.models.dropout import set_dropout_generator
 from raydp_tpu_torch.models.moe import moe_aux_loss
-from raydp_tpu_torch.parallel.mesh import DEFAULT_LOGICAL_RULES, MeshSpec
+from raydp_tpu_torch.parallel import collectives as _coll
+from raydp_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshSpec,
+    Placement,
+    gather_state_dict,
+    param_placements,
+    shard_module,
+)
 from raydp_tpu_torch.telemetry import accounting as _acct
 from raydp_tpu_torch.telemetry import device_profiler as _devplane
 from raydp_tpu_torch.telemetry import events as _events
@@ -311,32 +345,47 @@ class _StepClock:
 
 
 class _GradAllReduce:
-    """The data-parallel gradient exchange of a multi-process fit: one
-    ``all_reduce`` (sum) per bucket of at most ``BUCKET_CAP_MB`` of
-    gradients of one dtype, in parameter order, the rank's loss sum, row
-    count and preemption vote riding the first float32 bucket (a float64
-    triple of their own where there is none). Every rank ends with the
-    same bytes, so the same optimizer keeps the ranks' parameters equal,
-    and every rank reads the same count of votes."""
+    """The gradient exchange of a multi-process fit: one ``all_reduce``
+    (sum) per bucket of at most ``BUCKET_CAP_MB`` of gradients of one
+    dtype and one reduction group, in parameter order, the rank's loss
+    sum, row count and preemption vote riding the first float32 bucket
+    over the whole world (a float64 triple of their own where there is
+    none). ``groups`` maps a parameter to the group its gradient sums
+    over (``None``: no sum; missing: the world); on a data-parallel mesh
+    every gradient sums over the world. ``stats_weight`` counts this
+    rank's rows and loss (1 on one rank of each dp index). Every rank of
+    a group ends with the same bytes, so the same optimizer keeps their
+    parameters equal, and every rank reads the same count of votes."""
 
-    def __init__(self, params):
+    _WORLD = object()
+
+    def __init__(self, params, groups: Optional[Dict[int, object]] = None,
+                 stats_weight: float = 1.0):
         self.params = [p for p in params if p.requires_grad]
+        self.stats_weight = stats_weight
+        self.grouped = groups is not None
+        groups = groups or {}
         cap = BUCKET_CAP_MB << 20
-        self.buckets: List[List[nn.Parameter]] = []
+        # (group, [params]) in parameter order.
+        self.buckets: List[tuple] = []
         cur: List[nn.Parameter] = []
+        cur_group = None
         cur_bytes = 0
         for p in self.params:
+            group = groups.get(id(p), self._WORLD)
             nbytes = p.numel() * p.element_size()
-            if cur and (cur[0].dtype != p.dtype or cur_bytes + nbytes > cap):
-                self.buckets.append(cur)
+            if cur and (cur[0].dtype != p.dtype or cur_group is not group
+                        or cur_bytes + nbytes > cap):
+                self.buckets.append((cur_group, cur))
                 cur, cur_bytes = [], 0
             cur.append(p)
+            cur_group = group
             cur_bytes += nbytes
         if cur:
-            self.buckets.append(cur)
+            self.buckets.append((cur_group, cur))
         self.stats_bucket = next(
-            (i for i, b in enumerate(self.buckets)
-             if b[0].dtype == torch.float32), None)
+            (i for i, (g, b) in enumerate(self.buckets)
+             if g is self._WORLD and b[0].dtype == torch.float32), None)
         # The last exchange's count of ranks that had a preemption notice.
         self._votes: Optional[torch.Tensor] = None
 
@@ -347,10 +396,11 @@ class _GradAllReduce:
         loss."""
         import torch.distributed as dist
 
-        stats = torch.cat([loss_sum.float().reshape(1), torch.tensor(
-            [float(rows), float(preempt)], device=loss_sum.device)])
+        w = self.stats_weight
+        stats = torch.cat([loss_sum.float().reshape(1) * w, torch.tensor(
+            [float(rows) * w, float(preempt)], device=loss_sum.device)])
         flats = []
-        for i, bucket in enumerate(self.buckets):
+        for i, (_, bucket) in enumerate(self.buckets):
             parts = [p.grad.reshape(-1) if p.grad is not None
                      else torch.zeros(p.numel(), dtype=p.dtype,
                                       device=p.device)
@@ -360,17 +410,24 @@ class _GradAllReduce:
             flats.append(torch.cat(parts))
         if self.stats_bucket is None:
             flats.append(stats.double())
-        for flat in flats:
-            dist.all_reduce(flat)
+        for i, flat in enumerate(flats):
+            group = (self.buckets[i][0] if i < len(self.buckets)
+                     else self._WORLD)
+            if group is self._WORLD:
+                dist.all_reduce(flat)
+            elif group is not None:
+                dist.all_reduce(flat, group=group)
         total = (flats[self.stats_bucket][-3:] if self.stats_bucket
                  is not None else flats[-1]).clone()
         self._votes = total[2]
         n_global = total[1]
-        for i, (bucket, flat) in enumerate(zip(self.buckets, flats)):
+        for i, ((_, bucket), flat) in enumerate(zip(self.buckets, flats)):
             offset = 0
             for p in bucket:
                 n = p.numel()
-                if p.grad is not None:
+                # On a mesh a parameter may have a gradient on some ranks
+                # only (a stage's embedding): every rank takes the sum.
+                if p.grad is not None or self.grouped:
                     p.grad = flat[offset:offset + n].view_as(p).div_(
                         n_global.to(flat.dtype))
                 offset += n
@@ -485,13 +542,18 @@ class Estimator:
         self.label_column = label_column
         self.feature_dtype = feature_dtype
         self.label_dtype = label_dtype
-        # Data parallel only (MeshSpec raises for pp/sp/tp > 1): with a
-        # dp-only mesh the JAX package's shard_params and logical rules
-        # shard nothing, and neither do they here.
+        # The mesh is built from the world when first needed
+        # (param_placements); the transformer's rules by default, as
+        # JAXEstimator uses them (raydp_tpu/train/estimator.py:304-308).
         self.mesh_spec = mesh or MeshSpec()
         self.shard_params = shard_params
-        self.logical_rules = list(logical_rules if logical_rules is not None
-                                  else DEFAULT_LOGICAL_RULES)
+        if logical_rules is None:
+            from raydp_tpu_torch.models.transformer import LOGICAL_RULES
+
+            logical_rules = LOGICAL_RULES
+        self.logical_rules = list(logical_rules)
+        self._mesh: Optional[Mesh] = None
+        self._placements: Optional[Dict[str, Placement]] = None
         self.seed = seed
         self.shuffle = shuffle
         self.callbacks = list(callbacks)
@@ -551,6 +613,7 @@ class Estimator:
         # Multi-process fits: the gradient exchange and the step clock,
         # live while a fit runs.
         self._allreduce: Optional[_GradAllReduce] = None
+        self._loss_weight = 1.0
         self._clock: Optional[_StepClock] = None
         # The device plane, live while a fit runs (the sentinel stays for
         # inspection after it): the stream path's phase accumulator, and
@@ -566,8 +629,93 @@ class Estimator:
     @property
     def optimizer(self) -> torch.optim.Optimizer:
         if self._optimizer is None:
+            # Built on the parameters as this rank holds them: Adam's
+            # moments follow the cut.
+            self.param_placements()
             self._optimizer = self._make_optimizer(self._model.parameters())
         return self._optimizer
+
+    # -- mesh -----------------------------------------------------------
+    def param_placements(self) -> Dict[str, Placement]:
+        """Each parameter's :class:`~raydp_tpu_torch.parallel.mesh.Placement`
+        on the estimator's mesh, building the mesh (and cutting the
+        parameters, with ``shard_params``) on first use: a data-parallel
+        spec spans the whole world; any other must be exactly the world's
+        size. Collective the first time in a gang: every rank calls it."""
+        if self._placements is not None:
+            return self._placements
+        rank, world = _dist_world()
+        spec = self.mesh_spec
+        if spec.size > world:
+            # An explicitly requested mesh that doesn't fit is a
+            # misconfiguration (the JAX package's _ensure_mesh).
+            raise ValueError(
+                f"mesh {spec.axis_sizes} needs {spec.size} devices but "
+                f"only {world} are visible (one card a process)")
+        if spec.data_parallel_only:
+            spec = MeshSpec(dp=world)
+        elif spec.size != world:
+            raise ValueError(
+                f"mesh {spec.axis_sizes} must span the world: one process "
+                f"a mesh position, but the world has {world}")
+        bound = getattr(self._model, "mesh", None)
+        if isinstance(bound, Mesh):
+            # The model was cut at construction (cfg.mesh).
+            if bound.spec != spec:
+                raise ValueError(f"the model is sharded over {bound.spec}, "
+                                 f"the estimator's mesh is {spec}")
+            self._mesh = bound
+            self._placements = param_placements(self._model, bound,
+                                                self.logical_rules)
+        else:
+            self._mesh = spec.build()
+            if self.shard_params and not spec.data_parallel_only:
+                self._placements = shard_module(self._model, self._mesh,
+                                                self.logical_rules)
+            else:
+                self._placements = {
+                    n: Placement(self._mesh, ())
+                    for n, _ in self._model.named_parameters()}
+        return self._placements
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The built mesh (None before :meth:`param_placements`)."""
+        return self._mesh
+
+    def _model_parallel(self) -> bool:
+        return self._mesh is not None and \
+            not self._mesh.spec.data_parallel_only
+
+    def _mesh_weights(self) -> "tuple[float, float]":
+        """(loss weight, stats weight) of this rank (module docstring):
+        the loss is seeded on the first sp rank of the last pp stage, and
+        the rows and loss are counted on that rank's tp 0."""
+        c, shape = self._mesh.coords, self._mesh.shape
+        seed = float(c["sp"] == 0 and c["pp"] == shape["pp"] - 1)
+        return seed, seed * float(c["tp"] == 0)
+
+    def _grad_groups(self) -> Dict[int, object]:
+        """The group each parameter's gradient sums over: the dp, sp and
+        pp axes that replicate it."""
+        named = dict(self._model.named_parameters())
+        out = {}
+        for name, pl in self._placements.items():
+            axes = [a for a in ("dp", "pp", "sp") if a in pl.replicated_axes]
+            out[id(named[name])] = self._mesh.group(*axes) if axes else None
+        return out
+
+    def _data_world_size(self) -> int:
+        """The number of data shards a position counts in: the mesh's dp
+        size on a model-parallel mesh, else the process group's size."""
+        if self._model_parallel():
+            return self._mesh.shape["dp"]
+        return _data_world()
+
+    def gathered_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` with every sharded parameter gathered
+        to its full shape (collective: every rank of a gang calls it)."""
+        return gather_state_dict(self._model, self.param_placements())
 
     def _loaders(self, ds, columns, label, shuffle: bool, drop_last: bool):
         return [
@@ -621,13 +769,7 @@ class Estimator:
              resume_from: Optional[str]) -> None:
         self._failures = 0
         rank, world = _dist_world()
-        if self.mesh_spec.size > world:
-            # An explicitly requested mesh that doesn't fit is a
-            # misconfiguration (the JAX package's _ensure_mesh).
-            raise ValueError(
-                f"mesh {self.mesh_spec.axis_sizes} needs "
-                f"{self.mesh_spec.size} devices but only {world} are "
-                "visible (one card a process)")
+        self.param_placements()
         install_compile_listener()
         plane = _devplane.enabled()
         self._sentinel = _devplane.AnomalySentinel() if plane else None
@@ -637,8 +779,16 @@ class Estimator:
         else:
             self.effective_epoch_mode = "stream"
             if world > 1:
-                self._generator.manual_seed(_rank_seed(self.seed, rank))
-                self._allreduce = _GradAllReduce(self._model.parameters())
+                self._generator.manual_seed(_rank_seed(self.seed,
+                                                       self._data_rank()))
+                if self._model_parallel():
+                    self._loss_weight, stats_w = self._mesh_weights()
+                    self._allreduce = _GradAllReduce(
+                        self._model.parameters(), self._grad_groups(),
+                        stats_weight=stats_w)
+                else:
+                    self._allreduce = _GradAllReduce(
+                        self._model.parameters())
             if world > 1 or plane:
                 self._clock = _StepClock(self.device)
             if plane:
@@ -647,6 +797,15 @@ class Estimator:
                 self._fit_stream(train_ds, evaluate_ds, epochs, resume_from)
             finally:
                 self._allreduce = self._clock = self._phases = None
+                self._loss_weight = 1.0
+
+    def _data_rank(self) -> int:
+        """This rank's dropout stream: its place among the ranks that see
+        different activations (dp and sp; tp and pp peers share one)."""
+        if not self._model_parallel():
+            return _dist_world()[0]
+        c, shape = self._mesh.coords, self._mesh.shape
+        return c["dp"] * shape["sp"] + c["sp"]
 
     def _train_step(self, x: torch.Tensor,
                     y: Optional[torch.Tensor]) -> torch.Tensor:
@@ -669,8 +828,9 @@ class Estimator:
             loss = loss + moe_aux_loss(self._model)
         if self._allreduce is not None:
             # The rank's rows weigh its loss: the reduced gradient over
-            # the global rows is the global batch mean's.
-            (loss * len(x)).backward()
+            # the global rows is the global batch mean's. On a model-
+            # parallel mesh one rank of each sp/pp group seeds it.
+            (loss * (len(x) * self._loss_weight)).backward()
             t1 = clock.mark()
             self._update_begun = True
             h1 = time.perf_counter()
@@ -786,7 +946,8 @@ class Estimator:
             self.restore_path(resume_from)
             if self._resume_position is not None:
                 start_epoch, skip_batches = self._resume_position
-                saved_world, cur_world = self._resume_world, _data_world()
+                saved_world = self._resume_world
+                cur_world = self._data_world_size()
                 if saved_world and saved_world != cur_world:
                     skip_batches = int(round(skip_batches * saved_world
                                              / cur_world))
@@ -856,6 +1017,8 @@ class Estimator:
         if self._first_input is None:
             return
         x, self._first_input = self._first_input, None
+        if self._model_parallel():
+            return  # the meta-device pass cannot run the collectives
         _devplane.note_compiled("train_step",
                                 count_train_step(self._model, (x,)))
 
@@ -936,6 +1099,17 @@ class Estimator:
         import torch.distributed as dist
 
         with torch.no_grad():
+            if self._model_parallel():
+                # Each block from the first rank holding it.
+                mesh = self._mesh
+                for name, p in self._model.named_parameters():
+                    axes = self._placements[name].replicated_axes
+                    if axes:
+                        _coll.broadcast_raw(p.data, mesh.members(*axes)[0],
+                                            mesh.group(*axes))
+                for t in self._model.buffers():
+                    dist.broadcast(t.data, src=0)
+                return
             for t in list(self._model.parameters()) + list(
                     self._model.buffers()):
                 dist.broadcast(t.data, src=0)
@@ -1125,6 +1299,7 @@ class Estimator:
     def evaluate(self, ds, prefix: str = "") -> Dict[str, float]:
         """Loss and metrics over ``ds`` in eval mode, each the mean of the
         batch values weighted by the batches' true lengths."""
+        self.param_placements()
         model = self._model.eval()
         loaders = self._loaders(ds, self.feature_columns, self.label_column,
                                 shuffle=False, drop_last=False)
@@ -1146,7 +1321,9 @@ class Estimator:
     @torch.no_grad()
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Batched inference on a host array, ``batch_size`` rows at a
-        time; returns the model's outputs as numpy."""
+        time; returns the model's outputs as numpy. In a gang every rank
+        calls it (the model's collectives)."""
+        self.param_placements()
         model = self._model.eval()
         x = np.asarray(x, dtype=self.feature_dtype)
         if len(x) == 0:
@@ -1166,6 +1343,7 @@ class Estimator:
         ``ds.total_rows`` of them: the padded per-shard outputs are
         scattered through ``ds.shard_global_indices``, so padding rows
         collapse onto the rows they repeat."""
+        self.param_placements()
         model = self._model.eval()
         cols = feature_columns or self.feature_columns
         outs = [model(x).float().cpu().numpy()
@@ -1229,10 +1407,14 @@ class Estimator:
         enters orbax's save in the JAX package): the ranks' generator
         states are gathered, rank 0 writes the file and prunes, and all
         ranks leave together after a barrier, so none reads a file that
-        is not there yet."""
+        is not there yet. On a model-parallel mesh the parameters and the
+        optimizer state are gathered to their full shapes first, so the
+        file restores onto any mesh."""
         import torch.distributed as dist
 
         rank, world = _dist_world()
+        model_state = self.gathered_state_dict()
+        opt_state = self._gather_optimizer_state()
         name = f"step_{step}.pt" if step is not None else "final.pt"
         path = os.path.abspath(os.path.join(checkpoint_dir, name))
         generators = None
@@ -1244,12 +1426,12 @@ class Estimator:
             epoch, batch = (data_position if data_position is not None
                             else (-1, -1))
             state = {
-                "model": self._model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+                "model": model_state,
+                "optimizer": opt_state,
                 "step": self._step,
                 "data_epoch": epoch,
                 "data_batch": batch,
-                "data_world": _data_world(),
+                "data_world": self._data_world_size(),
                 "generator": self._generator.get_state(),
             }
             if generators is not None:
@@ -1274,6 +1456,44 @@ class Estimator:
         self.restore_path(os.path.abspath(os.path.join(checkpoint_dir,
                                                        name)))
 
+    def _opt_placements(self) -> List[Placement]:
+        """The placement of each optimizer parameter index (the optimizer
+        is built on ``model.parameters()``, in that order)."""
+        placements = self.param_placements()
+        return [placements[n] for n, _ in self._model.named_parameters()]
+
+    def _gather_optimizer_state(self) -> dict:
+        """The optimizer's ``state_dict`` with each parameter's state
+        tensors shaped like it gathered (collective; a no-op without cut
+        parameters)."""
+        sd = self.optimizer.state_dict()
+        placements = self._opt_placements()
+        if not any(pl.sharded_axes for pl in placements):
+            return sd
+        shapes = [p.shape for p in self._model.parameters()]
+        for i, st in sd["state"].items():
+            pl = placements[i]
+            if pl.sharded_axes:
+                sd["state"][i] = {
+                    k: pl.gather(v) if torch.is_tensor(v)
+                    and v.shape == shapes[i] else v for k, v in st.items()}
+        return sd
+
+    def _cut_optimizer_state(self, sd: dict) -> dict:
+        """A full optimizer ``state_dict`` cut to this rank's blocks."""
+        placements = self._opt_placements()
+        if not any(pl.sharded_axes for pl in placements):
+            return sd
+        shapes = [p.shape for p in self._model.parameters()]
+        state = {}
+        for i, st in sd["state"].items():
+            pl = placements[int(i)]
+            state[i] = {
+                k: pl.shard(v) if pl.sharded_axes and torch.is_tensor(v)
+                and v.dim() > 0 and v.shape != shapes[int(i)] else v
+                for k, v in st.items()}
+        return {**sd, "state": state}
+
     def shutdown(self) -> None:
         """Drop the model and the optimizer with their device state (the
         JAX estimator's ``shutdown``; a scan fit's captured step lives
@@ -1296,15 +1516,20 @@ class Estimator:
         older files) restores as before: the rank's stream where the
         gang's size matches, else rank 0's."""
         state = torch.load(path, map_location="cpu", weights_only=True)
-        self._model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        placements = self.param_placements()
+        self._model.load_state_dict({
+            k: placements[k].shard(v) if k in placements else v
+            for k, v in state["model"].items()})
+        self.optimizer.load_state_dict(
+            self._cut_optimizer_state(state["optimizer"]))
         self._step = int(state["step"])
         rank, world = _dist_world()
         saved_world = int(state.get("data_world", 0))
         self._resume_world = saved_world if saved_world > 0 else None
         generators = state.get("rank_generators")
-        if self._resume_world not in (None, world):
-            self._generator.manual_seed(_rank_seed(self.seed, rank))
+        if self._resume_world not in (None, self._data_world_size()):
+            self._generator.manual_seed(_rank_seed(self.seed,
+                                                   self._data_rank()))
         elif generators is not None and len(generators) == world:
             # The same gang's rank resumes its own dropout stream.
             self._generator.set_state(generators[rank])

@@ -187,6 +187,7 @@ def fit_spmd(
     elastic: bool = False,
     min_world_size: int = 1,
     device: DeviceLike = "cuda",
+    mesh=None,
 ) -> Dict[str, Any]:
     """Train ``make_estimator()`` data-parallel over ``world_size``
     processes. ``train_ds`` (an :class:`MLDataset`) must have
@@ -201,6 +202,17 @@ def fit_spmd(
     ``device`` is the ranks' device: ``"cuda"`` (the default) raises
     here without a card, and a rank that finds none fails the gang;
     ``"cpu"`` trains on the CPU over gloo.
+
+    ``mesh`` (a :class:`~raydp_tpu_torch.parallel.MeshSpec` with pp, sp
+    or tp above 1; the factory's estimator takes the same spec) makes
+    the gang a mesh, one process per position: ``world_size`` must be
+    ``mesh.size`` and ``train_ds`` must have ``mesh.dp`` shards, shard
+    ``i`` going to every rank of dp index ``i`` (its sp, tp and pp peers
+    read the same rows). ``params`` are then the gathered full
+    parameters, and ``per_rank_params_sha256`` digests each rank's
+    gathered parameters. A relaunch resumes from the gathered
+    checkpoint, which the estimator cuts onto the mesh again. Not with
+    ``elastic``.
 
     Supervision: on rank death or a registration timeout the gang is
     torn down and relaunched (jittered exponential backoff from
@@ -240,7 +252,19 @@ def fit_spmd(
     from raydp_tpu_torch.telemetry import flight_recorder as _flight
     from raydp_tpu_torch.utils.profiling import metrics as _metrics
 
-    if not elastic and train_ds.num_shards != world_size:
+    if mesh is not None and mesh.data_parallel_only:
+        mesh = None
+    if mesh is not None:
+        if elastic:
+            raise ValueError("an elastic fit runs data parallel only")
+        if world_size != mesh.size:
+            raise ValueError(f"world_size {world_size} != mesh size "
+                             f"{mesh.size} ({mesh.axis_sizes})")
+        if train_ds.num_shards != mesh.dp:
+            raise ValueError(
+                f"train_ds must have num_shards == mesh.dp "
+                f"({train_ds.num_shards} != {mesh.dp})")
+    elif not elastic and train_ds.num_shards != world_size:
         raise ValueError(
             f"train_ds must have num_shards == world_size "
             f"({train_ds.num_shards} != {world_size})")
@@ -266,6 +290,12 @@ def fit_spmd(
 
     def _payloads(cur_world: int) -> List[tuple]:
         ds = train_ds
+        if mesh is not None:
+            # Shards go to dp indices: every rank of one reads the same.
+            shard_of = [mesh.coords_of(r)["dp"] for r in range(cur_world)]
+            if store_mode:
+                return [(ds.shard_plan[i],) for i in shard_of]
+            return [(ds.shard_tables(i),) for i in shard_of]
         if ds.num_shards != cur_world:
             # The same blocks over the new world (elastic); rank_nodes
             # named the old world's ranks, so it is dropped.
@@ -357,7 +387,8 @@ def fit_spmd(
                     est = make_estimator()
                     history = est.fit(MLDataset(list(tables), num_shards=1),
                                       resume_from=resume_from)
-                    state = est.get_model().state_dict()
+                    # Full parameters (collective on a model-parallel mesh).
+                    state = est.gathered_state_dict()
                     out = {"rank": ctx.rank, "history": history,
                            "backend": backend, "digest": _params_digest(state)}
                     if ctx.rank == 0:

@@ -116,6 +116,9 @@ def test_port_files_exist():
                 "raydp_tpu_torch/spmd/worker_main.py",
                 "raydp_tpu_torch/dataframe/window.py",
                 "raydp_tpu_torch/parallel/mesh.py",
+                "raydp_tpu_torch/parallel/collectives.py",
+                "raydp_tpu_torch/parallel/pipeline.py",
+                "raydp_tpu_torch/models/pipelined.py",
                 "raydp_tpu_torch/train/spmd_fit.py",
                 "raydp_tpu_torch/control/__init__.py",
                 "raydp_tpu_torch/control/arbiter.py",

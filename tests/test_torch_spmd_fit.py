@@ -16,7 +16,7 @@ gloo.
   as the in-memory run does.
 * ``num_shards != world_size`` raises as in the JAX package; the
   default ``device="cuda"`` raises on a host with no card; a mesh with
-  tp > 1 raises ``NotImplementedError``.
+  tp > 1 is not elastic and must match the world.
 * Checkpoints written inside the gang (every rank enters ``save``)
   restore into a fresh single-process ``Estimator`` with the gang's
   parameters.
@@ -193,13 +193,21 @@ def test_fit_spmd_defaults_to_the_card(monkeypatch):
 def test_fit_spmd_elastic_and_wide_mesh_not_ported():
     """``elastic=True`` is ported (``tests/test_torch_fault_tolerance.py``
     runs it): it lifts the shard/world check but still validates
-    ``min_world_size``. A mesh wider than data parallel is not ported."""
+    ``min_world_size``. A mesh wider than data parallel is ported
+    (``tests/test_torch_mesh_estimator.py``), but not elastic: a wide
+    mesh with ``elastic=True`` raises, as does a world other than its
+    size."""
     with pytest.raises(ValueError, match="min_world_size must be >= 1"):
         fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=1,
                  elastic=True, min_world_size=0, device="cpu")
     for axes in ({"tp": 2}, {"pp": 2}, {"sp": 2}):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
-            MeshSpec(**axes)
+        assert MeshSpec(**axes).size == 2
+        with pytest.raises(ValueError, match="elastic fit runs data"):
+            fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=2,
+                     elastic=True, mesh=MeshSpec(**axes), device="cpu")
+        with pytest.raises(ValueError, match="!= mesh size"):
+            fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=4,
+                     mesh=MeshSpec(**axes), device="cpu")
     assert MeshSpec(dp=4).size == 4 and MeshSpec.auto_from(2).dp == 2
 
 
