@@ -311,7 +311,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    launches an eval; the
    ranks' step losses fall (the first 3 steps' mean above the last
    3's).
-19. Model parallelism (after 18a): two gangs of 4 ranks on the one card,
+19. Model parallelism (18a's process running beside it): one gang of 4
+   ranks on the one card,
    one process per mesh position, over gloo (the ranks share the card:
    ``parallel/collectives.py`` stages send/recv and all_to_all through
    the host). (a) ``fit_spmd(mesh=MeshSpec(sp=2, tp=2))`` of 10c's
@@ -337,6 +338,36 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    each rank holds one stage, and each rank's counters read 52 forward
    (1 block x 4 microbatches x 12 steps, and 4 for the check forward)
    and 48 of each backward kernel.
+20. DLRM tables over tp and MoE experts over dp, in 19's gang after
+   19b (no gang of its own). (a) ``PackedDLRM(criteo_dlrm())`` (26
+   tables of 100,000 x 128, phase 5's weights from seed 12) over
+   ``MeshSpec(dp=2, tp=2)`` with the DLRM ``LOGICAL_RULES``, bce, AdamW
+   1e-3, 8 steps at batch 1,024 (512 a dp rank, its half of each global
+   batch): each rank holds 50,000 rows of every table, the step losses
+   within 6e-2 of the same fit on one rank (the driver's, from the same
+   weights and batches); each rank's table bytes, peak memory, the tp
+   collectives' calls, ms and staged bytes a step, the tp reduction's
+   bytes and the gradient exchange's ms a step. (b) ``MoEClassifier``
+   at bert_base width (phase 6's experts: 8 of d_ff 3072, top-2,
+   capacity factor 1.25, flash, bf16) cut to ``FT_LAYERS`` blocks,
+   dropout 0, over ``MeshSpec(dp=2, tp=2)``: 4 experts a rank with
+   their FFN halved over tp, ``aux_losses=True``, AdamW 1e-4, 4 steps at
+   batch 32 x 128 (16 a dp rank), against the same fit on one rank: the
+   kept slots of every layer and step equal on every rank and within
+   ``KEPT_ATOL`` (1%) of the one-rank fit's (bf16 rounding under tp flips
+   near-tie choices), the step losses within 6e-2, and each rank's flash
+   launches the count predicted before the first run (``FT_LAYERS`` of
+   each kernel a step).
+
+Every process started from phase 9 on logs its start's parts
+(``raydp_tpu_torch/utils/startup.py``): after each phase a ``[start]``
+line a process with its total and its seconds of interpreter start-up,
+``import torch``, CUDA context, kernel libraries, model, optimizer
+(AdamW's import of ``torch._dynamo``), first step and the rest, and at
+the end a summary of each part over all starts. The card's machine
+sets ``PYTHONDONTWRITEBYTECODE``, so every process compiled torch's
+modules from source; the script keeps a bytecode cache for itself and
+every process it starts (:func:`bytecode_cache_on`).
 
 Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
@@ -442,6 +473,79 @@ SERVE_UP_S, SERVE_REQUEST_S = 180.0, 300.0
 # kernels' summation order) and the differences grow through depth; a
 # wrong kernel output gives errors of order 1.
 GRAD_REL_BOUND = 0.1
+
+
+# The start log (``raydp_tpu_torch/utils/startup.py``): its directory,
+# the processes already reported and each part's sum over them.
+START_LOG = {"dir": None, "seen": set(), "rows": []}
+START_PARTS = ("up", "torch", "cuda", "dist", "kernels", "model",
+               "optimizer", "first_step", "other")
+
+
+def bytecode_cache_on() -> None:
+    """Keep Python's bytecode for this process and every process it
+    starts, in a directory of its own. The card's machine sets
+    ``PYTHONDONTWRITEBYTECODE`` and its torch install has no
+    ``__pycache__``, so every process compiled torch from source: 7.0-7.4
+    s for ``import torch`` and 7.1-7.7 s more for AdamW's import of
+    ``torch._dynamo`` on an H100 machine (``scripts/import_probe.sh``),
+    in each rank, replica and driver subprocess. Call it before ``import torch``: this process
+    writes the cache, the later ones read it."""
+    import tempfile
+
+    path = tempfile.mkdtemp(prefix="chip-smoke-pycache-")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = path
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+
+
+def start_log_on() -> None:
+    """Every process started from here on logs its start's parts."""
+    import tempfile
+
+    from raydp_tpu_torch.utils import startup
+
+    START_LOG["dir"] = tempfile.mkdtemp(prefix="chip-smoke-starts-")
+    os.environ[startup.ENV] = START_LOG["dir"]
+
+
+def start_report(tag: str) -> None:
+    """One line a process started since the last report: its role, its
+    start's total (creation to its last part) and each part's seconds on
+    the host clock, after ``@`` its start in the process's life."""
+    from raydp_tpu_torch.utils import startup
+
+    if START_LOG["dir"] is None:
+        return
+    rows = [r for r in startup.read_starts(START_LOG["dir"],
+                                           exclude={os.getpid()})
+            if r["pid"] not in START_LOG["seen"]]
+    for r in sorted(rows, key=lambda r: r["start"]):
+        START_LOG["seen"].add(r["pid"])
+        r["tag"] = tag
+        START_LOG["rows"].append(r)
+        log(f"[start] {tag} {r['role']} pid {r['pid']}: {r['total']:.2f} s"
+            + "".join(f", {p} {r[p]:.2f}" + (f"@{r[p + '@']:.1f}"
+                                              if p + "@" in r else "")
+                      for p in START_PARTS if p in r))
+
+
+def start_summary() -> None:
+    """Each part's sum over every start of the run, by role and in all."""
+    rows = START_LOG["rows"]
+    by_role = {}
+    for r in rows:
+        by_role.setdefault(r["role"], []).append(r)
+
+    def sums(rs):
+        return ", ".join(f"{p} {sum(r.get(p, 0.0) for r in rs):.2f}"
+                         for p in ("total",) + START_PARTS)
+
+    for role, rs in sorted(by_role.items()):
+        log(f"[start] summary {role}: {len(rs)} starts, {sums(rs)}")
+    log(f"[start] summary: {len(rows)} starts, {sums(rows)} (seconds "
+        f"summed over processes; parts overlap across processes)")
 
 
 def flash_module():
@@ -2981,17 +3085,11 @@ def gang_score(ctx, tables, seed, batch):
             "peak_bytes": torch.cuda.max_memory_allocated(device)}
 
 
-def phase_client(torch, P, session, ref):
-    """12a: a second driver process attached to ``session`` by
-    ``connect`` runs 10c's fine-tune; its own counters must read 12
-    launches of each kernel a step, its losses fall, and once it has
-    disconnected the session's workers are alive and the refs it handed
-    to the holder read back here. ``ref`` holds 11c's numbers."""
-    import numpy as np
-    import pyarrow as pa
-
-    from raydp_tpu_torch import dataframe as rdf
-    from raydp_tpu_torch.store.object_store import ObjectRef
+def start_client(torch, session):
+    """12a's second driver process, started here and left running beside
+    12b: it attaches to ``session`` by ``connect`` and runs 10c's
+    fine-tune (:func:`client_main`)."""
+    import tempfile
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # two processes now share the card
@@ -3000,18 +3098,48 @@ def phase_client(torch, P, session, ref):
     address = session.cluster.master.address
     script = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
               f"sys.exit(chip_smoke.client_main({address!r}))")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                          capture_output=True, text=True,
-                          timeout=CLIENT_LIMIT_S)
+    # Files, not pipes: nothing reads the process's output until it ends.
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-12a-")
+    with open(os.path.join(tmp, "out"), "w") as out, \
+            open(os.path.join(tmp, "err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", script], cwd=ROOT,
+                                stdout=out, stderr=err, text=True)
+    return proc, tmp, held, time.perf_counter()
+
+
+def phase_client(torch, P, session, ref, started):
+    """12a: waits for the second driver :func:`start_client` started;
+    its own counters must read 12 launches of each kernel a step, its
+    losses fall, and once it has disconnected the session's workers are
+    alive and the refs it handed to the holder read back here. ``ref``
+    holds 11c's numbers."""
+    import shutil
+
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch import dataframe as rdf
+    from raydp_tpu_torch.store.object_store import ObjectRef
+
+    proc, tmp, held, t0 = started
+    try:
+        proc.wait(timeout=CLIENT_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     wall_s = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+    with open(os.path.join(tmp, "out")) as f:
+        stdout = f.read()
+    with open(os.path.join(tmp, "err")) as f:
+        stderr = f.read()
+    shutil.rmtree(tmp, ignore_errors=True)
+    for line in stdout.splitlines():
         if not line.startswith("RESULT "):
             log(f"  (client) {line}")
     check(proc.returncode == 0,
           f"12a: the second driver exited {proc.returncode}:\n"
-          f"{proc.stderr[-3000:]}")
-    out = json.loads(next(line for line in proc.stdout.splitlines()
+          f"{stderr[-3000:]}")
+    out = json.loads(next(line for line in stdout.splitlines()
                           if line.startswith("RESULT "))[len("RESULT "):])
     steps = ETL_GLUE_EPOCHS * ETL_GLUE_ROWS // ETL_GLUE_BATCH
     want = {k: 12 * steps for k in KERNEL_SYMBOLS}
@@ -3033,7 +3161,8 @@ def phase_client(torch, P, session, ref):
           .tolist() == [1, 2, 3], "12a: the session runs no stage after "
                                   "the client left")
     log(f"[12a] second driver through connect(): {wall_s:.1f} s in all "
-        f"(process start, imports, connect in {out['connect_s']:.3f} s, "
+        f"(beside 12b; process start, imports, connect in "
+        f"{out['connect_s']:.3f} s, "
         f"the ETL, the fit); {out['ms']:.2f} ms/step against 11c's "
         f"{ref['glue_ms']:.2f} ({out['ms'] / ref['glue_ms']:.3f}x); "
         f"{out['first_s']:.3f} s from fit_on_df's call to the first step "
@@ -3152,15 +3281,18 @@ def phase_gang(torch, P, session):
 
 def phase_second_drivers(torch, P, ref):
     """12: a fresh 4-worker session driven from a second driver process
-    (12a) and from an SPMD gang (12b); ``ref`` holds 11c's numbers.
-    Returns 12a's result and 12b's launches."""
+    (12a) and, while that process runs, from an SPMD gang (12b); ``ref``
+    holds 11c's numbers. Returns 12a's result and 12b's launches."""
     from raydp_tpu_torch.store import shm
 
     session = P.init(app_name="chip-smoke-12", num_workers=SESSION_WORKERS)
     namespace = session.cluster.namespace
     try:
-        client = phase_client(torch, P, session, ref)
-        ranks, probe_counts = phase_gang(torch, P, session)
+        started = start_client(torch, session)
+        try:
+            ranks, probe_counts = phase_gang(torch, P, session)
+        finally:
+            client = phase_client(torch, P, session, ref, started)
     finally:
         P.stop()
     left = shm.list_segments(f"rdp-{namespace}-")
@@ -5474,13 +5606,12 @@ def _prefixed(text, prefix):
     return json.loads(lines[0][len(prefix):])
 
 
-def phase_compat_cli(torch, P):
-    """18a: the submit CLI runs :func:`compat_driver_main` in a process
-    of its own; returns its launch counts over every stage."""
-    import shutil
+def start_compat_cli():
+    """18a's process: the submit CLI running :func:`compat_driver_main`,
+    started here and left running (it holds its own session and card
+    work, beside phases 19-20); :func:`phase_compat_cli` waits for it
+    and checks it."""
     import tempfile
-
-    import numpy as np
 
     tmp = tempfile.mkdtemp(prefix="chip-smoke-18a-")
     driver = os.path.join(tmp, "driver.py")
@@ -5492,20 +5623,38 @@ def phase_compat_cli(torch, P):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("RAYDP_TPU_CONF_")
            and k not in ("RAYDP_TPU_APP_NAME", "RAYDP_TPU_NUM_WORKERS")}
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
+    # Files, not pipes: nothing reads the process's output until it ends.
+    with open(os.path.join(tmp, "out"), "w") as out, \
+            open(os.path.join(tmp, "err"), "w") as err:
+        proc = subprocess.Popen(
             [sys.executable, "-m", "raydp_tpu_torch.cli.submit", *args,
-             driver, tmp], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=COMPAT_LIMIT_S)
+             driver, tmp], cwd=ROOT, env=env, stdout=out, stderr=err)
+    return proc, tmp, time.perf_counter()
+
+
+def phase_compat_cli(torch, P, started):
+    """18a: waits for the process :func:`start_compat_cli` started and
+    checks what it printed; returns its launch counts over every stage."""
+    import shutil
+
+    import numpy as np
+
+    proc, tmp, t0 = started
+    try:
+        try:
+            proc.wait(timeout=COMPAT_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
         wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "out")) as f:
+            stdout = f.read()
+        with open(os.path.join(tmp, "err")) as f:
+            stderr = f.read()
         check(proc.returncode == 0,
-              f"18a: the CLI exited {proc.returncode}: "
-              f"{proc.stderr[-3000:]}")
-        handoff = _prefixed(proc.stdout, "HANDOFF ")
-        out = _prefixed(proc.stdout, "RESULT ")
+              f"18a: the CLI exited {proc.returncode}: {stderr[-3000:]}")
+        handoff = _prefixed(stdout, "HANDOFF ")
+        out = _prefixed(stdout, "RESULT ")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     want_handoff = {"app": "chip-18a", "workers": 2, "alive": 2,
@@ -5543,7 +5692,8 @@ def phase_compat_cli(torch, P):
           f"restored {out['restored_history']}")
     secs = out["secs"]
     log(f"[18a] submit CLI -> driver process: {wall:.1f} s of wall (host "
-        f"clock, the interpreter's start and imports included), init() "
+        f"clock, beside phases 19-20; the interpreter's start and imports "
+        f"included), init() "
         f"{out['init_s']:.2f} s with handoff {handoff}; fit_on_df "
         f"{secs['fit']:.2f} s for {steps} steps and the eval, "
         f"{out['first_step_s']:.2f} s of it from the call to the first "
@@ -5663,22 +5813,29 @@ MESH_LIMIT_S = 900.0
 MESH_ENV = {"OMP_NUM_THREADS": "2"}
 
 
-def _recording_loss(record):
-    """The repo's ``softmax_ce``, each step's value kept (a device tensor,
-    read after the fit: no sync a step)."""
+def _recording_loss(record, name="softmax_ce", moe_layers=None,
+                    kept=None):
+    """The repo's loss ``name``, each step's value kept (a device tensor,
+    read after the fit: no sync a step), and with ``moe_layers`` their
+    kept slots of the step in ``kept``."""
+    import torch
+
     from raydp_tpu_torch.train.losses import resolve_loss
 
-    base = resolve_loss("softmax_ce")
+    base = resolve_loss(name)
 
     def loss(preds, target):
         value = base(preds, target)
         record.append(value.detach())
+        if moe_layers:
+            kept.append(torch.stack([m.kept_slots for m in moe_layers]))
         return value
 
     return loss
 
 
-def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids):
+def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids,
+                     expert_cols):
     """19a's estimator factory, run in each rank: 10c's bf16 classifier
     at bert_base width and depth with ring attention, its initial
     parameters from generator seed 9 (the 1-rank reference's), cut by the
@@ -5688,8 +5845,9 @@ def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids):
     counts, peak memory, the collectives' calls, time and staged bytes
     (``parallel/collectives.py``), the shapes of block 0's four Megatron
     weights, and the ring's and Ulysses' logits of the trained model on
-    ``check_ids``; then it runs 19b in the same gang
-    (:func:`pipe_part`), so that phase 19 starts one gang."""
+    ``check_ids``; then it runs 19b and 20 in the same gang
+    (:func:`pipe_part`, :func:`expert_part`), so that phases 19 and 20
+    start one gang."""
     def make_estimator():
         import dataclasses
 
@@ -5724,6 +5882,7 @@ def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids):
                 m["ulysses"] = self.est.predict(check_ids).tolist()
                 C.set_timing(False)
                 m["pipe"] = cs.pipe_part(pipe_cols, pipe_ids)
+                m["expert"] = cs.expert_part(*expert_cols)
 
         cs._reset_counts()
         C.reset_stats()
@@ -5797,6 +5956,219 @@ def pipe_part(cols, check_ids):
                              if n.startswith("stages.")][:2]}
 
 
+# Phase 20, in 19's gang: criteo_dlrm over dp2·tp2 (phase 5's weights and
+# rows, 8 steps at batch 1,024), and the MoE classifier at bert_base width
+# cut to FT_LAYERS blocks over dp2·tp2 (4 steps at batch 32 x 128).
+EXPERT_MESH = dict(dp=2, tp=2)
+EXPERT_DLRM_STEPS, EXPERT_MOE_STEPS = 8, 4
+# Kept slots of a layer and step (of 8,192) that the gang may differ by
+# from the one-rank fit: in bf16, tp's split attention rounds the tokens
+# otherwise and flips near-tie top choices (24 at most in a CPU rehearsal
+# at tiny width; the float32 CPU tests hold the routing exactly). The
+# gang's ranks agree exactly: they count the dp group's tokens.
+KEPT_ATOL = 82
+
+
+def _dp_half(cols, batch, dp):
+    """Dp rank ``dp``'s rows of a fit over global batches of ``batch``:
+    its half of each, in order (the one-rank reference's batches)."""
+    import numpy as np
+
+    n = len(cols["label"])
+    idx = np.concatenate([np.arange(b + dp * batch // 2,
+                                    b + (dp + 1) * batch // 2)
+                          for b in range(0, n, batch)])
+    return {k: v[idx] for k, v in cols.items()}
+
+
+def expert_fit(kind, cols, mesh=None):
+    """20's fit of ``kind`` (``"dlrm"`` or ``"moe"``): on ``mesh`` (a dict
+    of axes) in a rank of 19's gang, each dp rank on its half of each
+    global batch, or on this process alone. Returns its step losses, the
+    MoE's kept slots a step and layer, the rank's launches, peak memory,
+    table rows and bytes, the tp collectives' stats and the epoch's
+    metrics."""
+    import numpy as np
+    import torch
+
+    import raydp_tpu_torch as P
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.models import dlrm
+    from raydp_tpu_torch.models.moe import MoELayer
+    from raydp_tpu_torch.parallel import collectives as C
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, kept = [], []
+    spec = P.MeshSpec(**mesh) if mesh else P.MeshSpec()
+    if kind == "dlrm":
+        cfg = P.criteo_dlrm()
+        model = P.PackedDLRM(cfg, device="cuda",
+                             generator=torch.Generator().manual_seed(12))
+        names = [f"I{i}" for i in range(cfg.dense_features)] + [
+            f"C{t}" for t in range(cfg.n_tables)]
+        batch, layers = DLRM_BATCH, None
+        kw = dict(loss=_recording_loss(steps, "bce"),
+                  optimizer=lambda p: torch.optim.AdamW(p, lr=1e-3,
+                                                        weight_decay=1e-2),
+                  logical_rules=dlrm.LOGICAL_RULES)
+    else:
+        cfg = P.bert_base(attention_impl="flash", dtype=torch.bfloat16,
+                          dropout_rate=0.0, max_len=GLUE_SEQ,
+                          n_layers=FT_LAYERS)
+        model = P.MoEClassifier(cfg, P.MoEConfig(), 2, device="cuda",
+                                generator=torch.Generator().manual_seed(13))
+        names = [f"t{i}" for i in range(GLUE_SEQ)]
+        batch = GLUE_BATCH
+        layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+        kw = dict(loss=_recording_loss(steps, "softmax_ce", layers, kept),
+                  optimizer=lambda p: torch.optim.AdamW(p, lr=1e-4,
+                                                        weight_decay=1e-2),
+                  aux_losses=True, feature_dtype=np.int32,
+                  label_dtype=np.int32)
+    est = P.Estimator(
+        model=model, num_epochs=1, batch_size=batch // spec.dp,
+        feature_columns=names, label_column="label", mesh=spec, seed=0,
+        shuffle=False, epoch_mode="stream", device="cuda", **kw)
+    est.param_placements()  # builds the mesh: every rank calls it
+    if mesh:
+        cols = _dp_half(cols, batch, est.mesh.coords["dp"])
+    C.reset_stats()
+    C.set_timing(bool(mesh))
+    t0 = time.perf_counter()
+    history = est.fit(MLDataset([cols], 1))
+    seconds = time.perf_counter() - t0
+    C.set_timing(False)
+    out = {"step_losses": [float(v) for v in steps],
+           "kept": [[float(k) for k in step] for step in kept],
+           "launches": _counts(), "peak_bytes":
+           torch.cuda.max_memory_allocated(), "collectives": C.stats(),
+           "metrics": {k: v for k, v in history[-1].items()
+                       if isinstance(v, (int, float))},
+           "seconds": seconds}
+    if kind == "dlrm":
+        tables = model.dlrm.emb
+        out["table_rows"] = [int(t.table.shape[0]) for t in tables]
+        out["table_bytes"] = sum(t.table.numel() * t.table.element_size()
+                                 for t in tables)
+        out["impl"] = tables[0].impl
+    else:
+        out["experts"] = [list(layers[0].w_up.shape)]
+    del est, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_part(dlrm_cols, moe_cols):
+    """20, run in every rank of 19's gang after 19b: :func:`expert_fit` of
+    the DLRM, then of the MoE classifier, over ``EXPERT_MESH``."""
+    t0 = time.perf_counter()
+    out = {"dlrm": expert_fit("dlrm", dlrm_cols, EXPERT_MESH),
+           "moe": expert_fit("moe", moe_cols, EXPERT_MESH)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_expert(torch, P, ref, ranks):
+    """20's checks and lines: each rank's fits (``ranks``, from the gang)
+    against the one-rank fits (``ref``)."""
+    import numpy as np
+
+    cfg = P.criteo_dlrm()
+    moe = P.MoEConfig()
+    # Predicted before the first run: FT_LAYERS launches of each flash
+    # kernel a step a rank (a rank runs its 6 heads in one launch), no
+    # other forward; the DLRM runs none.
+    want_moe = {k: FT_LAYERS * EXPERT_MOE_STEPS for k in KERNEL_SYMBOLS}
+    no_flash = {k: 0 for k in KERNEL_SYMBOLS}
+    rd, rm = ref["dlrm"], ref["moe"]
+    # A rank records its dp half's mean loss: the halves' mean is the
+    # global batch's (ranks 0-1 are dp 0, 2-3 dp 1).
+    mean = {kind: np.mean([ranks[0][kind]["step_losses"],
+                           ranks[2][kind]["step_losses"]], axis=0)
+            for kind in ("dlrm", "moe")}
+    check(len(rd["step_losses"]) == EXPERT_DLRM_STEPS
+          and len(rm["step_losses"]) == EXPERT_MOE_STEPS,
+          f"20: the one-rank fits ran {len(rd['step_losses'])} and "
+          f"{len(rm['step_losses'])} steps")
+    for r, m in enumerate(ranks):
+        d, e = m["dlrm"], m["moe"]
+        check(d["table_rows"] == [v // EXPERT_MESH["tp"]
+                                  for v in cfg.vocab_sizes],
+              f"20a: rank {r} holds {d['table_rows'][:3]}... table rows")
+        check(d["step_losses"] == ranks[r ^ 1]["dlrm"]["step_losses"],
+              f"20a: rank {r}'s step losses are not its tp peer's")
+        check(d["launches"] == no_flash,
+              f"20a: rank {r} launched flash kernels {d['launches']}")
+        check(e["experts"][0][0] == moe.n_experts // EXPERT_MESH["dp"]
+              and e["experts"][0][2] == moe.d_ff // EXPERT_MESH["tp"],
+              f"20b: rank {r} holds w_up {e['experts'][0]}")
+        check(e["kept"] == ranks[0]["moe"]["kept"],
+              f"20b: rank {r}'s kept slots {e['kept']} are not rank 0's "
+              f"{ranks[0]['moe']['kept']}")
+        check(np.allclose(e["kept"], rm["kept"], rtol=0, atol=KEPT_ATOL),
+              f"20b: rank {r}'s kept slots {e['kept']} are more than "
+              f"{KEPT_ATOL} from the one-rank fit's {rm['kept']}")
+        check(e["step_losses"] == ranks[r ^ 1]["moe"]["step_losses"],
+              f"20b: rank {r}'s step losses are not its tp peer's")
+        check(e["launches"] == want_moe,
+              f"20b: rank {r} counted {e['launches']}, want {want_moe}")
+    for kind, want in (("dlrm", rd), ("moe", rm)):
+        check(np.allclose(mean[kind], want["step_losses"], **FIT_TOL),
+              f"20: the gang's {kind} step losses {np.round(mean[kind], 4)} "
+              f"(the dp halves' mean) are not the one-rank fit's "
+              f"{np.round(want['step_losses'], 4)} (6e-2)")
+    d0, e0 = ranks[0]["dlrm"], ranks[0]["moe"]
+    tp_bytes = cfg.n_tables * (DLRM_BATCH // 2) * cfg.embed_dim * 4
+    log(f"[20a] criteo_dlrm over MeshSpec(dp=2, tp=2) in 19's gang, "
+        f"{EXPERT_DLRM_STEPS} steps at batch {DLRM_BATCH} ({DLRM_BATCH // 2} "
+        f"a dp rank), lookups {d0['impl']} (the cut table's local-row "
+        f"gather): step losses (the dp halves' mean) max diff from the "
+        f"one-rank fit "
+        f"{np.abs(mean['dlrm'] - rd['step_losses']).max():.4f}"
+        f" (6e-2); the one-rank fit {rd['seconds']:.1f} s, its peak "
+        f"{rd['peak_bytes'] / 2**30:.3f} GiB; the tp reduction of the "
+        f"lookups {tp_bytes} bytes a step forward (26 f32 [512, 128] sums)")
+    for r, m in enumerate(ranks):
+        d = m["dlrm"]
+        col = d["collectives"]
+        log(f"[20a] rank {r}: table bytes {d['table_bytes']} "
+            f"({d['table_rows'][0]} rows a table), peak "
+            f"{d['peak_bytes'] / 2**30:.3f} GiB, {d['metrics']['step_ms']:.2f}"
+            f" ms a step, {d['metrics']['allreduce_ms']:.2f} ms of it in the "
+            f"dp gradient exchange (CUDA events); tp collectives "
+            f"{col['calls'] / EXPERT_DLRM_STEPS:.0f} calls, "
+            f"{col['collective_ms'] / EXPERT_DLRM_STEPS:.2f} ms and "
+            f"{col['staged_bytes'] / EXPERT_DLRM_STEPS / 2**20:.2f} MiB staged"
+            f" a step; fit {d['seconds']:.1f} s (host clock)")
+    log(f"[20] in 19's gang: {max(m['seconds'] for m in ranks):.1f} s a "
+        f"rank (host clock; the ranks' slowest), the one-rank references "
+        f"{rd['seconds'] + rm['seconds']:.1f} s of fit")
+    log(f"[20b] MoEClassifier (bert_base width, {FT_LAYERS} blocks, 8 "
+        f"experts of d_ff 3072, top-2, capacity factor 1.25, flash) over "
+        f"MeshSpec(dp=2, tp=2), {EXPERT_MOE_STEPS} steps at batch "
+        f"{GLUE_BATCH} x {GLUE_SEQ}: kept slots a step and layer "
+        f"{e0['kept']} on every rank, {rm['kept']} on one rank (of "
+        f"{GLUE_BATCH * GLUE_SEQ * moe.top_k} a layer; capacity "
+        f"{moe.capacity(GLUE_BATCH * GLUE_SEQ)}); step losses max diff from the one-rank fit "
+        f"{np.abs(mean['moe'] - rm['step_losses']).max():.4f}"
+        f"; launches a rank {e0['launches']} (predicted {want_moe}); the "
+        f"one-rank fit {rm['seconds']:.1f} s, peak "
+        f"{rm['peak_bytes'] / 2**30:.3f} GiB")
+    for r, m in enumerate(ranks):
+        e = m["moe"]
+        col = e["collectives"]
+        log(f"[20b] rank {r}: w_up {e['experts'][0]}, peak "
+            f"{e['peak_bytes'] / 2**30:.3f} GiB, {e['metrics']['step_ms']:.2f}"
+            f" ms a step, {e['metrics']['allreduce_ms']:.2f} ms in the "
+            f"gradient exchange; collectives {col['calls'] / EXPERT_MOE_STEPS:.0f}"
+            f" calls, {col['collective_ms'] / EXPERT_MOE_STEPS:.2f} ms and "
+            f"{col['staged_bytes'] / EXPERT_MOE_STEPS / 2**20:.2f} MiB staged "
+            f"a step; fit {e['seconds']:.1f} s")
+
+
 def phase_mesh(torch, P):
     """19: model parallelism over one gang of 4 ranks on the one card
     (gloo: ranks share the card), each a mesh position. 19a
@@ -5822,6 +6194,11 @@ def phase_mesh(torch, P):
     check_ids = np.stack([cols[c][:MESH_CHECK_ROWS] for c in feats], 1)
     pcols = {k: v[:PIPE_ROWS] for k, v in cols.items()}
     pids = check_ids[:PIPE_CHECK_ROWS]
+    expert_cols = (
+        criteo_columns(np, P.criteo_dlrm(), DLRM_BATCH * EXPERT_DLRM_STEPS,
+                       seed=11),
+        glue_columns(np, GLUE_BATCH * EXPERT_MOE_STEPS, GLUE_SEQ, 30522,
+                     seed=5)[1])
     ckpt = tempfile.mkdtemp(prefix="chip-smoke-19a-")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5848,10 +6225,16 @@ def phase_mesh(torch, P):
         ref_losses = [float(v) for v in ref_steps]
         del ref
         torch.cuda.empty_cache()
+        # 20's references: the same fits on this process alone.
+        t20 = time.perf_counter()
+        expert_ref = {kind: expert_fit(kind, c) for kind, c in
+                      zip(("dlrm", "moe"), expert_cols)}
+        log(f"[20] the one-rank reference fits {time.perf_counter() - t20:.1f}"
+            f" s (host clock)")
 
         called, t0 = time.time(), time.perf_counter()
         out = P.fit_spmd(mesh_fit_factory(dict(sp=2, tp=2), ckpt, check_ids,
-                                          pcols, pids),
+                                          pcols, pids, expert_cols),
                          MLDataset([cols], 1), world_size=4,
                          mesh=P.MeshSpec(sp=2, tp=2), env=MESH_ENV,
                          timeout=MESH_LIMIT_S)
@@ -5970,6 +6353,9 @@ def phase_mesh(torch, P):
                 f"(CUDA events), peak {m['peak_bytes'] / 2**30:.3f} GiB "
                 f"(19a's estimator still held)")
         counts += [m["launches"] for m in plast]
+        check_expert(torch, P, expert_ref, [m["expert"] for m in last])
+        counts += [m["expert"]["moe"]["launches"] for m in last]
+        counts.append(expert_ref["moe"]["launches"])
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5977,6 +6363,7 @@ def phase_mesh(torch, P):
 
 
 def main() -> int:
+    bytecode_cache_on()
     import torch
 
     if not torch.cuda.is_available():
@@ -5992,6 +6379,7 @@ def main() -> int:
         return 3
 
     t0 = time.perf_counter()
+    start_log_on()
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
         f"{gpu_line()}")
@@ -6030,30 +6418,40 @@ def main() -> int:
     _reset_counts()
     decode_replica_launches = phase_serve_decode(torch, P)
     log(f"[time] phase 9 done at {time.perf_counter() - t0:.1f} s")
+    start_report("9")
     serve_f32_driver = _counts()["flash_fwd"]
     etl_counts, etl_ref = phase_etl(torch, P)
     log(f"[time] phase 10 done at {time.perf_counter() - t0:.1f} s")
     session_counts, session_ref = phase_session(torch, P, etl_ref)
     log(f"[time] phase 11 done at {time.perf_counter() - t0:.1f} s")
+    start_report("11")
     client, gang = phase_second_drivers(torch, P, session_ref)
     log(f"[time] phase 12 done at {time.perf_counter() - t0:.1f} s")
+    start_report("12")
     gang_fit = phase_window_and_gang(torch, P)
     log(f"[time] phase 13 done at {time.perf_counter() - t0:.1f} s")
+    start_report("13")
     t17 = time.perf_counter()
     ft_counts, cp_replica_launches = phase_fault_tolerance(torch, P)
     phase_autoscale(P)
     log(f"[time] phases 14, 18b and 17 done at "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"[17] 17c done; phases 14 and 17 {time.perf_counter() - t17:.1f} s")
+    start_report("14-18b-17")
     telemetry_counts = phase_telemetry(torch, P)
     log(f"[time] phase 15 done at {time.perf_counter() - t0:.1f} s")
-    t18 = time.perf_counter()
-    cli_counts = phase_compat_cli(torch, P)
-    log(f"[18a] {time.perf_counter() - t18:.1f} s (host clock)")
+    start_report("15")
+    # 18a's process runs beside phases 19-20: its own session, its own
+    # fit on the card.
+    cli = start_compat_cli()
     t19 = time.perf_counter()
     mesh_counts = phase_mesh(torch, P)
-    log(f"[time] phase 19 done at {time.perf_counter() - t0:.1f} s "
+    log(f"[time] phases 19 and 20 done at {time.perf_counter() - t0:.1f} s "
         f"({time.perf_counter() - t19:.1f} s)")
+    cli_counts = phase_compat_cli(torch, P, cli)
+    log(f"[time] 18a done at {time.perf_counter() - t0:.1f} s")
+    start_report("18a-19-20")
+    start_summary()
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver
                       + cp_replica_launches)
@@ -6072,7 +6470,8 @@ def main() -> int:
         fits[f"15 fit_spmd rank {r}"] = counts
     fits["18a CLI driver"] = cli_counts
     for r, counts in enumerate(mesh_counts):
-        tag = f"19a rank {r}" if r < 4 else f"19b rank {r - 4}"
+        tag = (f"19a rank {r}" if r < 4 else f"19b rank {r - 4}" if r < 8
+               else f"20b rank {r - 8}" if r < 12 else "20b one-rank fit")
         fits[tag] = counts
     for e in entries:
         name = e["name"]

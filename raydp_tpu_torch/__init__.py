@@ -53,6 +53,12 @@ without a card they raise unless the caller passes ``device="cpu"``.
 """
 import importlib
 
+from raydp_tpu_torch.utils import startup as _startup
+
+# The package's first line in every process: where a start's ``up``
+# part ends (``utils/startup.py``; off unless RAYDP_TPU_START_LOG is set).
+_startup.mark_up()
+
 __version__ = "0.1.0"
 
 # Public name -> the module that defines it, imported at first use.

@@ -7,6 +7,7 @@ from raydp_tpu_torch.models.dlrm import (
     PackedDLRM,
     ShardedEmbedding,
     criteo_dlrm,
+    dlrm_shardings,
     tiny_dlrm,
 )
 from raydp_tpu_torch.models.dropout import Dropout, set_dropout_generator
@@ -31,6 +32,7 @@ from raydp_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerEncoder,
     bert_base,
+    param_shardings,
     tiny_transformer,
 )
 
@@ -58,7 +60,9 @@ __all__ = [
     "bert_base",
     "binary_classifier",
     "criteo_dlrm",
+    "dlrm_shardings",
     "moe_aux_loss",
+    "param_shardings",
     "params_from_flax",
     "set_dropout_generator",
     "taxi_fare_regressor",

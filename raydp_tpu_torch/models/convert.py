@@ -26,10 +26,13 @@ for the port's module of the same name. It imports no JAX.
 
 With ``mesh=`` (a :class:`~raydp_tpu_torch.parallel.MeshSpec` or a built
 mesh) and ``coords=`` (the rank's place, a built mesh's own by default)
-each parameter is cut to that rank's block, by the logical axes of the
-transformer family (``models/transformer.layer_axes``, a leading
-``stage`` axis for ``stages``) lowered through its ``LOGICAL_RULES``;
-:func:`gather_shards` is the inverse, from every rank's blocks.
+each parameter is cut to that rank's block, by the logical axes its
+module declares (the transformer family's ``layer_axes``, a leading
+``stage`` axis for ``stages``; the MoE layer's stacked experts and
+router; DLRM's tables, MLP layers and logit) lowered through ``rules``
+(the transformer's ``LOGICAL_RULES`` by default; DLRM's tables cut under
+``models/dlrm.LOGICAL_RULES``); :func:`gather_shards` is the inverse,
+from every rank's blocks.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from raydp_tpu_torch.models import dlrm, moe
 from raydp_tpu_torch.models.transformer import (
     LOGICAL_RULES,
     TransformerConfig,
@@ -133,14 +137,34 @@ class _Position:
         self.coords = dict(coords)
 
 
-def placement_of(name: str, cfg: TransformerConfig, mesh,
-                 rules=LOGICAL_RULES) -> Placement:
-    """The placement of the port parameter ``name`` of the transformer
-    family on ``mesh`` (replicated where the family declares no axes)."""
+def _declared_axes(name: str, cfg: Optional[TransformerConfig]):
+    """The logical axes and view the port's module declares for the
+    parameter ``name`` (no axes: replicated)."""
     parts = name.split(".")
-    stacked = parts[0] == "stages"
+    leaf = parts[-1]
     layer = parts[-2] if len(parts) >= 2 else ""
-    logical, view = layer_axes(cfg).get(layer, {}).get(parts[-1], ((), None))
+    if leaf in moe.LOGICAL_AXES:
+        return moe.LOGICAL_AXES[leaf]
+    if layer == "router":
+        return moe.ROUTER_AXES[leaf]
+    if leaf in dlrm.TABLE_AXES:
+        return dlrm.TABLE_AXES[leaf]
+    if len(parts) >= 3 and parts[-3] in ("bottom", "top") \
+            and parts[0] in ("dlrm", "bottom", "top"):
+        return dlrm.MLP_AXES[leaf]
+    if layer == "logit":
+        return dlrm.LOGIT_AXES.get(leaf, ((), None))
+    if cfg is None:
+        return (), None
+    return layer_axes(cfg).get(layer, {}).get(leaf, ((), None))
+
+
+def placement_of(name: str, cfg: Optional[TransformerConfig], mesh,
+                 rules=LOGICAL_RULES) -> Placement:
+    """The placement of the port parameter ``name`` on ``mesh``
+    (replicated where its module declares no axes)."""
+    stacked = name.split(".")[0] == "stages"
+    logical, view = _declared_axes(name, cfg)
     if stacked:
         # The JAX package boxes stacked leaves ("stage", None, ...).
         logical, view = ("stage",), None
@@ -178,7 +202,7 @@ def params_from_flax(tree: Mapping[str, Any],
 
 
 def gather_shards(shards: Sequence[Mapping[str, torch.Tensor]],
-                  cfg: TransformerConfig, spec: MeshSpec,
+                  cfg: Optional[TransformerConfig], spec: MeshSpec,
                   rules=LOGICAL_RULES) -> Dict[str, torch.Tensor]:
     """The full ``state_dict`` from every rank's blocks (``shards[r]`` is
     rank ``r``'s), the inverse of ``params_from_flax(..., mesh=)``."""

@@ -15,6 +15,7 @@ from torch import nn
 
 from raydp_tpu_torch.models.dropout import Dropout
 from raydp_tpu_torch.models.transformer import Dense, init_params
+from raydp_tpu_torch.utils import startup
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -22,6 +23,7 @@ class MLP(nn.Module):
     """Dense stack: hidden layers + linear head. ``layers.<i>`` holds flax's
     ``Dense_<i>``."""
 
+    @startup.timed("model")
     def __init__(
         self,
         in_features: int,

@@ -20,8 +20,32 @@ or scatter:
   it over a model's layers. Under a captured step the tensor lives in the
   graph's pool and each replay rewrites it.
 
-Expert parallelism (experts sharded over dp) waits for the multi-GPU
-slice: on one card every expert is local.
+**On a mesh** (``raydp_tpu/models/moe.py:94-178``; :meth:`MoELayer.bind_mesh`).
+The JAX layer sees the dp-sharded global batch under GSPMD, so it routes
+over the global tokens. The port's layer does the same over its dp group
+of ``n`` ranks, the tokens in rank-major order as the global batch is:
+the capacity is ``cfg.capacity(n · T_local)`` (every rank's batch is the
+same size), each round's slot positions are offset by the counts of that
+round's choices on the lower dp ranks (one ``all_gather`` of the
+``[k, E]`` counts a forward: a round's choices depend on this rank's
+probabilities only), the slots used carry over from the group's counts,
+and the Switch loss takes the group's means of ``top1`` and ``probs``
+(the probabilities' sum through
+:func:`~raydp_tpu_torch.parallel.collectives.reduce_from_region`, whose
+identity backward gives each rank the gradient of its own tokens; the
+estimator weights the term by ``n``, ``train/estimator.py``). That holds
+with the experts replicated (a data-parallel gang) and cut. With the
+``expert`` axis on dp (``logical_axes``; the transformer's
+``LOGICAL_RULES``) each rank holds ``E/dp`` experts: its ``[E, C, D]``
+dispatch contribution is reduce-scattered over dp by expert, its experts
+run with their FFN cut over tp (``w_up`` and ``b_up`` by column, ``w_down``
+by row, summed by ``reduce_from_region`` before ``b_down``), and their
+``[E/dp, C, D]`` outputs are gathered back over dp for the local combine.
+Expert gradients then come whole from every rank's tokens through those
+collectives' backwards, and the estimator sums them over no axis (dp
+cuts them). The sequence is never cut (sp must be 1). Every rank of the
+dp group runs each forward, as every device of a JAX mesh does: a fit's
+steps, ``evaluate`` and ``predict`` alike.
 """
 from __future__ import annotations
 
@@ -33,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raydp_tpu_torch.parallel import collectives as C
 from raydp_tpu_torch.models.transformer import (
     Dense,
     Embed,
@@ -41,6 +66,7 @@ from raydp_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
 )
+from raydp_tpu_torch.utils import startup
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -69,6 +95,18 @@ class MoEConfig:
             n_tokens / self.n_experts * self.top_k * self.capacity_factor))
 
 
+# The flax parameters' partitioning (raydp_tpu/models/moe.py:94-102,
+# 138-162): the stacked experts, and the router's kernel [D, E] seen as
+# the Linear's [E, D] weight.
+LOGICAL_AXES = {
+    "w_up": (("expert", "embed", "mlp"), None),
+    "b_up": (("expert", "mlp"), None),
+    "w_down": (("expert", "mlp", "embed"), None),
+    "b_down": (("expert", "embed"), None),
+}
+ROUTER_AXES = {"weight": ((None, "embed"), None)}
+
+
 def _stacked_xavier_(w: torch.Tensor, generator: torch.Generator) -> None:
     """flax's ``xavier_uniform`` on a stacked ``[E, fan_in, fan_out]``
     kernel: the leading axis counts into both fans."""
@@ -84,7 +122,8 @@ class MoELayer(nn.Module):
     tokens are the flattened leading axes. Dropped tokens give zeros.
     After each forward, ``aux_loss`` holds the weighted Switch loss and
     ``kept_slots`` the number of (token, choice) pairs that found a slot,
-    of ``T · top_k``."""
+    of ``T · top_k`` (over the dp group's tokens on a mesh: the module
+    docstring)."""
 
     def __init__(self, cfg: MoEConfig,
                  generator: Optional[torch.Generator] = None):
@@ -96,6 +135,11 @@ class MoELayer(nn.Module):
         self.b_up = nn.Parameter(torch.zeros(e, f, dtype=pdt))
         self.w_down = nn.Parameter(torch.empty(e, f, d, dtype=pdt))
         self.b_down = nn.Parameter(torch.zeros(e, d, dtype=pdt))
+        self.logical_axes = LOGICAL_AXES
+        self.router.logical_axes = ROUTER_AXES
+        # The routing group, and the expert and tp groups where the
+        # experts are cut (bind_mesh).
+        self.dp_group = self.ep_group = self.tp_group = None
         self.aux_loss: Optional[torch.Tensor] = None
         self.kept_slots: Optional[torch.Tensor] = None
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
@@ -108,49 +152,90 @@ class MoELayer(nn.Module):
             self.b_up.zero_()
             self.b_down.zero_()
 
+    def bind_mesh(self, mesh) -> None:
+        """Route over ``mesh``'s dp group; where this rank's experts or
+        FFN columns are a block, run the expert-parallel path (the module
+        docstring)."""
+        if mesh.shape["sp"] > 1:
+            raise ValueError("the MoE layer routes whole sequences: sp "
+                             "must be 1")
+        cfg = self.cfg
+        self.dp_group = mesh.group("dp")
+        self.ep_group = (mesh.group("dp")
+                         if self.w_up.shape[0] != cfg.n_experts else None)
+        self.tp_group = (mesh.group("tp")
+                         if self.w_up.shape[2] != cfg.d_ff else None)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         lead, d = x.shape[:-1], x.shape[-1]
         if d != cfg.d_model:
             raise ValueError(f"feature dim {d} != cfg.d_model {cfg.d_model}")
         tokens = x.reshape(-1, d)
-        e, c = cfg.n_experts, cfg.capacity(tokens.shape[0])
+        n = C.group_size(self.dp_group)
+        n_tokens = n * tokens.shape[0]
+        e, c = cfg.n_experts, cfg.capacity(n_tokens)
 
         logits = F.linear(tokens.float(), self.router.weight.float())
         probs = torch.softmax(logits, dim=-1)                  # [T, E]
 
-        # k rounds, each masking the experts already chosen. A position
-        # past the capacity matches no slot of the comparison, which gives
-        # the zero row that jax.nn.one_hot gives out of range.
-        slot_ids = torch.arange(c, device=x.device, dtype=torch.float32)
-        masked = probs
-        dispatch = combine = None
-        slots_used = torch.zeros(e, device=x.device)
+        # k rounds of choices, each masking the experts already chosen.
+        masked, choices = probs, []
         for _ in range(cfg.top_k):
             onehot = F.one_hot(torch.argmax(masked, dim=-1), e).float()
+            choices.append(onehot)
+            masked = masked * (1.0 - onehot)
+        counts = torch.stack([oh.sum(dim=0) for oh in choices])  # [k, E]
+        if self.dp_group is None:
+            before, total = torch.zeros_like(counts), counts
+        else:
+            # Every rank's counts: the lower ranks' offset this rank's
+            # positions (the global token order is rank-major).
+            every = C.all_gather_raw(counts[None], 0, self.dp_group)
+            before = every[:C.group_rank(self.dp_group)].sum(dim=0)
+            total = every.sum(dim=0)
+
+        # A position past the capacity matches no slot of the comparison,
+        # which gives the zero row that jax.nn.one_hot gives out of range.
+        slot_ids = torch.arange(c, device=x.device, dtype=torch.float32)
+        dispatch = combine = None
+        slots_used = torch.zeros(e, device=x.device)
+        kept = torch.zeros((), device=x.device)
+        for r, onehot in enumerate(choices):
             gate = (probs * onehot).sum(-1)                    # [T]
-            position = (torch.cumsum(onehot, dim=0) - 1 + slots_used) * onehot
+            position = (torch.cumsum(onehot, dim=0) - 1 + slots_used
+                        + before[r]) * onehot
             keep = (position < c).float() * onehot
             pos_oh = (position[..., None] == slot_ids).float() \
                 * keep[..., None]                              # [T, E, C]
             dispatch = pos_oh if dispatch is None else dispatch + pos_oh
             term = pos_oh * gate[:, None, None]
             combine = term if combine is None else combine + term
-            slots_used = slots_used + keep.sum(dim=0)
-            masked = masked * (1.0 - onehot)
+            # The group's slots this round kept: its choices up to the
+            # capacity left.
+            used = torch.minimum(total[r], (c - slots_used).clamp(min=0))
+            slots_used = slots_used + used
+            kept = kept + used.sum()
 
-        top1 = F.one_hot(torch.argmax(probs, dim=-1), e).float()
-        aux = e * torch.sum(top1.mean(dim=0) * probs.mean(dim=0))
+        # Switch loss over the group's tokens: f from the top choices'
+        # counts (round 0), p the mean probability.
+        p_sum = C.reduce_from_region(probs.sum(dim=0), self.dp_group)
+        aux = e * torch.sum((total[0] / n_tokens) * (p_sum / n_tokens))
         self.aux_loss = cfg.aux_loss_weight * aux
-        self.kept_slots = slots_used.sum().detach()
+        self.kept_slots = kept.detach()
 
         dt = cfg.dtype
         expert_in = torch.einsum("tec,td->ecd", dispatch.to(dt),
                                  tokens.to(dt))
+        # This rank's experts get every rank's tokens for them.
+        expert_in = C.reduce_scatter(expert_in, 0, self.ep_group)
+        expert_in = C.copy_to_region(expert_in, self.tp_group)
         h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in, self.w_up.to(dt))
                    + self.b_up.to(dt)[:, None, :], approximate="tanh")
-        expert_out = (torch.einsum("ecf,efd->ecd", h, self.w_down.to(dt))
-                      + self.b_down.to(dt)[:, None, :])
+        expert_out = C.reduce_from_region(
+            torch.einsum("ecf,efd->ecd", h, self.w_down.to(dt)),
+            self.tp_group) + self.b_down.to(dt)[:, None, :]
+        expert_out = C.all_gather(expert_out, 0, self.ep_group)
         out = torch.einsum("tec,ecd->td", combine.to(dt), expert_out)
         return out.reshape(*lead, d).to(x.dtype)
 
@@ -179,6 +264,7 @@ class MoEClassifier(nn.Module):
     float32 head. Fit it with ``Estimator(aux_losses=True)`` so the
     Switch loss joins the objective."""
 
+    @startup.timed("model")
     def __init__(self, cfg: TransformerConfig, moe: MoEConfig,
                  num_classes: int = 2, *, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):

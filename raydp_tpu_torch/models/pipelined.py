@@ -39,6 +39,7 @@ from raydp_tpu_torch.models.transformer import (
 )
 from raydp_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from raydp_tpu_torch.parallel.pipeline import spmd_pipeline
+from raydp_tpu_torch.utils import startup
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = ["PipelinedClassifier"]
@@ -73,6 +74,7 @@ class PipelinedClassifier(nn.Module):
     pipeline. ``mesh`` is the :class:`MeshSpec` the estimator's mesh is
     built from."""
 
+    @startup.timed("model")
     def __init__(self, cfg: TransformerConfig, mesh: MeshSpec,
                  num_classes: int = 2,
                  n_microbatches: Optional[int] = None, *,

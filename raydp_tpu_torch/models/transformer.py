@@ -74,6 +74,7 @@ from raydp_tpu_torch.parallel.mesh import (
     param_placements,
     shard_module,
 )
+from raydp_tpu_torch.utils import startup
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 ATTENTION_IMPLS = ("dense", "flash", "ring", "ulysses")
@@ -483,6 +484,7 @@ class SequenceClassifier(nn.Module):
     """Encoder + first-token pooler + classification head: the BERT-GLUE
     fine-tune model. Logits are float32."""
 
+    @startup.timed("model")
     def __init__(self, cfg: TransformerConfig, num_classes: int = 2, *,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
@@ -521,6 +523,7 @@ class CausalLM(nn.Module):
     every slot by one token against that cache.
     """
 
+    @startup.timed("model")
     def __init__(self, cfg: TransformerConfig, *,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from typing import Dict, Iterable, List, Tuple
 
+from raydp_tpu_torch.utils import startup
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -129,7 +131,8 @@ def load(source: str) -> ctypes.CDLL:
     with _mu:
         lib = _loaded.get(source)
         if lib is None:
-            (path,) = build_all([source])
-            lib = ctypes.CDLL(path)
+            with startup.part("kernels"):
+                (path,) = build_all([source])
+                lib = ctypes.CDLL(path)
             _loaded[source] = lib
         return lib

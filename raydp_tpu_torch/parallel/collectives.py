@@ -26,6 +26,15 @@ naming the op, the backend and the device: nothing falls back.
   rank's queries against gathered keys); where the peers compute the
   same loss from it, one of them seeds it (the estimator's gradient
   rule);
+* :func:`reduce_scatter` — sums over the group and keeps this rank's
+  block along a dimension (``lax.psum_scatter``); backward is the
+  all_gather. Gloo has no reduce-scatter: it runs as one all_to_all of
+  the blocks and a local float32 sum (on a card, staged: the tensor to
+  the host, the summed block back, ``(1 + 1/n)`` times its bytes);
+* :func:`gather_from_region` — all_gather forward, this rank's block of
+  the gradient backward (Megatron's gather of a column-parallel layer's
+  output, which every peer then uses whole: each computes the same
+  gradient of it);
 * :func:`all_to_all` — JAX's tiled ``all_to_all``; backward is the
   inverse all_to_all;
 * :func:`ring_shift` — ``lax.ppermute`` of ``(i, i+offset mod n)``;
@@ -229,6 +238,41 @@ def all_to_all_raw(t: torch.Tensor, split_dim: int, concat_dim: int,
         return torch.cat(blocks, dim=concat_dim)
 
 
+def reduce_scatter_raw(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, this rank's block of it along
+    ``dim`` (``n`` equal blocks in group-rank order): the transpose of
+    :func:`all_gather_raw`. Half-precision tensors are summed in float32
+    and cast once, as :func:`all_reduce_raw` does."""
+    if group is None:
+        return t
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of "
+                         f"{tuple(t.shape)} does not divide over {n} ranks")
+    route = _route("reduce_scatter", t, group)
+    low = t.dtype in (torch.bfloat16, torch.float16)
+    with _Op(t.device):
+        # Block j to rank j: split_dim to the front, blocks contiguous.
+        x = t.movedim(dim, 0)
+        x = x.reshape(n, x.shape[0] // n, *x.shape[1:]).contiguous()
+        if dist.get_backend(group) == "nccl":
+            src = x.float() if low else x
+            out = torch.empty(src.shape[1:], dtype=src.dtype,
+                              device=src.device)
+            dist.reduce_scatter_tensor(out, src.reshape(-1, *src.shape[2:]),
+                                       group=group)
+        else:
+            # Gloo: every rank's block j reaches rank j, summed here.
+            src = _host(x, "rs_in") if route == "staged" else x
+            recv = torch.empty_like(src)
+            dist.all_to_all_single(recv, src, group=group)
+            out = recv.sum(dim=0, dtype=torch.float32 if low else None)
+        out = out.to(t.dtype)
+        if route == "staged":
+            out = _back(out, t.device)
+        return out.movedim(0, dim).contiguous()
+
+
 def ring_shift_raw(t: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
     """``lax.ppermute`` with ``(i, (i + offset) % n)``: group rank ``i``
     sends ``t`` to rank ``i + offset`` and returns what rank
@@ -295,6 +339,30 @@ class _AllGather(torch.autograd.Function):
         return mine.contiguous(), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_raw(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_raw(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_raw(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        mine = g.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)]
+        return mine.contiguous(), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split_dim, concat_dim, group):
@@ -333,6 +401,18 @@ def reduce_from_region(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's block concatenated along ``dim`` (group-rank order)."""
     return x if group is None else _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Sum over ``group``, this rank's block along ``dim``; backward
+    all_gathers the gradient."""
+    return x if group is None else _ReduceScatter.apply(x, dim, group)
+
+
+def gather_from_region(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's block concatenated along ``dim``; backward keeps this
+    rank's block of the gradient (every peer uses the whole output)."""
+    return x if group is None else _GatherFromRegion.apply(x, dim, group)
 
 
 def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,

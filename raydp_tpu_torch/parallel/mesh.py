@@ -358,13 +358,13 @@ def shard_module(module: "torch.nn.Module", mesh, rules
         for name, p in module.named_parameters():
             if placements[name].sharded_axes:
                 p.data = placements[name].shard(p.data)
-    _bind(module, mesh)
+    bind_mesh(module, mesh)
     module.placements = placements
     module.mesh = mesh
     return placements
 
 
-def _bind(module: "torch.nn.Module", mesh) -> None:
+def bind_mesh(module: "torch.nn.Module", mesh) -> None:
     """``bind_mesh`` on every submodule, depth first, skipping the trees
     marked ``mesh_opaque`` (a stacked template applied slice by slice)."""
     if getattr(module, "mesh_opaque", False):
@@ -372,7 +372,7 @@ def _bind(module: "torch.nn.Module", mesh) -> None:
     if hasattr(module, "bind_mesh"):
         module.bind_mesh(mesh)
     for child in module.children():
-        _bind(child, mesh)
+        bind_mesh(child, mesh)
 
 
 def gather_state_dict(module: "torch.nn.Module",

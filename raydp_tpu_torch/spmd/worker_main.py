@@ -77,6 +77,7 @@ from raydp_tpu_torch.telemetry import flight_recorder as _flight
 from raydp_tpu_torch.telemetry import logs as _logs
 from raydp_tpu_torch.telemetry import propagation as trace_prop
 from raydp_tpu_torch.telemetry import watchdog as _watchdog
+from raydp_tpu_torch.utils import startup
 from raydp_tpu_torch.utils.net import local_ip
 from raydp_tpu_torch.utils.profiling import (
     install_compile_listener,
@@ -186,12 +187,14 @@ class SPMDWorkerContext:
         host, _, port = self.coordinator_address.rpartition(":")
         timeout = datetime.timedelta(seconds=DISTRIBUTED_TIMEOUT_S)
         try:
-            store = dist.TCPStore(host, int(port), self.world_size,
-                                  is_master=self.rank == 0, timeout=timeout,
-                                  wait_for_workers=False)
-            dist.init_process_group(backend=backend, store=store,
-                                    world_size=self.world_size,
-                                    rank=self.rank, timeout=timeout)
+            with startup.part("dist"):
+                store = dist.TCPStore(host, int(port), self.world_size,
+                                      is_master=self.rank == 0,
+                                      timeout=timeout,
+                                      wait_for_workers=False)
+                dist.init_process_group(backend=backend, store=store,
+                                        world_size=self.world_size,
+                                        rank=self.rank, timeout=timeout)
         except Exception as exc:
             reason = (f"rank {self.rank}: cannot join the gang's process "
                       f"group at coordinator {self.coordinator_address} "

@@ -23,7 +23,12 @@ sums the loss on the device: one host sync per epoch. With
 ``aux_losses=True`` its objective adds the model's MoE load-balancing
 losses (:func:`~raydp_tpu_torch.models.moe.moe_aux_loss`), as the JAX
 train step adds the sown ``losses`` collection; ``evaluate``'s loss and
-``predict`` leave them out, as JAX's eval and predict steps do.
+``predict`` leave them out, as JAX's eval and predict steps do. In a gang
+the MoE layers route over the dp group and their loss is the group's
+(``models/moe.py``): every rank backpropagates it weighted by the dp
+size beside its row-weighted task loss, so the summed gradient over the
+global rows adds the loss's gradient once, as JAX's global objective
+does.
 
 ``fit_on_df``, ``predict_on_ds`` and ``predict_on_df`` take the port's
 DataFrames (``raydp_tpu_torch/dataframe``) through
@@ -196,6 +201,7 @@ from raydp_tpu_torch.parallel.mesh import (
     Mesh,
     MeshSpec,
     Placement,
+    bind_mesh,
     gather_state_dict,
     param_placements,
     shard_module,
@@ -208,6 +214,7 @@ from raydp_tpu_torch.telemetry import flush_spans, span
 from raydp_tpu_torch.telemetry.spans import event as _event
 from raydp_tpu_torch.telemetry import watchdog as _watchdog
 from raydp_tpu_torch.train.losses import resolve_loss, resolve_metric
+from raydp_tpu_torch.utils import startup as _startup
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
 from raydp_tpu_torch.utils.graphed import CapturedStep, capture_refusal
 from raydp_tpu_torch.utils.profiling import count_train_step
@@ -632,7 +639,9 @@ class Estimator:
             # Built on the parameters as this rank holds them: Adam's
             # moments follow the cut.
             self.param_placements()
-            self._optimizer = self._make_optimizer(self._model.parameters())
+            with _startup.part("optimizer"):
+                self._optimizer = self._make_optimizer(
+                    self._model.parameters())
         return self._optimizer
 
     # -- mesh -----------------------------------------------------------
@@ -676,6 +685,10 @@ class Estimator:
                 self._placements = {
                     n: Placement(self._mesh, ())
                     for n, _ in self._model.named_parameters()}
+                if spec.size > 1:
+                    # Nothing is cut, but the layers learn their groups
+                    # (an MoE layer routes over dp).
+                    bind_mesh(self._model, self._mesh)
         return self._placements
 
     @property
@@ -824,13 +837,19 @@ class Estimator:
         exchange_s = 0.0
         opt.zero_grad(set_to_none=True)
         loss = self._loss_fn(self._model(x), self._target(x, y))
+        objective = loss
         if self.aux_losses:
-            loss = loss + moe_aux_loss(self._model)
+            aux = moe_aux_loss(self._model)
+            loss = loss + aux
+            # The dp group's loss, each rank's tokens' gradient: weighted
+            # by the dp size, the global rows' sum adds it once.
+            objective = loss if self._allreduce is None else \
+                objective + aux * self._data_world_size()
         if self._allreduce is not None:
             # The rank's rows weigh its loss: the reduced gradient over
             # the global rows is the global batch mean's. On a model-
             # parallel mesh one rank of each sp/pp group seeds it.
-            (loss * (len(x) * self._loss_weight)).backward()
+            (objective * (len(x) * self._loss_weight)).backward()
             t1 = clock.mark()
             self._update_begun = True
             h1 = time.perf_counter()
@@ -855,6 +874,10 @@ class Estimator:
         loss = loss.detach()
         self._loss_sum += loss
         return loss
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _run_step(self, step: Callable, x: torch.Tensor,
                   y: Optional[torch.Tensor]) -> torch.Tensor:
@@ -1054,7 +1077,8 @@ class Estimator:
                 "train/step", epoch=epoch, step=b_idx,
                 stall_after_s=(_watchdog.long_stall_s()
                                if n_batches == 0 else None),
-            ), span("train/step", epoch=epoch, step=b_idx) as sp:
+            ), span("train/step", epoch=epoch, step=b_idx) as sp, \
+                    _startup.part("first_step", sync=self._sync):
                 loss = self._run_step(self._train_step, x, y)
             step_timer.observe(sp.duration_s)
             if phases is not None:

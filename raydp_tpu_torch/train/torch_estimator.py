@@ -61,6 +61,7 @@ import torch
 from raydp_tpu_torch.cluster import closure
 from raydp_tpu_torch.data.ml_dataset import MLDataset, resolve_plan_tables
 from raydp_tpu_torch.utils.device import DeviceLike, resolve_device
+from raydp_tpu_torch.utils import startup
 from raydp_tpu_torch.utils.net import find_free_port
 
 __all__ = ["TorchEstimator"]
@@ -364,11 +365,14 @@ def _train_on_shard(
         )
     try:
         torch.manual_seed(config["seed"] + rank)
-        model = _build_model(config["model"], config).to(dev)
+        with startup.part("model"):
+            model = _build_model(config["model"], config).to(dev)
         if distributed:
             model = torch.nn.parallel.DistributedDataParallel(
                 model, device_ids=[dev] if dev.type == "cuda" else None)
-        optimizer = _build_optimizer(config["optimizer"], model, config)
+        with startup.part("optimizer"):
+            optimizer = _build_optimizer(config["optimizer"], model,
+                                         config)
         criterion = _build_loss(config["loss"], config)
         scheduler = None
         if config.get("lr_scheduler_creator"):
@@ -401,13 +405,17 @@ def _train_on_shard(
                 idx = order[lo:lo + size]
                 lo += size
                 inputs, targets = x[idx], y[idx]
-                outputs = forward(inputs)
-                if outputs.ndim == targets.ndim + 1 and outputs.shape[-1] == 1:
-                    outputs = outputs.squeeze(-1)
-                loss = criterion(outputs, targets)
-                optimizer.zero_grad()
-                loss.backward()
-                optimizer.step()
+                with startup.part("first_step", sync=(
+                        torch.cuda.synchronize if dev.type == "cuda"
+                        else None)):
+                    outputs = forward(inputs)
+                    if outputs.ndim == targets.ndim + 1 and \
+                            outputs.shape[-1] == 1:
+                        outputs = outputs.squeeze(-1)
+                    loss = criterion(outputs, targets)
+                    optimizer.zero_grad()
+                    loss.backward()
+                    optimizer.step()
                 if scheduler is not None:
                     scheduler.step()
                 a = _accuracy(outputs, targets).to(torch.float64)

@@ -11,6 +11,8 @@ from typing import Union
 
 import torch
 
+from raydp_tpu_torch.utils import startup
+
 DeviceLike = Union[str, torch.device]
 
 
@@ -24,6 +26,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
+    if dev.type == "cuda" and startup.pending("cuda"):
+        # The start log's ``cuda`` part: the context, made here rather
+        # than inside whatever first touches the card.
+        with startup.part("cuda"):
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize(dev)
     return dev
 
 

@@ -1429,3 +1429,76 @@ def test_ring_attention_on_card_matches_dense(cuda, causal):
         for g, t in zip(grads, (q, k, v)):
             np.testing.assert_allclose(g, t.grad[:, blk].cpu().numpy(),
                                        rtol=1e-3, atol=1e-4)
+
+
+def _experts_and_tables_on_card(ctx):
+    """Rank body: a table cut over tp=2 and an ``MoELayer`` with its
+    experts cut over dp=2 on the card, each from seed 0, on this rank's
+    half of the tokens; the outputs, the kept slots and the gradients of
+    the local blocks."""
+    import torch
+
+    from raydp_tpu_torch.models.dlrm import LOGICAL_RULES, ShardedEmbedding
+    from raydp_tpu_torch.models.moe import MoEConfig, MoELayer
+    from raydp_tpu_torch.parallel import MeshSpec
+    from raydp_tpu_torch.parallel.mesh import shard_module
+
+    ctx.init_distributed(device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    me = ctx.rank
+    tp = MeshSpec(tp=2).build()
+    table = ShardedEmbedding(1000, 16, dtype=torch.float32)
+    shard_module(table, tp, LOGICAL_RULES)
+    table.cuda()
+    ids = torch.arange(0, 999, 37).reshape(9, 3).cuda()
+    emb = table(ids)
+    emb.sum().backward()
+    dp = MeshSpec(dp=2).build()
+    cfg = MoEConfig(d_model=32, d_ff=64, n_experts=4, top_k=2,
+                    capacity_factor=1.0, dtype=torch.float32)
+    layer = MoELayer(cfg)
+    shard_module(layer, dp, (("expert", "dp"),))
+    layer.cuda()
+    x = torch.randn(48, 32, generator=torch.Generator().manual_seed(1))
+    out = layer(x[me * 24:(me + 1) * 24].cuda())
+    ((out ** 2).sum() + layer.aux_loss).backward()
+    return (me, emb.detach().cpu().numpy(), table.table.grad.cpu().numpy(),
+            out.detach().cpu().numpy(), float(layer.kept_slots),
+            layer.w_up.grad.cpu().numpy())
+
+
+def test_cut_tables_and_expert_parallel_moe_on_card(cuda):
+    """A table cut over tp and an expert-parallel ``MoELayer`` (experts
+    over dp, routing over the pair's tokens) on 2 gloo ranks on the card
+    against one process on the card: f32 forward 2e-4 / 2e-5, gradients
+    1e-3 / 1e-4, the kept slots equal."""
+    from raydp_tpu_torch.models.dlrm import ShardedEmbedding
+    from raydp_tpu_torch.models.moe import MoEConfig, MoELayer
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    table = ShardedEmbedding(1000, 16, dtype=torch.float32).to(cuda)
+    ids = torch.arange(0, 999, 37).reshape(9, 3).to(cuda)
+    emb = table(ids)
+    emb.sum().backward()
+    cfg = MoEConfig(d_model=32, d_ff=64, n_experts=4, top_k=2,
+                    capacity_factor=1.0, dtype=torch.float32)
+    layer = MoELayer(cfg).to(cuda)
+    x = torch.randn(48, 32, generator=torch.Generator().manual_seed(1))
+    want = layer(x.to(cuda))
+    ((want ** 2).sum() + layer.aux_loss).backward()
+    with create_spmd_job("cuda-ep", world_size=2, timeout=60) as job:
+        out = job.run(_experts_and_tables_on_card, timeout=300)
+    for me, got_emb, table_grad, got, kept, w_up_grad in out:
+        np.testing.assert_allclose(got_emb, emb.detach().cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(
+            table_grad, table.table.grad[me * 500:(me + 1) * 500].cpu()
+            .numpy(), rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(
+            got, want[me * 24:(me + 1) * 24].detach().cpu().numpy(),
+            rtol=2e-4, atol=2e-5)
+        assert kept == float(layer.kept_slots)
+        np.testing.assert_allclose(
+            w_up_grad, layer.w_up.grad[me * 2:(me + 1) * 2].cpu().numpy(),
+            rtol=1e-3, atol=1e-4)

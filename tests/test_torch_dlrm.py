@@ -5,8 +5,8 @@ both, on the CPU, in float32: ``ShardedEmbedding`` by ``take`` and by
 ``onehot``, for one id and for bags pooled by sum and by mean;
 ``DotInteraction``'s lower triangle; ``DLRM`` and ``PackedDLRM`` forwards
 and gradients with either lookup; ``PackedDLRM`` fit by ``Estimator``
-against ``JAXEstimator``. The JAX package's sharded-table cases wait for
-the multi-GPU slice (one card holds every table whole).
+against ``JAXEstimator``. The tables cut over tp, against the JAX
+package's sharded-table cases, are ``tests/test_torch_expert_parallel.py``.
 
 Bounds: the JAX package's (ROADMAP north star): forward rtol 2e-4 / atol
 2e-5, gradients 1e-3 / 1e-4, estimator histories rtol 1e-4.

@@ -13,6 +13,7 @@
   and ``cluster`` packages free of torch.
 """
 import importlib
+import os
 import subprocess
 import sys
 
@@ -24,7 +25,7 @@ PORT_REFERENCE = load_port_module("test_utils.py")
 REFERENCE_CASES = cases(PORT_REFERENCE, [n for n in vars(PORT_REFERENCE)
                                          if n.startswith("test_")])
 PACKAGES = ("", ".utils", ".cluster", ".telemetry", ".control", ".loadgen",
-            ".sim", ".config")
+            ".sim", ".config", ".models")
 # Names of a reference package's __all__ that belong to modules the port
 # has not taken yet, by package.
 UNPORTED = {pkg: () for pkg in PACKAGES}
@@ -70,3 +71,39 @@ def test_lazy_exports_load_no_torch():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False"], out.stdout
+
+
+def test_start_log_splits_a_process_start(tmp_path):
+    """With ``RAYDP_TPU_START_LOG`` set, a process logs its start's parts
+    (``raydp_tpu_torch/utils/startup.py``): ``up`` from its creation,
+    ``import torch`` by the import hook, the model, the optimizer and the
+    first step by the estimator; without it, nothing."""
+    from raydp_tpu_torch.utils import startup
+
+    code = ("import numpy as np, pyarrow as pa\n"
+            "import raydp_tpu_torch\n"
+            "from raydp_tpu_torch.data import MLDataset\n"
+            "from raydp_tpu_torch.models.mlp import MLP\n"
+            "from raydp_tpu_torch.train import Estimator\n"
+            "est = Estimator(model=MLP(2, hidden=(4,), out_dim=1, "
+            "device='cpu'), loss='mse', num_epochs=1, batch_size=8, "
+            "feature_columns=['a', 'b'], label_column='y', device='cpu', "
+            "epoch_mode='stream')\n"
+            "ones = np.ones(16, np.float32)\n"
+            "est.fit(MLDataset([pa.table({'a': ones, 'b': ones, "
+            "'y': ones})], 1))\n")
+    env = dict(os.environ, **{startup.ENV: str(tmp_path)})
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    (row,) = startup.read_starts(str(tmp_path))
+    assert row["role"] == "python -c"
+    for part in ("up", "torch", "model", "optimizer", "first_step"):
+        assert 0 <= row[part] <= row["total"], (part, row)
+    assert abs(sum(row[p] for p in startup.PARTS if p in row)
+               + row["other"] - row["total"]) < 1e-6
+    before = sorted(os.listdir(tmp_path))
+    env[startup.ENV] = ""
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
+    assert sorted(os.listdir(tmp_path)) == before
