@@ -358,6 +358,27 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    near-tie choices), the step losses within 6e-2, and each rank's flash
    launches the count predicted before the first run (``FT_LAYERS`` of
    each kernel a step).
+21. A mesh in an elastic fit, and the static checker. (a) In 19's gang
+   after 20 (no gang of its own): 10c's bf16 flash classifier at
+   bert_base width cut to ``FT_LAYERS`` blocks, dropout 0, its initial
+   parameters from seed 14, over ``MeshSpec(dp=2, tp=2)``, AdamW 2e-5,
+   ``ELASTIC_K`` steps at batch 32 a dp rank (each dp rank on the first
+   rows of its shard of 21's 384 GLUE rows), then a gathered checkpoint
+   at that data position; tp peers' step losses equal, each rank's
+   launches the predicted count.
+   (b) ``fit_spmd(mesh=MeshSpec(dp=2, tp=2), elastic=True)`` of the same
+   classifier over the rows as 2 shards, resuming from (a)'s checkpoint,
+   its first launch stubbed to "only 2 of 4 ranks registered"
+   (``create_spmd_job`` wrapped in this process): the relaunch runs
+   ``MeshSpec(tp=2)`` on 2 new ranks, the rows re-planned over dp 1 and
+   the skip rescaled from dp 2 (``2 * ELASTIC_K`` of 12 batches); world
+   2 and one restart, the skip, the samples trained, each rank's flash
+   launches (``FT_LAYERS`` of each kernel a step), the tp ranks'
+   gathered parameters equal, and the step losses within 6e-2 of the
+   same resume on one rank (dense attention, the same checkpoint). (c)
+   ``python -m raydp_tpu_torch.analysis raydp_tpu_torch/`` in a process
+   of its own that cannot import JAX or the JAX package: exit 0 and zero
+   findings.
 
 Every process started from phase 9 on logs its start's parts
 (``raydp_tpu_torch/utils/startup.py``): after each phase a ``[start]``
@@ -373,10 +394,10 @@ Each phase of 4-8 reports ms/step (CUDA events over graph replays and
 eager steps, and per epoch by the host clock), samples/s, the traced
 idle share and the peak device memory of each fit. Kernel launch counts
 are set to 0 just before each main-path phase (2, 3, 4b, 4c, 4d, 6, 9,
-10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16, 17, 18 and 19)
-and read just after; phase 9's and 17b's replicas, 12a's and 18a's
-second drivers and 12b's, 13b's, 14's, 15's, 16c's, 17a's, 18b's and
-19's ranks are new processes,
+10c, 11c, 12a, 12b, 13a, 13b, each fit of 14, 15, 16, 17, 18, 19, 20
+and 21) and read just after; phase 9's and 17b's replicas, 12a's and
+18a's second drivers and 12b's, 13b's, 14's, 15's, 16c's, 17a's, 18b's,
+19's and 21b's ranks are new processes,
 whose counts start at 0 and are read by ``Ping`` or returned in their
 results (a rank that is killed or drains returns none). The last lines
 are a ``kernels`` JSON line, the card's name and power limit, and
@@ -5835,7 +5856,7 @@ def _recording_loss(record, name="softmax_ce", moe_layers=None,
 
 
 def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids,
-                     expert_cols):
+                     expert_cols, elastic_args):
     """19a's estimator factory, run in each rank: 10c's bf16 classifier
     at bert_base width and depth with ring attention, its initial
     parameters from generator seed 9 (the 1-rank reference's), cut by the
@@ -5845,9 +5866,9 @@ def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids,
     counts, peak memory, the collectives' calls, time and staged bytes
     (``parallel/collectives.py``), the shapes of block 0's four Megatron
     weights, and the ring's and Ulysses' logits of the trained model on
-    ``check_ids``; then it runs 19b and 20 in the same gang
-    (:func:`pipe_part`, :func:`expert_part`), so that phases 19 and 20
-    start one gang."""
+    ``check_ids``; then it runs 19b, 20 and 21a in the same gang
+    (:func:`pipe_part`, :func:`expert_part`, :func:`elastic_part` of
+    ``elastic_args``), so that phases 19, 20 and 21a start one gang."""
     def make_estimator():
         import dataclasses
 
@@ -5883,6 +5904,7 @@ def mesh_fit_factory(axes, checkpoint_dir, check_ids, pipe_cols, pipe_ids,
                 C.set_timing(False)
                 m["pipe"] = cs.pipe_part(pipe_cols, pipe_ids)
                 m["expert"] = cs.expert_part(*expert_cols)
+                m["elastic"] = cs.elastic_part(*elastic_args)
 
         cs._reset_counts()
         C.reset_stats()
@@ -6169,7 +6191,7 @@ def check_expert(torch, P, ref, ranks):
             f"a step; fit {e['seconds']:.1f} s")
 
 
-def phase_mesh(torch, P):
+def phase_mesh(torch, P, elastic_args):
     """19: model parallelism over one gang of 4 ranks on the one card
     (gloo: ranks share the card), each a mesh position. 19a
     ``fit_spmd(mesh=MeshSpec(sp=2, tp=2))`` of bert_base with ring
@@ -6178,8 +6200,10 @@ def phase_mesh(torch, P):
     ring on the trained model, and the gathered checkpoint on one rank;
     19b, in the same ranks after 19a's fit, a dp2·pp2
     ``PipelinedClassifier`` with the flash kernels against its stages in
-    sequence, its loss falling and its launch counts. Returns 19a's and
-    then 19b's launch counts of each rank."""
+    sequence, its loss falling and its launch counts; then 20 and 21a
+    (``elastic_args``: 21's rows and checkpoint directory) in the same
+    ranks. Returns 19a's, 19b's and 20b's launch counts of each rank and
+    20b's one-rank fit's, and each rank's 21a result."""
     import shutil
     import tempfile
 
@@ -6234,7 +6258,8 @@ def phase_mesh(torch, P):
 
         called, t0 = time.time(), time.perf_counter()
         out = P.fit_spmd(mesh_fit_factory(dict(sp=2, tp=2), ckpt, check_ids,
-                                          pcols, pids, expert_cols),
+                                          pcols, pids, expert_cols,
+                                          elastic_args),
                          MLDataset([cols], 1), world_size=4,
                          mesh=P.MeshSpec(sp=2, tp=2), env=MESH_ENV,
                          timeout=MESH_LIMIT_S)
@@ -6359,7 +6384,300 @@ def phase_mesh(torch, P):
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts
+    return counts, [m["elastic"] for m in last]
+
+
+# Phase 21: a mesh in an elastic fit. 21a in 19's gang after 20: 10c's
+# bf16 flash classifier at bert_base width cut to FT_LAYERS blocks over
+# MeshSpec(dp=2, tp=2), ELASTIC_K steps at batch 32 a dp rank, then a
+# gathered checkpoint; 21b: fit_spmd(mesh=dp2·tp2, elastic=True) over
+# the same rows (2 shards of ELASTIC_SHARD_STEPS batches) whose first
+# launch registers 2 of 4 ranks, relaunched on MeshSpec(tp=2).
+ELASTIC_BATCH, ELASTIC_K, ELASTIC_SHARD_STEPS = 32, 3, 6
+ELASTIC_LIMIT_S = 600.0
+
+
+def elastic_estimator(mesh, record, attention="flash", callbacks=()):
+    """21's estimator: 10c's bf16 classifier at bert_base width cut to
+    ``FT_LAYERS`` blocks, dropout 0, its initial parameters from
+    generator seed 14, AdamW 2e-5, batch ``ELASTIC_BATCH`` a dp rank,
+    the stream path, unshuffled, over ``mesh`` (None: one rank); each
+    step's loss kept in ``record``."""
+    import numpy as np
+    import torch
+
+    import raydp_tpu_torch as P
+
+    cfg = P.bert_base(attention_impl=attention, dtype=torch.bfloat16,
+                      max_len=GLUE_SEQ, dropout_rate=0.0,
+                      n_layers=FT_LAYERS)
+    return P.Estimator(
+        model=P.SequenceClassifier(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(14)),
+        optimizer=lambda p: torch.optim.AdamW(p, lr=2e-5, weight_decay=1e-4),
+        loss=_recording_loss(record), num_epochs=1,
+        batch_size=ELASTIC_BATCH,
+        feature_columns=[f"t{i}" for i in range(GLUE_SEQ)],
+        label_column="label", feature_dtype=np.int32, label_dtype=np.int32,
+        mesh=mesh, seed=0, shuffle=False, epoch_mode="stream",
+        callbacks=list(callbacks), device="cuda")
+
+
+def elastic_blocks(cols):
+    """21's rows as two blocks, block i the shard of dp index i."""
+    half = len(cols["label"]) // 2
+    return [{k: v[:half] for k, v in cols.items()},
+            {k: v[half:] for k, v in cols.items()}]
+
+
+def elastic_part(cols, ckpt):
+    """21a, run in every rank of 19's gang after 20: ``ELASTIC_K`` steps
+    of :func:`elastic_estimator` over ``MeshSpec(dp=2, tp=2)``, each dp
+    rank on the first ``ELASTIC_K`` batches of its shard, then a gathered
+    checkpoint ``step_mid_<K>.pt`` in ``ckpt`` at that data position
+    (every rank enters the save). Returns the rank's step losses,
+    launches, peak memory, step and exchange ms, tp collectives' stats,
+    and the fit's and the save's seconds."""
+    import torch
+
+    import raydp_tpu_torch as P
+    from raydp_tpu_torch.data import MLDataset
+    from raydp_tpu_torch.parallel import collectives as C
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    est = elastic_estimator(P.MeshSpec(**EXPERT_MESH), steps)
+    est.param_placements()  # builds the mesh: every rank calls it
+    block = elastic_blocks(cols)[est.mesh.coords["dp"]]
+    rows = {k: v[:ELASTIC_K * ELASTIC_BATCH] for k, v in block.items()}
+    C.reset_stats()
+    C.set_timing(True)
+    t0 = time.perf_counter()
+    history = est.fit(MLDataset([rows], 1))
+    fit_s = time.perf_counter() - t0
+    C.set_timing(False)
+    collectives = C.stats()  # the fit's, not the save's gathers
+    t0 = time.perf_counter()
+    path = est.save(ckpt, step=f"mid_{ELASTIC_K}",
+                    data_position=(0, ELASTIC_K))
+    out = {"step_losses": [float(v) for v in steps], "path": path,
+           "launches": _counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "step_ms": history[-1]["step_ms"],
+           "allreduce_ms": history[-1]["allreduce_ms"],
+           "collectives": collectives, "fit_s": fit_s,
+           "save_s": time.perf_counter() - t0}
+    del est
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_factory():
+    """21b's estimator factory, run in each rank of the relaunch:
+    :func:`elastic_estimator` over the mesh of the world it runs in (dp
+    rows of tp 2, ``fit_spmd``'s contract for an elastic mesh). Its
+    callback adds to the epoch's metrics the rank's step losses, launch
+    counts, peak memory, tp collectives' stats and resume skip."""
+    def make_estimator():
+        import torch
+        import torch.distributed as dist
+
+        import chip_smoke as cs
+        import raydp_tpu_torch as P
+        from raydp_tpu_torch.parallel import collectives as C
+
+        steps = []
+
+        class ElasticProbe(P.TrainingCallback):
+            est = None
+
+            def on_train_end(self, history):
+                m = history[-1]
+                m["launches"] = cs._counts()
+                m["peak_bytes"] = torch.cuda.max_memory_allocated()
+                m["collectives"] = C.stats()
+                m["step_losses"] = [float(v) for v in steps]
+                m["resume_skip"] = self.est.resume_skip
+
+        cs._reset_counts()
+        C.reset_stats()
+        C.set_timing(True)
+        torch.cuda.reset_peak_memory_stats()
+        probe = ElasticProbe()
+        est = cs.elastic_estimator(
+            P.MeshSpec(dp=dist.get_world_size() // 2, tp=2), steps,
+            callbacks=[probe])
+        probe.est = est
+        return est
+
+    return make_estimator
+
+
+def _short_first_launch(registered):
+    """``create_spmd_job`` for 21b: the first job's ``start`` reports only
+    ``registered`` of its ranks up (no process starts); later jobs start
+    as they are. Returns the wrapper and the worlds of the jobs made."""
+    from raydp_tpu_torch import spmd
+    from raydp_tpu_torch.spmd.job import SPMDJobError
+
+    real, made = spmd.create_spmd_job, []
+
+    def create(**kwargs):
+        job = real(**kwargs)
+        made.append(kwargs["world_size"])
+        if len(made) == 1:
+            def short_start():
+                del job.start  # the relaunch starts for real
+                job.last_registered = registered
+                raise SPMDJobError(
+                    f"job {job.job_name}: only {registered}/"
+                    f"{kwargs['world_size']} ranks registered (stubbed)")
+            job.start = short_start
+        return job
+
+    return create, made
+
+
+def phase_mesh_elastic(torch, P, cols, ckpt, part_a):
+    """21a's checks (``part_a``: the gang's ranks' results) and 21b: the
+    elastic mesh fit from 21a's checkpoint, its first launch short of 2
+    ranks, against the same resume on one rank with dense attention.
+    Returns the relaunch's ranks' launch counts and the reference's."""
+    import numpy as np
+
+    from raydp_tpu_torch import spmd
+    from raydp_tpu_torch.data import MLDataset
+
+    want_a = {k: FT_LAYERS * ELASTIC_K for k in KERNEL_SYMBOLS}
+    for r, m in enumerate(part_a):
+        check(len(m["step_losses"]) == ELASTIC_K
+              and np.all(np.isfinite(m["step_losses"])),
+              f"21a: rank {r}'s step losses {m['step_losses']}")
+        check(m["step_losses"] == part_a[r ^ 1]["step_losses"],
+              f"21a: rank {r}'s step losses are not its tp peer's")
+        check(m["launches"] == want_a,
+              f"21a: rank {r} counted {m['launches']}, want {want_a}")
+    path = part_a[0]["path"]
+    check(os.path.isfile(path), f"21a: no gathered checkpoint at {path}")
+    log(f"[21a] in 19's gang: {ELASTIC_K} steps over MeshSpec(dp=2, tp=2) "
+        f"of the bf16 flash classifier at bert_base width, {FT_LAYERS} "
+        f"blocks, batch {ELASTIC_BATCH} a dp rank; step losses "
+        f"{[round(v, 4) for v in part_a[0]['step_losses']]}; the gathered "
+        f"checkpoint {os.path.getsize(path) / 2**20:.1f} MiB in "
+        f"{max(m['save_s'] for m in part_a):.2f} s (host clock); launches "
+        f"a rank {part_a[0]['launches']} (predicted {want_a}); peak "
+        + ", ".join(f"{m['peak_bytes'] / 2**30:.3f}" for m in part_a)
+        + " GiB a rank (19a's estimator still held)")
+    for r, m in enumerate(part_a):
+        col = m["collectives"]
+        log(f"[21a] rank {r}: {m['step_ms']:.2f} ms a step, "
+            f"{m['allreduce_ms']:.2f} ms of it in the dp gradient exchange "
+            f"(CUDA events); tp collectives {col['calls'] / ELASTIC_K:.0f} "
+            f"calls, {col['collective_ms'] / ELASTIC_K:.2f} ms a step; fit "
+            f"{m['fit_s']:.1f} s, save {m['save_s']:.2f} s (host clock)")
+
+    blocks = elastic_blocks(cols)
+    create, made = _short_first_launch(2)
+    real = spmd.create_spmd_job
+    spmd.create_spmd_job = create
+    try:
+        called, t0 = time.time(), time.perf_counter()
+        out = P.fit_spmd(elastic_factory(), MLDataset(blocks, num_shards=2),
+                         world_size=4, mesh=P.MeshSpec(**EXPERT_MESH),
+                         elastic=True, checkpoint_dir=ckpt, env=MESH_ENV,
+                         restart_backoff_s=0.5, timeout=ELASTIC_LIMIT_S)
+        fit_s = time.perf_counter() - t0
+    finally:
+        spmd.create_spmd_job = real
+    last = [h[-1] for h in out["per_rank_history"]]
+    # Predicted before the first run: dp 2 ran ELASTIC_K of its
+    # ELASTIC_SHARD_STEPS batches, so at dp 1 the skip is 2 * ELASTIC_K of
+    # the 2 * ELASTIC_SHARD_STEPS batches, and each tp rank launches
+    # FT_LAYERS of each kernel a step of the rest.
+    skip = 2 * ELASTIC_K
+    steps = 2 * ELASTIC_SHARD_STEPS - skip
+    want_b = {k: FT_LAYERS * steps for k in KERNEL_SYMBOLS}
+    check(made == [4, 2] and out["world_size"] == 2
+          and out["restarts"] == 1,
+          f"21b: jobs of {made} ranks, world {out['world_size']}, "
+          f"{out['restarts']} restarts; want [4, 2], 2 and 1")
+    check(len(set(out["per_rank_params_sha256"])) == 1,
+          "21b: the tp ranks' gathered parameters differ")
+    for r, m in enumerate(last):
+        check(m["resume_skip"] == skip,
+              f"21b: rank {r} skipped {m['resume_skip']}, want {skip}")
+        check(m["samples"] == steps * ELASTIC_BATCH,
+              f"21b: rank {r} trained {m['samples']} samples, want "
+              f"{steps * ELASTIC_BATCH}")
+        check(m["launches"] == want_b,
+              f"21b: rank {r} counted {m['launches']}, want {want_b}")
+
+    # The same resume on one rank: dense attention, the same checkpoint.
+    ref_steps = []
+    _reset_counts()
+    ref = elastic_estimator(None, ref_steps, attention="dense")
+    ref.fit(MLDataset(blocks, num_shards=1), resume_from=path)
+    ref_launches = _counts()
+    ref_losses = [float(v) for v in ref_steps]
+    check(ref.resume_skip == skip and len(ref_losses) == steps,
+          f"21b: the one-rank resume skipped {ref.resume_skip} and ran "
+          f"{len(ref_losses)} steps")
+    del ref
+    torch.cuda.empty_cache()
+    for r, m in enumerate(last):
+        check(np.allclose(m["step_losses"], ref_losses, **FIT_TOL),
+              f"21b: rank {r}'s resumed step losses "
+              f"{np.round(m['step_losses'], 4)} are not the one-rank "
+              f"resume's {np.round(ref_losses, 4)} (6e-2)")
+    diff = np.abs(np.asarray(last[0]["step_losses"]) - ref_losses).max()
+    log(f"[21b] fit_spmd(mesh=MeshSpec(dp=2, tp=2), elastic=True) from "
+        f"21a's checkpoint: the first launch registered 2 of 4 ranks "
+        f"(stubbed), the relaunch ran MeshSpec(tp=2) on 2 ranks, backend "
+        f"{out['backend']}, the rows re-planned over dp 1, skip "
+        f"{last[0]['resume_skip']} of {2 * ELASTIC_SHARD_STEPS} batches "
+        f"(rescaled from {ELASTIC_K} at dp 2), {steps} steps; the first "
+        f"resumed step {min(m['first_step_at'] for m in last) - called:.1f}"
+        f" s after the call (host clock; start() {out['start_s']:.3f} s, "
+        f"fit_spmd {fit_s:.1f} s in all); step losses "
+        f"{[round(v, 4) for v in last[0]['step_losses']]}, max diff from "
+        f"the one-rank dense resume {diff:.4f} (6e-2); launches a rank "
+        f"{last[0]['launches']} (predicted {want_b})")
+    for r, m in enumerate(last):
+        col = m["collectives"]
+        log(f"[21b] rank {r}: {m['step_ms']:.2f} ms a step, "
+            f"{m['allreduce_ms']:.2f} ms of it in the gradient exchange "
+            f"(CUDA events); tp collectives {col['calls'] / steps:.0f} "
+            f"calls, {col['collective_ms'] / steps:.2f} ms and "
+            f"{col['staged_bytes'] / steps / 2**20:.2f} MiB staged a step; "
+            f"peak {m['peak_bytes'] / 2**30:.3f} GiB")
+    return [m["launches"] for m in last], ref_launches
+
+
+# 21c's command: ``python -m raydp_tpu_torch.analysis raydp_tpu_torch/``
+# with JAX and the JAX package made unimportable first, as on a machine
+# without them.
+STATIC_CMD = ("import runpy, sys; sys.modules.update(jax=None, raydp_tpu=None);"
+              " sys.argv = ['raydpcheck', 'raydp_tpu_torch/'];"
+              " runpy.run_module('raydp_tpu_torch.analysis', run_name='__main__')")
+
+
+def phase_static():
+    """21c: the port's static checker over the port, in a process of
+    its own that cannot import JAX: exit 0 and zero findings."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STATIC_CMD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    check(proc.returncode == 0 and last.startswith("raydpcheck: 0 finding("),
+          f"21c: raydpcheck exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    log(f"[21c] python -m raydp_tpu_torch.analysis raydp_tpu_torch/ with "
+        f"jax and raydp_tpu unimportable: {last}; {seconds:.2f} s with the "
+        f"process's start")
 
 
 def main() -> int:
@@ -6445,12 +6763,27 @@ def main() -> int:
     # fit on the card.
     cli = start_compat_cli()
     t19 = time.perf_counter()
-    mesh_counts = phase_mesh(torch, P)
-    log(f"[time] phases 19 and 20 done at {time.perf_counter() - t0:.1f} s "
-        f"({time.perf_counter() - t19:.1f} s)")
+    import shutil
+    import tempfile
+
+    ck21 = tempfile.mkdtemp(prefix="chip-smoke-21-")
+    cols21 = glue_columns(np, 2 * ELASTIC_SHARD_STEPS * ELASTIC_BATCH,
+                          GLUE_SEQ, 30522, seed=21)[1]
+    mesh_counts, part_a = phase_mesh(torch, P, (cols21, ck21))
+    log(f"[time] phases 19, 20 and 21a done at "
+        f"{time.perf_counter() - t0:.1f} s ({time.perf_counter() - t19:.1f} s)")
+    t21 = time.perf_counter()
+    try:
+        elastic_counts, elastic_ref = phase_mesh_elastic(torch, P, cols21,
+                                                         ck21, part_a)
+    finally:
+        shutil.rmtree(ck21, ignore_errors=True)
+    phase_static()
+    log(f"[time] 21b-21c done at {time.perf_counter() - t0:.1f} s "
+        f"({time.perf_counter() - t21:.1f} s)")
     cli_counts = phase_compat_cli(torch, P, cli)
     log(f"[time] 18a done at {time.perf_counter() - t0:.1f} s")
-    start_report("18a-19-20")
+    start_report("18a-19-20-21")
     start_summary()
     serve_launches = (sum(serve["replica_launches"]) + serve_bf16_driver
                       + decode_replica_launches + serve_f32_driver
@@ -6473,6 +6806,11 @@ def main() -> int:
         tag = (f"19a rank {r}" if r < 4 else f"19b rank {r - 4}" if r < 8
                else f"20b rank {r - 8}" if r < 12 else "20b one-rank fit")
         fits[tag] = counts
+    for r, m in enumerate(part_a):
+        fits[f"21a rank {r}"] = m["launches"]
+    for r, counts in enumerate(elastic_counts):
+        fits[f"21b rank {r}"] = counts
+    fits["21b one-rank resume"] = elastic_ref
     for e in entries:
         name = e["name"]
         e["launches"] = sum(c[name] for c in fits.values())

@@ -272,7 +272,7 @@ class RpcServer:
         _close(self._listener)
         self._pool.shutdown(wait=False, cancel_futures=True)
         deadline = time.monotonic() + (grace or 0.0)
-        with self._mu:
+        with self._idle:  # takes self._mu, which wait() releases
             while self._inflight > 0:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:

@@ -32,7 +32,6 @@ FLAG_SETS = (("-O3", "-fopenmp", "-shared", "-fPIC"),
 _NO_OPENMP = ("libgomp", "fopenmp")
 
 _log = logging.getLogger(__name__)
-_mu = threading.Lock()
 
 
 def sources() -> List[str]:
@@ -77,34 +76,37 @@ def built_flags() -> tuple:
 
 def ensure_built() -> str:
     """Build the library if its current version is missing; return its
-    path. Raises ``RuntimeError`` when g++ is missing or fails."""
-    with _mu:
-        for flags in FLAG_SETS:
-            if os.path.exists(lib_path(flags)):
-                return lib_path(flags)
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        errors = []
-        for flags in FLAG_SETS:
-            target = lib_path(flags)
-            # A process-private temporary, renamed into place: a
-            # concurrent process never loads half a library.
-            tmp = f"{target}.{os.getpid()}.tmp"
-            cmd = [_gxx(), *flags, "-o", tmp, *sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=300)
-            if proc.returncode == 0:
-                os.replace(tmp, target)
-                if errors:
-                    _log.warning("g++ has no OpenMP here; the native "
-                                 "library is built single-threaded:\n%s",
-                                 errors[0])
-                return target
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            errors.append(f"{' '.join(flags)}: exit {proc.returncode}\n"
-                          f"{proc.stdout}{proc.stderr}")
-            if not any(word in proc.stderr for word in _NO_OPENMP):
-                break
-        msg = "g++ failed on the native library:\n" + "\n".join(errors)
-        _log.error(msg)
-        raise RuntimeError(msg)
+    path. Raises ``RuntimeError`` when g++ is missing or fails. No lock
+    is held while g++ runs: each build writes a temporary of its own and
+    renames it into place, so two threads or processes that race on a
+    first build each compile and the last rename wins (the same library;
+    ``native/lib.py`` loads it once a process)."""
+    for flags in FLAG_SETS:
+        if os.path.exists(lib_path(flags)):
+            return lib_path(flags)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    errors = []
+    for flags in FLAG_SETS:
+        target = lib_path(flags)
+        # A private temporary, renamed into place: a concurrent build
+        # never writes it and a reader never loads half a library.
+        tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [_gxx(), *flags, "-o", tmp, *sources()]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode == 0:
+            os.replace(tmp, target)
+            if errors:
+                _log.warning("g++ has no OpenMP here; the native "
+                             "library is built single-threaded:\n%s",
+                             errors[0])
+            return target
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        errors.append(f"{' '.join(flags)}: exit {proc.returncode}\n"
+                      f"{proc.stdout}{proc.stderr}")
+        if not any(word in proc.stderr for word in _NO_OPENMP):
+            break
+    msg = "g++ failed on the native library:\n" + "\n".join(errors)
+    _log.error(msg)
+    raise RuntimeError(msg)

@@ -210,6 +210,7 @@ class _ReplicaSlot:
             # replica is spawned once stop() has begun.
             if g._stopping.is_set():
                 raise ServeError(f"replica group {g.label} is stopping")
+            # raydp: ignore[R1] -- Popen returns once the child exists
             self.proc = subprocess.Popen(
                 cmd, env=env, stdout=logf, stderr=subprocess.STDOUT
             )

@@ -1095,6 +1095,7 @@ class Estimator:
                     self._grad_norm = None
             if self._clock is not None and first_step_at is None:
                 if self.device.type == "cuda":
+                    # raydp: ignore[R5] -- once a fit: the first step's end
                     torch.cuda.synchronize(self.device)
                 first_step_at = time.time()
             n_batches += 1

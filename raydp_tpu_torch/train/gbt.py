@@ -267,8 +267,12 @@ class GBTEstimator:
                     binned, node_of_row - start, active, grad, hess,
                     n_level, n_feat, n_bins)
                 bf, bb, gain = _best_splits(gsum, hsum, lam, n_level)
-                splits = (gain > self.min_split_gain).cpu().numpy()
-                bf_np, bb_np = bf.cpu().numpy(), bb.cpu().numpy()
+                # One host copy a level: the tree's split table is built on
+                # the host a level at a time, as the JAX package's is.
+                # raydp: ignore[R5]
+                splits, bf_np, bb_np = torch.stack(
+                    [(gain > self.min_split_gain).long(), bf, bb]).cpu().numpy()
+                splits = splits.astype(bool)
                 feat_arr[t, start:start + n_level] = np.where(
                     splits, bf_np, -1)
                 bin_arr[t, start:start + n_level] = np.where(splits, bb_np, 0)
@@ -288,7 +292,7 @@ class GBTEstimator:
             gh[0].index_add_(0, node_of_row, grad)
             gh[1].index_add_(0, node_of_row, hess)
             leaf = -gh[0] / (gh[1] + lam)
-            leaf_arr[t] = leaf.cpu().numpy()
+            leaf_arr[t] = leaf.cpu().numpy()  # raydp: ignore[R5] -- once a tree
             pred = pred + self.learning_rate * leaf[node_of_row]
             # The loss after this round's tree: history[-1] is the final
             # model's.

@@ -35,7 +35,12 @@ every relaunch ``restarts/total`` in the process's metrics registry
 world other than the dataset's shard count, the same blocks re-planned
 over it, and a registration shortfall of G of W ranks
 (``min_world_size <= G < W``) relaunches on G ranks; the estimator
-rescales its resume position to the new world.
+rescales its resume position to the new world. On a model-parallel mesh
+a shrink drops whole dp rows (pp, sp and tp are fixed): the relaunch
+runs the largest multiple of ``pp·sp·tp`` ranks that registered, on the
+same mesh with a smaller dp, and restores the gathered checkpoint cut
+onto it (``raydp_tpu/train/spmd_fit.py:20-22, 141-146, 376-396``, where
+the factory builds its mesh from the devices that survive).
 
 Telemetry (``raydp_tpu/train/spmd_fit.py:85-95, 153-221, 296-391``): the
 whole supervised fit, every relaunch included, bills to one
@@ -64,6 +69,7 @@ releases it. The arbiter's preemption of the fit is
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import logging
 import os
@@ -173,6 +179,25 @@ def _params_digest(state: Dict[str, Any]) -> str:
     return h.hexdigest()
 
 
+def _shrink(world: int, got: int, min_world_size: int, mesh=None):
+    """``(new world, new mesh, refusal)`` after a registration shortfall
+    to ``got`` of ``world`` ranks: the largest multiple of the mesh's
+    ``pp·sp·tp`` (1 without a mesh) up to ``got``, on the same mesh
+    with a smaller dp. A world of 0 or under ``min_world_size`` is
+    refused: the new world is None and ``refusal`` says why."""
+    row = mesh.size // mesh.dp if mesh is not None else 1
+    fit = got - got % row
+    if 0 < fit < world and fit >= min_world_size:
+        return fit, (dataclasses.replace(mesh, dp=fit // row)
+                     if mesh is not None else None), None
+    where = (f" on mesh {mesh.axis_sizes} (whole dp rows of {row} ranks)"
+             if mesh is not None else "")
+    return None, mesh, (f"elastic shrink refused: {got} of {world} ranks "
+                        f"registered{where}, a world of {fit} under "
+                        f"min_world_size {min_world_size}"
+                        if fit < world else None)
+
+
 def fit_spmd(
     make_estimator: Callable[[], Any],
     train_ds,
@@ -211,8 +236,7 @@ def fit_spmd(
     read the same rows). ``params`` are then the gathered full
     parameters, and ``per_rank_params_sha256`` digests each rank's
     gathered parameters. A relaunch resumes from the gathered
-    checkpoint, which the estimator cuts onto the mesh again. Not with
-    ``elastic``.
+    checkpoint, which the estimator cuts onto the mesh again.
 
     Supervision: on rank death or a registration timeout the gang is
     torn down and relaunched (jittered exponential backoff from
@@ -225,10 +249,20 @@ def fit_spmd(
     relaunches the same way, from its emergency checkpoint.
 
     ``elastic=True``: ``train_ds``'s blocks are re-planned over the
-    gang's world when its shard count differs (store mode re-plans each
-    rank's slices of the same refs; ``rank_nodes`` is dropped), and a
-    registration shortfall of G of W ranks with
-    ``min_world_size <= G < W`` relaunches the gang on G ranks.
+    gang's data world (its world, or the mesh's dp) when its shard count
+    differs (store mode re-plans each rank's slices of the same refs;
+    ``rank_nodes`` is dropped), and a registration shortfall of G of W
+    ranks relaunches the gang on the largest multiple of the mesh's
+    ``pp·sp·tp`` (1 without a mesh) that is at most G, when that world
+    is above 0 and at least ``min_world_size``; else the launch counts
+    against the restart budget as any failure does, and the error says
+    why no shrink was made. A shrunk mesh keeps its pp, sp and tp and
+    loses dp rows, so the factory must build its ``MeshSpec`` from the
+    world it runs in (``dp=torch.distributed.get_world_size() //
+    (pp·sp·tp)``); a rank whose estimator's mesh is not the launch's
+    fails. The relaunch restores the newest gathered checkpoint cut onto
+    the smaller mesh, and the estimator rescales the resume position
+    from the checkpoint's data world (its dp) to the new dp.
 
     The result has the JAX package's keys (``history``, ``params``,
     ``per_rank_history``, ``restarts``, ``world_size``: the world that
@@ -255,12 +289,10 @@ def fit_spmd(
     if mesh is not None and mesh.data_parallel_only:
         mesh = None
     if mesh is not None:
-        if elastic:
-            raise ValueError("an elastic fit runs data parallel only")
         if world_size != mesh.size:
             raise ValueError(f"world_size {world_size} != mesh size "
                              f"{mesh.size} ({mesh.axis_sizes})")
-        if train_ds.num_shards != mesh.dp:
+        if not elastic and train_ds.num_shards != mesh.dp:
             raise ValueError(
                 f"train_ds must have num_shards == mesh.dp "
                 f"({train_ds.num_shards} != {mesh.dp})")
@@ -289,25 +321,26 @@ def fit_spmd(
         master = namespace = blocks = None
 
     def _payloads(cur_world: int) -> List[tuple]:
-        ds = train_ds
+        # The data world: the mesh's dp (shards go to dp indices, every
+        # rank of one reads the same), else the gang's world.
         if mesh is not None:
-            # Shards go to dp indices: every rank of one reads the same.
+            shards = mesh.dp
             shard_of = [mesh.coords_of(r)["dp"] for r in range(cur_world)]
-            if store_mode:
-                return [(ds.shard_plan[i],) for i in shard_of]
-            return [(ds.shard_tables(i),) for i in shard_of]
-        if ds.num_shards != cur_world:
-            # The same blocks over the new world (elastic); rank_nodes
-            # named the old world's ranks, so it is dropped.
-            ds = MLDataset(list(train_ds.blocks), num_shards=cur_world,
+        else:
+            shards, shard_of = cur_world, range(cur_world)
+        ds = train_ds
+        if ds.num_shards != shards:
+            # The same blocks over the new data world (elastic);
+            # rank_nodes named the old world's ranks, so it is dropped.
+            ds = MLDataset(list(train_ds.blocks), num_shards=shards,
                            shuffle=train_ds.shuffle,
                            shuffle_seed=train_ds.shuffle_seed,
                            store=getattr(train_ds, "_store", None))
         if store_mode:
-            return [(ds.shard_plan[r],) for r in range(cur_world)]
+            return [(ds.shard_plan[i],) for i in shard_of]
         # In-memory blocks: the driver slices each rank's shard tables
         # and ships only those rows.
-        return [(ds.shard_tables(r),) for r in range(cur_world)]
+        return [(ds.shard_tables(i),) for i in shard_of]
 
     cur_world = world_size
     arbiter = get_arbiter()
@@ -369,7 +402,7 @@ def fit_spmd(
 
                 def work(ctx, payload, resume_from=resume, _device=device,
                          _store_mode=store_mode, _master=master,
-                         _namespace=namespace, _blocks=blocks):
+                         _namespace=namespace, _blocks=blocks, _mesh=mesh):
                     import torch
 
                     from raydp_tpu_torch.data.ml_dataset import (
@@ -385,6 +418,12 @@ def fit_spmd(
                                                   payload)
                               if _store_mode else payload)
                     est = make_estimator()
+                    if _mesh is not None and est.mesh_spec != _mesh:
+                        raise ValueError(
+                            f"the factory's estimator runs on mesh "
+                            f"{est.mesh_spec.axis_sizes}, this launch on "
+                            f"{_mesh.axis_sizes}: build the MeshSpec from "
+                            f"torch.distributed.get_world_size()")
                     history = est.fit(MLDataset(list(tables), num_shards=1),
                                       resume_from=resume_from)
                     # Full parameters (collective on a model-parallel mesh).
@@ -393,6 +432,7 @@ def fit_spmd(
                            "backend": backend, "digest": _params_digest(state)}
                     if ctx.rank == 0:
                         out["params"] = {
+                            # raydp: ignore[R5] -- once a launch, after the fit
                             k: (v.detach().float() if v.dtype == torch.bfloat16
                                 else v.detach()).cpu().numpy()
                             for k, v in state.items()}
@@ -432,6 +472,19 @@ def fit_spmd(
                                "world_size": cur_world, "backoff_s": 0.0}
                     failures.append(failure)
                     prev_obs_steps = _rank0_steps(job)
+                    # Elastic shrink: a registration shortfall means ranks
+                    # are gone; continue on those that came up (the job's
+                    # count, else the message's), in whole dp rows.
+                    m = _REGISTERED_RE.search(err_text)
+                    new_world = None
+                    if elastic and m:
+                        got = (job.last_registered if job.last_registered
+                               is not None else int(m.group(1)))
+                        new_world, new_mesh, refusal = _shrink(
+                            cur_world, got, min_world_size, mesh)
+                        if refusal:
+                            err_text = failure["error"] = \
+                                f"{err_text} ({refusal})"
                     if failure["preempted"]:
                         _metrics.counter_add("preemptions/total")
                         _events.emit("preempt/request", attempt=restarts,
@@ -451,21 +504,16 @@ def fit_spmd(
                             f"{err_text}") from exc
                     restarts += 1
                     _metrics.counter_add("restarts/total")
-                    # Elastic shrink: a registration shortfall means ranks
-                    # are gone; continue on those that came up (the job's
-                    # count, else the message's).
-                    m = _REGISTERED_RE.search(err_text)
-                    if elastic and m:
-                        got = (job.last_registered if job.last_registered
-                               is not None else int(m.group(1)))
-                        if min_world_size <= got < cur_world:
-                            logger.warning("fit_spmd: elastic resize %d -> %d "
-                                           "ranks", cur_world, got)
-                            _events.emit("gang/resize", from_world=cur_world,
-                                         to_world=got, attempt=restarts)
-                            cur_world = got
-                            # The departed ranks' slots go back to the queue.
-                            lease.resize(cur_world)
+                    if new_world is not None:
+                        logger.warning("fit_spmd: elastic resize %d -> %d "
+                                       "ranks%s", cur_world, new_world,
+                                       f", mesh {new_mesh.axis_sizes}"
+                                       if new_mesh is not None else "")
+                        _events.emit("gang/resize", from_world=cur_world,
+                                     to_world=new_world, attempt=restarts)
+                        cur_world, mesh = new_world, new_mesh
+                        # The departed ranks' slots go back to the queue.
+                        lease.resize(cur_world)
                     delay = restart_backoff_s * (2 ** (restarts - 1))
                     delay *= 1.0 + random.uniform(0.0, 0.25)  # decorrelate
                     failure["backoff_s"] = delay

@@ -425,7 +425,8 @@ def _train_on_shard(
                     torch.where(defined, a, torch.zeros_like(a)),
                     defined.to(torch.float64),
                 ])
-            total, correct_sum, acc_batches = sums.tolist()  # one read
+            # raydp: ignore[R5] -- one read an epoch, after its steps
+            total, correct_sum, acc_batches = sums.tolist()
             metrics = {
                 "epoch": epoch,
                 "train_loss": total / max(1, len(sizes)),

@@ -132,8 +132,8 @@ def test_task_hook_kills_the_named_worker_at_its_task(monkeypatch):
 
 def test_job_targeted_clause_never_fires_without_the_accounting_plane(
         monkeypatch):
-    """The port has no ambient job yet (ROADMAP Queue A item 6), so a
-    ``job=`` clause never fires, as in the JAX package outside a job."""
+    """A ``job=`` clause fires only inside the job it names: with no
+    ``tenant-a`` job active it never fires, as in the JAX package."""
     monkeypatch.setenv(fault.FAULT_PLAN_ENV,
                        "preempt:job=tenant-a,step=2,grace=0")
     fault.on_train_step(2)

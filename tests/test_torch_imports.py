@@ -50,6 +50,8 @@ def test_port_files_exist():
                 "raydp_tpu_torch/models/moe.py",
                 "raydp_tpu_torch/models/dlrm.py",
                 "raydp_tpu_torch/utils/startup.py",
+                "raydp_tpu_torch/analysis/core.py",
+                "raydp_tpu_torch/analysis/rules_device.py",
                 "raydp_tpu_torch/train/estimator.py",
                 "raydp_tpu_torch/train/losses.py",
                 "raydp_tpu_torch/train/gbt.py",

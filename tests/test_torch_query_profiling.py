@@ -189,8 +189,11 @@ def test_stage_stats_kill_switch_both_engines(pipeline, zero_coalesce,
 
 
 def test_explain_footer_matches_elided_counter(zero_coalesce):
-    """``tests/test_query_profiling.py``'s elision case without its
-    Prometheus half (telemetry export is not ported yet)."""
+    """``tests/test_query_profiling.py``'s elision case on the port's
+    engine: the footer, the ``shuffle/elided`` counter and the port's
+    ``raydp_shuffles_elided_total`` family agree."""
+    from raydp_tpu_torch.telemetry.export import render_prometheus
+
     def elided():
         return torch_metrics.snapshot().get("counters", {}).get(
             "shuffle/elided", 0.0)
@@ -200,6 +203,9 @@ def test_explain_footer_matches_elided_counter(zero_coalesce):
     ran, skipped, _ = PORT_QP._footer(text)
     assert (ran, skipped) == (1, 1)
     assert elided() - before == skipped
+    prom = render_prometheus({"driver": torch_metrics.snapshot()})
+    m = re.search(r'raydp_shuffles_elided_total\{[^}]*\} (\d+(\.\d+)?)', prom)
+    assert m and float(m.group(1)) >= skipped
 
 
 def test_stage_store_snapshot_and_shards(tmp_path, monkeypatch,

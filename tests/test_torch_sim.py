@@ -10,9 +10,11 @@
   knee sweep, the report and the dashboard's sim section. The
   million-arrival case stays slow, as in the reference. The reference's
   autouse fixture is repeated here.
-* Left out: the clock-seam fence cases (``LEFT_FOR_ITEM_10``) run the
-  JAX package's ``raydpcheck`` (``raydp_tpu.analysis``), whose port is
-  ROADMAP Queue A item 10.
+* The clock-seam fence cases run the port's ``raydpcheck``
+  (``raydp_tpu_torch/analysis``, R6) over fixture files under a
+  ``raydp_tpu_torch/`` tree and over the port's own fenced modules (the
+  harness points the test module's ``"raydp_tpu/..."`` path literals at
+  the port). ``LEFT_FOR_ITEM_10`` is empty: no case is left out.
 * ``python -m raydp_tpu_torch.sim``'s ``run``, ``report`` and ``knee``.
 * The cross-package checks are in ``tests/test_torch_sim_parity.py``.
 """
@@ -32,16 +34,12 @@ from torch_port_cases import (
     time_limit,
 )
 
-LEFT_FOR_ITEM_10 = (
-    "test_r6_flags_direct_monotonic_in_fenced_module",
-    "test_r6_flags_from_import_and_timer",
-    "test_r6_accepts_seam_and_explicit_clock_instance",
-    "test_r6_ignores_unfenced_modules",
-    "test_fenced_production_modules_are_r6_clean")
+LEFT_FOR_ITEM_10 = ()
 WHOLE = load_port_module("test_sim.py")
 TEST_NAMES = tuple(n for n in vars(WHOLE)
                    if n.startswith("test_") and n not in LEFT_FOR_ITEM_10)
-HELPERS = ("_kinds", "_invariants", "_ListProvisioner", "_PressureGroup")
+HELPERS = ("_kinds", "_invariants", "_ListProvisioner", "_PressureGroup",
+           "_run_r6")
 PORT_REFERENCE = load_port_module("test_sim.py", only=TEST_NAMES + HELPERS)
 REFERENCE_CASES = cases(PORT_REFERENCE, TEST_NAMES)
 LIMIT_S = 120
@@ -68,8 +66,8 @@ def test_reference_case_on_port(name, params, request):
 
 def test_cases_cover_the_reference_module():
     names = [n for n in vars(WHOLE) if n.startswith("test_")]
-    assert len(names) == 28 and len(LEFT_FOR_ITEM_10) == 5
-    assert len(REFERENCE_CASES) == 23
+    assert len(names) == 28 and LEFT_FOR_ITEM_10 == ()
+    assert len(REFERENCE_CASES) == 28
 
 
 def test_cli_runs_reports_and_sweeps(tmp_path, capsys):

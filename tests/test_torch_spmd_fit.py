@@ -190,24 +190,46 @@ def test_fit_spmd_defaults_to_the_card(monkeypatch):
         fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=2)
 
 
-def test_fit_spmd_elastic_and_wide_mesh_not_ported():
-    """``elastic=True`` is ported (``tests/test_torch_fault_tolerance.py``
-    runs it): it lifts the shard/world check but still validates
-    ``min_world_size``. A mesh wider than data parallel is ported
-    (``tests/test_torch_mesh_estimator.py``), but not elastic: a wide
-    mesh with ``elastic=True`` raises, as does a world other than its
-    size."""
+class _ShortJob:
+    """A gang whose every start reports a registration shortfall."""
+
+    last_registered = 1
+
+    def start(self):
+        from raydp_tpu_torch.spmd.job import SPMDJobError
+
+        raise SPMDJobError("job j: only 1/2 ranks registered (stubbed)")
+
+    def stop(self):
+        pass
+
+
+def test_fit_spmd_elastic_wide_mesh_is_validated(monkeypatch):
+    """``elastic=True`` lifts the shard/world check but still validates
+    ``min_world_size``; a mesh wider than data parallel still needs a
+    world of its size, elastic or not. An elastic wide mesh is accepted
+    (``tests/test_torch_mesh_elastic.py`` runs it): its dataset of 2
+    shards on a dp-1 mesh passes validation and reaches the gang, whose
+    shortfall to 1 of 2 ranks leaves no whole dp row to shrink to."""
+    import raydp_tpu_torch.spmd as spmd
+    from raydp_tpu_torch.spmd.job import SPMDJobError
+
     with pytest.raises(ValueError, match="min_world_size must be >= 1"):
         fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=1,
                  elastic=True, min_world_size=0, device="cpu")
+    monkeypatch.setattr(spmd, "create_spmd_job", lambda **kw: _ShortJob())
     for axes in ({"tp": 2}, {"pp": 2}, {"sp": 2}):
         assert MeshSpec(**axes).size == 2
-        with pytest.raises(ValueError, match="elastic fit runs data"):
+        for elastic in (False, True):
+            with pytest.raises(ValueError, match="!= mesh size"):
+                fit_spmd(_factory(_jax_init_params()), _port_ds(),
+                         world_size=4, mesh=MeshSpec(**axes),
+                         elastic=elastic, device="cpu")
+        with pytest.raises(SPMDJobError, match="budget exhausted(.|\n)*"
+                           "shrink refused: 1 of 2 ranks registered on mesh"):
             fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=2,
-                     elastic=True, mesh=MeshSpec(**axes), device="cpu")
-        with pytest.raises(ValueError, match="!= mesh size"):
-            fit_spmd(_factory(_jax_init_params()), _port_ds(), world_size=4,
-                     mesh=MeshSpec(**axes), device="cpu")
+                     elastic=True, mesh=MeshSpec(**axes), max_restarts=0,
+                     device="cpu")
     assert MeshSpec(dp=4).size == 4 and MeshSpec.auto_from(2).dp == 2
 
 

@@ -5,10 +5,11 @@
   ``tests/torch_port_cases.py`` with its imports pointed at the port.
 * Every name in the ``__all__`` of the reference's ``raydp_tpu``,
   ``raydp_tpu.utils``, ``raydp_tpu.cluster``, ``raydp_tpu.telemetry``,
-  ``raydp_tpu.control``, ``raydp_tpu.loadgen`` and ``raydp_tpu.sim``
-  resolves on the port's counterpart, but for the names of modules
-  still to port (ROADMAP Queue A items 7-10), listed in ``UNPORTED``:
-  none of these packages exports one today.
+  ``raydp_tpu.control``, ``raydp_tpu.loadgen``, ``raydp_tpu.sim``,
+  ``raydp_tpu.config``, ``raydp_tpu.models`` and ``raydp_tpu.analysis``
+  resolves on the port's counterpart. ``UNPORTED`` would list a name
+  of a module the port has not taken; it is empty, as every module is
+  ported.
 * The lazy exports keep ``import raydp_tpu_torch`` and its ``utils``
   and ``cluster`` packages free of torch.
 """
@@ -25,7 +26,7 @@ PORT_REFERENCE = load_port_module("test_utils.py")
 REFERENCE_CASES = cases(PORT_REFERENCE, [n for n in vars(PORT_REFERENCE)
                                          if n.startswith("test_")])
 PACKAGES = ("", ".utils", ".cluster", ".telemetry", ".control", ".loadgen",
-            ".sim", ".config", ".models")
+            ".sim", ".config", ".models", ".analysis")
 # Names of a reference package's __all__ that belong to modules the port
 # has not taken yet, by package.
 UNPORTED = {pkg: () for pkg in PACKAGES}

@@ -27,7 +27,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Modules of the JAX package whose port the cases run against.
 PORTED = ("dataframe", "fault", "telemetry", "utils", "context", "cluster",
           "store", "config", "spmd", "data", "control", "loadgen", "sim",
-          "serve")
+          "serve", "analysis")
 # Single modules of packages the port has not taken whole: only these
 # ``raydp_tpu.<package>.<module>`` imports point at the port.
 PORTED_MODULES = ("train.torch_estimator",)
@@ -35,6 +35,10 @@ PORTED_MODULES = ("train.torch_estimator",)
 # package named inside string literals: every ``raydp_tpu`` name in them
 # points at the port, and their selected cases use ported modules only.
 WHOLE_PACKAGE = ("test_client_mode.py", "test_slo.py")
+# Test modules that name the package's directory in string literals (a
+# fixture's path, the tree a checker runs over): there ``"raydp_tpu"``
+# and ``"raydp_tpu/..."`` name the port's directory.
+PACKAGE_PATHS = ("test_analysis.py", "test_sim.py")
 
 _TESTS_IMPORT = re.compile(r"^from tests\.(\w+) import (.+)$", re.MULTILINE)
 
@@ -74,6 +78,8 @@ def load_port_module(filename: str, only=None) -> types.ModuleType:
         src = src.replace(f"raydp_tpu.{mod}", f"raydp_tpu_torch.{mod}")
     if filename in WHOLE_PACKAGE:
         src = re.sub(r"\braydp_tpu\b", "raydp_tpu_torch", src)
+    if filename in PACKAGE_PATHS:
+        src = re.sub(r"([\"'])raydp_tpu(?=[\"'/])", r"\1raydp_tpu_torch", src)
     src = re.sub(r"^(\s*)import raydp_tpu$",
                  r"\1import raydp_tpu_torch as raydp_tpu",
                  src, flags=re.MULTILINE)
